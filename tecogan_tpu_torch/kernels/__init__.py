@@ -1,0 +1,26 @@
+"""Hand-written CUDA kernels of the port (``csrc/``) and their wrappers.
+
+Each wrapper runs its plain PyTorch version for a CPU tensor, launches its
+kernel for a CUDA tensor (or raises), and counts its launches in an
+integer attribute ``launches``.
+"""
+
+from tecogan_tpu_torch.kernels.resblocks import (
+    resblock_chain,
+    resblock_chain_plain,
+)
+from tecogan_tpu_torch.kernels.upsample4 import (
+    bicubic_four,
+    upsample4,
+    upsample4_plain,
+    upscale_bilinear4,
+)
+
+__all__ = [
+    "bicubic_four",
+    "resblock_chain",
+    "resblock_chain_plain",
+    "upsample4",
+    "upsample4_plain",
+    "upscale_bilinear4",
+]

@@ -1,0 +1,126 @@
+"""Build and load the port's CUDA kernels.
+
+All ``tecogan_tpu_torch/csrc/*.cu`` files are compiled by ``nvcc`` into one
+shared library with a plain C interface, at first use, for Hopper
+(``sm_90a``). The library goes to ``tecogan_tpu_torch/_build/<hash>/``,
+keyed by a hash of the sources and the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is. It is loaded with
+``ctypes``: every entry point takes its pointers and the CUDA stream as
+``void*`` and returns the ``cudaError_t`` of ``cudaGetLastError()`` after
+its launches, which :func:`check` turns into an exception.
+
+``nvcc`` is found through ``$CUDA_HOME/bin``, then ``PATH``, then
+``/usr/local/cuda/bin``. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+_LIB_NAME = "libtecogan_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# Entry point -> argtypes; every entry point returns cudaError_t as int.
+_SIGNATURES = {
+    # (x, out, B, H, W, C, filter, alpha, stream)
+    "tt_upsample4_f32": (_P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "tt_upsample4_bf16": (_P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # (x, buf_a, buf_b, w1, b1, w2, b2, B, H, W, N, stream)
+    "tt_resblock_chain_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "tt_resblock_chain_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources():
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_ROOT / _digest() / _LIB_NAME
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the sources unless a library for them exists; returns its
+    path. ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and
+    spills per kernel) and prints the compiler's output."""
+    out = library_path()
+    if out.exists() and not verbose:
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+           "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
+                           f"\n{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr, flush=True)
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tt_error_string.argtypes = (ctypes.c_int,)
+    lib.tt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_and_load(verbose: bool = False) -> float:
+    """Build (if needed) and load the library; returns the seconds taken."""
+    t0 = time.perf_counter()
+    build(verbose=verbose)
+    library()
+    return time.perf_counter() - t0
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel entry point reported a CUDA error."""
+    if err != 0:
+        msg = library().tt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

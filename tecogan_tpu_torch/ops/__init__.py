@@ -1,0 +1,17 @@
+"""Plain tensor ops of the port, NHWC like the JAX package's."""
+
+from tecogan_tpu_torch.ops.image import deprocess, preprocess
+from tecogan_tpu_torch.ops.resize import bicubic_four, upscale_bilinear
+from tecogan_tpu_torch.ops.space_to_depth import depth_to_space, space_to_depth
+from tecogan_tpu_torch.ops.warp import dense_image_warp, warp_space_to_depth
+
+__all__ = [
+    "bicubic_four",
+    "dense_image_warp",
+    "depth_to_space",
+    "deprocess",
+    "preprocess",
+    "space_to_depth",
+    "upscale_bilinear",
+    "warp_space_to_depth",
+]

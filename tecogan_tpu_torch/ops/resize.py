@@ -1,0 +1,89 @@
+"""Integer-factor resizing with TF1-exact semantics (counterpart of
+``tecogan_tpu/ops/resize.py``).
+
+- :func:`upscale_bilinear`: legacy TF1 bilinear, ``align_corners=False`` and
+  source coordinate ``src = dst / factor`` with no half-pixel offset, edge
+  replicated (reference lib/ops.py:126-163 at 4x; FNet's decoder at 2x).
+- :func:`bicubic_four`: separable Catmull-Rom (r=0.75) 4x with edge
+  replication, i.e. a pad of 1 px top/left and 2 px bottom/right (reference
+  lib/ops.py:166-212); the generator's residual skip.
+
+``F.interpolate`` is not used: its half-pixel source grid differs from both.
+Each resize is separable: the H pass and then the W pass, each summed in
+float32 and rounded to the input dtype. That is also the rounding of the 4x
+kernel (``kernels/upsample4.py``), whose plain version these functions are.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Sequence, Tuple
+
+import torch
+
+#: Catmull-Rom taps sit at source offsets -1..2; bilinear taps at 0..1.
+_BICUBIC_OFFSETS = (-1, 0, 1, 2)
+_BILINEAR_OFFSETS = (0, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _bilinear_phase_weights(factor: int) -> Tuple[Tuple[float, ...], ...]:
+    """Output ``f*i + p`` blends source ``i`` and ``i+1`` with weights
+    ``(1 - p/f, p/f)``; shape (factor, 2)."""
+    return tuple((1.0 - p / factor, p / factor) for p in range(factor))
+
+
+@functools.lru_cache(maxsize=None)
+def _catmull_rom_weights() -> Tuple[Tuple[float, ...], ...]:
+    """4-phase Catmull-Rom (r=0.75) weights over taps i-1..i+2; shape (4, 4)
+    (reference lib/ops.py:186-188)."""
+    r = 0.75
+    mat = ((0.0, 1.0, 0.0, 0.0),
+           (-r, 0.0, r, 0.0),
+           (2 * r, r - 3, 3 - 2 * r, -r),
+           (-r, 2 - r, r - 2, r))
+    out = []
+    for t in (0.0, 0.25, 0.5, 0.75):
+        powers = (1.0, t, t * t, t * t * t)
+        out.append(tuple(sum(powers[k] * mat[k][j] for k in range(4))
+                         for j in range(4)))
+    return tuple(out)
+
+
+def _phase_pass(x: torch.Tensor, axis: int,
+                weights: Sequence[Sequence[float]],
+                offsets: Sequence[int]) -> torch.Tensor:
+    """Output ``f*i + p`` along ``axis`` = sum_t weights[p][t] *
+    x[clamp(i + offsets[t])], accumulated in x's dtype in tap order."""
+    n = x.shape[axis]
+    base = torch.arange(n, device=x.device)
+    taps = [x.index_select(axis, (base + off).clamp_(0, n - 1))
+            for off in offsets]
+    phases = []
+    for wp in weights:
+        acc = taps[0] * wp[0]
+        for tap, wt in zip(taps[1:], wp[1:]):
+            acc = acc + tap * wt
+        phases.append(acc)
+    out = torch.stack(phases, dim=axis + 1)
+    shape = list(x.shape)
+    shape[axis] = n * len(weights)
+    return out.reshape(shape)
+
+
+def _separable_upsample(x: torch.Tensor, weights, offsets) -> torch.Tensor:
+    """(B, H, W, C) -> (B, fH, fW, C): H pass then W pass, each summed in
+    float32 and rounded to ``x.dtype``."""
+    hi = _phase_pass(x.float(), 1, weights, offsets).to(x.dtype)
+    return _phase_pass(hi.float(), 2, weights, offsets).to(x.dtype)
+
+
+def upscale_bilinear(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Legacy TF1 bilinear upscale of (B, H, W, C) by an integer factor."""
+    return _separable_upsample(x, _bilinear_phase_weights(factor),
+                               _BILINEAR_OFFSETS)
+
+
+def bicubic_four(x: torch.Tensor) -> torch.Tensor:
+    """4x Catmull-Rom bicubic upscale of (B, H, W, C)."""
+    return _separable_upsample(x, _catmull_rom_weights(), _BICUBIC_OFFSETS)

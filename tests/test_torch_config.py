@@ -1,0 +1,34 @@
+"""The port's TecoConfig and presets against the JAX package's."""
+
+import dataclasses
+
+import pytest
+import torch
+
+from tecogan_tpu import config as jax_config
+from tecogan_tpu_torch import config
+
+# Fields the JAX package has and the port leaves out: TPU tuning modes, mesh
+# axis names, and the parameter dtype (the port keeps float32 parameters).
+JAX_ONLY = {"inline_flow", "fold_input_s2d", "train_fold_s2d",
+            "pallas_flow_upsample", "fused_trunk", "dp_axis", "sp_axis",
+            "param_dtype"}
+
+
+@pytest.mark.parametrize("name", ["FRVSR_PRESET", "TECOGAN_PRESET", "MINI_PRESET"])
+def test_presets_match_jax(name):
+    ours = dataclasses.asdict(getattr(config, name))
+    theirs = dataclasses.asdict(getattr(jax_config, name))
+    assert set(theirs) - set(ours) == JAX_ONLY
+    assert set(ours) <= set(theirs)
+    assert ours == {k: theirs[k] for k in ours}
+
+
+def test_config_json_round_trip_and_validation():
+    cfg = config.TECOGAN_PRESET.replace(compute_dtype="bfloat16")
+    assert config.TecoConfig.from_json(cfg.to_json()) == cfg
+    assert cfg.torch_dtype == torch.bfloat16
+    with pytest.raises(ValueError):
+        config.TecoConfig(compute_dtype="float16")
+    with pytest.raises(ValueError):
+        config.TecoConfig(crop_size=20)
