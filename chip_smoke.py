@@ -7,14 +7,28 @@ Phases, each raising on failure (so the exit code is non-zero):
 
 1. versions, the card's name and power limit; no CUDA -> exit non-zero;
 2. build the CUDA kernels from ``tecogan_tpu_torch/csrc`` with nvcc;
-3. each kernel against its plain PyTorch version on the card, at the
-   streaming path's shapes and a ragged one, float32 (TF32 off) and
-   bfloat16, with the error beside its tolerance and CUDA-event times;
-4. the whole streaming path at full width (16 resblocks, 64 channels) on
+3. each kernel against its plain PyTorch version on the card (K1, K2 the
+   upsample's adjoint, the chain), at the streaming and training paths'
+   shapes and a ragged one, float32 (TF32 off) and bfloat16, with the
+   error beside its tolerance and CUDA-event times;
+4. autograd: the upsample (both filters) and the chain on the card against
+   the same functions on the CPU, gradients of every input, float32;
+5. the whole streaming path at full width (16 resblocks, 64 channels) on
    the GPU against the same seeded weights on the CPU (plain versions),
    float32, 6 frames of 64x96;
-5. the main path at size: 46 uint8 frames of 144x180 -> 41 of 576x720,
-   bfloat16, chunks of 23, with the kernels' launch counts and frames/s.
+6. the streaming path at size: 46 uint8 frames of 144x180 -> 41 of
+   576x720, bfloat16, chunks of 23, with the kernels' launch counts and
+   frames/s;
+7. one FRVSR training step at full width (10 resblocks, real FNet),
+   batch 2, 4 frames, crop 32, float32, GPU against CPU: losses and the
+   gradient of every parameter;
+8. the training path at size through ``train.loop.train``: FRVSR_PRESET
+   (batch 4, crop 32, 10 frames, 10 resblocks) on synthetic PNG scenes,
+   40 steps, then a resume to 45, with the kernels' launch counts,
+   ms/step, frames/s and peak memory; then a ``torch.profiler`` split of
+   one step. This phase runs with PyTorch's default precision flags (cuDNN
+   in TF32), as the training CLI does; the comparisons before it with TF32
+   off.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel; the last is ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -23,8 +37,11 @@ kernel; the last is ``{"ok": true, "device": {...}}``. Imports no JAX.
 from __future__ import annotations
 
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -41,9 +58,24 @@ NUM_RESBLOCK, CHANNELS = 16, 64
 #   bfloat16: the kernels round once per pass/conv, the plain versions after
 #   every op, so they may land 1-2 bfloat16 ulps (2^-8 relative) apart per
 #   rounding, compounded over 16 blocks in the chain.
+#   K2 sums up to 64 (bilinear) or 256 (bicubic) products per element where
+#   the plain version runs two float32 matmuls: a few float32 ulps of O(10)
+#   values; in bfloat16 both round after the H pass and at the end.
 TOL = {("upsample4", torch.float32): 1e-6, ("upsample4", torch.bfloat16): 1e-2,
+       ("upsample4_bwd", torch.float32): 1e-5,
+       ("upsample4_bwd", torch.bfloat16): 1e-2,
        ("resblock_chain", torch.float32): 1e-4,
        ("resblock_chain", torch.bfloat16): 5e-2}
+# Autograd, CUDA vs CPU, float32, max|diff| / max|CPU grad| per input: the
+# upsample's gradient is K2 vs its plain version; the chain's is cuDNN vs
+# the CPU's convolutions in another summation order, through 3 blocks.
+GRAD_TOL = {"upsample4": 1e-5, "resblock_chain": 1e-4}
+# One FRVSR step, GPU vs CPU, float32: loss scalars relative; each
+# parameter's gradient as max|diff| / max|CPU grad|.
+STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-4, 1e-3
+# The training path: FRVSR_PRESET, synthetic "natural" scenes.
+TRAIN_STEPS, RESUME_STEPS, SAVE_FREQ = 40, 45, 20
+SCENE_FRAMES, SCENE_H, SCENE_W = 14, 240, 320
 # Whole path, GPU kernels vs CPU plain versions, float32: the same tolerance
 # as the chain (it dominates), relative to the output's scale.
 PATH_TOL = 1e-3
@@ -86,10 +118,11 @@ def check_kernels(dev):
     """Phase 3. Returns {kernel: {dtype: [(label, abs_err, kernel_ms,
     plain_ms)]}} for the timed cases (the main path's shapes)."""
     from tecogan_tpu_torch.kernels import (
-        resblock_chain, resblock_chain_plain, upsample4, upsample4_plain)
+        resblock_chain, resblock_chain_plain, upsample4, upsample4_bwd,
+        upsample4_bwd_plain, upsample4_plain)
 
     gen = torch.Generator().manual_seed(3)
-    results = {"upsample4": {}, "resblock_chain": {}}
+    results = {"upsample4": {}, "upsample4_bwd": {}, "resblock_chain": {}}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         flow = seeded((CHUNK, LR_H, LR_W, 2), 8.0, gen, dev, dtype)
@@ -109,6 +142,25 @@ def check_kernels(dev):
             ("upsample4", "bicubic ragged (2,37,53,3)",
              lambda: upsample4(ragged, "bicubic"),
              lambda: upsample4_plain(ragged, "bicubic"), False),
+        ]
+        # K2 at the training path's flow gradient (B*(T-1) = 36 pairs at
+        # HR 128x128), the streaming geometry and a ragged shape.
+        g_train = seeded((36, 128, 128, 2), 1.0, gen, dev, dtype)
+        g_stream = seeded((CHUNK, 4 * LR_H, 4 * LR_W, 2), 1.0, gen, dev, dtype)
+        g_ragged = seeded((2, 148, 212, 3), 1.0, gen, dev, dtype)
+        cases += [
+            ("upsample4_bwd", "bilinear x4 training (36,128,128,2)",
+             lambda: upsample4_bwd(g_train, "bilinear", 4.0),
+             lambda: upsample4_bwd_plain(g_train, "bilinear", 4.0), True),
+            ("upsample4_bwd", "bilinear x4 streaming (23,576,720,2)",
+             lambda: upsample4_bwd(g_stream, "bilinear", 4.0),
+             lambda: upsample4_bwd_plain(g_stream, "bilinear", 4.0), True),
+            ("upsample4_bwd", "bilinear ragged (2,148,212,3)",
+             lambda: upsample4_bwd(g_ragged, "bilinear"),
+             lambda: upsample4_bwd_plain(g_ragged, "bilinear"), False),
+            ("upsample4_bwd", "bicubic ragged (2,148,212,3)",
+             lambda: upsample4_bwd(g_ragged, "bicubic"),
+             lambda: upsample4_bwd_plain(g_ragged, "bicubic"), False),
         ]
         for h, w, n, timed in ((LR_H, LR_W, NUM_RESBLOCK, True), (37, 53, 3, False)):
             x = torch.relu(seeded((1, h, w, CHANNELS), 1.0, gen, dev, dtype))
@@ -130,7 +182,7 @@ def check_kernels(dev):
             line = f"[kernel] {kernel} {name} {label}: max_abs_err={err:.3e} " \
                    f"rel={rel:.3e} tol={tol:.0e}"
             if timed:
-                reps = 20 if kernel == "upsample4" else 5
+                reps = 5 if kernel == "resblock_chain" else 20
                 plain_ms = cuda_ms(plain_fn, reps)
                 ms = cuda_ms(fn, reps)
                 plain_ms = (plain_ms + cuda_ms(plain_fn, reps)) / 2
@@ -142,6 +194,274 @@ def check_kernels(dev):
                 raise RuntimeError(f"{kernel} {name} {label}: rel error {rel:.3e} > {tol}")
     return results
 
+
+def check_autograd(dev) -> None:
+    """Phase 4: each autograd Function on the card against the CPU."""
+    from tecogan_tpu_torch.kernels import resblock_chain, upsample4
+
+    rng = np.random.RandomState(8)
+
+    def arr(shape, scale):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32))
+
+    c, n = CHANNELS, 3
+    cases = [
+        ("upsample4", "bilinear alpha=4 (2,37,53,2)",
+         lambda x: upsample4(x, "bilinear", 4.0), [arr((2, 37, 53, 2), 2.0)]),
+        ("upsample4", "bicubic (2,37,53,3)",
+         lambda x: upsample4(x, "bicubic"), [arr((2, 37, 53, 3), 1.0)]),
+        ("resblock_chain", f"chain N={n} (2,37,53,{c})", resblock_chain,
+         [arr((2, 37, 53, c), 0.5), arr((n, 3, 3, c, c), 0.04), arr((n, c), 0.1),
+          arr((n, 3, 3, c, c), 0.04), arr((n, c), 0.1)]),
+    ]
+    names = ("x", "w1", "b1", "w2", "b2")
+    for kernel, label, fn, inputs in cases:
+        grads = []
+        for device in (dev, torch.device("cpu")):
+            xs = [t.to(device, copy=True).requires_grad_() for t in inputs]
+            out = fn(*xs)
+            if out.grad_fn is None:
+                raise RuntimeError(f"[autograd] {label} on {device}: no grad_fn")
+            cot = torch.from_numpy(np.random.RandomState(9).randn(*out.shape)
+                                   .astype(np.float32)).to(device)
+            grads.append([g.cpu() for g in torch.autograd.grad(out, xs, cot)])
+        for name, g_dev, g_cpu in zip(names, *grads):
+            err = (g_dev - g_cpu).abs().max().item()
+            rel = err / max(g_cpu.abs().max().item(), 1e-30)
+            log(f"[autograd] {kernel} {label} d{name}: grad_fn ok, CUDA vs CPU "
+                f"max_abs_err={err:.3e} rel={rel:.3e} tol={GRAD_TOL[kernel]:.0e}")
+            if not rel <= GRAD_TOL[kernel]:
+                raise RuntimeError(f"[autograd] {label} d{name}: {rel:.3e}")
+
+
+def frvsr_batch(cfg, batch: int, seed: int) -> np.ndarray:
+    """(batch, rnn_n, tar, tar, 3) uint8 HR crops: synthetic "natural" clips."""
+    from tecogan_tpu_torch.data.synthetic import synthetic_clip
+
+    tar = cfg.hr_load_size
+    clips = [synthetic_clip(cfg.rnn_n, tar, tar, seed=seed + i, content="natural")
+             for i in range(batch)]
+    return (np.stack(clips) * 255).astype(np.uint8)
+
+
+def check_step_vs_cpu(dev) -> None:
+    """Phase 7: one FRVSR step at full width, GPU against CPU, float32."""
+    from tecogan_tpu_torch.config import FRVSR_PRESET
+    from tecogan_tpu_torch.train import Trainer
+
+    cfg = FRVSR_PRESET.replace(batch_size=2, rnn_n=4)
+    batch = frvsr_batch(cfg, cfg.batch_size, 11)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        trainer = Trainer(cfg, device)
+        state = trainer.init_state(12)
+        with torch.no_grad():
+            # At the glorot init every flow is within ~1e-5 px of zero, so
+            # each warp query sits on a pixel boundary, where the flow's
+            # gradient jumps between two cells and a 1-ulp difference moves
+            # it. This bias and a 10x smaller output conv hold the HR flows
+            # at 1.43..1.53 / -2.52..-2.45 px (LR: a quarter), mid-cell.
+            # Measured on this batch: float32 vs float64 gradients then
+            # differ by 1.5e-4 of a parameter's largest entry, 6.2e-4 with
+            # the output conv as drawn (flows then cross pixel boundaries).
+            state.fnet.output_conv2.bias.copy_(torch.tensor([0.015625, -0.026]))
+            state.fnet.output_conv2.weight.mul_(0.1)
+        t0 = time.perf_counter()
+        _, metrics = trainer.train_step(state, batch)
+        losses = {k: float(v) for k, v in metrics.items() if k != "learning_rate"}
+        grads = {}
+        for prefix, module in (("generator", state.generator), ("fnet", state.fnet)):
+            for name, p in module.named_parameters():
+                if p.grad is None:
+                    raise RuntimeError(f"[step] {device}: {prefix}.{name} got no gradient")
+                grads[f"{prefix}.{name}"] = p.grad.detach().cpu()
+        log(f"[step] {device}: one step in {time.perf_counter() - t0:.2f} s, "
+            + ", ".join(f"{k} {v:.6f}" for k, v in sorted(losses.items())))
+        runs.append((losses, grads))
+    (loss_gpu, grad_gpu), (loss_cpu, grad_cpu) = runs
+    for k, want in loss_cpu.items():
+        rel = abs(loss_gpu[k] - want) / abs(want)
+        if not (math.isfinite(loss_gpu[k]) and rel <= STEP_LOSS_TOL):
+            raise RuntimeError(f"[step] {k}: GPU {loss_gpu[k]} vs CPU {want} ({rel:.3e})")
+    worst, worst_name = 0.0, ""
+    for name, want in grad_cpu.items():
+        scale = want.abs().max().item()
+        if scale == 0.0 or grad_gpu[name].abs().max().item() == 0.0:
+            raise RuntimeError(f"[step] {name}: zero gradient")
+        rel = (grad_gpu[name] - want).abs().max().item() / scale
+        if rel > worst:
+            worst, worst_name = rel, name
+        if not rel <= STEP_GRAD_TOL:
+            raise RuntimeError(f"[step] {name}: gradient rel error {rel:.3e}")
+    log(f"[step] GPU vs CPU, float32, {cfg.num_resblock} resblocks, batch "
+        f"{cfg.batch_size}, {cfg.rnn_n} frames, crop {cfg.crop_size}: "
+        f"losses within {STEP_LOSS_TOL:.0e}; {len(grad_cpu)} parameters, every "
+        f"gradient non-zero, worst rel {worst:.3e} ({worst_name}) tol {STEP_GRAD_TOL:.0e}")
+
+
+def run_training(dev, card: str):
+    """Phase 8: FRVSR_PRESET through ``train()`` on synthetic scenes, 40
+    steps and a resume to 45; then the profile of one step. Returns the
+    launch counts of the 45 steps."""
+    import contextlib
+    import io
+
+    from tecogan_tpu_torch.config import FRVSR_PRESET
+    from tecogan_tpu_torch.data.synthetic import write_synthetic_scenes
+    from tecogan_tpu_torch.kernels import resblock_chain, upsample4, upsample4_bwd
+    from tecogan_tpu_torch.train import Trainer
+    from tecogan_tpu_torch.train.loop import train
+
+    kernels = {"upsample4": upsample4, "upsample4_bwd": upsample4_bwd,
+               "resblock_chain": resblock_chain}
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out_dir = os.path.join(tmp, "scenes"), os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        write_synthetic_scenes(data, 3, SCENE_FRAMES, SCENE_H, SCENE_W, start_index=2000)
+        write_synthetic_scenes(data, 1, SCENE_FRAMES, SCENE_H, SCENE_W,
+                               start_index=2251, seed=100)
+        log(f"[train] 4 synthetic scenes of {SCENE_FRAMES} {SCENE_H}x{SCENE_W} PNG "
+            f"frames written in {time.perf_counter() - t0:.1f} s")
+        cfg = FRVSR_PRESET.replace(input_video_dir=data, max_frm=SCENE_FRAMES - 1,
+                                   save_freq=SAVE_FREQ, summary_freq=10)
+        # Time each step between two synchronisations (loader waits, saves
+        # and summaries fall outside).
+        step_secs = []
+        train_step = Trainer.train_step
+
+        def timed_step(self, state, hr_seq):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            result = train_step(self, state, hr_seq)
+            torch.cuda.synchronize()
+            step_secs.append(time.perf_counter() - start)
+            return result
+
+        printed = io.StringIO()
+        Trainer.train_step = timed_step
+        try:
+            for k in kernels.values():
+                k.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            with contextlib.redirect_stdout(printed):
+                t0 = time.perf_counter()
+                state = train(cfg, out_dir, dev, max_steps=TRAIN_STEPS)
+                wall = time.perf_counter() - t0
+                first = (state.step, len(step_secs))
+                state = train(cfg, out_dir, dev, max_steps=RESUME_STEPS)
+            launches = {name: k.launches for name, k in kernels.items()}
+        finally:
+            Trainer.train_step = train_step
+        for line in printed.getvalue().splitlines():
+            if line.startswith(("step ", "Resumed", "Saved", "Dataset")):
+                log(f"[train] | {line}")
+        if first != (TRAIN_STEPS, TRAIN_STEPS) or \
+                (state.step, len(step_secs)) != (RESUME_STEPS, RESUME_STEPS):
+            raise RuntimeError(f"[train] steps {first} then {state.step}, "
+                               f"{len(step_secs)} step calls")
+        if f"Resumed from step {TRAIN_STEPS}" not in printed.getvalue():
+            raise RuntimeError("[train] the second run did not resume")
+        rows = [json.loads(line) for line in
+                open(os.path.join(out_dir, "log", "scalars.jsonl"))]
+        if not rows or not all(math.isfinite(v) for r in rows for v in r.values()):
+            raise RuntimeError(f"[train] scalars.jsonl: {len(rows)} rows, not all finite")
+        if not all(math.isfinite(float(v)) for v in state.ema_losses.values()):
+            raise RuntimeError(f"[train] loss EMAs {state.ema_losses}")
+        fresh = Trainer(cfg, "cpu").init_state(cfg.rand_seed)
+        for prefix, a, b in (("generator", fresh.generator, state.generator),
+                             ("fnet", fresh.fnet, state.fnet)):
+            for (name, p0), p1 in zip(a.named_parameters(), b.parameters()):
+                if torch.equal(p0, p1.detach().cpu()):
+                    raise RuntimeError(f"[train] {prefix}.{name} did not move")
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        need = {"upsample4_bwd": RESUME_STEPS,
+                "resblock_chain": cfg.num_resblock * cfg.rnn_n * RESUME_STEPS,
+                "upsample4": (cfg.rnn_n + 1) * RESUME_STEPS}
+        log(f"[train] launches over {RESUME_STEPS} steps {launches}, at least {need}")
+        for k, n in need.items():
+            if launches[k] < n:
+                raise RuntimeError(f"{k} launched {launches[k]} times, want >= {n}")
+        steady = sum(step_secs[TRAIN_STEPS - 20:TRAIN_STEPS]) / 20
+        frames = cfg.batch_size * cfg.rnn_n
+        log(f"[train] FRVSR_PRESET ({cfg.num_resblock} resblocks, batch "
+            f"{cfg.batch_size}, crop {cfg.crop_size}, {cfg.rnn_n} frames, float32, "
+            f"cuDNN TF32 {'on' if torch.backends.cudnn.allow_tf32 else 'off'}): "
+            f"{TRAIN_STEPS} steps in {wall:.2f} s wall, resumed to {RESUME_STEPS}; "
+            f"steady {steady * 1e3:.2f} ms/step over steps 21-40, "
+            f"{frames / steady:.1f} frames/s; peak {peak:.0f} MiB; every parameter "
+            f"moved; {len(rows)} scalar rows; card: {card}")
+        profile_step(dev, cfg, state, steady)
+    return launches
+
+
+def profile_step(dev, cfg, state, steady: float) -> None:
+    """The device time of one training step by kernel group (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tecogan_tpu_torch.train import Trainer
+
+    trainer = Trainer(cfg, dev)
+    batch = frvsr_batch(cfg, cfg.batch_size, 21)
+    for _ in range(3):
+        trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    # The same step with no loader thread beside it (train() has stopped
+    # its loaders): how much of the step is the host's own dispatch.
+    t0 = time.perf_counter()
+    for _ in range(10):
+        trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    alone = (time.perf_counter() - t0) / 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+
+    def device_us(evt, total: bool) -> float:
+        name = "device_time_total" if total else "self_device_time_total"
+        if not hasattr(evt, name):  # older torch
+            name = name.replace("device", "cuda")
+        return getattr(evt, name)
+
+    groups = {"chain kernel (forward)": ("resblock_kernel",),
+              "K2 (flow upsample backward)": ("upsample4_bwd_kernel",),
+              "K1 (flow upsample, bicubic skip)": ("upsample4_kernel",),
+              "cuDNN/cuBLAS convs and GEMMs": ("conv", "cudnn", "xmma", "gemm",
+                                               "dgrad", "wgrad", "cutlass", "sm90"),
+              "Adam": ("multi_tensor", "adam")}
+    glue = "glue (elementwise, gathers, copies)"
+    split = dict.fromkeys([*groups, glue], 0.0)
+    # Kernel rows count each kernel once; an operator's row holds the device
+    # time of the kernels it launched itself (by_op: where the glue comes from).
+    total, by_op = 0.0, []
+    for row in prof.key_averages():
+        us = device_us(row, total=False)
+        if us <= 0:
+            continue
+        if row.device_type != DeviceType.CUDA:
+            by_op.append((us, row.count, row.key))
+            continue
+        total += us
+        name = row.key.lower()
+        group = next((g for g, needles in groups.items()
+                      if any(n.lower() in name for n in needles)), glue)
+        split[group] += us
+    if total <= 0:
+        log("[profile] torch.profiler recorded no device time; see the CUDA-event times")
+        return
+    replay = sum(device_us(e, total=True) for e in prof.events()
+                 if e.name.startswith("autograd::engine::evaluate_function: _ResblockChain"))
+    log(f"[profile] one FRVSR_PRESET step: {total / 1e3:.2f} ms of device time "
+        f"against {steady * 1e3:.2f} ms/step unprofiled in train() (device idle "
+        f"share {max(0.0, 1 - total / 1e3 / (steady * 1e3)):.1%}) and "
+        f"{alone * 1e3:.2f} ms/step on one batch with no loader running (idle "
+        f"{max(0.0, 1 - total / 1e3 / (alone * 1e3)):.1%})")
+    for group, us in split.items():
+        log(f"[profile]   {group}: {us / 1e3:.3f} ms ({us / total:.1%})")
+    log(f"[profile]   of which the chain's backward (plain-chain replay + its "
+        f"cuDNN backward, all kinds): {replay / 1e3:.3f} ms ({replay / total:.1%})")
+    for us, count, key in sorted(by_op, reverse=True)[:8]:
+        log(f"[profile]   by op: {us / 1e3:.3f} ms in {count} calls of {key[:80]}")
 
 def build_models(seed: int, config):
     from tecogan_tpu_torch.models import FNet, Generator
@@ -160,7 +480,7 @@ def build_models(seed: int, config):
 
 
 def check_path_vs_cpu(dev) -> float:
-    """Phase 4: full-width streaming, GPU vs CPU, float32."""
+    """Phase 5: full-width streaming, GPU vs CPU, float32."""
     from tecogan_tpu_torch.config import TecoConfig
     from tecogan_tpu_torch.recurrent import StreamingSR
 
@@ -185,7 +505,7 @@ def check_path_vs_cpu(dev) -> float:
 
 
 def run_main_path(dev, card: str):
-    """Phase 5: the streaming path at size; returns launch counts."""
+    """Phase 6: the streaming path at size; returns launch counts."""
     from tecogan_tpu_torch.config import TecoConfig
     from tecogan_tpu_torch.kernels import resblock_chain, upsample4
     from tecogan_tpu_torch.recurrent import StreamingSR
@@ -239,24 +559,37 @@ def main() -> None:
         f"-> {_build.library_path().relative_to(REPO)}")
 
     results = check_kernels(dev)
+    check_autograd(dev)
     check_path_vs_cpu(dev)
-    launches = run_main_path(dev, card)
+    stream_launches = run_main_path(dev, card)
+    check_step_vs_cpu(dev)
+    # Phase 8 runs as a user's training does, with PyTorch's default flags:
+    # cuDNN convolutions in TF32, float32 matmuls in full float32.
+    torch.backends.cudnn.allow_tf32 = True
+    train_launches = run_training(dev, card)
 
+    # launches: the training path's (this slice's main path; it runs all
+    # three kernels); ms / plain_ms: the timed cases in the dtype of the
+    # path that runs each kernel most.
     kernels = []
-    for name, source, replaces, also in (
+    for name, source, replaces, also, dtype in (
             ("upsample4", "tecogan_tpu_torch/csrc/upsample4.cu",
-             "tecogan_tpu/kernels/upsample4.py:68", []),
+             "tecogan_tpu/kernels/upsample4.py:68", [], "bfloat16"),
+            ("upsample4_bwd", "tecogan_tpu_torch/csrc/upsample4.cu",
+             "tecogan_tpu/kernels/upsample4.py:129", [], "float32"),
             ("resblock_chain", "tecogan_tpu_torch/csrc/resblock_chain.cu",
              "tecogan_tpu/kernels/resblocks.py:87",
              ["tecogan_tpu/kernels/resblocks.py:305",
-              "tecogan_tpu/kernels/resblocks.py:466"])):
-        timed = results[name]["bfloat16"]  # the main path's dtype
+              "tecogan_tpu/kernels/resblocks.py:466"], "bfloat16")):
+        timed = results[name][dtype]
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": launches[name],
+                 "replaces": replaces, "launches": train_launches[name],
+                 "launches_by_path": {"training": train_launches[name],
+                                      "streaming": stream_launches.get(name, 0)},
                  "max_abs_err": max(e for _, e, _, _ in timed),
                  "ms": sum(ms for _, _, ms, _ in timed),
                  "plain_ms": sum(p for _, _, _, p in timed),
-                 "timed": [label for label, *_ in timed], "dtype": "bfloat16"}
+                 "timed": [label for label, *_ in timed], "dtype": dtype}
         if also:
             entry["also_replaces"] = also
         kernels.append(entry)

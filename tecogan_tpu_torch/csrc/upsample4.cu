@@ -17,6 +17,8 @@
 // a few input pixels that the L1 cache serves. No shared memory and no
 // matrix form: on this card a banded matmul would only add wasted MACs.
 // `alpha` scales the input (the flow path's x4, exact in any float type).
+//
+// K2, the adjoint of K1 (its gradient), follows K1 in this file.
 #include "common.cuh"
 
 namespace {
@@ -69,6 +71,78 @@ __global__ void upsample4_kernel(const T* __restrict__ x, T* __restrict__ out,
   out[idx] = tt::from_f32<T>(acc);
 }
 
+// Entry (4*src + phase, dst) of the (4n, n) stencil matrix: the phase's
+// weights summed over the taps whose clamped source index is dst (edge rows
+// and columns collect several taps). Dyadic sums, exact in float32.
+template <int NT>
+__device__ __forceinline__ float stencil_weight(int src, int phase, int dst, int n) {
+  constexpr int OFF = NT == 2 ? 0 : -1;
+  const float* w = NT == 2 ? kBilinear[phase] : kCatmullRom[phase];
+  float s = 0.0f;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (min(max(src + OFF + t, 0), n - 1) == dst) s += w[t];
+  }
+  return s;
+}
+
+// K2: the adjoint of upsample4_kernel, dx = alpha * Sh^T g Sw^T per (b, c)
+// plane, g (B, 4H, 4W, C) -> dx (B, H, W, C).
+//
+// Replaces tecogan_tpu/kernels/upsample4.py::_down_kernel (launched by
+// _plane_call_down from the custom VJP _upsample4_bwd), two transposed
+// banded matmuls on the TPU's matrix unit. Same rounding point: the H-adjoint
+// sum hi[iy, ox] = sum_oy Sh[oy, iy] g[oy, ox] is taken in float32 and
+// rounded to T, then dx[iy, ix] = sum_ox hi[iy, ox] Sw[ox, ix] in float32,
+// times alpha, rounded once more.
+//
+// Gather form: one thread per dx element, no atomics. Source row i feeds
+// dx row iy iff clamp(i + OFF + t) == iy for a tap t; all such i lie in
+// [iy - OFF - NT + 1, iy - OFF] clipped to the image (the clamped edge taps
+// included), so each thread walks at most NT source rows x 4 phases per
+// axis: 4NT x 4NT g elements. Bound: like K1 by index math and loads that
+// the L1 serves (each g element is read by NT^2 threads, more at the edges);
+// dx is 1/16 of g. hi is recomputed per thread rather than staged in shared
+// memory: a simple kernel first.
+template <typename T, int NT>
+__global__ void upsample4_bwd_kernel(const T* __restrict__ g, T* __restrict__ dx,
+                                     int B, int H, int W, int C, float alpha) {
+  constexpr int OFF = NT == 2 ? 0 : -1;
+  const int total = B * H * W * C;  // the wrapper keeps 16 * total < 2^31
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int c = idx % C;
+  int t = idx / C;
+  const int ix = t % W;
+  t /= W;
+  const int iy = t % H;
+  const int b = t / H;
+  const int i_lo = max(iy - OFF - NT + 1, 0), i_hi = min(iy - OFF, H - 1);
+  const int j_lo = max(ix - OFF - NT + 1, 0), j_hi = min(ix - OFF, W - 1);
+  const int row = 4 * W * C;  // elements per g row
+  const T* plane = g + b * 16 * H * W * C + c;
+
+  float acc = 0.0f;
+  for (int j = j_lo; j <= j_hi; ++j) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float wq = stencil_weight<NT>(j, q, ix, W);
+      if (wq == 0.0f) continue;
+      const T* col_ptr = plane + (4 * j + q) * C;
+      float hi = 0.0f;
+      for (int i = i_lo; i <= i_hi; ++i) {
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const float wp = stencil_weight<NT>(i, p, iy, H);
+          hi += wp * tt::to_f32(col_ptr[(4 * i + p) * row]);
+        }
+      }
+      acc += wq * tt::round_to<T>(hi);  // the H-adjoint pass is rounded to T
+    }
+  }
+  dx[idx] = tt::from_f32<T>(alpha * acc);
+}
+
 template <typename T>
 int launch(const void* x, void* out, int B, int H, int W, int C, int filter,
            float alpha, void* stream) {
@@ -88,6 +162,26 @@ int launch(const void* x, void* out, int B, int H, int W, int C, int filter,
   return static_cast<int>(cudaGetLastError());
 }
 
+// H, W are dx's (the low-resolution) sizes, as for the forward launch.
+template <typename T>
+int launch_bwd(const void* g, void* dx, int B, int H, int W, int C, int filter,
+               float alpha, void* stream) {
+  const int64_t total = static_cast<int64_t>(B) * H * W * C;
+  if (16 * total >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (total == 0) return static_cast<int>(cudaSuccess);
+  constexpr int kThreads = 256;
+  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* gp = static_cast<const T*>(g);
+  T* dp = static_cast<T*>(dx);
+  if (filter == 0) {
+    upsample4_bwd_kernel<T, 2><<<blocks, kThreads, 0, s>>>(gp, dp, B, H, W, C, alpha);
+  } else {
+    upsample4_bwd_kernel<T, 4><<<blocks, kThreads, 0, s>>>(gp, dp, B, H, W, C, alpha);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // filter: 0 = bilinear, 1 = bicubic. x: (B, H, W, C), out: (B, 4H, 4W, C).
@@ -99,4 +193,15 @@ extern "C" int tt_upsample4_f32(const void* x, void* out, int B, int H, int W,
 extern "C" int tt_upsample4_bf16(const void* x, void* out, int B, int H, int W,
                                  int C, int filter, float alpha, void* stream) {
   return launch<__nv_bfloat16>(x, out, B, H, W, C, filter, alpha, stream);
+}
+
+// K2. g: (B, 4H, 4W, C), dx: (B, H, W, C).
+extern "C" int tt_upsample4_bwd_f32(const void* g, void* dx, int B, int H, int W,
+                                    int C, int filter, float alpha, void* stream) {
+  return launch_bwd<float>(g, dx, B, H, W, C, filter, alpha, stream);
+}
+
+extern "C" int tt_upsample4_bwd_bf16(const void* g, void* dx, int B, int H, int W,
+                                     int C, int filter, float alpha, void* stream) {
+  return launch_bwd<__nv_bfloat16>(g, dx, B, H, W, C, filter, alpha, stream);
 }

@@ -2,7 +2,8 @@
 
 Each wrapper runs its plain PyTorch version for a CPU tensor, launches its
 kernel for a CUDA tensor (or raises), and counts its launches in an
-integer attribute ``launches``.
+integer attribute ``launches``. ``upsample4`` and ``resblock_chain`` are
+differentiable (``torch.autograd.Function``s) on both devices.
 """
 
 from tecogan_tpu_torch.kernels.resblocks import (
@@ -12,6 +13,8 @@ from tecogan_tpu_torch.kernels.resblocks import (
 from tecogan_tpu_torch.kernels.upsample4 import (
     bicubic_four,
     upsample4,
+    upsample4_bwd,
+    upsample4_bwd_plain,
     upsample4_plain,
     upscale_bilinear4,
 )
@@ -21,6 +24,8 @@ __all__ = [
     "resblock_chain",
     "resblock_chain_plain",
     "upsample4",
+    "upsample4_bwd",
+    "upsample4_bwd_plain",
     "upsample4_plain",
     "upscale_bilinear4",
 ]

@@ -39,6 +39,9 @@ _SIGNATURES = {
     # (x, out, B, H, W, C, filter, alpha, stream)
     "tt_upsample4_f32": (_P, _P, _I, _I, _I, _I, _I, _F, _P),
     "tt_upsample4_bf16": (_P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # (g, dx, B, H, W, C, filter, alpha, stream); H, W are dx's sizes
+    "tt_upsample4_bwd_f32": (_P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "tt_upsample4_bwd_bf16": (_P, _P, _I, _I, _I, _I, _I, _F, _P),
     # (x, buf_a, buf_b, w1, b1, w2, b2, B, H, W, N, stream)
     "tt_resblock_chain_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tt_resblock_chain_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

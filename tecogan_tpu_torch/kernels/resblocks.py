@@ -13,9 +13,14 @@ kept on chip and masked to zero outside the image; see its header.
 Layout as in the JAX package: x (B, H, W, C), w1/w2 (N, 3, 3, C, C) HWIO,
 b1/b2 (N, C). The kernel is specialised to C = 64, the TecoGAN width.
 
-:func:`resblock_chain` takes its plain version (:func:`resblock_chain_plain`,
-the counterpart of ``resblock_chain_xla``) for a tensor on the CPU, and
-launches the kernel for a CUDA tensor or raises.
+:func:`resblock_chain` is differentiable on both devices through one
+``torch.autograd.Function``. Its forward takes the plain version
+(:func:`resblock_chain_plain`, the counterpart of ``resblock_chain_xla``) for
+a tensor on the CPU, and launches the kernel for a CUDA tensor or raises.
+Its backward replays the plain chain on the saved inputs and differentiates
+that, as the JAX package's ``_resblock_chain_bwd`` replays
+``resblock_chain_xla``: the JAX package has no Pallas backward for the
+chain, so on the card the backward is cuDNN's.
 """
 
 from __future__ import annotations
@@ -62,11 +67,8 @@ def _check_cuda_args(x, w1, b1, w2, b2) -> None:
         raise ValueError(f"{x.device} is not the current CUDA device")
 
 
-def resblock_chain(x, w1, b1, w2, b2) -> torch.Tensor:
-    """N residual blocks over x (B, H, W, C); returns a new tensor."""
-    if x.dim() != 4 or w1.dim() != 5:
-        raise ValueError(f"expected x (B, H, W, C) and w (N, 3, 3, C, C), got "
-                         f"{tuple(x.shape)} and {tuple(w1.shape)}")
+def _forward(x, w1, b1, w2, b2) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain chain on a CPU one."""
     if x.device.type == "cpu":
         return resblock_chain_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
@@ -85,6 +87,36 @@ def resblock_chain(x, w1, b1, w2, b2) -> torch.Tensor:
     _build.check(err, "resblock_chain")
     resblock_chain.launches += n  # one kernel launch per residual block
     return buf_a if n % 2 else buf_b
+
+
+class _ResblockChain(torch.autograd.Function):
+    """Kernel forward; backward by replaying the plain chain (cuDNN on the
+    card) under autograd, as ``_resblock_chain_bwd`` replays the XLA chain."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _forward(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = resblock_chain_plain(*inputs)
+        # materialize_grads: with N = 0 the weights are unused; zeros then.
+        grads = iter(torch.autograd.grad(
+            out, [t for t in inputs if t.requires_grad], g, materialize_grads=True))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def resblock_chain(x, w1, b1, w2, b2) -> torch.Tensor:
+    """N residual blocks over x (B, H, W, C); returns a new tensor.
+    Differentiable in every argument."""
+    if x.dim() != 4 or w1.dim() != 5:
+        raise ValueError(f"expected x (B, H, W, C) and w (N, 3, 3, C, C), got "
+                         f"{tuple(x.shape)} and {tuple(w1.shape)}")
+    return _ResblockChain.apply(x, w1, b1, w2, b2)
 
 
 resblock_chain.launches = 0  # kernel launches (CUDA tensors only)

@@ -15,7 +15,7 @@ variants are TPU tuning and have no counterpart.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -63,11 +63,19 @@ class Generator(nn.Module):
         second = [b.conv_2 for b in self.resblocks]
         return kernels(first), biases(first), kernels(second), biases(second)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 51) in [0, 1] -> (B, 4H, 4W, 3) in [-1, 1]."""
+    def forward(self, x: torch.Tensor, lr: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """(B, H, W, 51) in [0, 1] -> (B, 4H, 4W, 3) in [-1, 1].
+
+        ``lr``, if given, is x's first 3 channels as a tensor of its own,
+        and the bicubic skip reads it. The training unroll passes the LR
+        frame so: a slice of x would need a gradient through the warped
+        channels, and the skip would run its backward only to throw it away.
+        """
         # Cast at entry so the bicubic skip runs in the compute dtype too.
-        x = x.to(self.input_stage_conv.weight.dtype)
-        lr = x[..., :self.out_channels].contiguous()
+        dtype = self.input_stage_conv.weight.dtype
+        x = x.to(dtype)
+        lr = (x[..., :self.out_channels] if lr is None else lr.to(dtype)).contiguous()
         net = F.relu(self.input_stage_conv(x.permute(0, 3, 1, 2)))
         if len(self.resblocks):
             net = resblock_chain(net.permute(0, 2, 3, 1).contiguous(),

@@ -1,5 +1,6 @@
 """Plain tensor ops of the port, NHWC like the JAX package's."""
 
+from tecogan_tpu_torch.ops.gauss import gauss_down_by4
 from tecogan_tpu_torch.ops.image import deprocess, preprocess
 from tecogan_tpu_torch.ops.resize import bicubic_four, upscale_bilinear
 from tecogan_tpu_torch.ops.space_to_depth import depth_to_space, space_to_depth
@@ -10,6 +11,7 @@ __all__ = [
     "dense_image_warp",
     "depth_to_space",
     "deprocess",
+    "gauss_down_by4",
     "preprocess",
     "space_to_depth",
     "upscale_bilinear",

@@ -8,6 +8,9 @@
   replication, i.e. a pad of 1 px top/left and 2 px bottom/right (reference
   lib/ops.py:166-212); the generator's residual skip.
 
+- :func:`stencil_matrix`: the 4x upsample along one axis as a (4n, n)
+  matrix; the plain version of its adjoint (``kernels/upsample4.py``) uses it.
+
 ``F.interpolate`` is not used: its half-pixel source grid differs from both.
 Each resize is separable: the H pass and then the W pass, each summed in
 float32 and rounded to the input dtype. That is also the rounding of the 4x
@@ -19,6 +22,7 @@ from __future__ import annotations
 import functools
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 #: Catmull-Rom taps sit at source offsets -1..2; bilinear taps at 0..1.
@@ -76,6 +80,32 @@ def _separable_upsample(x: torch.Tensor, weights, offsets) -> torch.Tensor:
     float32 and rounded to ``x.dtype``."""
     hi = _phase_pass(x.float(), 1, weights, offsets).to(x.dtype)
     return _phase_pass(hi.float(), 2, weights, offsets).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _stencil_array(n: int, filter_: str) -> np.ndarray:
+    """Row 4i+p holds the phase-p weights at the clamped taps around i, the
+    edge taps summed. Twin of
+    ``tecogan_tpu/kernels/upsample4.py:_stencil_matrix``."""
+    if filter_ == "bilinear":
+        weights, offsets = _bilinear_phase_weights(4), _BILINEAR_OFFSETS
+    else:
+        weights, offsets = _catmull_rom_weights(), _BICUBIC_OFFSETS
+    s = np.zeros((4 * n, n), np.float32)
+    for i in range(n):
+        for p in range(4):
+            for wt, off in zip(weights[p], offsets):
+                s[4 * i + p, min(max(i + off, 0), n - 1)] += wt
+    s.flags.writeable = False
+    return s
+
+
+def stencil_matrix(n: int, filter_: str, device=None) -> torch.Tensor:
+    """The (4n, n) float32 stencil matrix S of the 4x upsample along an axis
+    of n pixels ("bilinear" or "bicubic"): upsampling is ``S @ x`` along the
+    axis, its adjoint ``S.T @ g``. Weights and their edge sums are dyadic,
+    so exact in float32."""
+    return torch.tensor(_stencil_array(n, filter_), device=device)
 
 
 def upscale_bilinear(x: torch.Tensor, factor: int) -> torch.Tensor:

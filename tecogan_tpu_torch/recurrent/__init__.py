@@ -5,8 +5,11 @@ from tecogan_tpu_torch.recurrent.inference import (
 )
 from tecogan_tpu_torch.recurrent.step import (
     RecurrentState,
+    extend_pingpong,
+    flows_for_sequence,
     frame_step,
     init_state,
+    unroll_generator,
     upscale_flow,
 )
 
@@ -14,8 +17,11 @@ __all__ = [
     "RecurrentState",
     "StreamingSR",
     "WARMUP_FRAMES",
+    "extend_pingpong",
+    "flows_for_sequence",
     "frame_step",
     "init_state",
     "prepend_warmup",
+    "unroll_generator",
     "upscale_flow",
 ]

@@ -1,0 +1,154 @@
+"""The training loop (counterpart of ``tecogan_tpu/train/loop.py``;
+reference main.py:273-430).
+
+In reference order:
+
+- config dump into the output and summary dirs (main.py:274-277);
+- restore: full resume from this run's checkpoints, else a warm start of
+  the weights from ``pre_trained_dir`` (main.py:312-324,345-352);
+- the step loop with display / summary / save frequencies
+  (main.py:377-421), printing ``image/sec*frames`` like the reference
+  (main.py:404-411); validation losses every ``summary_freq`` on the
+  held-out scene split (main.py:394-402);
+- Ctrl-C saves a final checkpoint (main.py:423-429); so does SIGTERM
+  (preemption), after the step in flight.
+
+Not ported yet: the test-while-train inference child (main.py:151-174; it
+needs the inference CLI, ROADMAP queue 1 item 5) and the GIF sequence
+summaries (PIL, item 10). Training runs on the one device it is given,
+with no fallback.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import time
+from typing import Optional, Union
+
+import torch
+
+from tecogan_tpu_torch.config import TecoConfig
+from tecogan_tpu_torch.data.loader import BatchLoader, SceneDataset
+from tecogan_tpu_torch.train.checkpoint import (
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+    warm_start,
+)
+from tecogan_tpu_torch.train.trainer import Trainer, TrainState
+from tecogan_tpu_torch.utils.logging import param_summary
+from tecogan_tpu_torch.utils.summaries import SummaryLogger
+
+
+class _PreemptionGuard:
+    """Sets a flag on SIGTERM, so the loop finishes the step in flight,
+    saves and returns. No-op outside the main thread."""
+
+    def __init__(self):
+        self.fired = False
+        self._prev = None
+        self._installed = False
+
+    def __enter__(self):
+        def handler(signum, frame):
+            self.fired = True
+            print("SIGTERM: finishing current step, saving final checkpoint")
+
+        try:
+            self._prev = signal.signal(signal.SIGTERM, handler)
+            self._installed = True
+        except ValueError:  # not the main thread
+            pass
+        return self
+
+    def __exit__(self, *exc):
+        if self._installed:
+            signal.signal(signal.SIGTERM,
+                          self._prev if self._prev is not None else signal.SIG_DFL)
+        return False
+
+
+def _save_once(ckpt_dir: str, state: TrainState) -> None:
+    """Save unless this step is on disk already (a save_freq save, or a
+    resume with no step since)."""
+    if latest_step(ckpt_dir) != state.step:
+        save_checkpoint(ckpt_dir, state)
+
+
+def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
+          summary_dir: Optional[str] = None,
+          pre_trained_dir: Optional[str] = None,
+          max_steps: Optional[int] = None) -> TrainState:
+    """Train on ``device`` to ``config.max_iter`` (or ``max_steps``) steps;
+    returns the final state. Checkpoints go to ``<output_dir>/checkpoints``,
+    scalars to ``<summary_dir>/scalars.jsonl`` (default ``<output_dir>/log``)."""
+    summary_dir = summary_dir or os.path.join(output_dir, "log")
+    ckpt_dir = os.path.join(output_dir, "checkpoints")
+    os.makedirs(output_dir, exist_ok=True)
+    os.makedirs(summary_dir, exist_ok=True)
+    for d in (summary_dir, output_dir):
+        with open(os.path.join(d, "config.json"), "w") as f:
+            f.write(config.to_json())
+
+    trainer = Trainer(config, device)
+    state = trainer.init_state(config.rand_seed)
+    param_summary("generator", state.generator)
+    param_summary("fnet", state.fnet)
+
+    # Full resume beats warm start (reference main.py:345-352).
+    resumed = latest_step(ckpt_dir)
+    if resumed is not None:
+        state = restore_checkpoint(ckpt_dir, state)
+        print(f"Resumed from step {resumed}")
+    elif pre_trained_dir:
+        state = warm_start(state, pre_trained_dir)
+        print(f"Warm-started weights from {pre_trained_dir}")
+
+    dataset = SceneDataset(config, validation=False)
+    loader = BatchLoader(dataset)
+    try:
+        val_loader = BatchLoader(SceneDataset(config, validation=True),
+                                 seed=config.rand_seed + 1)
+    except FileNotFoundError:
+        val_loader = None
+    print(f"Dataset: {len(dataset.scenes)} scenes, {len(dataset)} windows, "
+          f"steps/epoch {len(dataset) // config.batch_size}")
+
+    logger = SummaryLogger(summary_dir)
+    total = max_steps if max_steps is not None else config.max_iter
+    t_window, frames_window = time.perf_counter(), 0
+    try:
+        with _PreemptionGuard() as preempt, loader:
+            for _ in range(state.step, total):
+                if preempt.fired:
+                    _save_once(ckpt_dir, state)
+                    print(f"Preempted: saved final checkpoint at step {state.step}")
+                    break
+                state, metrics = trainer.train_step(state, loader.next_batch())
+                frames_window += config.batch_size * config.unroll_frames
+                step = state.step
+                if step % config.display_freq == 0:
+                    m = {k: float(v) for k, v in metrics.items()}  # syncs
+                    dt = time.perf_counter() - t_window
+                    ips = frames_window / dt if dt > 0 else 0.0
+                    t_window, frames_window = time.perf_counter(), 0
+                    msg = ", ".join(f"{k} {v:.4f}" for k, v in sorted(m.items()))
+                    print(f"step {step}: image/sec*frames {ips:.1f} | {msg}")
+                if step % config.summary_freq == 0:
+                    logger.scalars(step, state.ema_losses)
+                    logger.scalars(step, {"learning_rate": metrics["learning_rate"]})
+                    if val_loader is not None:
+                        logger.scalars(step, trainer.eval_step(state, val_loader.next_batch()),
+                                       prefix="val_")
+                if step % config.save_freq == 0 or step == total:
+                    save_checkpoint(ckpt_dir, state)
+                    print(f"Saved checkpoint at step {step}")
+    except KeyboardInterrupt:
+        _save_once(ckpt_dir, state)
+        print(f"KeyboardInterrupt: saved final checkpoint at step {state.step}")
+    finally:
+        if val_loader is not None:
+            val_loader.stop()
+        logger.close()
+    return state

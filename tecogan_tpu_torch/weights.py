@@ -4,9 +4,13 @@
   flax produces them (nested dicts of arrays, e.g. after ``jax.device_get``)
   and returns a :class:`Generator` and an :class:`FNet` holding them, with
   depth and widths read from the shapes.
+- :func:`to_jax_params` is its inverse: modules -> flax-layout trees of
+  numpy arrays.
 - :func:`read_params_npz` reads the flat ``<tree>/<layer>/<param>`` npz files
   written by ``tecogan_tpu/train/checkpoint.py:params_to_npz`` back into
-  nested dicts, e.g. ``{"generator": {...}, "fnet": {...}}``.
+  nested dicts, e.g. ``{"generator": {...}, "fnet": {...}}``;
+  :func:`params_to_npz` writes them, so the JAX package reads a model the
+  port trained (``npz_to_params``).
 
 Layouts: a flax ``Conv`` kernel is HWIO, a torch ``Conv2d`` weight OIHW; a
 flax ``ConvTranspose(transpose_kernel=True)`` kernel is (kh, kw, out, in), a
@@ -98,6 +102,37 @@ def from_jax_params(gen_tree: Tree, fnet_tree: Tree,
                 max_velocity=max_velocity)
     _fill(_fnet_layers(fnet), fnet_tree)
     return gen, fnet
+
+
+def _tree(layers: Iterator[Tuple[str, nn.Module]]) -> Dict[str, Dict[str, np.ndarray]]:
+    return {name: {"kernel": module.weight.detach().cpu().float().permute(2, 3, 1, 0).numpy(),
+                   "bias": module.bias.detach().cpu().float().numpy()}
+            for name, module in layers}
+
+
+def to_jax_params(gen: Generator, fnet: FNet
+                  ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The generator and FNet as flax parameter trees of float32 numpy
+    arrays (HWIO kernels); the inverse of :func:`from_jax_params`."""
+    return _tree(_generator_layers(gen)), _tree(_fnet_layers(fnet))
+
+
+def params_to_npz(path: str, **trees: Tree) -> None:
+    """Write nested parameter trees (e.g. ``generator=..., fnet=...``) to one
+    npz with flat ``<tree>/<layer>/<param>`` keys, the format of
+    ``tecogan_tpu/train/checkpoint.py:params_to_npz``."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(prefix: str, node: Any) -> None:
+        if isinstance(node, Mapping):
+            for key, child in node.items():
+                walk(f"{prefix}/{key}", child)
+        else:
+            flat[prefix] = np.asarray(node)
+
+    for name, tree in trees.items():
+        walk(name, tree)
+    np.savez(path, **flat)
 
 
 def read_params_npz(path: str) -> Dict[str, Dict[str, Any]]:
