@@ -10,7 +10,9 @@ Phases, each raising on failure (so the exit code is non-zero):
 3. each kernel against its plain PyTorch version on the card (K1, K2 the
    upsample's adjoint, the chain), at the streaming and training paths'
    shapes and a ragged one, float32 (TF32 off) and bfloat16, with the
-   error beside its tolerance and CUDA-event times;
+   error beside its tolerance and CUDA-event times (median and range of 5
+   alternating windows); the bfloat16 chain also, one block at three
+   shapes, against its own rounding points in float32 (8e-3);
 4. autograd: the upsample (both filters) and the chain on the card against
    the same functions on the CPU, gradients of every input, float32;
 5. the whole streaming path at full width (16 resblocks, 64 channels) on
@@ -18,7 +20,9 @@ Phases, each raising on failure (so the exit code is non-zero):
    float32, 6 frames of 64x96;
 6. the streaming path at size: 46 uint8 frames of 144x180 -> 41 of
    576x720, bfloat16, chunks of 23, with the kernels' launch counts and
-   frames/s;
+   frames/s; then a ``torch.profiler`` split of one run (chain / K1 /
+   cuDNN / glue, device idle share), which must show the chain in the
+   tensor-core kernel;
 7. one FRVSR training step at full width (10 resblocks, real FNet),
    batch 2, 4 frames, crop 32, float32, GPU against CPU: losses and the
    gradient of every parameter;
@@ -36,6 +40,7 @@ kernel; the last is ``{"ok": true, "device": {...}}``. Imports no JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -47,6 +52,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 LR_H, LR_W = 144, 180          # Vid4 calendar geometry (-> 576x720)
@@ -58,6 +64,9 @@ NUM_RESBLOCK, CHANNELS = 16, 64
 #   bfloat16: the kernels round once per pass/conv, the plain versions after
 #   every op, so they may land 1-2 bfloat16 ulps (2^-8 relative) apart per
 #   rounding, compounded over 16 blocks in the chain.
+#   The bfloat16 chain against its own rounding points (chain_oracle_bf16),
+#   one block: float32 sums in another order, which may flip a rounding of
+#   y or of the output: ~2 bfloat16 ulps of the output's scale.
 #   K2 sums up to 64 (bilinear) or 256 (bicubic) products per element where
 #   the plain version runs two float32 matmuls: a few float32 ulps of O(10)
 #   values; in bfloat16 both round after the H pass and at the end.
@@ -65,7 +74,8 @@ TOL = {("upsample4", torch.float32): 1e-6, ("upsample4", torch.bfloat16): 1e-2,
        ("upsample4_bwd", torch.float32): 1e-5,
        ("upsample4_bwd", torch.bfloat16): 1e-2,
        ("resblock_chain", torch.float32): 1e-4,
-       ("resblock_chain", torch.bfloat16): 5e-2}
+       ("resblock_chain", torch.bfloat16): 5e-2,
+       ("resblock_chain_oracle", torch.bfloat16): 8e-3}
 # Autograd, CUDA vs CPU, float32, max|diff| / max|CPU grad| per input: the
 # upsample's gradient is K2 vs its plain version; the chain's is cuDNN vs
 # the CPU's convolutions in another summation order, through 3 blocks.
@@ -91,16 +101,44 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warm: int = 2) -> float:
-    for _ in range(warm):
-        fn()
+def time_pair(fn, plain_fn, windows: int = 5, reps: int = 20, warm: int = 10):
+    """CUDA-event ms per call of fn and of plain_fn, each as (median, min,
+    max) over `windows` windows of `reps` calls, after `warm` calls of each;
+    the windows alternate plain, kernel, kernel, plain, ..."""
+    for f in (plain_fn, fn):
+        for _ in range(warm):
+            f()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = ([], [])
+    for i in range(windows):
+        for k in ((1, 0) if i % 2 == 0 else (0, 1)):
+            f = (fn, plain_fn)[k]
+            start.record()
+            for _ in range(reps):
+                f()
+            end.record()
+            torch.cuda.synchronize()
+            times[k].append(start.elapsed_time(end) / reps)
+    return tuple((float(np.median(t)), min(t), max(t)) for t in times)
+
+
+def chain_oracle_bf16(x, w1, b1, w2, b2) -> torch.Tensor:
+    """The bfloat16 chain kernel's rounding points, repeated in float32 with
+    TF32 off: per block, y = bf16(relu(conv1(x) + b1)) (zero padding, so y
+    is zero outside the image), then x = bf16(x + conv2(y) + b2)."""
+    def conv(t, w, b):
+        return F.conv2d(t, w.float().permute(3, 2, 0, 1), b.float(), padding=1)
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        net = x.float().permute(0, 3, 1, 2)
+        for i in range(w1.shape[0]):
+            y = F.relu(conv(net, w1[i], b1[i])).bfloat16().float()
+            net = (net + conv(y, w2[i], b2[i])).bfloat16().float()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    return net.permute(0, 2, 3, 1).bfloat16()
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor):
@@ -162,11 +200,11 @@ def check_kernels(dev):
              lambda: upsample4_bwd(g_ragged, "bicubic"),
              lambda: upsample4_bwd_plain(g_ragged, "bicubic"), False),
         ]
+        # Half the glorot-uniform scale: activations stay O(1) over 16
+        # random blocks instead of growing ~1.5x per block.
+        lim = 0.5 * (6.0 / (2 * 9 * CHANNELS)) ** 0.5
         for h, w, n, timed in ((LR_H, LR_W, NUM_RESBLOCK, True), (37, 53, 3, False)):
             x = torch.relu(seeded((1, h, w, CHANNELS), 1.0, gen, dev, dtype))
-            # Half the glorot-uniform scale: activations stay O(1) over 16
-            # random blocks instead of growing ~1.5x per block.
-            lim = 0.5 * (6.0 / (2 * 9 * CHANNELS)) ** 0.5
             args = (x, seeded((n, 3, 3, CHANNELS, CHANNELS), lim, gen, dev, dtype),
                     seeded((n, CHANNELS), 0.1, gen, dev, dtype),
                     seeded((n, 3, 3, CHANNELS, CHANNELS), lim, gen, dev, dtype),
@@ -174,6 +212,17 @@ def check_kernels(dev):
             cases.append(("resblock_chain", f"chain N={n} (1,{h},{w},64)",
                           lambda a=args: resblock_chain(*a),
                           lambda a=args: resblock_chain_plain(*a), timed))
+        if dtype == torch.bfloat16:
+            # One block against its rounding points (chain_oracle_bf16):
+            # a dropped tap or a misplaced fragment row shows here.
+            for b, h, w in ((1, LR_H, LR_W), (2, 37, 53), (1, 5, 7)):
+                x = torch.relu(seeded((b, h, w, CHANNELS), 1.0, gen, dev, dtype))
+                args = (x, *(seeded(s, k, gen, dev, dtype) for s, k in (
+                    ((1, 3, 3, CHANNELS, CHANNELS), lim), ((1, CHANNELS), 0.1),
+                    ((1, 3, 3, CHANNELS, CHANNELS), lim), ((1, CHANNELS), 0.1))))
+                cases.append(("resblock_chain_oracle", f"chain N=1 ({b},{h},{w},64) "
+                              "vs its rounding points", lambda a=args: resblock_chain(*a),
+                              lambda a=args: chain_oracle_bf16(*a), False))
         for kernel, label, fn, plain_fn, timed in cases:
             got = fn()
             torch.cuda.synchronize()
@@ -182,12 +231,9 @@ def check_kernels(dev):
             line = f"[kernel] {kernel} {name} {label}: max_abs_err={err:.3e} " \
                    f"rel={rel:.3e} tol={tol:.0e}"
             if timed:
-                reps = 5 if kernel == "resblock_chain" else 20
-                plain_ms = cuda_ms(plain_fn, reps)
-                ms = cuda_ms(fn, reps)
-                plain_ms = (plain_ms + cuda_ms(plain_fn, reps)) / 2
-                ms = (ms + cuda_ms(fn, reps)) / 2
-                line += f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
+                (ms, lo, hi), (plain_ms, plo, phi) = time_pair(fn, plain_fn)
+                line += (f" kernel_ms={ms:.4f} [{lo:.4f}-{hi:.4f}] plain_ms="
+                         f"{plain_ms:.4f} [{plo:.4f}-{phi:.4f}] (median [min-max])")
                 results[kernel].setdefault(name, []).append((label, err, ms, plain_ms))
             log(line)
             if not rel <= tol:
@@ -394,9 +440,60 @@ def run_training(dev, card: str):
     return launches
 
 
+# Profile groups: a kernel goes to the first group one of whose needles is
+# in its name; the rest is glue.
+PROFILE_GROUPS = {
+    "chain kernel": ("resblock_kernel",),
+    "K2 (flow upsample backward)": ("upsample4_bwd_kernel",),
+    "K1 (flow upsample, bicubic skip)": ("upsample4_kernel",),
+    "cuDNN/cuBLAS convs and GEMMs": ("conv", "cudnn", "xmma", "gemm", "dgrad",
+                                     "wgrad", "cutlass", "sm90"),
+    "Adam": ("multi_tensor", "adam")}
+GLUE = "glue (elementwise, gathers, copies)"
+
+
+def device_us(evt, total: bool = False) -> float:
+    name = "device_time_total" if total else "self_device_time_total"
+    if not hasattr(evt, name):  # older torch
+        name = name.replace("device", "cuda")
+    return getattr(evt, name)
+
+
+def device_split(prof):
+    """A torch.profiler window's device time by kernel group. Kernel rows
+    count each kernel once; an operator's row holds the device time of the
+    kernels it launched itself (by_op: where the glue comes from). Returns
+    (total us, {group: us}, {group: {kernel: launches}}, by_op)."""
+    from torch.autograd import DeviceType
+
+    split = dict.fromkeys([*PROFILE_GROUPS, GLUE], 0.0)
+    names = {g: {} for g in split}
+    total, by_op = 0.0, []
+    for row in prof.key_averages():
+        us = device_us(row)
+        if us <= 0:
+            continue
+        if row.device_type != DeviceType.CUDA:
+            by_op.append((us, row.count, row.key))
+            continue
+        total += us
+        key = row.key.lower()
+        group = next((g for g, needles in PROFILE_GROUPS.items()
+                      if any(n.lower() in key for n in needles)), GLUE)
+        split[group] += us
+        names[group][row.key] = names[group].get(row.key, 0) + row.count
+    return total, split, names, sorted(by_op, reverse=True)
+
+
+def log_split(total: float, split, by_op) -> None:
+    for group, us in split.items():
+        log(f"[profile]   {group}: {us / 1e3:.3f} ms ({us / total:.1%})")
+    for us, count, key in by_op[:8]:
+        log(f"[profile]   by op: {us / 1e3:.3f} ms in {count} calls of {key[:80]}")
+
+
 def profile_step(dev, cfg, state, steady: float) -> None:
     """The device time of one training step by kernel group (torch.profiler)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from tecogan_tpu_torch.train import Trainer
@@ -416,36 +513,7 @@ def profile_step(dev, cfg, state, steady: float) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.train_step(state, batch)
         torch.cuda.synchronize()
-
-    def device_us(evt, total: bool) -> float:
-        name = "device_time_total" if total else "self_device_time_total"
-        if not hasattr(evt, name):  # older torch
-            name = name.replace("device", "cuda")
-        return getattr(evt, name)
-
-    groups = {"chain kernel (forward)": ("resblock_kernel",),
-              "K2 (flow upsample backward)": ("upsample4_bwd_kernel",),
-              "K1 (flow upsample, bicubic skip)": ("upsample4_kernel",),
-              "cuDNN/cuBLAS convs and GEMMs": ("conv", "cudnn", "xmma", "gemm",
-                                               "dgrad", "wgrad", "cutlass", "sm90"),
-              "Adam": ("multi_tensor", "adam")}
-    glue = "glue (elementwise, gathers, copies)"
-    split = dict.fromkeys([*groups, glue], 0.0)
-    # Kernel rows count each kernel once; an operator's row holds the device
-    # time of the kernels it launched itself (by_op: where the glue comes from).
-    total, by_op = 0.0, []
-    for row in prof.key_averages():
-        us = device_us(row, total=False)
-        if us <= 0:
-            continue
-        if row.device_type != DeviceType.CUDA:
-            by_op.append((us, row.count, row.key))
-            continue
-        total += us
-        name = row.key.lower()
-        group = next((g for g, needles in groups.items()
-                      if any(n.lower() in name for n in needles)), glue)
-        split[group] += us
+    total, split, _, by_op = device_split(prof)
     if total <= 0:
         log("[profile] torch.profiler recorded no device time; see the CUDA-event times")
         return
@@ -456,12 +524,36 @@ def profile_step(dev, cfg, state, steady: float) -> None:
         f"share {max(0.0, 1 - total / 1e3 / (steady * 1e3)):.1%}) and "
         f"{alone * 1e3:.2f} ms/step on one batch with no loader running (idle "
         f"{max(0.0, 1 - total / 1e3 / (alone * 1e3)):.1%})")
-    for group, us in split.items():
-        log(f"[profile]   {group}: {us / 1e3:.3f} ms ({us / total:.1%})")
+    log_split(total, split, by_op)
     log(f"[profile]   of which the chain's backward (plain-chain replay + its "
         f"cuDNN backward, all kinds): {replay / 1e3:.3f} ms ({replay / total:.1%})")
-    for us, count, key in sorted(by_op, reverse=True)[:8]:
-        log(f"[profile]   by op: {us / 1e3:.3f} ms in {count} calls of {key[:80]}")
+
+
+def profile_streaming(sr, frames, secs: float) -> None:
+    """One StreamingSR.run under torch.profiler, split by kernel group; the
+    bfloat16 chain must have run through the tensor-core kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sr.run(frames, warmup=WARMUP)
+        torch.cuda.synchronize()
+    total, split, names, by_op = device_split(prof)
+    if total <= 0:
+        log("[profile] torch.profiler recorded no device time; see the CUDA-event times")
+        return
+    log(f"[profile] streaming, one StreamingSR.run of {FRAMES} frames: "
+        f"{total / 1e3:.2f} ms of device time, {total / 1e3 / FRAMES:.3f} ms/frame, "
+        f"against {secs * 1e3:.2f} ms of wall unprofiled ({FRAMES / secs:.2f} "
+        f"frames/s processed; device idle share {max(0.0, 1 - total / 1e3 / (secs * 1e3)):.1%})")
+    log_split(total, split, by_op)
+    chain = names["chain kernel"]
+    for key, count in chain.items():
+        log(f"[profile]   chain kernel: {count} launches of {key[:100]}")
+    mma = sum(n for key, n in chain.items() if "resblock_kernel_mma" in key)
+    if mma < NUM_RESBLOCK * FRAMES or any("__nv_bfloat16>" in key for key in chain):
+        raise RuntimeError(f"[profile] the chain ran {chain}, want >= "
+                           f"{NUM_RESBLOCK * FRAMES} launches of resblock_kernel_mma")
+
 
 def build_models(seed: int, config):
     from tecogan_tpu_torch.models import FNet, Generator
@@ -539,6 +631,7 @@ def run_main_path(dev, card: str):
         f"{CHUNK}: {secs:.3f} s wall, {FRAMES / secs:.2f} frames/s processed, "
         f"{(FRAMES - WARMUP) / secs:.2f} frames/s delivered, peak "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; card: {card}")
+    profile_streaming(sr, frames, secs)
     return launches
 
 
@@ -557,6 +650,10 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     log(f"[build] kernels built and loaded in {_build.build_and_load(verbose=True):.1f} s "
         f"-> {_build.library_path().relative_to(REPO)}")
+    blocks = ctypes.c_int(0)
+    _build.check(_build.library().tt_resblock_chain_bf16_blocks_per_sm(
+        ctypes.byref(blocks)), "resblock_chain occupancy")
+    log(f"[build] bfloat16 chain kernel: {blocks.value} resident blocks per SM")
 
     results = check_kernels(dev)
     check_autograd(dev)
@@ -568,30 +665,33 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = True
     train_launches = run_training(dev, card)
 
-    # launches: the training path's (this slice's main path; it runs all
-    # three kernels); ms / plain_ms: the timed cases in the dtype of the
-    # path that runs each kernel most.
+    # One entry per kernel. ms / plain_ms: the medians of its timed cases
+    # (summed) in the dtype of the path it serves; launches: that path's
+    # count (bfloat16 serves streaming, float32 training; the chain's two
+    # kernels share the wrapper's count, and each path runs one of them).
+    launches = {"streaming": stream_launches, "training": train_launches}
     kernels = []
-    for name, source, replaces, also, dtype in (
-            ("upsample4", "tecogan_tpu_torch/csrc/upsample4.cu",
-             "tecogan_tpu/kernels/upsample4.py:68", [], "bfloat16"),
-            ("upsample4_bwd", "tecogan_tpu_torch/csrc/upsample4.cu",
-             "tecogan_tpu/kernels/upsample4.py:129", [], "float32"),
-            ("resblock_chain", "tecogan_tpu_torch/csrc/resblock_chain.cu",
-             "tecogan_tpu/kernels/resblocks.py:87",
-             ["tecogan_tpu/kernels/resblocks.py:305",
-              "tecogan_tpu/kernels/resblocks.py:466"], "bfloat16")):
-        timed = results[name][dtype]
+    for name, key, source, replaces, dtype, path in (
+            ("upsample4", "upsample4", "tecogan_tpu_torch/csrc/upsample4.cu",
+             "tecogan_tpu/kernels/upsample4.py:68", "bfloat16", "streaming"),
+            ("upsample4_bwd", "upsample4_bwd", "tecogan_tpu_torch/csrc/upsample4.cu",
+             "tecogan_tpu/kernels/upsample4.py:129", "float32", "training"),
+            ("resblock_chain", "resblock_chain",
+             "tecogan_tpu_torch/csrc/resblock_chain_mma.cu",
+             "tecogan_tpu/kernels/resblocks.py:87", "bfloat16", "streaming"),
+            ("resblock_chain_f32", "resblock_chain",
+             "tecogan_tpu_torch/csrc/resblock_chain.cu",
+             "tecogan_tpu/kernels/resblocks.py:87", "float32", "training")):
+        timed = results[key][dtype]
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": train_launches[name],
-                 "launches_by_path": {"training": train_launches[name],
-                                      "streaming": stream_launches.get(name, 0)},
-                 "max_abs_err": max(e for _, e, _, _ in timed),
+                 "replaces": replaces, "launches": launches[path].get(key, 0),
+                 "path": path, "max_abs_err": max(e for _, e, _, _ in timed),
                  "ms": sum(ms for _, _, ms, _ in timed),
                  "plain_ms": sum(p for _, _, _, p in timed),
                  "timed": [label for label, *_ in timed], "dtype": dtype}
-        if also:
-            entry["also_replaces"] = also
+        if key == "resblock_chain":
+            entry["also_replaces"] = ["tecogan_tpu/kernels/resblocks.py:305",
+                                      "tecogan_tpu/kernels/resblocks.py:466"]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-// K3/K4/K5: the generator's residual-block chain at 64 channels, NHWC.
+// K3/K4/K5 in float32: the generator's residual-block chain at 64
+// channels, NHWC. (In bfloat16: resblock_chain_mma.cu, on tensor cores.)
 //
 // Per block:  x <- x + conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2,
 // SAME (zero) padding, float32 accumulation, one rounding to T per conv.
@@ -11,8 +12,8 @@
 //
 // Bound on the card: arithmetic. A block is 2 x 9 x 64 x 64 MACs per pixel
 // (75 kFLOP) against 256 bytes in and out per pixel at float32, so the
-// chain is compute-bound, and this first version runs on the CUDA cores in
-// float32 (tensor cores via mma/wgmma are later work). Design: one launch
+// chain is compute-bound; in float32 it stays on the CUDA cores (training's
+// 1e-3 GPU-vs-CPU step gate leaves no room for TF32). Design: one launch
 // per residual block, ping-ponging between two buffers. Each thread block
 // owns an 8x16-pixel output tile: it loads the input tile with a 2-pixel
 // halo into shared memory (zeros outside the image), computes y = relu(
@@ -217,11 +218,4 @@ extern "C" int tt_resblock_chain_f32(const void* x, void* buf_a, void* buf_b,
                                      const void* b2, int B, int H, int W, int N,
                                      void* stream) {
   return launch<float>(x, buf_a, buf_b, w1, b1, w2, b2, B, H, W, N, stream);
-}
-
-extern "C" int tt_resblock_chain_bf16(const void* x, void* buf_a, void* buf_b,
-                                      const void* w1, const void* b1, const void* w2,
-                                      const void* b2, int B, int H, int W, int N,
-                                      void* stream) {
-  return launch<__nv_bfloat16>(x, buf_a, buf_b, w1, b1, w2, b2, B, H, W, N, stream);
 }

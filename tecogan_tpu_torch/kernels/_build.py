@@ -2,8 +2,9 @@
 
 All ``tecogan_tpu_torch/csrc/*.cu`` files are compiled by ``nvcc`` into one
 shared library with a plain C interface, at first use, for Hopper
-(``sm_90a``). The library goes to ``tecogan_tpu_torch/_build/<hash>/``,
-keyed by a hash of the sources and the flags, so an edited source is
+(``sm_90a``): one ``nvcc`` per source, all started together, then one
+link. The library goes to ``tecogan_tpu_torch/_build/<hash>/``, keyed by a
+hash of the sources and the flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is. It is loaded with
 ``ctypes``: every entry point takes its pointers and the CUDA stream as
 ``void*`` and returns the ``cudaError_t`` of ``cudaGetLastError()`` after
@@ -29,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 _LIB_NAME = "libtecogan_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +46,8 @@ _SIGNATURES = {
     # (x, buf_a, buf_b, w1, b1, w2, b2, B, H, W, N, stream)
     "tt_resblock_chain_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tt_resblock_chain_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (int* blocks): resident blocks per SM of the bfloat16 chain kernel
+    "tt_resblock_chain_bf16_blocks_per_sm": (_P,),
 }
 
 
@@ -88,15 +91,30 @@ def build(verbose: bool = False) -> Path:
     if out.exists() and not verbose:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
+    nvcc, pid = _nvcc(), os.getpid()
+    ptxas = ("-Xptxas", "-v") if verbose else ()
+    jobs = []  # nvcc reads an input's kind from its suffix: objects end in .o
+    for src in _sources():
+        obj = out.with_name(f"{src.stem}.{pid}.o")
+        cmd = [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    outputs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, _, proc in jobs]
+    tmp = out.with_name(f"{out.name}.{pid}.tmp")
+    link = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+    try:
+        for cmd, text, rc in outputs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(link)}"
+                               f"\n{proc.stdout}\n{proc.stderr}")
+    finally:
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
     if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
+        print("".join(text for _, text, _ in outputs), flush=True)
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return out
 

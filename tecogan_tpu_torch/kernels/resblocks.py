@@ -4,11 +4,13 @@ Replaces ``tecogan_tpu/kernels/resblocks.py``: ``_chain_kernel`` (K3, via
 ``_fused_chain_single``), ``_paired_kernel`` (K4) and ``_paired_kernel_v2``
 (K5). The three compute one function, N blocks of
 ``x += conv3(relu(conv3(x, w1) + b1), w2) + b2`` with SAME padding; K4/K5
-only repack it for the TPU's 128-lane matrix unit. On the card the chain is
-bound by arithmetic (75 kFLOP per pixel and block). The CUDA kernel
-(``csrc/resblock_chain.cu``) runs one launch per block on 8x16-pixel tiles
-in shared memory, float32 FMAs on the CUDA cores, with the conv1 output
-kept on chip and masked to zero outside the image; see its header.
+only repack it for the TPU's 128-lane matrix unit. Both CUDA kernels run
+one launch per block on 8x16-pixel tiles in shared memory, with the conv1
+output kept on chip and masked to zero outside the image: in float32
+(``csrc/resblock_chain.cu``) with FMAs on the CUDA cores, in bfloat16
+(``csrc/resblock_chain_mma.cu``) as implicit GEMMs on the tensor cores
+(``mma.sync``, float32 accumulation, the JAX kernel's rounding points);
+see their headers.
 
 Layout as in the JAX package: x (B, H, W, C), w1/w2 (N, 3, 3, C, C) HWIO,
 b1/b2 (N, C). The kernel is specialised to C = 64, the TecoGAN width.
@@ -63,6 +65,8 @@ def _check_cuda_args(x, w1, b1, w2, b2) -> None:
             raise ValueError(f"{name} must be contiguous")
     if not x.is_contiguous():
         raise ValueError("resblock_chain needs a contiguous NHWC tensor")
+    if any(t.data_ptr() % 16 for t in (x, w1, b1, w2, b2)):
+        raise ValueError("resblock_chain needs 16-byte aligned tensors")
     if x.device.index != torch.cuda.current_device():
         raise ValueError(f"{x.device} is not the current CUDA device")
 

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import chain_oracle_bf16
 from tecogan_tpu_torch.config import FRVSR_PRESET
 from tecogan_tpu_torch.data.synthetic import synthetic_clip
 from tecogan_tpu_torch.kernels import (
@@ -66,6 +67,47 @@ def test_resblock_chain_kernel_matches_plain(cuda_device):
     torch.testing.assert_close(got, resblock_chain_plain(x, w1, b1, w2, b2),
                                rtol=0, atol=1e-4)
     torch.testing.assert_close(x, before, rtol=0, atol=0)  # input untouched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 37, 53), (3, 20, 33), (1, 5, 7)],
+                         ids=["ragged", "batch3", "tiny"])
+def test_resblock_chain_bf16_matches_its_rounding_points(cuda_device, shape):
+    """The bfloat16 tensor-core kernel, one block, against its rounding
+    points repeated in float32 (chain_oracle_bf16): partial tiles on both
+    axes, B = 3 on grid.z, a frame smaller than one tile. Tolerance 8e-3 of
+    the output's scale, ~2 bfloat16 ulps: float32 sums in another order may
+    flip a rounding of y or of the output."""
+    rng = np.random.RandomState(5)
+    c = 64
+    lim = 0.5 * (6.0 / (2 * 9 * c)) ** 0.5
+    x = torch.relu(_tensor(rng, (*shape, c), 1.0, cuda_device)).bfloat16()
+    weights = [_tensor(rng, s, k, cuda_device).bfloat16()
+               for s, k in (((1, 3, 3, c, c), lim), ((1, c), 0.1),
+                            ((1, 3, 3, c, c), lim), ((1, c), 0.1))]
+    before, launches = x.clone(), resblock_chain.launches
+    got = resblock_chain(x, *weights)
+    want = chain_oracle_bf16(x, *weights)
+    assert resblock_chain.launches == launches + 1
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max() <= 8e-3 * max(1.0, want.float().abs().max())
+    torch.testing.assert_close(x, before, rtol=0, atol=0)  # input untouched
+
+
+@pytest.mark.cuda
+def test_resblock_chain_bf16_matches_plain(cuda_device):
+    """Three bfloat16 blocks at a ragged shape with B = 2 against the plain
+    chain, which rounds after every op: 5e-2 of the output's scale, as in
+    chip_smoke.py."""
+    rng = np.random.RandomState(6)
+    c, n = 64, 3
+    lim = 0.5 * (6.0 / (2 * 9 * c)) ** 0.5
+    args = [torch.relu(_tensor(rng, (2, 37, 53, c), 1.0, cuda_device))] + [
+        _tensor(rng, s, k, cuda_device) for s, k in (
+            ((n, 3, 3, c, c), lim), ((n, c), 0.1), ((n, 3, 3, c, c), lim), ((n, c), 0.1))]
+    args = [t.bfloat16() for t in args]
+    got, want = resblock_chain(*args).float(), resblock_chain_plain(*args).float()
+    assert (got - want).abs().max() <= 5e-2 * max(1.0, want.abs().max())
 
 
 @pytest.mark.cuda
