@@ -32,7 +32,19 @@ Phases, each raising on failure (so the exit code is non-zero):
    ms/step, frames/s and peak memory; then a ``torch.profiler`` split of
    one step. This phase runs with PyTorch's default precision flags (cuDNN
    in TF32), as the training CLI does; the comparisons before it with TF32
-   off.
+   off;
+9. the inference CLI and the metrics suite at the main path's width: 41
+   synthetic 576x720 HR PNGs -> ``cli.main --mode inference
+   --input_dir_HR`` (blur and 4x subsample on the card, 5 warm-up frames
+   prepended, bfloat16, 16 resblocks, chunks of 23) -> 41 HR PNGs, with
+   the kernels' launch counts, byte-equal to ``StreamingSR.run`` on the
+   same LR frames (both under cuDNN's deterministic algorithms; a second,
+   timed CLI run keeps the default flags); the blur on the card against the CPU; a ``--checkpoint``
+   run on phase 8's checkpoint (10 blocks: the depth NOTE); ``cli.metrics``
+   on the 41 outputs against their HR frames (tOF by the torch Farneback
+   on the card); and ``evaluate_folders`` with a seeded random LPIPS on the
+   card against the CPU on 8 frames. Prints the split of the CLI's wall
+   time and the suite's seconds per frame.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel; the last is ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -89,6 +101,17 @@ SCENE_FRAMES, SCENE_H, SCENE_W = 14, 240, 320
 # Whole path, GPU kernels vs CPU plain versions, float32: the same tolerance
 # as the chain (it dominates), relative to the output's scale.
 PATH_TOL = 1e-3
+# The CLI phase: 41 HR frames (46 with the 5 warm-up frames the CLI
+# prepends: phase 6's 46 frames, 2 chunks); the suite card vs CPU on the
+# first 8 frames (4 scored after CUTFR).
+CLI_FRAMES, CLI_EVAL_FRAMES = FRAMES - WARMUP, 8
+# The HR -> LR blur, card vs CPU, after / 255: the same taps in the same
+# order, so float32 rounding at most.
+BLUR_TOL = 1e-6
+# LPIPS, tLP100 and tOF, card vs CPU, relative: float32 convolutions (cuDNN,
+# TF32 off) in another summation order; the Farneback flows in the same
+# elementwise order on both.
+EVAL_TOL = 1e-4
 
 
 def log(*args) -> None:
@@ -345,9 +368,10 @@ def check_step_vs_cpu(dev) -> None:
         f"gradient non-zero, worst rel {worst:.3e} ({worst_name}) tol {STEP_GRAD_TOL:.0e}")
 
 
-def run_training(dev, card: str):
-    """Phase 8: FRVSR_PRESET through ``train()`` on synthetic scenes, 40
-    steps and a resume to 45; then the profile of one step. Returns the
+def run_training(dev, card: str, tmp: str):
+    """Phase 8: FRVSR_PRESET through ``train()`` on synthetic scenes under
+    ``tmp``, 40 steps and a resume to 45 (checkpoints in
+    ``<tmp>/run/checkpoints``); then the profile of one step. Returns the
     launch counts of the 45 steps."""
     import contextlib
     import io
@@ -360,83 +384,82 @@ def run_training(dev, card: str):
 
     kernels = {"upsample4": upsample4, "upsample4_bwd": upsample4_bwd,
                "resblock_chain": resblock_chain}
-    with tempfile.TemporaryDirectory() as tmp:
-        data, out_dir = os.path.join(tmp, "scenes"), os.path.join(tmp, "run")
-        t0 = time.perf_counter()
-        write_synthetic_scenes(data, 3, SCENE_FRAMES, SCENE_H, SCENE_W, start_index=2000)
-        write_synthetic_scenes(data, 1, SCENE_FRAMES, SCENE_H, SCENE_W,
-                               start_index=2251, seed=100)
-        log(f"[train] 4 synthetic scenes of {SCENE_FRAMES} {SCENE_H}x{SCENE_W} PNG "
-            f"frames written in {time.perf_counter() - t0:.1f} s")
-        cfg = FRVSR_PRESET.replace(input_video_dir=data, max_frm=SCENE_FRAMES - 1,
-                                   save_freq=SAVE_FREQ, summary_freq=10)
-        # Time each step between two synchronisations (loader waits, saves
-        # and summaries fall outside).
-        step_secs = []
-        train_step = Trainer.train_step
+    data, out_dir = os.path.join(tmp, "scenes"), os.path.join(tmp, "run")
+    t0 = time.perf_counter()
+    write_synthetic_scenes(data, 3, SCENE_FRAMES, SCENE_H, SCENE_W, start_index=2000)
+    write_synthetic_scenes(data, 1, SCENE_FRAMES, SCENE_H, SCENE_W,
+                           start_index=2251, seed=100)
+    log(f"[train] 4 synthetic scenes of {SCENE_FRAMES} {SCENE_H}x{SCENE_W} PNG "
+        f"frames written in {time.perf_counter() - t0:.1f} s")
+    cfg = FRVSR_PRESET.replace(input_video_dir=data, max_frm=SCENE_FRAMES - 1,
+                               save_freq=SAVE_FREQ, summary_freq=10)
+    # Time each step between two synchronisations (loader waits, saves
+    # and summaries fall outside).
+    step_secs = []
+    train_step = Trainer.train_step
 
-        def timed_step(self, state, hr_seq):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            result = train_step(self, state, hr_seq)
-            torch.cuda.synchronize()
-            step_secs.append(time.perf_counter() - start)
-            return result
+    def timed_step(self, state, hr_seq):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = train_step(self, state, hr_seq)
+        torch.cuda.synchronize()
+        step_secs.append(time.perf_counter() - start)
+        return result
 
-        printed = io.StringIO()
-        Trainer.train_step = timed_step
-        try:
-            for k in kernels.values():
-                k.launches = 0
-            torch.cuda.reset_peak_memory_stats()
-            with contextlib.redirect_stdout(printed):
-                t0 = time.perf_counter()
-                state = train(cfg, out_dir, dev, max_steps=TRAIN_STEPS)
-                wall = time.perf_counter() - t0
-                first = (state.step, len(step_secs))
-                state = train(cfg, out_dir, dev, max_steps=RESUME_STEPS)
-            launches = {name: k.launches for name, k in kernels.items()}
-        finally:
-            Trainer.train_step = train_step
-        for line in printed.getvalue().splitlines():
-            if line.startswith(("step ", "Resumed", "Saved", "Dataset")):
-                log(f"[train] | {line}")
-        if first != (TRAIN_STEPS, TRAIN_STEPS) or \
-                (state.step, len(step_secs)) != (RESUME_STEPS, RESUME_STEPS):
-            raise RuntimeError(f"[train] steps {first} then {state.step}, "
-                               f"{len(step_secs)} step calls")
-        if f"Resumed from step {TRAIN_STEPS}" not in printed.getvalue():
-            raise RuntimeError("[train] the second run did not resume")
-        rows = [json.loads(line) for line in
-                open(os.path.join(out_dir, "log", "scalars.jsonl"))]
-        if not rows or not all(math.isfinite(v) for r in rows for v in r.values()):
-            raise RuntimeError(f"[train] scalars.jsonl: {len(rows)} rows, not all finite")
-        if not all(math.isfinite(float(v)) for v in state.ema_losses.values()):
-            raise RuntimeError(f"[train] loss EMAs {state.ema_losses}")
-        fresh = Trainer(cfg, "cpu").init_state(cfg.rand_seed)
-        for prefix, a, b in (("generator", fresh.generator, state.generator),
-                             ("fnet", fresh.fnet, state.fnet)):
-            for (name, p0), p1 in zip(a.named_parameters(), b.parameters()):
-                if torch.equal(p0, p1.detach().cpu()):
-                    raise RuntimeError(f"[train] {prefix}.{name} did not move")
-        peak = torch.cuda.max_memory_allocated() / 2**20
-        need = {"upsample4_bwd": RESUME_STEPS,
-                "resblock_chain": cfg.num_resblock * cfg.rnn_n * RESUME_STEPS,
-                "upsample4": (cfg.rnn_n + 1) * RESUME_STEPS}
-        log(f"[train] launches over {RESUME_STEPS} steps {launches}, at least {need}")
-        for k, n in need.items():
-            if launches[k] < n:
-                raise RuntimeError(f"{k} launched {launches[k]} times, want >= {n}")
-        steady = sum(step_secs[TRAIN_STEPS - 20:TRAIN_STEPS]) / 20
-        frames = cfg.batch_size * cfg.rnn_n
-        log(f"[train] FRVSR_PRESET ({cfg.num_resblock} resblocks, batch "
-            f"{cfg.batch_size}, crop {cfg.crop_size}, {cfg.rnn_n} frames, float32, "
-            f"cuDNN TF32 {'on' if torch.backends.cudnn.allow_tf32 else 'off'}): "
-            f"{TRAIN_STEPS} steps in {wall:.2f} s wall, resumed to {RESUME_STEPS}; "
-            f"steady {steady * 1e3:.2f} ms/step over steps 21-40, "
-            f"{frames / steady:.1f} frames/s; peak {peak:.0f} MiB; every parameter "
-            f"moved; {len(rows)} scalar rows; card: {card}")
-        profile_step(dev, cfg, state, steady)
+    printed = io.StringIO()
+    Trainer.train_step = timed_step
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(printed):
+            t0 = time.perf_counter()
+            state = train(cfg, out_dir, dev, max_steps=TRAIN_STEPS)
+            wall = time.perf_counter() - t0
+            first = (state.step, len(step_secs))
+            state = train(cfg, out_dir, dev, max_steps=RESUME_STEPS)
+        launches = {name: k.launches for name, k in kernels.items()}
+    finally:
+        Trainer.train_step = train_step
+    for line in printed.getvalue().splitlines():
+        if line.startswith(("step ", "Resumed", "Saved", "Dataset")):
+            log(f"[train] | {line}")
+    if first != (TRAIN_STEPS, TRAIN_STEPS) or \
+            (state.step, len(step_secs)) != (RESUME_STEPS, RESUME_STEPS):
+        raise RuntimeError(f"[train] steps {first} then {state.step}, "
+                           f"{len(step_secs)} step calls")
+    if f"Resumed from step {TRAIN_STEPS}" not in printed.getvalue():
+        raise RuntimeError("[train] the second run did not resume")
+    rows = [json.loads(line) for line in
+            open(os.path.join(out_dir, "log", "scalars.jsonl"))]
+    if not rows or not all(math.isfinite(v) for r in rows for v in r.values()):
+        raise RuntimeError(f"[train] scalars.jsonl: {len(rows)} rows, not all finite")
+    if not all(math.isfinite(float(v)) for v in state.ema_losses.values()):
+        raise RuntimeError(f"[train] loss EMAs {state.ema_losses}")
+    fresh = Trainer(cfg, "cpu").init_state(cfg.rand_seed)
+    for prefix, a, b in (("generator", fresh.generator, state.generator),
+                         ("fnet", fresh.fnet, state.fnet)):
+        for (name, p0), p1 in zip(a.named_parameters(), b.parameters()):
+            if torch.equal(p0, p1.detach().cpu()):
+                raise RuntimeError(f"[train] {prefix}.{name} did not move")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    need = {"upsample4_bwd": RESUME_STEPS,
+            "resblock_chain": cfg.num_resblock * cfg.rnn_n * RESUME_STEPS,
+            "upsample4": (cfg.rnn_n + 1) * RESUME_STEPS}
+    log(f"[train] launches over {RESUME_STEPS} steps {launches}, at least {need}")
+    for k, n in need.items():
+        if launches[k] < n:
+            raise RuntimeError(f"{k} launched {launches[k]} times, want >= {n}")
+    steady = sum(step_secs[TRAIN_STEPS - 20:TRAIN_STEPS]) / 20
+    frames = cfg.batch_size * cfg.rnn_n
+    log(f"[train] FRVSR_PRESET ({cfg.num_resblock} resblocks, batch "
+        f"{cfg.batch_size}, crop {cfg.crop_size}, {cfg.rnn_n} frames, float32, "
+        f"cuDNN TF32 {'on' if torch.backends.cudnn.allow_tf32 else 'off'}): "
+        f"{TRAIN_STEPS} steps in {wall:.2f} s wall, resumed to {RESUME_STEPS}; "
+        f"steady {steady * 1e3:.2f} ms/step over steps 21-40, "
+        f"{frames / steady:.1f} frames/s; peak {peak:.0f} MiB; every parameter "
+        f"moved; {len(rows)} scalar rows; card: {card}")
+    profile_step(dev, cfg, state, steady)
     return launches
 
 
@@ -635,6 +658,206 @@ def run_main_path(dev, card: str):
     return launches
 
 
+def _csv_cells(path: str):
+    """metrics.csv as (column, row index, cell) triples, the header rows
+    of its blocks included as column names."""
+    cells, header = [], []
+    for line in Path(path).read_text().splitlines():
+        row = line.split(",")
+        if row[0] == "":
+            header = row
+            continue
+        cells += [(name, row[0], cell) for name, cell in zip(header[1:], row[1:])]
+    return cells
+
+
+def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
+    """Phase 9: the inference CLI and the metrics suite at the main path's
+    width, under ``tmp``; ``ckpt_dir`` is phase 8's checkpoint dir. Returns
+    the launch counts of the CLI's run."""
+    import contextlib
+    import io
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tecogan_tpu_torch.cli import main as cli_main
+    from tecogan_tpu_torch.cli import metrics as cli_metrics
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.data.inference import hr_to_lr, load_inference_frames, read_frames
+    from tecogan_tpu_torch.data.png import write_png
+    from tecogan_tpu_torch.data.synthetic import synthetic_clip
+    from tecogan_tpu_torch.eval import LPIPS, evaluate_folders, random_alexnet_params
+    from tecogan_tpu_torch.kernels import resblock_chain, upsample4
+    from tecogan_tpu_torch.ops import list_png_in_dir
+    from tecogan_tpu_torch.recurrent import StreamingSR
+    from tecogan_tpu_torch.weights import (
+        from_jax_params, params_to_npz, read_params_npz, to_jax_params)
+
+    # (a) 41 HR PNGs and the phase-6 model (16 blocks) as a params npz.
+    hr_dir, npz = os.path.join(tmp, "cli_hr"), os.path.join(tmp, "cli_params.npz")
+    os.makedirs(hr_dir)
+    t0 = time.perf_counter()
+    hr = (synthetic_clip(CLI_FRAMES, 4 * LR_H, 4 * LR_W, seed=31, content="natural")
+          * 255).astype(np.uint8)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda i: write_png(os.path.join(hr_dir, f"im{i + 1}.png"), hr[i]),
+                      range(CLI_FRAMES)))
+    cfg = TecoConfig(num_resblock=NUM_RESBLOCK, compute_dtype="bfloat16", infer_chunk=CHUNK)
+    gen_tree, fnet_tree = to_jax_params(*build_models(6, cfg))
+    params_to_npz(npz, generator=gen_tree, fnet=fnet_tree)
+    log(f"[cli] {CLI_FRAMES} synthetic HR PNGs of {4 * LR_H}x{4 * LR_W} and a "
+        f"{NUM_RESBLOCK}-block params npz written in {time.perf_counter() - t0:.1f} s")
+
+    # (b) The CLI, in-process, as a user calls it; counted. Run 1 and the
+    # direct StreamingSR.run it is compared with use cuDNN's deterministic
+    # algorithms: a transposed conv may otherwise sum with atomics, and one
+    # float ulp can flip a uint8 level. Run 2, into another directory, keeps
+    # PyTorch's default flags, as a user's run does, and shows the spread of
+    # the wall time.
+    def cli(out_dir, *extra):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            t0 = time.perf_counter()
+            stats = cli_main.main(["--mode", "inference", "--input_dir_HR", hr_dir,
+                                   "--output_dir", out_dir, "--device", "cuda", *extra])
+            wall = time.perf_counter() - t0
+        return stats, wall, printed.getvalue()
+
+    out_dir = os.path.join(tmp, "cli_out")
+    argv = ["--params_npz", npz, "--compute_dtype", "bfloat16", "--infer_chunk", str(CHUNK)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        upsample4.launches = 0
+        resblock_chain.launches = 0
+        runs = [cli(out_dir, *argv)]
+        launches = {"upsample4": upsample4.launches,
+                    "resblock_chain": resblock_chain.launches}
+        data = load_inference_frames(input_dir_hr=hr_dir, device=dev)
+        trees = read_params_npz(npz)
+        sr = StreamingSR(cfg, *from_jax_params(trees["generator"], trees["fnet"]),
+                         output="uint8", device=dev)
+        direct, _ = sr.run(data.inputs, warmup=WARMUP)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    runs.append(cli(os.path.join(tmp, "cli_out2"), *argv))
+
+    # (c) 41 PNGs of 576x720x3, byte-equal to StreamingSR.run on the card.
+    names = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    if names != [f"output_{i:04d}.png" for i in range(CLI_FRAMES)]:
+        raise RuntimeError(f"[cli] wrote {names}")
+    got = read_frames([os.path.join(out_dir, n) for n in names])
+    if got.shape != (CLI_FRAMES, 4 * LR_H, 4 * LR_W, 3):
+        raise RuntimeError(f"[cli] frames of {got.shape}")
+    if direct.shape != got.shape or not np.array_equal(direct, got):
+        raise RuntimeError(f"[cli] PNGs differ from StreamingSR.run in "
+                           f"{int((direct != got).sum())} values")
+    if got.min() == got.max():
+        raise RuntimeError("[cli] output is constant")
+    blur_err = float(np.abs(hr_to_lr(hr[:3], dev) - hr_to_lr(hr[:3], "cpu")).max())
+    log(f"[cli] {len(names)} PNGs of {got.shape[1:]} byte-equal to StreamingSR.run on "
+        f"the card; HR->LR blur card vs CPU max_abs_err={blur_err:.3e} tol={BLUR_TOL:.0e}")
+    if not blur_err <= BLUR_TOL:
+        raise RuntimeError(f"[cli] blur card vs CPU {blur_err:.3e}")
+    need = {"upsample4": FRAMES + FRAMES // CHUNK, "resblock_chain": NUM_RESBLOCK * FRAMES}
+    log(f"[cli] launches {launches}, at least {need}")
+    for k, n in need.items():
+        if launches[k] < n:
+            raise RuntimeError(f"[cli] {k} launched {launches[k]} times, want >= {n}")
+    for i, (stats, wall, printed) in enumerate(runs, 1):
+        flags = "cuDNN deterministic" if i == 1 else "default flags"
+        log(f"[cli] run {i} ({flags}): {CLI_FRAMES} HR PNGs {4 * LR_H}x{4 * LR_W} -> LR {LR_H}x{LR_W} "
+            f"(+{WARMUP} warm-up) -> {stats['written']} HR PNGs, bfloat16, "
+            f"{NUM_RESBLOCK} resblocks, chunk {CHUNK}: decode + blur "
+            f"{stats['decode_s']:.3f} s, stream {stats['stream_s']:.3f} s "
+            f"({stats['frames'] / stats['stream_s']:.2f} frames/s processed), writer "
+            f"flush {stats['flush_s']:.3f} s, {stats['threads']} writer threads; end to "
+            f"end {wall:.3f} s wall, {stats['written'] / wall:.2f} frames/s PNG dir to "
+            f"PNG dir; card: {card}")
+    for line in runs[0][2].splitlines():
+        if line.startswith(("total time", "Wrote", "io:")):
+            log(f"[cli] | {line}")
+
+    # (d) The checkpoint route: phase 8's 10-block checkpoint, float32.
+    stats, wall, printed = cli(os.path.join(tmp, "cli_ckpt"), "--checkpoint", ckpt_dir,
+                               "--max_frames", "10")
+    note = [ln for ln in printed.splitlines() if ln.startswith(("Loaded checkpoint", "NOTE:"))]
+    if stats["written"] != 10 or not any(
+            "NOTE: checkpoint has 10 resblocks; overriding --num_resblock 16" in ln
+            for ln in note):
+        raise RuntimeError(f"[cli] --checkpoint run: {stats}, {note}")
+    for line in note:
+        log(f"[cli] --checkpoint | {line}")
+    log(f"[cli] --checkpoint: {stats['written']} frames, float32, in {wall:.3f} s")
+
+    # (e) The metrics CLI on the 41 outputs against their HR frames.
+    metrics_dir = os.path.join(tmp, "cli_metrics")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        t0 = time.perf_counter()
+        avg = cli_metrics.main(["--output", metrics_dir, "--results", out_dir,
+                                "--targets", hr_dir, "--device", "cuda"])
+        wall = time.perf_counter() - t0
+    header = Path(metrics_dir, "metrics.csv").read_text().splitlines()[0]
+    scored = CLI_FRAMES - 4
+    if "tOF_00" not in header or sorted(avg) != [
+            "FrameAvg_PSNR", "FrameAvg_SSIM", "FrameAvg_tOF"] or not all(
+            math.isfinite(v) for v in avg.values()):
+        raise RuntimeError(f"[eval] metrics CLI: header {header}, {avg}")
+    log(f"[eval] cli.metrics --device cuda, {scored} frames scored (PSNR, SSIM, tOF; "
+        f"no LPIPS weights): {wall:.3f} s, {wall / scored:.4f} s/frame; "
+        + ", ".join(f"{k} {v:.6f}" for k, v in avg.items()) + f"; card: {card}")
+
+    # (f) evaluate_folders with a seeded random LPIPS, card against CPU.
+    res8, tar8 = os.path.join(tmp, "eval_res"), os.path.join(tmp, "eval_tar")
+    for src, dst in ((out_dir, res8), (hr_dir, tar8)):
+        os.makedirs(dst)
+        for path in list_png_in_dir(src, prefix_skip="\x00")[:CLI_EVAL_FRAMES]:
+            shutil.copy(path, dst)
+    alex = random_alexnet_params(5)
+    rng = np.random.RandomState(6)
+    lin = [np.abs(rng.randn(c)).astype(np.float32) for c in (64, 192, 384, 256, 256)]
+    evals = []
+    for device in (dev, torch.device("cpu")):
+        timings = {}
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            avg = evaluate_folders([res8], [tar8], os.path.join(tmp, f"eval_{len(evals)}"),
+                                   lpips_model=LPIPS(alex, lin, device), device=device,
+                                   timings=timings)
+            wall = time.perf_counter() - t0
+        evals.append((avg, timings, wall, _csv_cells(
+            os.path.join(tmp, f"eval_{len(evals)}", "metrics.csv"))))
+    (avg_d, t_d, wall_d, cells_d), (avg_c, t_c, wall_c, cells_c) = evals
+    if [(n, i) for n, i, _ in cells_d] != [(n, i) for n, i, _ in cells_c]:
+        raise RuntimeError("[eval] card and CPU metrics.csv differ in layout")
+    scored = sum(name == "PSNR_00" for name, _, _ in cells_d)
+    if scored != CLI_EVAL_FRAMES - 4:
+        raise RuntimeError(f"[eval] {scored} frames scored, want {CLI_EVAL_FRAMES - 4}")
+    worst = {}
+    for (name, _, a), (_, _, b) in zip(cells_d, cells_c):
+        key = next(p for p in name.split("_") if p in ("PSNR", "SSIM", "LPIPS", "tOF", "tLP100"))
+        if key in ("PSNR", "SSIM") or "" in (a, b):
+            if a != b:
+                raise RuntimeError(f"[eval] {name}: card {a} vs CPU {b}, want byte-equal")
+            continue
+        rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+        worst[key] = max(worst.get(key, 0.0), rel)
+    log(f"[eval] evaluate_folders, {CLI_EVAL_FRAMES} frames ({CLI_EVAL_FRAMES - 4} scored), "
+        f"random-weight LPIPS: card vs CPU PSNR/SSIM cells byte-equal; worst relative "
+        f"difference {', '.join(f'{k} {v:.3e}' for k, v in sorted(worst.items()))} "
+        f"tol {EVAL_TOL:.0e}")
+    if sorted(worst) != ["LPIPS", "tLP100", "tOF"] or max(worst.values()) > EVAL_TOL:
+        raise RuntimeError(f"[eval] card vs CPU: {worst}")
+    n = CLI_EVAL_FRAMES - 4
+    for name, t, wall in (("card", t_d, wall_d), ("CPU", t_c, wall_c)):
+        log(f"[eval] {name}: {wall / n:.4f} s/frame in all: PNG read {t['read'] / n:.4f}, "
+            f"PSNR+SSIM {t['psnr_ssim'] / n:.4f}, Farneback {t['farneback'] / n:.4f}, "
+            f"LPIPS {t['lpips'] / n:.4f} s/frame; card: {card}")
+    log("[eval] FrameAvg card: " + ", ".join(f"{k} {v:.6f}" for k, v in avg_d.items()))
+    log("[eval] FrameAvg CPU:  " + ", ".join(f"{k} {v:.6f}" for k, v in avg_c.items()))
+    return launches
+
+
 def main() -> None:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -663,7 +886,10 @@ def main() -> None:
     # Phase 8 runs as a user's training does, with PyTorch's default flags:
     # cuDNN convolutions in TF32, float32 matmuls in full float32.
     torch.backends.cudnn.allow_tf32 = True
-    train_launches = run_training(dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches = run_training(dev, card, tmp)
+        # Phase 9 runs as a user's CLI does, with the same default flags.
+        cli_launches = run_cli(dev, card, tmp, os.path.join(tmp, "run", "checkpoints"))
 
     # One entry per kernel. ms / plain_ms: the medians of its timed cases
     # (summed) in the dtype of the path it serves; launches: that path's
@@ -689,6 +915,8 @@ def main() -> None:
                  "ms": sum(ms for _, _, ms, _ in timed),
                  "plain_ms": sum(p for _, _, _, p in timed),
                  "timed": [label for label, *_ in timed], "dtype": dtype}
+        if path == "streaming":  # the inference CLI runs the streaming path
+            entry["cli_launches"] = cli_launches.get(key, 0)
         if key == "resblock_chain":
             entry["also_replaces"] = ["tecogan_tpu/kernels/resblocks.py:305",
                                       "tecogan_tpu/kernels/resblocks.py:466"]

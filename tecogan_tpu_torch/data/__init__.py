@@ -1,2 +1,2 @@
-"""Training data of the port: the PNG codec, synthetic scenes and the
-scene loader. Imports no JAX and no OpenCV."""
+"""Data of the port: the PNG codec, synthetic scenes, the scene loader and
+the inference CLI's frame I/O. Imports no JAX and no OpenCV."""

@@ -13,8 +13,9 @@ Layout: ``<ckpt_dir>/<step>/state.pt``, one ``torch.save`` of a dict of
 tensors and plain values (read back with ``weights_only=True``), written to
 a temporary directory and renamed into place. The JAX package's orbax
 checkpoints are not read; weights cross between the packages through
-``weights.params_to_npz`` / ``read_params_npz``. Warm starts from a TF npz
-wait for the TF name map (ROADMAP queue 1 item 5).
+``weights.params_to_npz`` / ``read_params_npz``. :func:`load_models`
+reads a checkpoint's generator and FNet for the inference CLI. Warm starts
+from a TF npz (``warm_start_tf_npz``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -93,6 +94,29 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState,
     state.ema_losses = {k: v.to(device) for k, v in payload["ema_losses"].items()}
     state.step = int(payload["step"])
     return state
+
+
+def load_models(ckpt_dir: str, config):
+    """The generator and FNet of the newest checkpoint, for inference: ``(step,
+    generator, fnet)`` as float32 CPU modules. Depth and widths are the
+    checkpoint's (read from its shapes), the flow's velocity ``config``'s."""
+    from tecogan_tpu_torch.models import FNet, Generator
+
+    payload = _load(ckpt_dir, None)
+    gen_sd, fnet_sd = payload["generator"], payload["fnet"]
+    depth = sum(1 for k in gen_sd if re.fullmatch(r"resblocks\.\d+\.conv_1\.weight", k))
+    if depth == 0:
+        raise ValueError(f"{ckpt_dir}: the generator has no residual blocks")
+
+    def widths(prefix):
+        return tuple(v.shape[0] for k, v in fnet_sd.items()
+                     if re.fullmatch(rf"{prefix}\.\d+\.conv_1\.weight", k))
+
+    gen = Generator(num_resblock=depth, channels=gen_sd["input_stage_conv.weight"].shape[0])
+    fnet = FNet(widths("encoders"), widths("decoders"), config.flow_max_velocity)
+    gen.load_state_dict(gen_sd)
+    fnet.load_state_dict(fnet_sd)
+    return int(payload["step"]), gen, fnet
 
 
 def merge_partial_restore(current: Dict[str, torch.Tensor],

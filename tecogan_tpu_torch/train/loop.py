@@ -10,19 +10,22 @@ In reference order:
   (main.py:377-421), printing ``image/sec*frames`` like the reference
   (main.py:404-411); validation losses every ``summary_freq`` on the
   held-out scene split (main.py:394-402);
+- after each save, test-while-train: a detached inference run of the
+  port's CLI on the fresh checkpoint (main.py:151-174), over the first 10
+  frames of ``<input_video_dir>/../LR/calendar`` when that folder exists;
 - Ctrl-C saves a final checkpoint (main.py:423-429); so does SIGTERM
   (preemption), after the step in flight.
 
-Not ported yet: the test-while-train inference child (main.py:151-174; it
-needs the inference CLI, ROADMAP queue 1 item 5) and the GIF sequence
-summaries (PIL, item 10). Training runs on the one device it is given,
-with no fallback.
+Not ported yet: the GIF sequence summaries (PIL, ROADMAP queue 1 item 10).
+Training runs on the one device it is given, with no fallback.
 """
 
 from __future__ import annotations
 
 import os
 import signal
+import subprocess
+import sys
 import time
 from typing import Optional, Union
 
@@ -39,6 +42,55 @@ from tecogan_tpu_torch.train.checkpoint import (
 from tecogan_tpu_torch.train.trainer import Trainer, TrainState
 from tecogan_tpu_torch.utils.logging import param_summary
 from tecogan_tpu_torch.utils.summaries import SummaryLogger
+
+
+# Live test-while-train children, reaped on each new spawn and at train()'s
+# end so long runs do not accumulate zombies.
+_twt_procs: list = []
+_PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _reap_test_while_train(final: bool = False) -> None:
+    for proc, log_path in list(_twt_procs):
+        rc = proc.poll()
+        if rc is None:
+            if final:  # exiting: orphans reparent to init, which reaps them
+                print(f"test-while-train child pid={proc.pid} still running; "
+                      f"log: {log_path}")
+                _twt_procs.remove((proc, log_path))
+            continue
+        _twt_procs.remove((proc, log_path))
+        if rc != 0:  # their output is in the log
+            print(f"test-while-train child exited rc={rc}; log: {log_path}")
+
+
+def _spawn_test_while_train(config: TecoConfig, output_dir: str, ckpt_dir: str,
+                            device: torch.device) -> Optional[subprocess.Popen]:
+    """Start a detached ``cli.main --mode inference`` on the newest
+    checkpoint, on the training device, writing ``train_out_*.png`` and its
+    log to ``<output_dir>/train`` (reference testWhileTrain main.py:151-174);
+    None when there is no ``LR/calendar`` folder beside the scenes."""
+    _reap_test_while_train()
+    test_dir = config.input_video_dir and os.path.join(
+        os.path.dirname(config.input_video_dir), "LR", "calendar")
+    if not test_dir or not os.path.isdir(test_dir):
+        return None
+    twt_dir = os.path.join(output_dir, "train")
+    os.makedirs(twt_dir, exist_ok=True)
+    cmd = [sys.executable, "-m", "tecogan_tpu_torch.cli.main",
+           "--mode", "inference", "--input_dir_LR", test_dir,
+           "--output_dir", twt_dir, "--checkpoint", ckpt_dir,
+           "--device", str(device), "--max_frames", "10",
+           "--output_name", "train_out"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (_PACKAGE_ROOT, env.get("PYTHONPATH")) if p)
+    log_path = os.path.join(twt_dir, "test_while_train.log")
+    with open(log_path, "ab") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                env=env, start_new_session=True)
+    _twt_procs.append((proc, log_path))
+    return proc
 
 
 class _PreemptionGuard:
@@ -79,7 +131,8 @@ def _save_once(ckpt_dir: str, state: TrainState) -> None:
 def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
           summary_dir: Optional[str] = None,
           pre_trained_dir: Optional[str] = None,
-          max_steps: Optional[int] = None) -> TrainState:
+          max_steps: Optional[int] = None,
+          test_while_train: bool = True) -> TrainState:
     """Train on ``device`` to ``config.max_iter`` (or ``max_steps``) steps;
     returns the final state. Checkpoints go to ``<output_dir>/checkpoints``,
     scalars to ``<summary_dir>/scalars.jsonl`` (default ``<output_dir>/log``)."""
@@ -144,6 +197,9 @@ def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
                 if step % config.save_freq == 0 or step == total:
                     save_checkpoint(ckpt_dir, state)
                     print(f"Saved checkpoint at step {step}")
+                    if test_while_train:
+                        _spawn_test_while_train(config, output_dir, ckpt_dir,
+                                                trainer.device)
     except KeyboardInterrupt:
         _save_once(ckpt_dir, state)
         print(f"KeyboardInterrupt: saved final checkpoint at step {state.step}")
@@ -151,4 +207,5 @@ def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
         if val_loader is not None:
             val_loader.stop()
         logger.close()
+        _reap_test_while_train(final=True)
     return state

@@ -11,6 +11,8 @@
   nested dicts, e.g. ``{"generator": {...}, "fnet": {...}}``;
   :func:`params_to_npz` writes them, so the JAX package reads a model the
   port trained (``npz_to_params``).
+- :func:`convert_tf_npz` maps the variable names of a TF TecoGAN/FRVSR
+  checkpoint dumped to npz onto those trees.
 
 Layouts: a flax ``Conv`` kernel is HWIO, a torch ``Conv2d`` weight OIHW; a
 flax ``ConvTranspose(transpose_kernel=True)`` kernel is (kh, kw, out, in), a
@@ -25,7 +27,7 @@ with no residual blocks, where ``checkpoint.py:detect_num_resblock`` returns
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -133,6 +135,68 @@ def params_to_npz(path: str, **trees: Tree) -> None:
     for name, tree in trees.items():
         walk(name, tree)
     np.savez(path, **flat)
+
+
+_TF_RESBLOCK = re.compile(
+    r"generator/generator_unit/resblock_(\d+)/conv_1/(Conv/)?weights$")
+
+
+def convert_tf_npz(npz_path: str, num_resblock: Optional[int] = 16) -> Dict[str, Any]:
+    """A TF TecoGAN/FRVSR checkpoint dumped to npz (TF variable name ->
+    array) as flax-layout trees of numpy arrays: ``{"generator": ...,
+    "fnet": ...}`` (plus ``"global_step"`` when present), which
+    :func:`from_jax_params` takes. Counterpart of
+    ``tecogan_tpu/train/checkpoint.py:convert_tf_npz`` (``:262-331``) for
+    the generator and FNet; the discriminator's trees wait for TecoGAN
+    training.
+
+    Both spellings of a conv are read: ``.../conv_1/Conv/weights`` (slim
+    scopes) and flat ``.../conv_1/weights``. Adam slots, EMA shadows and
+    the discriminator are ignored. ``num_resblock=None`` takes the depth
+    from the npz's own names; unlike the JAX package it raises when there
+    are none rather than build a generator without its trunk."""
+    with np.load(npz_path) as z:
+        data = {k: z[k] for k in z.files}
+    if num_resblock is None:
+        num_resblock = max((int(m.group(1)) for m in map(_TF_RESBLOCK.match, data) if m),
+                           default=0)
+        if num_resblock == 0:
+            raise ValueError(f"{npz_path}: no generator resblock_<i>/conv_1 weights; "
+                             "refusing to build a generator without its trunk")
+
+    def get(*names):
+        for name in names:
+            if name in data:
+                return data[name]
+        raise KeyError(f"none of {names} in checkpoint npz")
+
+    def conv(scope, inner="Conv"):
+        # A TF conv2d_transpose kernel, [k, k, out, in], is already the
+        # layout of a flax ConvTranspose(transpose_kernel=True).
+        return {"kernel": get(f"{scope}/{inner}/weights", f"{scope}/weights"),
+                "bias": get(f"{scope}/{inner}/biases", f"{scope}/biases")}
+
+    g = "generator/generator_unit"
+    gen = {"input_stage_conv": conv(f"{g}/input_stage/conv")}
+    for i in range(1, num_resblock + 1):
+        gen[f"resblock_{i}_conv_1"] = conv(f"{g}/resblock_{i}/conv_1")
+        gen[f"resblock_{i}_conv_2"] = conv(f"{g}/resblock_{i}/conv_2")
+    for j in (1, 2):
+        gen[f"conv_tran{j}"] = conv(f"{g}/conv_tran2highres/conv_tran{j}", "Conv2d_transpose")
+    gen["output_stage_conv"] = conv(f"{g}/output_stage/conv")
+
+    f = "fnet/autoencode_unit"
+    fnet = {}
+    for i in (1, 2, 3):
+        for j in (1, 2):
+            fnet[f"encoder_{i}_conv_{j}"] = conv(f"{f}/encoder_{i}/conv_{j}")
+            fnet[f"decoder_{i}_conv_{j}"] = conv(f"{f}/decoder_{i}/conv_{j}")
+    fnet["output_conv1"] = conv(f"{f}/output_stage/conv1")
+    fnet["output_conv2"] = conv(f"{f}/output_stage/conv2")
+    out: Dict[str, Any] = {"generator": gen, "fnet": fnet}
+    if "global_step" in data:
+        out["global_step"] = int(data["global_step"])
+    return out
 
 
 def read_params_npz(path: str) -> Dict[str, Dict[str, Any]]:

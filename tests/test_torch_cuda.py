@@ -196,3 +196,95 @@ def test_train_step_reaches_every_parameter(cuda_device):
         got = grads[0][name]
         assert got.abs().max() > 0, name
         assert (got - want).abs().max() <= 1e-3 * want.abs().max(), name
+
+
+@pytest.mark.cuda
+def test_blur_matches_cpu(cuda_device):
+    """The inference CLI's HR -> LR blur on the card against the CPU: the
+    same taps in the same order, float32."""
+    from tecogan_tpu_torch.data.inference import hr_to_lr
+
+    frames = np.random.RandomState(10).randint(0, 256, (2, 96, 120, 3)).astype(np.uint8)
+    got, want = hr_to_lr(frames, cuda_device), hr_to_lr(frames, "cpu")
+    assert got.shape == (2, 24, 30, 3) and np.abs(got - want).max() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_farneback_matches_cpu(cuda_device):
+    """tOF's Farneback flow on the card against the CPU (elementwise ops
+    and gathers in one order on both): within 1e-4 px."""
+    from tecogan_tpu_torch.eval import farneback_flow, rgb_to_gray
+
+    clip = (synthetic_clip(2, 96, 128, seed=7, content="natural") * 255).astype(np.uint8)
+    prev, cur = (torch.from_numpy(rgb_to_gray(f)) for f in clip)
+    got = farneback_flow(prev.to(cuda_device), cur.to(cuda_device))
+    assert got.device.type == "cuda" and got.shape == (96, 128, 2)
+    want = farneback_flow(prev, cur)
+    assert (got.cpu() - want).abs().max() <= 1e-4
+    assert want.abs().max() > 0.1
+
+
+@pytest.mark.cuda
+def test_lpips_matches_cpu(cuda_device):
+    """LPIPS with seeded random weights on the card (cuDNN, TF32 off inside
+    the module) against the CPU: rtol 1e-4."""
+    from tecogan_tpu_torch.eval import LPIPS, random_alexnet_params
+
+    rng = np.random.RandomState(11)
+    alex = random_alexnet_params(3)
+    lin = [np.abs(rng.randn(c)).astype(np.float32) for c in (64, 192, 384, 256, 256)]
+    img0 = (rng.rand(2, 96, 128, 3) * 2 - 1).astype(np.float32)
+    img1 = (rng.rand(2, 96, 128, 3) * 2 - 1).astype(np.float32)
+    torch.backends.cudnn.allow_tf32 = True  # the module switches it off itself
+    try:
+        got = LPIPS(alex, lin, cuda_device)(img0, img1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    want = LPIPS(alex, lin, "cpu")(img0, img1)
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_inference_cli_matches_streaming(cuda_device, tmp_path, monkeypatch):
+    """cli.main --mode inference on the card, 10 LR PNGs at 2 resblocks,
+    float32: the HR PNGs equal StreamingSR.run on the same frames and
+    weights, and the kernels ran. Both runs use cuDNN's deterministic
+    algorithms: a transposed conv may otherwise sum with atomics, and one
+    float ulp can flip a uint8 level."""
+    from tecogan_tpu_torch.cli.main import main
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.data.inference import load_inference_frames, read_frames
+    from tecogan_tpu_torch.data.png import write_png
+    from tecogan_tpu_torch.models import FNet, Generator
+    from tecogan_tpu_torch.models.layers import glorot_init_
+    from tecogan_tpu_torch.recurrent import StreamingSR
+    from tecogan_tpu_torch.weights import params_to_npz, to_jax_params
+
+    lr_dir = tmp_path / "lr"
+    lr_dir.mkdir()
+    clip = (synthetic_clip(10, 36, 44, seed=8, content="natural") * 255).astype(np.uint8)
+    for i, frame in enumerate(clip):
+        write_png(str(lr_dir / f"f{i}.png"), frame)
+    gen = torch.Generator().manual_seed(9)
+    models = (glorot_init_(Generator(2, 64), gen), glorot_init_(FNet(), gen))
+    gtree, ftree = to_jax_params(*models)
+    params_to_npz(str(tmp_path / "w.npz"), generator=gtree, fnet=ftree)
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    before =(upsample4.launches, resblock_chain.launches)
+    stats = main(["--mode", "inference", "--device", "cuda", "--input_dir_LR", str(lr_dir),
+                  "--output_dir", str(tmp_path / "out"), "--params_npz", str(tmp_path / "w.npz"),
+                  "--infer_chunk", "6", "--num_resblock", "2"])
+    assert stats["written"] == 10
+    assert upsample4.launches - before[0] >= 15 + 3
+    assert resblock_chain.launches - before[1] >= 2 * 15
+    names = [f"output_{i:04d}.png" for i in range(10)]
+    assert sorted(p.name for p in (tmp_path / "out").glob("*.png")) == names
+    got = read_frames([str(tmp_path / "out" / n) for n in names])
+
+    sr = StreamingSR(TecoConfig(num_resblock=2, infer_chunk=6), *models,
+                     output="uint8", device=cuda_device)
+    want, _ = sr.run(load_inference_frames(input_dir_lr=str(lr_dir), as_uint8=True).inputs,
+                     warmup=5)
+    np.testing.assert_array_equal(got, want)

@@ -81,6 +81,12 @@ def test_cli_guards(scenes, tmp_path, monkeypatch):
         main(_argv(scenes, out, "--device", "cpu", "--ratio", "0.01"))
     with pytest.raises(NotImplementedError, match="item 8"):
         main(_argv(scenes, out, "--device", "cpu", "--vgg_npz", "vgg.npz"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        main(["--mode", "inference", "--output_dir", out])
+    # Inference, as the JAX CLI: no weight source exits; video input is
+    # not ported yet and names its ROADMAP item.
+    with pytest.raises(SystemExit, match="inference needs --checkpoint"):
+        main(["--mode", "inference", "--device", "cpu", "--input_dir_LR", scenes,
+              "--output_dir", out])
+    with pytest.raises(NotImplementedError, match="item 12"):
+        main(["--mode", "inference", "--device", "cpu", "--input_video", "clip.mp4",
+              "--output_dir", out, "--allow_random_weights"])
     assert latest_step(os.path.join(out, "checkpoints")) is None
