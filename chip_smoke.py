@@ -11,8 +11,13 @@ Phases, each raising on failure (so the exit code is non-zero):
    upsample's adjoint, the chain), at the streaming and training paths'
    shapes and a ragged one, float32 (TF32 off) and bfloat16, with the
    error beside its tolerance and CUDA-event times (median and range of 5
-   alternating windows); the bfloat16 chain also, one block at three
-   shapes, against its own rounding points in float32 (8e-3);
+   alternating windows) of the kernel, its plain version and, where one
+   PyTorch call computes the same function (``torch.einsum`` for K1 and
+   K2; none for the chain), that call, with the bound (bytes over HBM's
+   rate or operations over the units' peak, its arithmetic printed) and
+   the kernel's share of it; the float32 chain also at the training
+   shape, (4,32,32,64) with N=10; the bfloat16 chain also, one block at
+   three shapes, against its own rounding points in float32 (8e-3);
 4. autograd: the upsample (both filters) and the chain on the card against
    the same functions on the CPU, gradients of every input, float32;
 5. the whole streaming path at full width (16 resblocks, 64 channels) on
@@ -46,8 +51,13 @@ Phases, each raising on failure (so the exit code is non-zero):
    card against the CPU on 8 frames. Prints the split of the CLI's wall
    time and the suite's seconds per frame.
 
-The second-to-last line of stdout is a JSON object with one entry per
-kernel; the last is ``{"ok": true, "device": {...}}``. Imports no JAX.
+Then one ``[yardstick]`` line per timed case of phase 3 with its wrapper's
+launches on the streaming and training paths. The second-to-last line of
+stdout is a JSON object with one entry per kernel; the last is
+``{"ok": true, "device": {...}}``. Imports no JAX.
+
+``python3 chip_smoke.py --kernels-only`` stops after phase 3 and prints no
+result line (for comparing two trees' kernels in one call).
 """
 
 from __future__ import annotations
@@ -124,25 +134,95 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def time_pair(fn, plain_fn, windows: int = 5, reps: int = 20, warm: int = 10):
-    """CUDA-event ms per call of fn and of plain_fn, each as (median, min,
-    max) over `windows` windows of `reps` calls, after `warm` calls of each;
-    the windows alternate plain, kernel, kernel, plain, ..."""
-    for f in (plain_fn, fn):
+def time_fns(fns, windows: int = 5, reps: int = 20, warm: int = 10):
+    """CUDA-event ms per call of each function, as (median, min, max) over
+    `windows` windows of `reps` calls, after `warm` calls of each; the
+    windows alternate the order (last to first, then first to last, ...),
+    as plain, kernel, kernel, plain does for two."""
+    for f in reversed(fns):
         for _ in range(warm):
             f()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    times = ([], [])
+    times = [[] for _ in fns]
+    order = list(range(len(fns)))
     for i in range(windows):
-        for k in ((1, 0) if i % 2 == 0 else (0, 1)):
-            f = (fn, plain_fn)[k]
+        for k in (order[::-1] if i % 2 == 0 else order):
             start.record()
             for _ in range(reps):
-                f()
+                fns[k]()
             end.record()
             torch.cuda.synchronize()
             times[k].append(start.elapsed_time(end) / reps)
-    return tuple((float(np.median(t)), min(t), max(t)) for t in times)
+    return [(float(np.median(t)), min(t), max(t)) for t in times]
+
+
+# The bound of a timed case: the least time an H100 SXM could take for the
+# same work, the larger of its bytes (each input read once, each output
+# written once) over the HBM rate and its operations over the peak rate of
+# the units that do them (NVIDIA's H100 SXM data sheet, dense).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16 tensor cores": 989e12, "float32 CUDA cores": 67e12}
+
+
+def bound(launches: int, bytes_: float, flops: float, unit: str):
+    """(bound ms, "bytes" or "operations", its arithmetic) of `launches`
+    launches that each move `bytes_` and do `flops` on `unit`; each launch
+    is bound by the larger of its two times."""
+    mem_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    op_ms = flops / PEAK_FLOPS[unit] * 1e3
+    by = "bytes" if mem_ms >= op_ms else "operations"
+    per = f"{launches} launches x " if launches > 1 else ""
+    text = (f"{per}max({bytes_ / 1e6:.2f} MB / 3.35 TB/s = {mem_ms:.5f} ms, "
+            f"{flops / 1e9:.4f} GFLOP / {PEAK_FLOPS[unit] / 1e12:.0f} TFLOP/s "
+            f"{unit} = {op_ms:.5f} ms)")
+    return launches * max(mem_ms, op_ms), by, text
+
+
+def upsample_bound(x: torch.Tensor, nt: int):
+    """K1 on x (B, H, W, C) or K2 onto dx of that shape, NT taps a pass: x
+    and the 16x larger output (or g) once each; NT multiply-adds for each
+    element of the H pass (4H x W) and of the W pass (4H x 4W): 40 NT
+    flops per x element, in float32 on the CUDA cores."""
+    return bound(1, 17 * x.numel() * x.element_size(), 40 * nt * x.numel(),
+                 "float32 CUDA cores")
+
+
+def chain_bound(x: torch.Tensor, n: int):
+    """n resblock launches on x (B, H, W, 64): each reads x, its 2 convs'
+    weights and biases and writes its output; 2 x 9 x 64 x 64 multiply-adds
+    per pixel and conv."""
+    c, size = x.shape[-1], x.element_size()
+    px = x.numel() // c
+    unit = "bf16 tensor cores" if x.dtype == torch.bfloat16 else "float32 CUDA cores"
+    return bound(n, (2 * x.numel() + 2 * 9 * c * c + 2 * c) * size,
+                 2 * 2 * 9 * c * c * px, unit)
+
+
+def einsum_upsample(x: torch.Tensor, filter_: str, alpha: float):
+    """The one PyTorch call that computes K1 (the yardstick; the port never
+    calls it): out = Sh x Sw per plane, alpha folded into Sh (x4 is exact)."""
+    from tecogan_tpu_torch.ops.resize import stencil_matrix
+
+    _, h, w, _ = x.shape
+    sh = (stencil_matrix(h, filter_, x.device) * alpha).to(x.dtype)
+    sw = stencil_matrix(w, filter_, x.device).to(x.dtype)
+    return lambda: torch.einsum("Hh,bhwc,Ww->bHWc", sh, x, sw)
+
+
+def einsum_upsample_bwd(g: torch.Tensor, filter_: str, alpha: float):
+    """The one PyTorch call that computes K2: dx = alpha Sh^T g Sw^T."""
+    from tecogan_tpu_torch.ops.resize import stencil_matrix
+
+    _, h4, w4, _ = g.shape
+    sh = (stencil_matrix(h4 // 4, filter_, g.device) * alpha).to(g.dtype)
+    sw = stencil_matrix(w4 // 4, filter_, g.device).to(g.dtype)
+    return lambda: torch.einsum("Hh,bHWc,Ww->bhwc", sh, g, sw)
+
+
+CHAIN_NO_LIBRARY = "no single call computes a residual block"
+# A library call computes the kernel's function, in another rounding order:
+# it must land within this share of the output's scale of the plain version.
+LIBRARY_TOL = 5e-2
 
 
 def chain_oracle_bf16(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -176,66 +256,88 @@ def seeded(shape, scale, gen, device, dtype):
 
 
 def check_kernels(dev):
-    """Phase 3. Returns {kernel: {dtype: [(label, abs_err, kernel_ms,
-    plain_ms)]}} for the timed cases (the main path's shapes)."""
+    """Phase 3. Returns one record per timed case (the paths' shapes): its
+    kernel, dtype, label, path ("streaming", "training" or None where no
+    path runs that kernel at that shape or dtype), max abs error, the
+    kernel's, the plain version's and the library call's ms (None with its
+    reason where no one call computes the function) and the bound."""
     from tecogan_tpu_torch.kernels import (
         resblock_chain, resblock_chain_plain, upsample4, upsample4_bwd,
         upsample4_bwd_plain, upsample4_plain)
 
     gen = torch.Generator().manual_seed(3)
-    results = {"upsample4": {}, "upsample4_bwd": {}, "resblock_chain": {}}
+    records = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
+        bf16 = dtype == torch.bfloat16
         flow = seeded((CHUNK, LR_H, LR_W, 2), 8.0, gen, dev, dtype)
         lr = torch.rand((1, LR_H, LR_W, 3), generator=gen).to(dev, dtype)
         ragged = torch.rand((2, 37, 53, 3), generator=gen).to(dev, dtype)
-        # (kernel, label, kernel fn, plain fn, timed)
+        # (kernel, label, kernel fn, plain fn, timing) where timing is None
+        # (untimed) or (path, library fn or its absence's reason, bound).
         cases = [
             ("upsample4", "bilinear flow x4 (23,144,180,2)",
              lambda: upsample4(flow, "bilinear", 4.0),
-             lambda: upsample4_plain(flow, "bilinear", 4.0), True),
+             lambda: upsample4_plain(flow, "bilinear", 4.0),
+             ("streaming" if bf16 else None, einsum_upsample(flow, "bilinear", 4.0),
+              upsample_bound(flow, 2))),
             ("upsample4", "bicubic skip (1,144,180,3)",
              lambda: upsample4(lr, "bicubic"),
-             lambda: upsample4_plain(lr, "bicubic"), True),
+             lambda: upsample4_plain(lr, "bicubic"),
+             ("streaming" if bf16 else None, einsum_upsample(lr, "bicubic", 1.0),
+              upsample_bound(lr, 4))),
             ("upsample4", "bilinear ragged (2,37,53,3)",
              lambda: upsample4(ragged, "bilinear"),
-             lambda: upsample4_plain(ragged, "bilinear"), False),
+             lambda: upsample4_plain(ragged, "bilinear"), None),
             ("upsample4", "bicubic ragged (2,37,53,3)",
              lambda: upsample4(ragged, "bicubic"),
-             lambda: upsample4_plain(ragged, "bicubic"), False),
+             lambda: upsample4_plain(ragged, "bicubic"), None),
         ]
         # K2 at the training path's flow gradient (B*(T-1) = 36 pairs at
         # HR 128x128), the streaming geometry and a ragged shape.
         g_train = seeded((36, 128, 128, 2), 1.0, gen, dev, dtype)
         g_stream = seeded((CHUNK, 4 * LR_H, 4 * LR_W, 2), 1.0, gen, dev, dtype)
         g_ragged = seeded((2, 148, 212, 3), 1.0, gen, dev, dtype)
+        dx_train = torch.empty((36, 32, 32, 2), dtype=dtype, device="meta")
+        dx_stream = torch.empty((CHUNK, LR_H, LR_W, 2), dtype=dtype, device="meta")
         cases += [
             ("upsample4_bwd", "bilinear x4 training (36,128,128,2)",
              lambda: upsample4_bwd(g_train, "bilinear", 4.0),
-             lambda: upsample4_bwd_plain(g_train, "bilinear", 4.0), True),
+             lambda: upsample4_bwd_plain(g_train, "bilinear", 4.0),
+             (None if bf16 else "training", einsum_upsample_bwd(g_train, "bilinear", 4.0),
+              upsample_bound(dx_train, 2))),
             ("upsample4_bwd", "bilinear x4 streaming (23,576,720,2)",
              lambda: upsample4_bwd(g_stream, "bilinear", 4.0),
-             lambda: upsample4_bwd_plain(g_stream, "bilinear", 4.0), True),
+             lambda: upsample4_bwd_plain(g_stream, "bilinear", 4.0),
+             (None, einsum_upsample_bwd(g_stream, "bilinear", 4.0),
+              upsample_bound(dx_stream, 2))),
             ("upsample4_bwd", "bilinear ragged (2,148,212,3)",
              lambda: upsample4_bwd(g_ragged, "bilinear"),
-             lambda: upsample4_bwd_plain(g_ragged, "bilinear"), False),
+             lambda: upsample4_bwd_plain(g_ragged, "bilinear"), None),
             ("upsample4_bwd", "bicubic ragged (2,148,212,3)",
              lambda: upsample4_bwd(g_ragged, "bicubic"),
-             lambda: upsample4_bwd_plain(g_ragged, "bicubic"), False),
+             lambda: upsample4_bwd_plain(g_ragged, "bicubic"), None),
         ]
         # Half the glorot-uniform scale: activations stay O(1) over 16
-        # random blocks instead of growing ~1.5x per block.
+        # random blocks instead of growing ~1.5x per block. Streaming runs
+        # the bfloat16 chain at N=16 on (1,144,180); training the float32
+        # chain at N=10 on (4,32,32) (FRVSR_PRESET: batch 4, LR crop 32).
         lim = 0.5 * (6.0 / (2 * 9 * CHANNELS)) ** 0.5
-        for h, w, n, timed in ((LR_H, LR_W, NUM_RESBLOCK, True), (37, 53, 3, False)):
-            x = torch.relu(seeded((1, h, w, CHANNELS), 1.0, gen, dev, dtype))
+        chains = [(1, LR_H, LR_W, NUM_RESBLOCK, True, "streaming" if bf16 else None),
+                  (2, 37, 53, 3, False, None)]
+        if not bf16:
+            chains.append((4, 32, 32, 10, True, "training"))
+        for b, h, w, n, timed, path in chains:
+            x = torch.relu(seeded((b, h, w, CHANNELS), 1.0, gen, dev, dtype))
             args = (x, seeded((n, 3, 3, CHANNELS, CHANNELS), lim, gen, dev, dtype),
                     seeded((n, CHANNELS), 0.1, gen, dev, dtype),
                     seeded((n, 3, 3, CHANNELS, CHANNELS), lim, gen, dev, dtype),
                     seeded((n, CHANNELS), 0.1, gen, dev, dtype))
-            cases.append(("resblock_chain", f"chain N={n} (1,{h},{w},64)",
+            cases.append(("resblock_chain", f"chain N={n} ({b},{h},{w},64)",
                           lambda a=args: resblock_chain(*a),
-                          lambda a=args: resblock_chain_plain(*a), timed))
-        if dtype == torch.bfloat16:
+                          lambda a=args: resblock_chain_plain(*a),
+                          (path, CHAIN_NO_LIBRARY, chain_bound(x, n)) if timed else None))
+        if bf16:
             # One block against its rounding points (chain_oracle_bf16):
             # a dropped tap or a misplaced fragment row shows here.
             for b, h, w in ((1, LR_H, LR_W), (2, 37, 53), (1, 5, 7)):
@@ -245,23 +347,46 @@ def check_kernels(dev):
                     ((1, 3, 3, CHANNELS, CHANNELS), lim), ((1, CHANNELS), 0.1))))
                 cases.append(("resblock_chain_oracle", f"chain N=1 ({b},{h},{w},64) "
                               "vs its rounding points", lambda a=args: resblock_chain(*a),
-                              lambda a=args: chain_oracle_bf16(*a), False))
-        for kernel, label, fn, plain_fn, timed in cases:
+                              lambda a=args: chain_oracle_bf16(*a), None))
+        for kernel, label, fn, plain_fn, timing in cases:
             got = fn()
             torch.cuda.synchronize()
-            err, rel = rel_err(got, plain_fn())
+            want = plain_fn()
+            err, rel = rel_err(got, want)
             tol = TOL[(kernel, dtype)]
             line = f"[kernel] {kernel} {name} {label}: max_abs_err={err:.3e} " \
                    f"rel={rel:.3e} tol={tol:.0e}"
-            if timed:
-                (ms, lo, hi), (plain_ms, plo, phi) = time_pair(fn, plain_fn)
-                line += (f" kernel_ms={ms:.4f} [{lo:.4f}-{hi:.4f}] plain_ms="
-                         f"{plain_ms:.4f} [{plo:.4f}-{phi:.4f}] (median [min-max])")
-                results[kernel].setdefault(name, []).append((label, err, ms, plain_ms))
-            log(line)
             if not rel <= tol:
+                log(line)
                 raise RuntimeError(f"{kernel} {name} {label}: rel error {rel:.3e} > {tol}")
-    return results
+            if timing is not None:
+                path, lib, (bound_ms, bound_by, arithmetic) = timing
+                fns = [fn, plain_fn] + ([lib] if callable(lib) else [])
+                times = time_fns(fns)
+                (ms, lo, hi), (plain_ms, plo, phi) = times[:2]
+                line += (f" kernel_ms={ms:.4f} [{lo:.4f}-{hi:.4f}] plain_ms="
+                         f"{plain_ms:.4f} [{plo:.4f}-{phi:.4f}]")
+                if callable(lib):
+                    lib_ms, llo, lhi = times[2]
+                    _, lib_rel = rel_err(lib(), want)
+                    line += (f" library_ms={lib_ms:.4f} [{llo:.4f}-{lhi:.4f}] (torch.einsum, "
+                             f"rel {lib_rel:.1e} from plain)")
+                    if not lib_rel <= LIBRARY_TOL:
+                        log(line)
+                        raise RuntimeError(f"{kernel} {name} {label}: the library call is "
+                                           f"{lib_rel:.3e} from plain")
+                else:
+                    lib_ms = None
+                    line += f" library_ms=None ({lib})"
+                line += (f" (median [min-max]) bound_ms={bound_ms:.5f} by {bound_by}: "
+                         f"{arithmetic}; share of bound {bound_ms / ms:.1%}; path "
+                         f"{path or 'none at this shape and dtype'}")
+                records.append(dict(kernel=kernel, dtype=name, label=label, path=path,
+                                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                    library_ms=lib_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by))
+            log(line)
+    return records
 
 
 def check_autograd(dev) -> None:
@@ -878,7 +1003,10 @@ def main() -> None:
         ctypes.byref(blocks)), "resblock_chain occupancy")
     log(f"[build] bfloat16 chain kernel: {blocks.value} resident blocks per SM")
 
-    results = check_kernels(dev)
+    records = check_kernels(dev)
+    if "--kernels-only" in sys.argv[1:]:
+        log("[main] --kernels-only: phases 1-3 done; no result line")
+        return
     check_autograd(dev)
     check_path_vs_cpu(dev)
     stream_launches = run_main_path(dev, card)
@@ -891,10 +1019,24 @@ def main() -> None:
         # Phase 9 runs as a user's CLI does, with the same default flags.
         cli_launches = run_cli(dev, card, tmp, os.path.join(tmp, "run", "checkpoints"))
 
-    # One entry per kernel. ms / plain_ms: the medians of its timed cases
-    # (summed) in the dtype of the path it serves; launches: that path's
-    # count (bfloat16 serves streaming, float32 training; the chain's two
-    # kernels share the wrapper's count, and each path runs one of them).
+    # Every timed case of phase 3 beside its wrapper's launches on each
+    # path: a 46-frame streaming run (phase 6) and a training step (phase 8,
+    # 45 steps).
+    for r in records:
+        k = r["kernel"]
+        lib = "None" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"[yardstick] {k} {r['dtype']} {r['label']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f}, library {lib}, bound {r['bound_ms']:.5f} ({r['bound_by']}), "
+            f"share of bound {r['bound_ms'] / r['ms']:.1%}; launches of {k}: "
+            f"{stream_launches.get(k, 0)} per {FRAMES}-frame streaming run, "
+            f"{train_launches.get(k, 0) / RESUME_STEPS:g} per training step; path "
+            f"{r['path'] or 'none at this shape and dtype'}; card: {card}")
+
+    # One entry per kernel, from its timed cases on the path it serves
+    # (bfloat16 serves streaming, float32 training; the chain's two kernels
+    # share the wrapper's count, and each path runs one of them): ms,
+    # plain_ms, library_ms and bound_ms summed over those cases; launches:
+    # that path's count; "cases": every timed case of the kernel and dtype.
     launches = {"streaming": stream_launches, "training": train_launches}
     kernels = []
     for name, key, source, replaces, dtype, path in (
@@ -908,13 +1050,22 @@ def main() -> None:
             ("resblock_chain_f32", "resblock_chain",
              "tecogan_tpu_torch/csrc/resblock_chain.cu",
              "tecogan_tpu/kernels/resblocks.py:87", "float32", "training")):
-        timed = results[key][dtype]
+        cases = [r for r in records if (r["kernel"], r["dtype"]) == (key, dtype)]
+        own = [r for r in cases if r["path"] == path]
+        libs = [r["library_ms"] for r in own]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[path].get(key, 0),
-                 "path": path, "max_abs_err": max(e for _, e, _, _ in timed),
-                 "ms": sum(ms for _, _, ms, _ in timed),
-                 "plain_ms": sum(p for _, _, _, p in timed),
-                 "timed": [label for label, *_ in timed], "dtype": dtype}
+                 "max_abs_err": max(r["max_abs_err"] for r in own),
+                 "ms": sum(r["ms"] for r in own),
+                 "plain_ms": sum(r["plain_ms"] for r in own),
+                 "bound_ms": sum(r["bound_ms"] for r in own),
+                 "bound_by": own[0]["bound_by"],
+                 "library_ms": None if None in libs else sum(libs),
+                 "path": path, "dtype": dtype,
+                 "cases": [{k: v for k, v in r.items() if k not in ("kernel", "dtype")}
+                           for r in cases]}
+        if entry["library_ms"] is None:
+            entry["library_note"] = CHAIN_NO_LIBRARY
         if path == "streaming":  # the inference CLI runs the streaming path
             entry["cli_launches"] = cli_launches.get(key, 0)
         if key == "resblock_chain":
