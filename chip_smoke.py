@@ -10,14 +10,16 @@ Phases, each raising on failure (so the exit code is non-zero):
 3. each kernel against its plain PyTorch version on the card (K1, K2 the
    upsample's adjoint, the chain), at the streaming and training paths'
    shapes and a ragged one, float32 (TF32 off) and bfloat16, with the
-   error beside its tolerance and CUDA-event times (median and range of 5
-   alternating windows) of the kernel, its plain version and, where one
-   PyTorch call computes the same function (``torch.einsum`` for K1 and
-   K2; none for the chain), that call, with the bound (bytes over HBM's
-   rate or operations over the units' peak, its arithmetic printed) and
-   the kernel's share of it; the float32 chain also at the training
-   shape, (4,32,32,64) with N=10; the bfloat16 chain also, one block at
-   three shapes, against its own rounding points in float32 (8e-3);
+   error beside its tolerance and CUDA-event times of the device's work
+   (median and range of 5 alternating windows, each queued behind a
+   device-side spin so the host's dispatch is not timed) of the kernel,
+   its plain version and, where one PyTorch call computes the same
+   function (``torch.einsum`` for K1 and K2; none for the chain), that
+   call, with the bound (bytes over HBM's rate or operations over the
+   units' peak, its arithmetic printed) and the kernel's share of it; the
+   float32 chain also at the training shape, (4,32,32,64) with N=10; the
+   bfloat16 chain also, one block at three shapes, against its own
+   rounding points in float32 (8e-3);
 4. autograd: the upsample (both filters) and the chain on the card against
    the same functions on the CPU, gradients of every input, float32;
 5. the whole streaming path at full width (16 resblocks, 64 channels) on
@@ -138,15 +140,30 @@ def time_fns(fns, windows: int = 5, reps: int = 20, warm: int = 10):
     """CUDA-event ms per call of each function, as (median, min, max) over
     `windows` windows of `reps` calls, after `warm` calls of each; the
     windows alternate the order (last to first, then first to last, ...),
-    as plain, kernel, kernel, plain does for two."""
+    as plain, kernel, kernel, plain does for two.
+
+    Each window starts behind a spin on the device (``torch.cuda._sleep``)
+    1.5x as long as the host takes to queue the window's calls, so the
+    events time the device running the calls back to back, not the host
+    dispatching them (a small kernel takes less time on the card than its
+    wrapper on the host)."""
     for f in reversed(fns):
         for _ in range(warm):
             f()
+    torch.cuda.synchronize()
+    spin = []
+    for f in fns:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            f()
+        spin.append(int(1.5 * (time.perf_counter() - t0) * SPIN_CYCLES_PER_S))
+        torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     times = [[] for _ in fns]
     order = list(range(len(fns)))
     for i in range(windows):
         for k in (order[::-1] if i % 2 == 0 else order):
+            torch.cuda._sleep(spin[k])
             start.record()
             for _ in range(reps):
                 fns[k]()
@@ -154,6 +171,11 @@ def time_fns(fns, windows: int = 5, reps: int = 20, warm: int = 10):
             torch.cuda.synchronize()
             times[k].append(start.elapsed_time(end) / reps)
     return [(float(np.median(t)), min(t), max(t)) for t in times]
+
+
+# Clock cycles a second of the spin in time_fns: the H100 SXM's top SM
+# clock, 1.98 GHz, so that a spin lasts at least as long as asked.
+SPIN_CYCLES_PER_S = 1.98e9
 
 
 # The bound of a timed case: the least time an H100 SXM could take for the
