@@ -4,26 +4,207 @@
 // Replaces tecogan_tpu/kernels/upsample4.py::_matmul_kernel (launched by
 // _plane_call), which computes out = Sh @ x @ Sw per channel plane with
 // banded stencil matrices on the TPU's matrix unit. Here the stencil is
-// applied directly: output (4i+p, 4j+q) = sum_tx Ww[q][tx] * round_T(
-// sum_ty Wh[p][ty] * x[clamp(i+off+ty), clamp(j+off+tx)]), summed in float32
-// and rounded to T after the H pass and again at the end -- the rounding of
-// the Pallas kernel (upsample4.py:72-73) and of the plain version
+// applied directly: output (4i+p, 4j+q) = round_T(sum_tx Ww[q][tx] *
+// round_T(sum_ty Wh[p][ty] * round_T(alpha x)[clamp(i+off+ty),
+// clamp(j+off+tx)])), summed in float32 in tap order: the rounding of the
+// Pallas kernel (upsample4.py:71-74) and of the plain version
 // (tecogan_tpu_torch/ops/resize.py).
 //
-// Bound on the card: memory. Each input element feeds 16 outputs and the
-// output is 16x the input, so the stores dominate; there are 2-4 FMAs per
-// tap. Design: one thread per output element with the channel fastest, so
-// a warp's stores are consecutive addresses (coalesced) and its loads fall on
-// a few input pixels that the L1 cache serves. No shared memory and no
-// matrix form: on this card a banded matmul would only add wasted MACs.
-// `alpha` scales the input (the flow path's x4, exact in any float type).
+// Bound on the card: memory. x is read once and the 16x larger output
+// written once; there are 2-4 FMAs per tap pass. So the design issues
+// full 16-byte stores and does little work per byte:
+// - a block owns a kTileH x kTileW input tile of one image, all C channels,
+//   and writes its 4 kTileH x 4 kTileW x C output tile;
+// - it stages the tile and its (NT-1)-pixel halo once, clamped at the
+//   image border, as round_T(alpha x) in float32 in shared memory;
+// - it computes the H pass once per (output row, staged column, channel),
+//   the 4 phases of a staged row from the same NT loads, rounded to T;
+// - it computes the W pass the same way into the tile's output rows in
+//   shared memory, each row shifted by its global misalignment modulo 16
+//   bytes, so that the store phase copies every output row with aligned
+//   16-byte vectors, one row per warp, and scalar stores at a misaligned
+//   head and a short tail (rows of 4 W C elements need not be a multiple
+//   of 16 bytes, e.g. bfloat16 with C = 3 and W odd);
+// - C = 2 (the flow) and C = 3 (the skip) are template constants, so the
+//   index math has no runtime division; other C take a runtime path;
+// - a grid of fewer than kMinBlocks big tiles (the skip: 108 tiles of a
+//   144 x 180 frame) takes kTileHSmall rows a tile instead, to fill the SMs.
+// tests/test_torch_upsample_plan.py emulates this plan in numpy and reads
+// the constexpr lines below.
 //
 // K2, the adjoint of K1 (its gradient), follows K1 in this file.
 #include "common.cuh"
 
 namespace {
 
-// Phase weights; all values are dyadic, hence exact in float32 and bfloat16.
+constexpr int kThreads = 256, kWarps = kThreads / 32;
+constexpr int kTileW = 32, kTileH = 8, kTileHSmall = 2;
+constexpr int kMinBlocks = 264;
+constexpr int kVecBytes = 16;
+constexpr int kMaxSmem = 232448;
+
+// Phase weights; all values are dyadic, hence exact in float32 and
+// bfloat16. NT taps per axis: 2 (bilinear, offsets 0..1) or 4 (bicubic,
+// offsets -1..2). With p and t unrolled these fold to immediates.
+template <int NT>
+__host__ __device__ constexpr float tap_weight(int p, int t) {
+  constexpr float w4[4][4] = {
+      {0.0f, 1.0f, 0.0f, 0.0f},
+      {-0.10546875f, 0.87890625f, 0.26171875f, -0.03515625f},
+      {-0.09375f, 0.59375f, 0.59375f, -0.09375f},
+      {-0.03515625f, 0.26171875f, 0.87890625f, -0.10546875f}};
+  return NT == 2 ? (t == 0 ? 1.0f - 0.25f * p : 0.25f * p) : w4[p][t];
+}
+
+// Shared memory of a K1 block, in bytes, and its parts' offsets in floats:
+// xs (th + NT - 1) x (kTileW + NT - 1) x C floats, hs 4 th x (kTileW + NT
+// - 1) x C floats, then os, 4 th rows of k1_row_stride T elements,
+// 16-byte aligned.
+template <typename T>
+__host__ __device__ constexpr int k1_row_stride(int C) {
+  constexpr int vec = kVecBytes / static_cast<int>(sizeof(T));
+  return (4 * kTileW * C + 2 * vec - 1) / vec * vec;
+}
+
+template <int NT>
+__host__ __device__ constexpr int k1_os_offset(int th, int C) {
+  return ((th + NT - 1) * (kTileW + NT - 1) * C + 4 * th * (kTileW + NT - 1) * C + 3) / 4 * 4;
+}
+
+template <typename T, int NT>
+constexpr size_t k1_smem_bytes(int th, int C) {
+  return 4 * static_cast<size_t>(k1_os_offset<NT>(th, C)) +
+         sizeof(T) * 4 * th * static_cast<size_t>(k1_row_stride<T>(C));
+}
+
+// K1. CT: C as a template constant (2 or 3), or 0 for a runtime C. TH: the
+// tile's input rows (kTileH or kTileHSmall). Grid (tiles across W, tiles
+// across H, B).
+template <typename T, int NT, int CT, int TH>
+__global__ void __launch_bounds__(kThreads)
+upsample4_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W,
+                 int C_rt, float alpha) {
+  // 32-bit index math: the wrapper keeps B * 16 * H * W * C below 2^31.
+  constexpr int OFF = NT == 2 ? 0 : -1;
+  constexpr int SW = kTileW + NT - 1, SH = TH + NT - 1;  // staged columns, rows
+  constexpr int VEC = kVecBytes / static_cast<int>(sizeof(T));
+  const int C = CT > 0 ? CT : C_rt;
+  const int b = blockIdx.z, iy0 = blockIdx.y * TH, ix0 = blockIdx.x * kTileW;
+  const int th = min(TH, H - iy0), tw = min(kTileW, W - ix0);
+  const int RS = k1_row_stride<T>(C);
+  const int row_elems = 4 * W * C;  // T elements of an output row
+
+  extern __shared__ float4 smem[];
+  float* xs = reinterpret_cast<float*>(smem);
+  float* hs = xs + SH * SW * C;
+  T* os = reinterpret_cast<T*>(reinterpret_cast<float*>(smem) + k1_os_offset<NT>(TH, C));
+
+  // 1. Stage round_T(alpha x) of the tile and its halo, clamped.
+  const T* xb = x + b * H * W * C;
+  for (int i = threadIdx.x; i < SH * SW * C; i += kThreads) {
+    const int c = i % C, t = i / C, sx = t % SW, sy = t / SW;
+    const int gy = min(max(iy0 + OFF + sy, 0), H - 1);
+    const int gx = min(max(ix0 + OFF + sx, 0), W - 1);
+    xs[i] = tt::round_to<T>(alpha * tt::to_f32(xb[(gy * W + gx) * C + c]));
+  }
+  __syncthreads();
+
+  // 2. The H pass: item (ry, sx, c) gives rows 4 ry + p of hs, p = 0..3.
+  for (int i = threadIdx.x; i < TH * SW * C; i += kThreads) {
+    float v[NT];
+#pragma unroll
+    for (int ty = 0; ty < NT; ++ty) v[ty] = xs[i + ty * SW * C];
+    const int ry = i / (SW * C), rest = i - ry * SW * C;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      float acc = tap_weight<NT>(p, 0) * v[0];
+#pragma unroll
+      for (int ty = 1; ty < NT; ++ty) acc = acc + tap_weight<NT>(p, ty) * v[ty];
+      hs[(4 * ry + p) * SW * C + rest] = tt::round_to<T>(acc);
+    }
+  }
+  __syncthreads();
+
+  // 3. The W pass: item (r, ix, c) gives output pixels 4 ix + q of row r,
+  // written to os at the row's misalignment a (global offset mod VEC).
+  for (int i = threadIdx.x; i < 4 * TH * kTileW * C; i += kThreads) {
+    const int c = i % C, t = i / C, ix = t % kTileW, r = t / kTileW;
+    const unsigned g0 = static_cast<unsigned>(b * 4 * H + 4 * iy0 + r) *
+                            static_cast<unsigned>(row_elems) +
+                        static_cast<unsigned>(4 * ix0 * C);
+    const int a = static_cast<int>(g0 % VEC);
+    const float* h = hs + r * SW * C + ix * C + c;
+    float v[NT];
+#pragma unroll
+    for (int tx = 0; tx < NT; ++tx) v[tx] = h[tx * C];
+    T* o = os + r * RS + a + 4 * ix * C + c;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float acc = tap_weight<NT>(q, 0) * v[0];
+#pragma unroll
+      for (int tx = 1; tx < NT; ++tx) acc = acc + tap_weight<NT>(q, tx) * v[tx];
+      o[q * C] = tt::from_f32<T>(acc);
+    }
+  }
+  __syncthreads();
+
+  // 4. Store: one output row per warp; its 4 tw C elements go out as a
+  // scalar head up to the first 16-byte boundary, 16-byte vectors, and a
+  // scalar tail.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int L = 4 * tw * C;
+  for (int r = warp; r < 4 * th; r += kWarps) {
+    const int g0 = (b * 4 * H + 4 * iy0 + r) * row_elems + 4 * ix0 * C;
+    const int a = g0 % VEC;
+    const int head = min((VEC - a) % VEC, L);
+    const int nvec = (L - head) / VEC, tail = head + nvec * VEC;
+    const T* src = os + r * RS + a;
+    T* dst = out + g0;
+    if (lane < head) dst[lane] = src[lane];
+    for (int v = lane; v < nvec; v += 32) {
+      const int e = head + v * VEC;
+      *reinterpret_cast<uint4*>(dst + e) = *reinterpret_cast<const uint4*>(src + e);
+    }
+    if (tail + lane < L) dst[tail + lane] = src[tail + lane];
+  }
+}
+
+template <typename T, int NT, int CT, int TH>
+int launch_k1(const T* x, T* out, int B, int H, int W, int C, float alpha,
+              cudaStream_t s) {
+  const size_t smem = k1_smem_bytes<T, NT>(TH, C);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = upsample4_kernel<T, NT, CT, TH>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + TH - 1) / TH, B);
+  kernel<<<grid, kThreads, smem, s>>>(x, out, H, W, C, alpha);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int NT, int CT>
+int launch_k1_tile(const T* x, T* out, int B, int H, int W, int C, float alpha,
+                   cudaStream_t s) {
+  const long long big = static_cast<long long>((W + kTileW - 1) / kTileW) *
+                        ((H + kTileH - 1) / kTileH) * B;
+  if (big >= kMinBlocks && k1_smem_bytes<T, NT>(kTileH, C) <= kMaxSmem) {
+    return launch_k1<T, NT, CT, kTileH>(x, out, B, H, W, C, alpha, s);
+  }
+  return launch_k1<T, NT, CT, kTileHSmall>(x, out, B, H, W, C, alpha, s);
+}
+
+template <typename T, int NT>
+int launch_k1_channels(const T* x, T* out, int B, int H, int W, int C, float alpha,
+                       cudaStream_t s) {
+  if (C == 2) return launch_k1_tile<T, NT, 2>(x, out, B, H, W, C, alpha, s);
+  if (C == 3) return launch_k1_tile<T, NT, 3>(x, out, B, H, W, C, alpha, s);
+  return launch_k1_tile<T, NT, 0>(x, out, B, H, W, C, alpha, s);
+}
+
+// K2's phase weights, indexed at run time.
 __constant__ float kBilinear[4][2] = {
     {1.0f, 0.0f}, {0.75f, 0.25f}, {0.5f, 0.5f}, {0.25f, 0.75f}};
 __constant__ float kCatmullRom[4][4] = {
@@ -31,45 +212,6 @@ __constant__ float kCatmullRom[4][4] = {
     {-0.10546875f, 0.87890625f, 0.26171875f, -0.03515625f},
     {-0.09375f, 0.59375f, 0.59375f, -0.09375f},
     {-0.03515625f, 0.26171875f, 0.87890625f, -0.10546875f}};
-
-// NT taps per axis: 2 (bilinear, offsets 0..1) or 4 (bicubic, offsets -1..2).
-template <typename T, int NT>
-__global__ void upsample4_kernel(const T* __restrict__ x, T* __restrict__ out,
-                                 int B, int H, int W, int C, float alpha) {
-  // 32-bit index math (64-bit division is emulated and would dominate);
-  // the wrapper keeps B * 16 * H * W * C below 2^31.
-  constexpr int OFF = NT == 2 ? 0 : -1;
-  const int total = B * 16 * H * W * C;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int c = idx % C;
-  int t = idx / C;
-  const int ox = t % (4 * W);
-  t /= 4 * W;
-  const int oy = t % (4 * H);
-  const int b = t / (4 * H);
-  const int iy = oy >> 2, p = oy & 3, ix = ox >> 2, q = ox & 3;
-  const float* wh = NT == 2 ? kBilinear[p] : kCatmullRom[p];
-  const float* ww = NT == 2 ? kBilinear[q] : kCatmullRom[q];
-  const T* plane = x + b * H * W * C + c;
-
-  float acc = 0.0f;
-#pragma unroll
-  for (int tx = 0; tx < NT; ++tx) {
-    const int xx = min(max(ix + OFF + tx, 0), W - 1);
-    float col = 0.0f;
-#pragma unroll
-    for (int ty = 0; ty < NT; ++ty) {
-      const int yy = min(max(iy + OFF + ty, 0), H - 1);
-      const float v = tt::round_to<T>(
-          alpha * tt::to_f32(plane[(yy * W + xx) * C]));
-      col = ty == 0 ? wh[0] * v : col + wh[ty] * v;
-    }
-    col = tt::round_to<T>(col);  // the H pass is rounded to T
-    acc = tx == 0 ? ww[0] * col : acc + ww[tx] * col;
-  }
-  out[idx] = tt::from_f32<T>(acc);
-}
 
 // Entry (4*src + phase, dst) of the (4n, n) stencil matrix: the phase's
 // weights summed over the taps whose clamped source index is dst (edge rows
@@ -147,19 +289,13 @@ template <typename T>
 int launch(const void* x, void* out, int B, int H, int W, int C, int filter,
            float alpha, void* stream) {
   const int64_t total = static_cast<int64_t>(B) * 16 * H * W * C;
-  if (total >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (total >= (int64_t{1} << 31) || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (total == 0) return static_cast<int>(cudaSuccess);
-  constexpr int kThreads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* xp = static_cast<const T*>(x);
   T* op = static_cast<T*>(out);
-  if (filter == 0) {
-    upsample4_kernel<T, 2><<<blocks, kThreads, 0, s>>>(xp, op, B, H, W, C, alpha);
-  } else {
-    upsample4_kernel<T, 4><<<blocks, kThreads, 0, s>>>(xp, op, B, H, W, C, alpha);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return filter == 0 ? launch_k1_channels<T, 2>(xp, op, B, H, W, C, alpha, s)
+                     : launch_k1_channels<T, 4>(xp, op, B, H, W, C, alpha, s);
 }
 
 // H, W are dx's (the low-resolution) sizes, as for the forward launch.

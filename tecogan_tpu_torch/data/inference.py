@@ -56,7 +56,7 @@ def read_frames(paths: List[str], num_threads: int = 8) -> np.ndarray:
         return np.stack(list(pool.map(read_rgb, paths)))
 
 
-def hr_to_lr(frames: np.ndarray, device: Union[str, torch.device] = "cpu") -> np.ndarray:
+def hr_to_lr(frames: np.ndarray, device: Union[str, torch.device] = "cuda") -> np.ndarray:
     """(T, H, W, 3) uint8 HR frames -> (T, ceil(H/4), ceil(W/4), 3) float32
     LR in [0, 1]: ``cv2.GaussianBlur(im.astype(np.float32), (0, 0),
     sigmaX=1.5)[::4, ::4] / 255.0`` (reference dataloader.py:34-36), the
@@ -73,13 +73,13 @@ def load_inference_frames(
     input_dir_hr: Optional[str] = None,
     max_frames: int = -1,
     as_uint8: bool = False,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
     num_threads: int = 8,
 ) -> InferenceData:
     """Load the LR input sequence: the PNGs of ``input_dir_lr`` or, when that
     is not given or missing, the HR PNGs of ``input_dir_hr`` blurred and
-    subsampled 4x (the blur on ``device``); reversed frames [5..1] are
-    prepended as warm-up.
+    subsampled 4x (the blur on ``device``, the card unless the caller asks
+    for the CPU); reversed frames [5..1] are prepended as warm-up.
 
     ``as_uint8`` keeps LR frames as raw uint8 (StreamingSR normalises on the
     device); ignored on the HR route, which is float by construction."""

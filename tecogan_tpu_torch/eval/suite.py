@@ -171,7 +171,7 @@ def evaluate_folders(
       keys: subset of ["PSNR", "SSIM", "LPIPS", "tOF", "tLP100"]; the LPIPS
         keys are dropped when ``lpips_model`` is None.
       device: where the Farneback flows run (default: the LPIPS model's
-        device, else the CPU).
+        device, else the card).
       timings: if given, seconds are added to its ``read``, ``psnr_ssim``,
         ``farneback`` and ``lpips`` entries (each stage ends on the host, so
         the device's work is inside).
@@ -186,7 +186,7 @@ def evaluate_folders(
             print(f"[eval] no LPIPS weights available; skipping {dropped}")
         keys = [k for k in keys if k not in ("LPIPS", "tLP100")]
     if device is None:
-        device = lpips_model.device if lpips_model is not None else "cpu"
+        device = lpips_model.device if lpips_model is not None else "cuda"
     device = torch.device(device)
 
     os.makedirs(output_dir, exist_ok=True)

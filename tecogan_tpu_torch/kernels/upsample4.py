@@ -5,8 +5,11 @@ K1 replaces ``tecogan_tpu/kernels/upsample4.py::_matmul_kernel`` (launched
 by ``_plane_call``), which runs ``out = Sh @ x @ Sw`` per channel plane on
 the TPU's matrix unit. On the card the op is bound by memory (the output is
 16x the input and there are a few FMAs per byte), so the CUDA kernel
-(``csrc/upsample4.cu``) applies the 4-phase stencil directly, one thread per
-output element with coalesced stores; see its header.
+(``csrc/upsample4.cu``) applies the 4-phase stencil directly on tiles: a
+block stages an input tile with its clamped halo in shared memory, runs the
+H pass once per output row and input column, the W pass into the tile's
+output rows, and writes them with 16-byte stores; see its header. It takes
+at most :data:`MAX_CHANNELS` channels.
 
 K2 replaces ``_down_kernel`` (launched by ``_plane_call_down`` from the
 custom VJP ``_upsample4_bwd``): ``dx = Sh^T @ g @ Sw^T``, the 4x downsample
@@ -35,6 +38,8 @@ from tecogan_tpu_torch.kernels import _build
 from tecogan_tpu_torch.ops import resize
 
 _FILTERS = {"bilinear": 0, "bicubic": 1}
+#: K1 keeps a tile's C channels in shared memory (the flow has 2, the skip 3).
+MAX_CHANNELS = 32
 _ENTRY = {torch.float32: "tt_upsample4_f32", torch.bfloat16: "tt_upsample4_bf16"}
 _ENTRY_BWD = {torch.float32: "tt_upsample4_bwd_f32",
               torch.bfloat16: "tt_upsample4_bwd_bf16"}
@@ -93,6 +98,9 @@ def _forward(x: torch.Tensor, filter_: str, alpha: float) -> torch.Tensor:
         return upsample4_plain(x, filter_, alpha)
     _check_cuda(x, "upsample4", 16 * x.numel())
     b, h, w, c = x.shape
+    if c > MAX_CHANNELS or b > 65535:
+        raise ValueError(f"upsample4 on the card takes at most {MAX_CHANNELS} channels "
+                         f"and 65535 images, not {tuple(x.shape)}")
     out = torch.empty((b, 4 * h, 4 * w, c), dtype=x.dtype, device=x.device)
     err = getattr(_build.library(), _ENTRY[x.dtype])(
         x.data_ptr(), out.data_ptr(), b, h, w, c, _FILTERS[filter_], alpha,

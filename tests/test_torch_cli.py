@@ -154,7 +154,7 @@ def test_load_inference_frames_matches_jax(tmp_path, route):
           "hr": dict(input_dir_hr=d, as_uint8=True),
           "max_frames": dict(input_dir_lr=str(tmp_path / "missing"), input_dir_hr=d,
                              max_frames=7)}[route]
-    got, want = load_inference_frames(**kw), jax_load_inference_frames(**kw)
+    got, want = load_inference_frames(**kw, device="cpu"), jax_load_inference_frames(**kw)
     assert got.paths_lr == want.paths_lr
     assert got.inputs.dtype == want.inputs.dtype and got.inputs.shape == want.inputs.shape
     if route in ("hr", "max_frames"):

@@ -133,6 +133,67 @@ def test_upsample4_bwd_kernel_matches_plain(cuda_device, filt):
     assert upsample4_bwd.launches == before + 1
 
 
+# K1 and K2 at the edges of their tile plans: one pixel (every tap clamps
+# to it), H and W below the bicubic taps, a ragged B = 2 frame whose
+# bfloat16 output rows are not a multiple of 16 bytes (4 x 53 x 3 x 2 B),
+# and a W that is not a multiple of the 32-pixel tile.
+EDGE_SHAPES = [(1, 1, 1, 2), (1, 2, 3, 3), (2, 37, 53, 3), (3, 9, 70, 2)]
+EDGE_IDS = ["1x1", "2x3", "ragged", "w70"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("filt", ["bilinear", "bicubic"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=EDGE_IDS)
+def test_upsample4_kernel_edge_shapes(cuda_device, shape, filt, dtype):
+    """K1 against its plain version: bit-equal in bfloat16 (every product
+    of a bfloat16 value and a dyadic tap weight is exact in float32, so
+    FMA contraction cannot change a sum), within 1e-6 of the output's
+    scale in float32 (FMA contraction)."""
+    rng = np.random.RandomState(12)
+    x = _tensor(rng, shape, 2.0, cuda_device).to(dtype)
+    before = upsample4.launches
+    got, want = upsample4(x, filt, 4.0), upsample4_plain(x, filt, 4.0)
+    assert upsample4.launches == before + 1
+    assert got.shape == want.shape == (shape[0], 4 * shape[1], 4 * shape[2], shape[3])
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max() <= 1e-6 * max(1.0, want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("filt", ["bilinear", "bicubic"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=EDGE_IDS)
+def test_upsample4_bwd_kernel_edge_shapes(cuda_device, shape, filt, dtype):
+    """K2 onto dx of the edge shapes against its plain version, at
+    chip_smoke.py's tolerances: float32 1e-5 of the scale (sums of up to
+    256 products in another order), bfloat16 1e-2 (both round after the H
+    pass and at the end)."""
+    rng = np.random.RandomState(13)
+    b, h, w, c = shape
+    g = _tensor(rng, (b, 4 * h, 4 * w, c), 1.0, cuda_device).to(dtype)
+    got, want = upsample4_bwd(g, filt, 4.0), upsample4_bwd_plain(g, filt, 4.0)
+    assert got.shape == want.shape == shape
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert (got.float() - want.float()).abs().max() <= tol * max(1.0, want.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filt", ["bilinear", "bicubic"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=EDGE_IDS)
+def test_upsample4_grad_edge_shapes_match_cpu(cuda_device, shape, filt):
+    """The gradient of upsample4 (K1 forward, K2 backward) on the card
+    against the CPU's plain versions, float32: within 1e-5 of the largest
+    gradient entry."""
+    rng = np.random.RandomState(14)
+    x = torch.from_numpy((rng.randn(*shape) * 2.0).astype(np.float32))
+    fn = lambda t: upsample4(t, filt, 4.0)  # noqa: E731
+    (got,), (want,) = _grads(fn, [x], cuda_device), _grads(fn, [x], "cpu")
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
 def _grads(fn, inputs, device):
     xs = [t.to(device, copy=True).requires_grad_() for t in inputs]
     out = fn(*xs)

@@ -227,7 +227,8 @@ def test_evaluate_folders_matches_jax(tmp_path, capsys):
 
 def test_evaluate_folders_without_lpips_skips_its_keys(tmp_path, capsys):
     res, tar = _write_folders(str(tmp_path))[0]
-    got = evaluate_folders([res], [tar], str(tmp_path / "out"), keys=["PSNR", "tLP100"])
+    got = evaluate_folders([res], [tar], str(tmp_path / "out"), keys=["PSNR", "tLP100"],
+                           device="cpu")
     assert list(got) == ["FrameAvg_PSNR"]
     assert "no LPIPS weights available; skipping ['tLP100']" in capsys.readouterr().out
 
