@@ -203,13 +203,13 @@ def bound(launches: int, bytes_: float, flops: float, unit: str):
     return launches * max(mem_ms, op_ms), by, text
 
 
-def upsample_bound(x: torch.Tensor, nt: int):
-    """K1 on x (B, H, W, C) or K2 onto dx of that shape, NT taps a pass: x
-    and the 16x larger output (or g) once each; NT multiply-adds for each
-    element of the H pass (4H x W) and of the W pass (4H x 4W): 40 NT
-    flops per x element, in float32 on the CUDA cores."""
-    return bound(1, 17 * x.numel() * x.element_size(), 40 * nt * x.numel(),
-                 "float32 CUDA cores")
+def upsample_bound(lr_elems: int, itemsize: int, nt: int):
+    """K1 on x (B, H, W, C) of `lr_elems` elements, or K2 onto dx of that
+    size, NT taps a pass: x and the 16x larger output (or g) once each; NT
+    multiply-adds for each element of the H pass (4H x W) and of the W
+    pass (4H x 4W): 40 NT flops per x element, in float32 on the CUDA
+    cores."""
+    return bound(1, 17 * lr_elems * itemsize, 40 * nt * lr_elems, "float32 CUDA cores")
 
 
 def chain_bound(x: torch.Tensor, n: int):
@@ -305,12 +305,12 @@ def check_kernels(dev):
              lambda: upsample4(flow, "bilinear", 4.0),
              lambda: upsample4_plain(flow, "bilinear", 4.0),
              ("streaming" if bf16 else None, einsum_upsample(flow, "bilinear", 4.0),
-              upsample_bound(flow, 2))),
+              upsample_bound(flow.numel(), flow.element_size(), 2))),
             ("upsample4", "bicubic skip (1,144,180,3)",
              lambda: upsample4(lr, "bicubic"),
              lambda: upsample4_plain(lr, "bicubic"),
              ("streaming" if bf16 else None, einsum_upsample(lr, "bicubic", 1.0),
-              upsample_bound(lr, 4))),
+              upsample_bound(lr.numel(), lr.element_size(), 4))),
             ("upsample4", "bilinear ragged (2,37,53,3)",
              lambda: upsample4(ragged, "bilinear"),
              lambda: upsample4_plain(ragged, "bilinear"), None),
@@ -323,19 +323,17 @@ def check_kernels(dev):
         g_train = seeded((36, 128, 128, 2), 1.0, gen, dev, dtype)
         g_stream = seeded((CHUNK, 4 * LR_H, 4 * LR_W, 2), 1.0, gen, dev, dtype)
         g_ragged = seeded((2, 148, 212, 3), 1.0, gen, dev, dtype)
-        dx_train = torch.empty((36, 32, 32, 2), dtype=dtype, device="meta")
-        dx_stream = torch.empty((CHUNK, LR_H, LR_W, 2), dtype=dtype, device="meta")
         cases += [
             ("upsample4_bwd", "bilinear x4 training (36,128,128,2)",
              lambda: upsample4_bwd(g_train, "bilinear", 4.0),
              lambda: upsample4_bwd_plain(g_train, "bilinear", 4.0),
              (None if bf16 else "training", einsum_upsample_bwd(g_train, "bilinear", 4.0),
-              upsample_bound(dx_train, 2))),
+              upsample_bound(g_train.numel() // 16, g_train.element_size(), 2))),
             ("upsample4_bwd", "bilinear x4 streaming (23,576,720,2)",
              lambda: upsample4_bwd(g_stream, "bilinear", 4.0),
              lambda: upsample4_bwd_plain(g_stream, "bilinear", 4.0),
              (None, einsum_upsample_bwd(g_stream, "bilinear", 4.0),
-              upsample_bound(dx_stream, 2))),
+              upsample_bound(g_stream.numel() // 16, g_stream.element_size(), 2))),
             ("upsample4_bwd", "bilinear ragged (2,148,212,3)",
              lambda: upsample4_bwd(g_ragged, "bilinear"),
              lambda: upsample4_bwd_plain(g_ragged, "bilinear"), None),

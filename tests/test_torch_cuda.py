@@ -39,16 +39,33 @@ def _tensor(rng, shape, scale, device):
     return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(device)
 
 
+# K1 and K2 at the edges of their tile plans: one pixel (every tap clamps
+# to it), H and W below the bicubic taps, a ragged B = 2 frame whose
+# bfloat16 output rows are not a multiple of 16 bytes (4 x 53 x 3 x 2 B),
+# and a W that is not a multiple of K1's 32-pixel tile.
+EDGE_SHAPES = [(1, 1, 1, 2), (1, 2, 3, 3), (2, 37, 53, 3), (3, 9, 70, 2)]
+EDGE_IDS = ["1x1", "2x3", "ragged", "w70"]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("filt", ["bilinear", "bicubic"])
-def test_upsample4_kernel_matches_plain(cuda_device, filt):
-    """float32 at a ragged shape; tolerance: FMA contraction in the kernel,
-    a few float32 ulps of values up to ~20."""
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=EDGE_IDS)
+def test_upsample4_kernel_matches_plain(cuda_device, shape, filt, dtype):
+    """K1 against its plain version, alpha = 4: bit-equal in bfloat16 (each
+    product of a bfloat16 value and a dyadic tap weight is exact in
+    float32, so FMA contraction cannot change a sum); in float32 within
+    2e-5, a few float32 ulps of values up to ~20 (FMA contraction)."""
     rng = np.random.RandomState(0)
-    x = _tensor(rng, (2, 37, 53, 3), 1.0, cuda_device)
-    torch.testing.assert_close(upsample4(x, filt, alpha=4.0),
-                               upsample4_plain(x, filt, alpha=4.0),
-                               rtol=0, atol=2e-5)
+    x = _tensor(rng, shape, 1.0, cuda_device).to(dtype)
+    before = upsample4.launches
+    got, want = upsample4(x, filt, alpha=4.0), upsample4_plain(x, filt, alpha=4.0)
+    assert upsample4.launches == before + 1
+    assert got.shape == want.shape == (shape[0], 4 * shape[1], 4 * shape[2], shape[3])
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
 
 
 @pytest.mark.cuda
@@ -120,64 +137,36 @@ def test_resblock_chain_rejects_other_widths(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("filt", ["bilinear", "bicubic"])
-def test_upsample4_bwd_kernel_matches_plain(cuda_device, filt):
-    """K2, float32, at a ragged shape whose edge rows and columns collect
-    the clamped taps; tolerance: float32 sums of up to 256 products in
-    another order, values up to ~40."""
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=EDGE_IDS)
+def test_upsample4_bwd_kernel_matches_plain(cuda_device, shape, filt, dtype):
+    """K2 onto dx of the edge shapes, whose edge rows and columns collect
+    the clamped taps, alpha = 4: float32 within 1e-4 (sums of up to 256
+    products in another order, values up to ~40); bfloat16 within 1e-2 of
+    the scale, as chip_smoke.py (both round after the H pass and at the
+    end)."""
     rng = np.random.RandomState(2)
-    g = _tensor(rng, (2, 148, 212, 3), 1.0, cuda_device)
-    before = upsample4_bwd.launches
-    torch.testing.assert_close(upsample4_bwd(g, filt, 4.0),
-                               upsample4_bwd_plain(g, filt, 4.0), rtol=0, atol=1e-4)
-    assert upsample4_bwd.launches == before + 1
-
-
-# K1 and K2 at the edges of their tile plans: one pixel (every tap clamps
-# to it), H and W below the bicubic taps, a ragged B = 2 frame whose
-# bfloat16 output rows are not a multiple of 16 bytes (4 x 53 x 3 x 2 B),
-# and a W that is not a multiple of the 32-pixel tile.
-EDGE_SHAPES = [(1, 1, 1, 2), (1, 2, 3, 3), (2, 37, 53, 3), (3, 9, 70, 2)]
-EDGE_IDS = ["1x1", "2x3", "ragged", "w70"]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("filt", ["bilinear", "bicubic"])
-@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=EDGE_IDS)
-def test_upsample4_kernel_edge_shapes(cuda_device, shape, filt, dtype):
-    """K1 against its plain version: bit-equal in bfloat16 (every product
-    of a bfloat16 value and a dyadic tap weight is exact in float32, so
-    FMA contraction cannot change a sum), within 1e-6 of the output's
-    scale in float32 (FMA contraction)."""
-    rng = np.random.RandomState(12)
-    x = _tensor(rng, shape, 2.0, cuda_device).to(dtype)
-    before = upsample4.launches
-    got, want = upsample4(x, filt, 4.0), upsample4_plain(x, filt, 4.0)
-    assert upsample4.launches == before + 1
-    assert got.shape == want.shape == (shape[0], 4 * shape[1], 4 * shape[2], shape[3])
-    if dtype == torch.bfloat16:
-        assert torch.equal(got, want)
-    else:
-        assert (got - want).abs().max() <= 1e-6 * max(1.0, want.abs().max())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("filt", ["bilinear", "bicubic"])
-@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=EDGE_IDS)
-def test_upsample4_bwd_kernel_edge_shapes(cuda_device, shape, filt, dtype):
-    """K2 onto dx of the edge shapes against its plain version, at
-    chip_smoke.py's tolerances: float32 1e-5 of the scale (sums of up to
-    256 products in another order), bfloat16 1e-2 (both round after the H
-    pass and at the end)."""
-    rng = np.random.RandomState(13)
     b, h, w, c = shape
     g = _tensor(rng, (b, 4 * h, 4 * w, c), 1.0, cuda_device).to(dtype)
+    before = upsample4_bwd.launches
     got, want = upsample4_bwd(g, filt, 4.0), upsample4_bwd_plain(g, filt, 4.0)
+    assert upsample4_bwd.launches == before + 1
     assert got.shape == want.shape == shape
-    tol = 1e-5 if dtype == torch.float32 else 1e-2
-    assert (got.float() - want.float()).abs().max() <= tol * max(1.0, want.float().abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    else:
+        scale = max(1.0, want.float().abs().max())
+        assert (got.float() - want.float()).abs().max() <= 1e-2 * scale
+
+
+def _grads(fn, inputs, device):
+    xs = [t.to(device, copy=True).requires_grad_() for t in inputs]
+    out = fn(*xs)
+    assert out.grad_fn is not None
+    cot = torch.from_numpy(np.random.RandomState(9).randn(*out.shape)
+                           .astype(np.float32)).to(device)
+    return [g.cpu() for g in torch.autograd.grad(out, xs, cot)]
 
 
 @pytest.mark.cuda
@@ -192,15 +181,6 @@ def test_upsample4_grad_edge_shapes_match_cpu(cuda_device, shape, filt):
     fn = lambda t: upsample4(t, filt, 4.0)  # noqa: E731
     (got,), (want,) = _grads(fn, [x], cuda_device), _grads(fn, [x], "cpu")
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
-
-
-def _grads(fn, inputs, device):
-    xs = [t.to(device, copy=True).requires_grad_() for t in inputs]
-    out = fn(*xs)
-    assert out.grad_fn is not None
-    cot = torch.from_numpy(np.random.RandomState(9).randn(*out.shape)
-                           .astype(np.float32)).to(device)
-    return [g.cpu() for g in torch.autograd.grad(out, xs, cot)]
 
 
 @pytest.mark.cuda
