@@ -45,23 +45,19 @@ constexpr int kMaxSmem = 232448;
 
 // Phase weights; all values are dyadic, hence exact in float32 and
 // bfloat16. NT taps per axis: 2 (bilinear, offsets 0..1) or 4 (bicubic,
-// offsets -1..2). With p and t unrolled, a weight is an FMA's
-// constant-bank operand.
-__constant__ float kBilinear[4][2] = {
-    {1.0f, 0.0f}, {0.75f, 0.25f}, {0.5f, 0.5f}, {0.25f, 0.75f}};
-__constant__ float kCatmullRom[4][4] = {
-    {0.0f, 1.0f, 0.0f, 0.0f},
-    {-0.10546875f, 0.87890625f, 0.26171875f, -0.03515625f},
-    {-0.09375f, 0.59375f, 0.59375f, -0.09375f},
-    {-0.03515625f, 0.26171875f, 0.87890625f, -0.10546875f}};
-
+// offsets -1..2). K1 takes them from this constexpr table: with p and t
+// unrolled they fold to FMA immediates (read from constant memory
+// instead, the bfloat16 instantiations spilled and ran 2-4% slower on an
+// H100). K2 sums them at run-time indices and reads the same values from
+// constant memory (kBilinear, kCatmullRom, below).
 template <int NT>
-__device__ __forceinline__ float tap_weight(int p, int t) {
-  if constexpr (NT == 2) {
-    return kBilinear[p][t];
-  } else {
-    return kCatmullRom[p][t];
-  }
+__host__ __device__ constexpr float tap_weight(int p, int t) {
+  constexpr float w4[4][4] = {
+      {0.0f, 1.0f, 0.0f, 0.0f},
+      {-0.10546875f, 0.87890625f, 0.26171875f, -0.03515625f},
+      {-0.09375f, 0.59375f, 0.59375f, -0.09375f},
+      {-0.03515625f, 0.26171875f, 0.87890625f, -0.10546875f}};
+  return NT == 2 ? (t == 0 ? 1.0f - 0.25f * p : 0.25f * p) : w4[p][t];
 }
 
 // Shared memory of a K1 block, in bytes, and its parts' offsets in floats:
@@ -211,6 +207,15 @@ int launch_k1_channels(const T* x, T* out, int B, int H, int W, int C, float alp
   if (C == 3) return launch_k1_tile<T, NT, 3>(x, out, B, H, W, C, alpha, s);
   return launch_k1_tile<T, NT, 0>(x, out, B, H, W, C, alpha, s);
 }
+
+// K2's phase weights (tap_weight's values).
+__constant__ float kBilinear[4][2] = {
+    {1.0f, 0.0f}, {0.75f, 0.25f}, {0.5f, 0.5f}, {0.25f, 0.75f}};
+__constant__ float kCatmullRom[4][4] = {
+    {0.0f, 1.0f, 0.0f, 0.0f},
+    {-0.10546875f, 0.87890625f, 0.26171875f, -0.03515625f},
+    {-0.09375f, 0.59375f, 0.59375f, -0.09375f},
+    {-0.03515625f, 0.26171875f, 0.87890625f, -0.10546875f}};
 
 // Entry (4*src + phase, dst) of the (4n, n) stencil matrix: the phase's
 // weights summed over the taps whose clamped source index is dst (edge rows
