@@ -6,7 +6,9 @@
 Phases, each raising on failure (so the exit code is non-zero):
 
 1. versions, the card's name and power limit; no CUDA -> exit non-zero;
-2. build the CUDA kernels from ``tecogan_tpu_torch/csrc`` with nvcc;
+2. build the CUDA kernels from ``tecogan_tpu_torch/csrc`` with nvcc
+   (``-Xptxas -v``), with the bfloat16 chain kernel's resident blocks per
+   SM and the float32 chain kernel's cluster size and resident clusters;
 3. each kernel against its plain PyTorch version on the card (K1, K2 the
    upsample's adjoint, the chain), at the streaming and training paths'
    shapes and a ragged one, float32 (TF32 off) and bfloat16, with the
@@ -16,10 +18,13 @@ Phases, each raising on failure (so the exit code is non-zero):
    its plain version and, where one PyTorch call computes the same
    function (``torch.einsum`` for K1 and K2; none for the chain), that
    call, with the bound (bytes over HBM's rate or operations over the
-   units' peak, its arithmetic printed) and the kernel's share of it; the
-   float32 chain also at the training shape, (4,32,32,64) with N=10; the
-   bfloat16 chain also, one block at three shapes, against its own
-   rounding points in float32 (8e-3);
+   units' peak, its arithmetic printed) and the kernel's share of it; K1
+   also at the training path's shapes, (36,32,32,2) bilinear and
+   (4,32,32,3) bicubic in float32; the float32 chain also at the training
+   shape, (4,32,32,64) with N=10, bound by its 3xTF32 tensor-core
+   products, and untimed at two edge shapes; the bfloat16
+   chain also, one block at three shapes, against its own rounding points
+   in float32 (8e-3);
 4. autograd: the upsample (both filters) and the chain on the card against
    the same functions on the CPU, gradients of every input, float32;
 5. the whole streaming path at full width (16 resblocks, 64 channels) on
@@ -37,7 +42,7 @@ Phases, each raising on failure (so the exit code is non-zero):
    (batch 4, crop 32, 10 frames, 10 resblocks) on synthetic PNG scenes,
    40 steps, then a resume to 45, with the kernels' launch counts,
    ms/step, frames/s and peak memory; then a ``torch.profiler`` split of
-   one step. This phase runs with PyTorch's default precision flags (cuDNN
+   one step, which must show the chain in the float32 cluster kernel. This phase runs with PyTorch's default precision flags (cuDNN
    in TF32), as the training CLI does; the comparisons before it with TF32
    off;
 9. the inference CLI and the metrics suite at the main path's width: 41
@@ -186,7 +191,8 @@ SPIN_CYCLES_PER_S = 1.98e9
 # written once) over the HBM rate and its operations over the peak rate of
 # the units that do them (NVIDIA's H100 SXM data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16 tensor cores": 989e12, "float32 CUDA cores": 67e12}
+PEAK_FLOPS = {"bf16 tensor cores": 989e12, "float32 CUDA cores": 67e12,
+              "TF32 tensor cores": 495e12}
 
 
 def bound(launches: int, bytes_: float, flops: float, unit: str):
@@ -215,12 +221,15 @@ def upsample_bound(lr_elems: int, itemsize: int, nt: int):
 def chain_bound(x: torch.Tensor, n: int):
     """n resblock launches on x (B, H, W, 64): each reads x, its 2 convs'
     weights and biases and writes its output; 2 x 9 x 64 x 64 multiply-adds
-    per pixel and conv."""
+    per pixel and conv, on the tensor cores: once in bfloat16, three times
+    in TF32 for float32 (the float32 kernel takes each product as three
+    TF32 products to keep float32 accuracy)."""
     c, size = x.shape[-1], x.element_size()
     px = x.numel() // c
-    unit = "bf16 tensor cores" if x.dtype == torch.bfloat16 else "float32 CUDA cores"
+    bf16 = x.dtype == torch.bfloat16
     return bound(n, (2 * x.numel() + 2 * 9 * c * c + 2 * c) * size,
-                 2 * 2 * 9 * c * c * px, unit)
+                 (1 if bf16 else 3) * 2 * 2 * 9 * c * c * px,
+                 "bf16 tensor cores" if bf16 else "TF32 tensor cores")
 
 
 def einsum_upsample(x: torch.Tensor, filter_: str, alpha: float):
@@ -311,6 +320,26 @@ def check_kernels(dev):
              lambda: upsample4_plain(lr, "bicubic"),
              ("streaming" if bf16 else None, einsum_upsample(lr, "bicubic", 1.0),
               upsample_bound(lr.numel(), lr.element_size(), 4))),
+        ]
+        # K1 on the training path, float32: the flow upsample of
+        # flows_for_sequence (B*(T-1) = 36 LR flows of a 32x32 crop, x4) and
+        # the generator's skip at FRVSR_PRESET (batch 4).
+        if not bf16:
+            flow_t = seeded((36, 32, 32, 2), 2.0, gen, dev, dtype)
+            lr_t = torch.rand((4, 32, 32, 3), generator=gen).to(dev, dtype)
+            cases += [
+                ("upsample4", "bilinear flow x4 training (36,32,32,2)",
+                 lambda: upsample4(flow_t, "bilinear", 4.0),
+                 lambda: upsample4_plain(flow_t, "bilinear", 4.0),
+                 ("training", einsum_upsample(flow_t, "bilinear", 4.0),
+                  upsample_bound(flow_t.numel(), flow_t.element_size(), 2))),
+                ("upsample4", "bicubic skip training (4,32,32,3)",
+                 lambda: upsample4(lr_t, "bicubic"),
+                 lambda: upsample4_plain(lr_t, "bicubic"),
+                 ("training", einsum_upsample(lr_t, "bicubic", 1.0),
+                  upsample_bound(lr_t.numel(), lr_t.element_size(), 4))),
+            ]
+        cases += [
             ("upsample4", "bilinear ragged (2,37,53,3)",
              lambda: upsample4(ragged, "bilinear"),
              lambda: upsample4_plain(ragged, "bilinear"), None),
@@ -347,7 +376,7 @@ def check_kernels(dev):
         # chain at N=10 on (4,32,32) (FRVSR_PRESET: batch 4, LR crop 32).
         lim = 0.5 * (6.0 / (2 * 9 * CHANNELS)) ** 0.5
         chains = [(1, LR_H, LR_W, NUM_RESBLOCK, True, "streaming" if bf16 else None),
-                  (2, 37, 53, 3, False, None)]
+                  (2, 37, 53, 3, False, None), (1, 5, 7, 1, False, None)]
         if not bf16:
             chains.append((4, 32, 32, 10, True, "training"))
         for b, h, w, n, timed, path in chains:
@@ -402,8 +431,8 @@ def check_kernels(dev):
                     lib_ms = None
                     line += f" library_ms=None ({lib})"
                 line += (f" (median [min-max]) bound_ms={bound_ms:.5f} by {bound_by}: "
-                         f"{arithmetic}; share of bound {bound_ms / ms:.1%}; path "
-                         f"{path or 'none at this shape and dtype'}")
+                         f"{arithmetic}; share of bound {bound_ms / ms:.1%}")
+                line += f"; path {path or 'none at this shape and dtype'}"
                 records.append(dict(kernel=kernel, dtype=name, label=label, path=path,
                                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                     library_ms=lib_ms, bound_ms=bound_ms,
@@ -630,29 +659,41 @@ def device_us(evt, total: bool = False) -> float:
     return getattr(evt, name)
 
 
+def busy_us(spans) -> float:
+    """The time covered by the union of (start, end) intervals: kernels
+    that overlap (a chain block launched while the previous one runs) count
+    once."""
+    busy, end = 0.0, -math.inf
+    for s, e in sorted(spans):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
 def device_split(prof):
-    """A torch.profiler window's device time by kernel group. Kernel rows
-    count each kernel once; an operator's row holds the device time of the
-    kernels it launched itself (by_op: where the glue comes from). Returns
-    (total us, {group: us}, {group: {kernel: launches}}, by_op)."""
+    """A torch.profiler window's device time by kernel group: the time the
+    device was busy, the union of its kernels' intervals, in all and per
+    group. An operator's row holds the device time of the kernels it
+    launched itself (by_op: where the glue comes from). Returns (total us,
+    {group: us}, {group: {kernel: launches}}, by_op)."""
     from torch.autograd import DeviceType
 
-    split = dict.fromkeys([*PROFILE_GROUPS, GLUE], 0.0)
-    names = {g: {} for g in split}
-    total, by_op = 0.0, []
-    for row in prof.key_averages():
-        us = device_us(row)
-        if us <= 0:
+    spans = {g: [] for g in [*PROFILE_GROUPS, GLUE]}
+    names = {g: {} for g in spans}
+    for evt in prof.events():
+        # A user annotation on the device's timeline spans kernels; it is none.
+        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
             continue
-        if row.device_type != DeviceType.CUDA:
-            by_op.append((us, row.count, row.key))
-            continue
-        total += us
-        key = row.key.lower()
+        key = evt.name.lower()
         group = next((g for g, needles in PROFILE_GROUPS.items()
                       if any(n.lower() in key for n in needles)), GLUE)
-        split[group] += us
-        names[group][row.key] = names[group].get(row.key, 0) + row.count
+        spans[group].append((evt.time_range.start, evt.time_range.end))
+        names[group][evt.name] = names[group].get(evt.name, 0) + 1
+    by_op = [(device_us(row), row.count, row.key) for row in prof.key_averages()
+             if row.device_type != DeviceType.CUDA and device_us(row) > 0]
+    total = busy_us([s for group in spans.values() for s in group])
+    split = {g: busy_us(s) for g, s in spans.items()}
     return total, split, names, sorted(by_op, reverse=True)
 
 
@@ -684,10 +725,17 @@ def profile_step(dev, cfg, state, steady: float) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.train_step(state, batch)
         torch.cuda.synchronize()
-    total, split, _, by_op = device_split(prof)
+    total, split, names, by_op = device_split(prof)
     if total <= 0:
         log("[profile] torch.profiler recorded no device time; see the CUDA-event times")
         return
+    chain = names["chain kernel"]
+    for key, count in chain.items():
+        log(f"[profile]   chain kernel: {count} launches of {key[:100]}")
+    want = cfg.num_resblock * cfg.rnn_n
+    if sum(n for key, n in chain.items() if "resblock_kernel_tf32x3" in key) < want:
+        raise RuntimeError(f"[profile] the chain ran {chain}, want >= {want} launches "
+                           "of resblock_kernel_tf32x3")
     replay = sum(device_us(e, total=True) for e in prof.events()
                  if e.name.startswith("autograd::engine::evaluate_function: _ResblockChain"))
     log(f"[profile] one FRVSR_PRESET step: {total / 1e3:.2f} ms of device time "
@@ -1025,6 +1073,13 @@ def main() -> None:
     _build.check(_build.library().tt_resblock_chain_bf16_blocks_per_sm(
         ctypes.byref(blocks)), "resblock_chain occupancy")
     log(f"[build] bfloat16 chain kernel: {blocks.value} resident blocks per SM")
+    size, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(_build.library().tt_resblock_chain_f32_clusters(
+        ctypes.byref(size), ctypes.byref(clusters)), "resblock_chain clusters")
+    log(f"[build] float32 chain kernel: clusters of {size.value} CTAs, {clusters.value} "
+        f"clusters ({size.value * clusters.value} CTAs) resident at once "
+        f"(cudaOccupancyMaxActiveClusters) on "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
     records = check_kernels(dev)
     if "--kernels-only" in sys.argv[1:]:

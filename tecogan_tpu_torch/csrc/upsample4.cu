@@ -45,11 +45,10 @@ constexpr int kMaxSmem = 232448;
 
 // Phase weights; all values are dyadic, hence exact in float32 and
 // bfloat16. NT taps per axis: 2 (bilinear, offsets 0..1) or 4 (bicubic,
-// offsets -1..2). K1 takes them from this constexpr table: with p and t
-// unrolled they fold to FMA immediates (read from constant memory
-// instead, the bfloat16 instantiations spilled and ran 2-4% slower on an
-// H100). K2 sums them at run-time indices and reads the same values from
-// constant memory (kBilinear, kCatmullRom, below).
+// offsets -1..2). K1 and K2 take them from this constexpr table: with p
+// and t unrolled they fold to FMA immediates (read from constant memory
+// instead, the bfloat16 K1 instantiations spilled and ran 2-4% slower on
+// an H100).
 template <int NT>
 __host__ __device__ constexpr float tap_weight(int p, int t) {
   constexpr float w4[4][4] = {
@@ -208,30 +207,6 @@ int launch_k1_channels(const T* x, T* out, int B, int H, int W, int C, float alp
   return launch_k1_tile<T, NT, 0>(x, out, B, H, W, C, alpha, s);
 }
 
-// K2's phase weights (tap_weight's values).
-__constant__ float kBilinear[4][2] = {
-    {1.0f, 0.0f}, {0.75f, 0.25f}, {0.5f, 0.5f}, {0.25f, 0.75f}};
-__constant__ float kCatmullRom[4][4] = {
-    {0.0f, 1.0f, 0.0f, 0.0f},
-    {-0.10546875f, 0.87890625f, 0.26171875f, -0.03515625f},
-    {-0.09375f, 0.59375f, 0.59375f, -0.09375f},
-    {-0.03515625f, 0.26171875f, 0.87890625f, -0.10546875f}};
-
-// Entry (4*src + phase, dst) of the (4n, n) stencil matrix: the phase's
-// weights summed over the taps whose clamped source index is dst (edge rows
-// and columns collect several taps). Dyadic sums, exact in float32.
-template <int NT>
-__device__ __forceinline__ float stencil_weight(int src, int phase, int dst, int n) {
-  constexpr int OFF = NT == 2 ? 0 : -1;
-  const float* w = NT == 2 ? kBilinear[phase] : kCatmullRom[phase];
-  float s = 0.0f;
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    if (min(max(src + OFF + t, 0), n - 1) == dst) s += w[t];
-  }
-  return s;
-}
-
 // K2: the adjoint of upsample4_kernel, dx = alpha * Sh^T g Sw^T per (b, c)
 // plane, g (B, 4H, 4W, C) -> dx (B, H, W, C).
 //
@@ -242,84 +217,174 @@ __device__ __forceinline__ float stencil_weight(int src, int phase, int dst, int
 // rounded to T, then dx[iy, ix] = sum_ox hi[iy, ox] Sw[ox, ix] in float32,
 // times alpha, rounded once more.
 //
-// Gather form: one thread per dx element, no atomics. Source row i feeds
-// dx row iy iff clamp(i + OFF + t) == iy for a tap t; all such i lie in
-// [iy - OFF - NT + 1, iy - OFF] clipped to the image (the clamped edge taps
-// included), so each thread walks at most NT source rows x 4 phases per
-// axis: 4NT x 4NT g elements. Bound: like K1 by index math and loads that
-// the L1 serves (each g element is read by NT^2 threads, more at the edges);
-// dx is 1/16 of g. hi is recomputed per thread rather than staged in shared
-// memory: a simple kernel first.
-template <typename T, int NT>
-__global__ void upsample4_bwd_kernel(const T* __restrict__ g, T* __restrict__ dx,
-                                     int B, int H, int W, int C, float alpha) {
-  constexpr int OFF = NT == 2 ? 0 : -1;
-  const int total = B * H * W * C;  // the wrapper keeps 16 * total < 2^31
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int c = idx % C;
-  int t = idx / C;
-  const int ix = t % W;
-  t /= W;
-  const int iy = t % H;
-  const int b = t / H;
-  const int i_lo = max(iy - OFF - NT + 1, 0), i_hi = min(iy - OFF, H - 1);
-  const int j_lo = max(ix - OFF - NT + 1, 0), j_hi = min(ix - OFF, W - 1);
-  const int row = 4 * W * C;  // elements per g row
-  const T* plane = g + b * 16 * H * W * C + c;
+// Bound on the card: memory, like K1 (g is 16x dx, a few FMAs a g element).
+// Source row i feeds dx row iy with tap t where i + OFF + t = iy, and with
+// the taps that the edge clamp sends onto iy when iy is 0 or n - 1 (edge
+// rows and columns collect several taps). Design:
+// - a block owns a kBwdTileH x kBwdTileW dx tile of one image, all C
+//   channels, and reads the g rows that feed it once, each as one
+//   contiguous segment of 4 (kBwdTileW + NT - 1) C elements: a thread owns
+//   one element of that segment and walks the 4 (kBwdTileH + NT - 1) rows,
+//   coalesced, keeping the tile's kBwdTileH H-adjoint sums in registers;
+// - interior weights are tap_weight's constexpr table (source row s of
+//   the staged rows feeds tile row s - k with tap NT - 1 - k); the clamped
+//   taps go to two more sums, added onto row 0 and row H - 1 only where the
+//   tile holds them;
+// - the H-adjoint, rounded to T, goes to shared memory once per (dx row,
+//   staged g column, channel); the W-adjoint reads it there the same way,
+//   one thread per dx element, and stores contiguous dx rows;
+// - C = 2 (the flow) and C = 3 (the skip) are template constants;
+// - 4-row tiles: the training path's flow gradient, (36,128,128,2), takes
+//   288 blocks (8-row tiles gave 144 and ran ~25% slower on an H100; at
+//   the streaming geometry, which no path runs, they are ~4% faster).
+// tests/test_torch_upsample_plan.py emulates this plan in numpy.
+constexpr int kBwdTileH = 4, kBwdTileW = 32;
+constexpr int kBwdMaxThreads = 512;
 
-  float acc = 0.0f;
-  for (int j = j_lo; j <= j_hi; ++j) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float wq = stencil_weight<NT>(j, q, ix, W);
-      if (wq == 0.0f) continue;
-      const T* col_ptr = plane + (4 * j + q) * C;
-      float hi = 0.0f;
-      for (int i = i_lo; i <= i_hi; ++i) {
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          const float wp = stencil_weight<NT>(i, p, iy, H);
-          hi += wp * tt::to_f32(col_ptr[(4 * i + p) * row]);
-        }
-      }
-      acc += wq * tt::round_to<T>(hi);  // the H-adjoint pass is rounded to T
-    }
-  }
-  dx[idx] = tt::from_f32<T>(alpha * acc);
+// Shared memory of a K2 block: hs, kBwdTileH x 4 (kBwdTileW + NT - 1) x C
+// floats.
+template <int NT>
+constexpr size_t k2_smem_bytes(int C) {
+  return sizeof(float) * kBwdTileH * 4 * (kBwdTileW + NT - 1) * static_cast<size_t>(C);
 }
 
-template <typename T>
-int launch(const void* x, void* out, int B, int H, int W, int C, int filter,
+// Threads of a K2 block: one per staged g column element, in whole warps,
+// at most kBwdMaxThreads.
+template <int NT>
+constexpr int k2_threads(int C) {
+  const int cols = 4 * (kBwdTileW + NT - 1) * C;
+  return cols >= kBwdMaxThreads ? kBwdMaxThreads : (cols + 31) / 32 * 32;
+}
+
+// Weight of source index i (phase p's tap t) on the clamped edge: sums into
+// `low` when i + OFF + t < 0 (clamped onto 0) and into `high` when it is
+// past n - 1 (clamped onto n - 1).
+template <int NT>
+__device__ __forceinline__ void clamped_taps(int i, int p, int n, float v, float& low,
+                                             float& high) {
+  constexpr int OFF = NT == 2 ? 0 : -1;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const int u = i + OFF + t;
+    if (u < 0) low += tap_weight<NT>(p, t) * v;
+    if (u > n - 1) high += tap_weight<NT>(p, t) * v;
+  }
+}
+
+// K2. CT: C as a template constant (2 or 3), or 0 for a runtime C. Grid
+// (tiles across W, tiles across H, B); block k2_threads<NT>(C).
+template <typename T, int NT, int CT>
+__global__ void __launch_bounds__(kBwdMaxThreads)
+upsample4_bwd_kernel(const T* __restrict__ g, T* __restrict__ dx, int H, int W, int C_rt,
+                     float alpha) {
+  // 32-bit index math: the wrapper keeps B * 16 * H * W * C below 2^31.
+  constexpr int OFF = NT == 2 ? 0 : -1;
+  constexpr int TH = kBwdTileH, TW = kBwdTileW, SR = TH + NT - 1;  // staged LR rows
+  const int C = CT > 0 ? CT : C_rt;
+  const int b = blockIdx.z, iy0 = blockIdx.y * TH, ix0 = blockIdx.x * TW;
+  const int i0 = iy0 - OFF - NT + 1, j0 = ix0 - OFF - NT + 1;  // first staged LR row, column
+  const int SC = 4 * (TW + NT - 1) * C;  // staged g elements of a row
+  extern __shared__ float4 smem[];
+  float* hs = reinterpret_cast<float*>(smem);  // (TH, SC)
+
+  // 1. The H-adjoint: thread e of the staged row segment, all staged rows.
+  const bool edge_h = iy0 == 0 || iy0 + TH >= H;  // the tile holds row 0 or row H - 1
+  const int row = 4 * W * C;                      // elements of a g row
+  for (int e = threadIdx.x; e < SC; e += blockDim.x) {
+    const int ox = 4 * j0 + e / C;
+    const bool col_ok = ox >= 0 && ox < 4 * W;
+    const T* col = g + (b * 16 * H * W + (col_ok ? ox : 0)) * C + e % C;
+    float hi[TH], low = 0.0f, high = 0.0f;
+#pragma unroll
+    for (int r = 0; r < TH; ++r) hi[r] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < SR; ++s) {
+      const int i = i0 + s;
+      if (i < 0 || i >= H || !col_ok) continue;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const float v = tt::to_f32(col[(4 * i + p) * row]);
+#pragma unroll
+        for (int k = 0; k < NT; ++k) {
+          if (s - k >= 0 && s - k < TH) hi[s - k] += tap_weight<NT>(p, NT - 1 - k) * v;
+        }
+        if (edge_h) clamped_taps<NT>(i, p, H, v, low, high);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < TH; ++r) {
+      if (iy0 + r == 0) hi[r] += low;
+      if (iy0 + r == H - 1) hi[r] += high;
+      hs[r * SC + e] = tt::round_to<T>(hi[r]);
+    }
+  }
+  __syncthreads();
+
+  // 2. The W-adjoint: one thread per dx element (r, tx, c) of the tile.
+  const bool edge_w = ix0 == 0 || ix0 + TW >= W;
+  const int th = min(TH, H - iy0), tw = min(TW, W - ix0);
+  for (int idx = threadIdx.x; idx < th * tw * C; idx += blockDim.x) {
+    const int c = idx % C, t = idx / C, tx = t % tw, r = t / tw;
+    const int ix = ix0 + tx;
+    const float* h = hs + r * SC + c;
+    float acc = 0.0f, low = 0.0f, high = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NT; ++k) {
+      const int j = ix - OFF - NT + 1 + k;  // staged column tx + k
+      if (j < 0 || j >= W) continue;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float v = h[(4 * (tx + k) + q) * C];
+        acc += tap_weight<NT>(q, NT - 1 - k) * v;
+        if (edge_w) clamped_taps<NT>(j, q, W, v, low, high);
+      }
+    }
+    if (ix == 0) acc += low;
+    if (ix == W - 1) acc += high;
+    dx[((b * H + iy0 + r) * W + ix) * C + c] = tt::from_f32<T>(alpha * acc);
+  }
+}
+
+template <typename T, int NT, int CT>
+int launch_k2(const T* g, T* dx, int B, int H, int W, int C, float alpha, cudaStream_t s) {
+  const size_t smem = k2_smem_bytes<NT>(C);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = upsample4_bwd_kernel<T, NT, CT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((W + kBwdTileW - 1) / kBwdTileW, (H + kBwdTileH - 1) / kBwdTileH, B);
+  kernel<<<grid, k2_threads<NT>(C), smem, s>>>(g, dx, H, W, C, alpha);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int NT>
+int launch_k2_channels(const T* g, T* dx, int B, int H, int W, int C, float alpha,
+                       cudaStream_t s) {
+  if (C == 2) return launch_k2<T, NT, 2>(g, dx, B, H, W, C, alpha, s);
+  if (C == 3) return launch_k2<T, NT, 3>(g, dx, B, H, W, C, alpha, s);
+  return launch_k2<T, NT, 0>(g, dx, B, H, W, C, alpha, s);
+}
+
+// K1 (or K2, its adjoint); H, W are x's (dx's) sizes, the low-resolution
+// ones, in both directions.
+template <typename T, bool kAdjoint>
+int launch(const void* in, void* out, int B, int H, int W, int C, int filter,
            float alpha, void* stream) {
   const int64_t total = static_cast<int64_t>(B) * 16 * H * W * C;
   if (total >= (int64_t{1} << 31) || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (total == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* xp = static_cast<const T*>(x);
+  const T* ip = static_cast<const T*>(in);
   T* op = static_cast<T*>(out);
-  return filter == 0 ? launch_k1_channels<T, 2>(xp, op, B, H, W, C, alpha, s)
-                     : launch_k1_channels<T, 4>(xp, op, B, H, W, C, alpha, s);
-}
-
-// H, W are dx's (the low-resolution) sizes, as for the forward launch.
-template <typename T>
-int launch_bwd(const void* g, void* dx, int B, int H, int W, int C, int filter,
-               float alpha, void* stream) {
-  const int64_t total = static_cast<int64_t>(B) * H * W * C;
-  if (16 * total >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  if (total == 0) return static_cast<int>(cudaSuccess);
-  constexpr int kThreads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* gp = static_cast<const T*>(g);
-  T* dp = static_cast<T*>(dx);
-  if (filter == 0) {
-    upsample4_bwd_kernel<T, 2><<<blocks, kThreads, 0, s>>>(gp, dp, B, H, W, C, alpha);
-  } else {
-    upsample4_bwd_kernel<T, 4><<<blocks, kThreads, 0, s>>>(gp, dp, B, H, W, C, alpha);
+  if (kAdjoint) {
+    return filter == 0 ? launch_k2_channels<T, 2>(ip, op, B, H, W, C, alpha, s)
+                       : launch_k2_channels<T, 4>(ip, op, B, H, W, C, alpha, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return filter == 0 ? launch_k1_channels<T, 2>(ip, op, B, H, W, C, alpha, s)
+                     : launch_k1_channels<T, 4>(ip, op, B, H, W, C, alpha, s);
 }
 
 }  // namespace
@@ -327,21 +392,21 @@ int launch_bwd(const void* g, void* dx, int B, int H, int W, int C, int filter,
 // filter: 0 = bilinear, 1 = bicubic. x: (B, H, W, C), out: (B, 4H, 4W, C).
 extern "C" int tt_upsample4_f32(const void* x, void* out, int B, int H, int W,
                                 int C, int filter, float alpha, void* stream) {
-  return launch<float>(x, out, B, H, W, C, filter, alpha, stream);
+  return launch<float, false>(x, out, B, H, W, C, filter, alpha, stream);
 }
 
 extern "C" int tt_upsample4_bf16(const void* x, void* out, int B, int H, int W,
                                  int C, int filter, float alpha, void* stream) {
-  return launch<__nv_bfloat16>(x, out, B, H, W, C, filter, alpha, stream);
+  return launch<__nv_bfloat16, false>(x, out, B, H, W, C, filter, alpha, stream);
 }
 
 // K2. g: (B, 4H, 4W, C), dx: (B, H, W, C).
 extern "C" int tt_upsample4_bwd_f32(const void* g, void* dx, int B, int H, int W,
                                     int C, int filter, float alpha, void* stream) {
-  return launch_bwd<float>(g, dx, B, H, W, C, filter, alpha, stream);
+  return launch<float, true>(g, dx, B, H, W, C, filter, alpha, stream);
 }
 
 extern "C" int tt_upsample4_bwd_bf16(const void* g, void* dx, int B, int H, int W,
                                      int C, int filter, float alpha, void* stream) {
-  return launch_bwd<__nv_bfloat16>(g, dx, B, H, W, C, filter, alpha, stream);
+  return launch<__nv_bfloat16, true>(g, dx, B, H, W, C, filter, alpha, stream);
 }

@@ -23,7 +23,7 @@ crops cross to the device. The augmentation decisions (:class:`SeqPlan`)
 draw from the RNG in the JAX loader's order, so a seed gives the same
 windows, crops and flips. Frames are decoded by ``data/png.py`` (the GPU
 machine has no OpenCV). The JAX package's native libpng executor is ROADMAP
-queue 1 item 5; only the python executor is ported.
+queue 1 item 13; only the python executor is ported.
 """
 
 from __future__ import annotations

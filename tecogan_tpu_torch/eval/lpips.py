@@ -53,7 +53,7 @@ class LPIPS(nn.Module):
     ``device``."""
 
     def __init__(self, alex_params: Dict, lin_weights: List[np.ndarray],
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = "cuda"):
         super().__init__()
         self.device = torch.device(device)
         self.convs = nn.ModuleList()
@@ -157,7 +157,7 @@ def random_alexnet_params(seed: int) -> Dict:
 
 def default_lpips(reference_root: Optional[str] = None,
                   backbone_path: Optional[str] = None,
-                  device: Union[str, torch.device] = "cpu") -> Optional[LPIPS]:
+                  device: Union[str, torch.device] = "cuda") -> Optional[LPIPS]:
     """The LPIPS evaluator on ``device`` if its weights are there, else
     None: the lin weights at ``<reference_root>/LPIPSmodels/v0.1/alex.pth``
     (``reference_root`` defaults to ``$TECOGAN_REFERENCE_ROOT``, where the

@@ -48,6 +48,9 @@ _SIGNATURES = {
     "tt_resblock_chain_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # (int* blocks): resident blocks per SM of the bfloat16 chain kernel
     "tt_resblock_chain_bf16_blocks_per_sm": (_P,),
+    # (int* cluster_size, int* clusters): the float32 chain kernel's cluster
+    # size and its clusters that can be resident on the card at once
+    "tt_resblock_chain_f32_clusters": (_P, _P),
 }
 
 

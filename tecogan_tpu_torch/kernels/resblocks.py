@@ -6,11 +6,12 @@ Replaces ``tecogan_tpu/kernels/resblocks.py``: ``_chain_kernel`` (K3, via
 ``x += conv3(relu(conv3(x, w1) + b1), w2) + b2`` with SAME padding; K4/K5
 only repack it for the TPU's 128-lane matrix unit. Both CUDA kernels run
 one launch per block on 8x16-pixel tiles in shared memory, with the conv1
-output kept on chip and masked to zero outside the image: in float32
-(``csrc/resblock_chain.cu``) with FMAs on the CUDA cores, in bfloat16
-(``csrc/resblock_chain_mma.cu``) as implicit GEMMs on the tensor cores
-(``mma.sync``, float32 accumulation, the JAX kernel's rounding points);
-see their headers.
+output kept on chip and masked to zero outside the image, as implicit
+GEMMs on the tensor cores (``mma.sync``, float32 accumulation): in
+bfloat16 (``csrc/resblock_chain_mma.cu``) at the JAX kernel's rounding
+points; in float32 (``csrc/resblock_chain.cu``) with each product split
+into three TF32 products, which keeps float32 accuracy, and a cluster of 4
+CTAs per tile, each computing a quarter of the channels; see their headers.
 
 Layout as in the JAX package: x (B, H, W, C), w1/w2 (N, 3, 3, C, C) HWIO,
 b1/b2 (N, C). The kernel is specialised to C = 64, the TecoGAN width.

@@ -13,8 +13,10 @@ at most :data:`MAX_CHANNELS` channels.
 
 K2 replaces ``_down_kernel`` (launched by ``_plane_call_down`` from the
 custom VJP ``_upsample4_bwd``): ``dx = Sh^T @ g @ Sw^T``, the 4x downsample
-by the transposed stencil. The CUDA kernel gathers, one thread per ``dx``
-element, every output position whose clamped taps land on it; no atomics.
+by the transposed stencil. Its CUDA kernel works on ``dx`` tiles too: a
+block reads the ``g`` rows that feed its tile once, coalesced, keeps the
+H-adjoint in shared memory and then applies the W-adjoint; no atomics. It
+takes at most :data:`MAX_CHANNELS` channels as well.
 
 On the streaming path K1 runs twice per chunk and frame: the bilinear form
 upsamples the LR flow (with ``alpha=4`` folding the flow's x4 scale), the
@@ -38,7 +40,8 @@ from tecogan_tpu_torch.kernels import _build
 from tecogan_tpu_torch.ops import resize
 
 _FILTERS = {"bilinear": 0, "bicubic": 1}
-#: K1 keeps a tile's C channels in shared memory (the flow has 2, the skip 3).
+#: K1 and K2 keep a tile's C channels in shared memory (the flow has 2, the
+#: skip 3).
 MAX_CHANNELS = 32
 _ENTRY = {torch.float32: "tt_upsample4_f32", torch.bfloat16: "tt_upsample4_bf16"}
 _ENTRY_BWD = {torch.float32: "tt_upsample4_bwd_f32",
@@ -121,6 +124,9 @@ def upsample4_bwd(g: torch.Tensor, filter_: str = "bilinear",
         return upsample4_bwd_plain(g, filter_, alpha)
     _check_cuda(g, "upsample4_bwd", g.numel())
     b, h4, w4, c = g.shape
+    if c > MAX_CHANNELS or b > 65535:
+        raise ValueError(f"upsample4_bwd on the card takes at most {MAX_CHANNELS} "
+                         f"channels and 65535 images, not {tuple(g.shape)}")
     dx = torch.empty((b, h4 // 4, w4 // 4, c), dtype=g.dtype, device=g.device)
     err = getattr(_build.library(), _ENTRY_BWD[g.dtype])(
         g.data_ptr(), dx.data_ptr(), b, h4 // 4, w4 // 4, c, _FILTERS[filter_],

@@ -38,7 +38,7 @@ class RecurrentState(NamedTuple):
 
 
 def init_state(batch: int, h: int, w: int, dtype=torch.float32,
-               device="cpu") -> RecurrentState:
+               device="cuda") -> RecurrentState:
     """Zero state (reference main.py:197-199)."""
     return RecurrentState(
         prev_lr=torch.zeros((batch, h, w, 3), dtype=dtype, device=device),

@@ -87,6 +87,31 @@ def test_resblock_chain_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,n", [((4, 32, 32), 10), ((1, 144, 180), 2), ((2, 37, 53), 3),
+                                     ((1, 5, 7), 1)],
+                         ids=["training", "calendar", "ragged", "tiny"])
+def test_resblock_chain_f32_matches_plain(cuda_device, shape, n):
+    """The float32 kernel (3xTF32 tensor-core products, clusters of 4 CTAs)
+    against the plain chain with TF32 off: the training shape at its depth,
+    the streaming frame, partial tiles on both axes with B = 2, and a frame
+    smaller than one tile (most of each cluster's tile lies outside it).
+    Tolerance 1e-4 of the output's scale, as chip_smoke.py: float32 sums in
+    another order, and the ~2^-22 relative product the split drops."""
+    rng = np.random.RandomState(7)
+    c = 64
+    lim = 0.5 * (6.0 / (2 * 9 * c)) ** 0.5
+    args = [torch.relu(_tensor(rng, (*shape, c), 1.0, cuda_device))] + [
+        _tensor(rng, s, k, cuda_device) for s, k in (
+            ((n, 3, 3, c, c), lim), ((n, c), 0.1), ((n, 3, 3, c, c), lim), ((n, c), 0.1))]
+    before, launches = args[0].clone(), resblock_chain.launches
+    got, want = resblock_chain(*args), resblock_chain_plain(*args)
+    assert resblock_chain.launches == launches + n
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-4 * max(1.0, want.abs().max())
+    torch.testing.assert_close(args[0], before, rtol=0, atol=0)  # input untouched
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 37, 53), (3, 20, 33), (1, 5, 7)],
                          ids=["ragged", "batch3", "tiny"])
 def test_resblock_chain_bf16_matches_its_rounding_points(cuda_device, shape):
@@ -134,6 +159,16 @@ def test_resblock_chain_rejects_other_widths(cuda_device):
     b = torch.zeros(1, 32, device=cuda_device)
     with pytest.raises(ValueError):
         resblock_chain(x, w, b, w, b)
+
+
+@pytest.mark.cuda
+def test_upsample4_bwd_rejects_too_many_channels(cuda_device):
+    """K2 keeps a tile's channels in shared memory, as K1 does."""
+    from tecogan_tpu_torch.kernels.upsample4 import MAX_CHANNELS
+
+    g = torch.zeros(1, 8, 8, MAX_CHANNELS + 1, device=cuda_device)
+    with pytest.raises(ValueError):
+        upsample4_bwd(g)
 
 
 @pytest.mark.cuda

@@ -249,7 +249,7 @@ def test_default_lpips_needs_its_weights(tmp_path, monkeypatch):
     torch.save({f"lin{i}.model.1.weight": torch.from_numpy(w).view(1, -1, 1, 1)
                 for i, w in enumerate(_lin(2))}, lin_dir / "alex.pth")
     monkeypatch.setenv("TECOGAN_REFERENCE_ROOT", str(tmp_path))
-    model = default_lpips(backbone_path=str(tmp_path / "alex.npz"))
+    model = default_lpips(backbone_path=str(tmp_path / "alex.npz"), device="cpu")
     img = np.zeros((1, 64, 64, 3), np.float32)
     assert isinstance(model, LPIPS) and float(model(img, img)[0]) == 0.0
     np.testing.assert_array_equal(model.convs[1].weight.detach().permute(2, 3, 1, 0).numpy(),

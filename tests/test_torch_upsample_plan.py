@@ -7,7 +7,10 @@ to its VJP, in float32 (where every rounding to the storage type is the
 identity): K1's tile origins and tile height, the clamped halo staging,
 the H pass kept per staged column, the W pass into output rows shifted by
 their misalignment, and the 16-byte row chunking with its scalar head and
-tail; K2's gather ranges and its clamped edge weights. The tile constants
+tail; K2's dx tiles, the g row segments each block reads once, the
+H-adjoint kept per (dx row, staged column) and the interior taps with the
+clamped edge taps summed apart and added onto the edge rows and columns.
+The tile constants
 are read from the ``.cu`` file's ``constexpr`` lines, so the emulation and
 the kernel cannot drift apart. The kernels' bfloat16 rounding is checked
 on the card (``test_torch_cuda.py``, ``chip_smoke.py``).
@@ -36,13 +39,16 @@ SOURCE = (Path(__file__).resolve().parent.parent / "tecogan_tpu_torch" / "csrc"
           / "upsample4.cu")
 # The plan this file emulates; must equal the kernel's namespace constants.
 PLAN = dict(kThreads=256, kWarps=8, kTileW=32, kTileH=8, kTileHSmall=2,
-            kMinBlocks=264, kVecBytes=16, kMaxSmem=232448)
+            kMinBlocks=264, kVecBytes=16, kMaxSmem=232448, kBwdTileH=4, kBwdTileW=32,
+            kBwdMaxThreads=512)
 TW, VEC_BYTES = PLAN["kTileW"], PLAN["kVecBytes"]
 # The Pallas kernel's two float32 matmuls against the plan's tap sums in
 # another order, values up to ~16 (as tests/test_torch_kernels.py).
 ATOL = 1e-5
-SHAPES = [(1, 1, 1, 2), (1, 2, 3, 3), (2, 37, 53, 3), (3, 9, 70, 2)]
-SHAPE_IDS = ["1x1", "2x3", "ragged", "w70"]
+# H or W below the bicubic taps (1x1, 2x3, h3w40: every K2 tile holds both
+# H edges), partial tiles on both axes, W over two tiles.
+SHAPES = [(1, 1, 1, 2), (1, 2, 3, 3), (2, 37, 53, 3), (3, 9, 70, 2), (2, 3, 40, 2)]
+SHAPE_IDS = ["1x1", "2x3", "ragged", "w70", "h3w40"]
 
 
 def _source_constants() -> dict:
@@ -229,75 +235,152 @@ def test_k1_plan_sees_an_unclamped_halo():
 
 
 # --- K2 -------------------------------------------------------------------
-def _stencil_weight(src, phase, dst, n, wts, off):
-    """upsample4.cu's stencil_weight: the phase's weights summed over the
-    taps whose clamped source index is dst."""
-    s = np.zeros(np.broadcast(src, dst).shape, np.float32)
+BH, BW = PLAN["kBwdTileH"], PLAN["kBwdTileW"]
+
+
+def _clamped_taps(i, p, n, wts, off):
+    """upsample4.cu's clamped_taps as weights: phase p's taps of source
+    index i that the clamp sends onto 0 (low) and onto n - 1 (high)."""
+    low = high = np.float32(0)
     for t in range(wts.shape[1]):
-        s = s + np.where(np.clip(src + off + t, 0, n - 1) == dst, wts[phase, t], 0)
-    return s
+        u = i + off + t
+        low = low + (wts[p, t] if u < 0 else 0)
+        high = high + (wts[p, t] if u > n - 1 else 0)
+    return low, high
+
+
+def _k2_threads(nt, c):
+    cols = 4 * (BW + nt - 1) * c
+    return PLAN["kBwdMaxThreads"] if cols >= PLAN["kBwdMaxThreads"] else -(-cols // 32) * 32
 
 
 def test_k2_edge_weights_are_the_stencil_matrix():
     """Every entry (4 src + phase, dst) of the stencil matrix, the clamped
-    edge sums included, is stencil_weight over the source rows of the
-    kernel's gather range [dst - off - NT + 1, dst - off] (zero outside)."""
+    edge sums included, is the interior tap (src feeds dst = src + off + t
+    with tap t) plus the clamped taps onto dst = 0 and dst = n - 1; all of
+    them come from sources in the staged range [dst - off - NT + 1,
+    dst - off]."""
     for filt in ("bilinear", "bicubic"):
         wts, off = _filter(filt)
         nt = wts.shape[1]
         for n in (1, 2, 3, 5, 9):
-            s = resize.stencil_matrix(n, filt).numpy()
-            src, phase, dst = np.meshgrid(np.arange(n), np.arange(4), np.arange(n),
-                                          indexing="ij")
-            got = _stencil_weight(src, phase, dst, n, wts, off)
-            in_range = (src >= dst - off - nt + 1) & (src <= dst - off)
-            assert (got[~in_range] == 0).all()
-            np.testing.assert_array_equal(got.reshape(4 * n, n), s)
+            s = resize.stencil_matrix(n, filt).numpy().reshape(n, 4, n)
+            for src in range(n):
+                for p in range(4):
+                    low, high = _clamped_taps(src, p, n, wts, off)
+                    for dst in range(n):
+                        t = dst - src - off
+                        want = (wts[p, t] if 0 <= t < nt else 0) + \
+                            (low if dst == 0 else 0) + (high if dst == n - 1 else 0)
+                        assert s[src, p, dst] == want
+                        if want:
+                            assert dst - off - nt + 1 <= src <= dst - off
 
 
-def _k2_plan(g, filt, alpha):
-    """upsample4_bwd_kernel, one thread per dx element (vectorised): for
-    source columns j and phases q, the H-adjoint over the source rows i in
-    the gather range, then the W-adjoint, times alpha."""
+def test_k2_blocks_threads_and_shared_memory():
+    """The training path's flow gradient (36 x 32 x 32 LR) gives 288
+    blocks on 132 SMs; a block is one thread per staged g column element,
+    in whole warps (the flow's 264 take 288 threads); MAX_CHANNELS
+    channels fit in shared memory with bicubic taps."""
+    assert -(-32 // BW) * -(-32 // BH) * 36 == 288
+    assert _k2_threads(2, 2) == 288 and _k2_threads(4, 3) == 448
+    assert _k2_threads(4, MAX_CHANNELS) == PLAN["kBwdMaxThreads"]
+    assert 4 * BH * 4 * (BW + 3) * MAX_CHANNELS <= PLAN["kMaxSmem"]
+
+
+def _k2_plan(g, filt, alpha, clamp_edges=True):
+    """upsample4_bwd_kernel's grid, block by block, in float32: the g row
+    segments of a dx tile read once each, the H-adjoint per (tile row,
+    staged column) with the clamped taps summed apart, then the W-adjoint
+    the same way, times alpha. ``clamp_edges=False`` drops the clamped
+    taps. Returns dx and how many times each g element was read."""
     wts, off = _filter(filt)
     nt = wts.shape[1]
     b, h4, w4, c = g.shape
     h, w = h4 // 4, w4 // 4
-    iy = np.arange(h)[:, None, None]
-    ix = np.arange(w)[None, :, None]
-    acc = np.zeros((b, h, w, c), np.float32)
-    for dj in range(nt):
-        j = ix - off - nt + 1 + dj
-        j_ok = (j >= 0) & (j <= w - 1)
-        jc = np.clip(j, 0, w - 1)
-        for q in range(4):
-            wq = np.where(j_ok, _stencil_weight(jc, q, ix, w, wts, off), 0)
-            hi = np.zeros_like(acc)
-            for di in range(nt):
-                i = iy - off - nt + 1 + di
-                i_ok = (i >= 0) & (i <= h - 1)
-                ic = np.clip(i, 0, h - 1)
-                for p in range(4):
-                    wp = np.where(i_ok, _stencil_weight(ic, p, iy, h, wts, off), 0)
-                    rows = (4 * ic + p)[..., 0].repeat(w, 1)
-                    cols = (4 * jc + q)[..., 0].repeat(h, 0)
-                    hi = hi + wp[None] * g[:, rows, cols]
-            acc = acc + wq[None] * hi
-    return np.float32(alpha) * acc
+    sc = 4 * (BW + nt - 1) * c
+    dx = np.full((b, h, w, c), np.nan, np.float32)
+    writes = np.zeros(dx.shape, int)
+    reads = np.zeros(g.shape, int)
+    for bz in range(b):
+        for iy0 in range(0, h, BH):
+            for ix0 in range(0, w, BW):
+                i0, j0 = iy0 - off - nt + 1, ix0 - off - nt + 1
+                # 1. the H-adjoint: element e of the staged row segment.
+                e = np.arange(sc)
+                ox, ch = 4 * j0 + e // c, e % c
+                col_ok = (ox >= 0) & (ox < w4)
+                hi = np.zeros((BH, sc), np.float32)
+                low = np.zeros(sc, np.float32)
+                high = np.zeros(sc, np.float32)
+                edge_h = clamp_edges and (iy0 == 0 or iy0 + BH >= h)
+                for s_ in range(BH + nt - 1):
+                    i = i0 + s_
+                    if not 0 <= i < h:
+                        continue
+                    for p in range(4):
+                        v = np.where(col_ok, g[bz, 4 * i + p, np.clip(ox, 0, w4 - 1), ch], 0)
+                        reads[bz, 4 * i + p, ox[col_ok], ch[col_ok]] += 1
+                        for k in range(nt):
+                            if 0 <= s_ - k < BH:
+                                hi[s_ - k] += wts[p, nt - 1 - k] * v
+                        if edge_h:
+                            lo_w, hi_w = _clamped_taps(i, p, h, wts, off)
+                            low, high = low + lo_w * v, high + hi_w * v
+                for r in range(BH):
+                    hi[r] += (low if iy0 + r == 0 else 0) + (high if iy0 + r == h - 1 else 0)
+                # 2. the W-adjoint: dx element (r, tx, c) of the tile.
+                th, tw = min(BH, h - iy0), min(BW, w - ix0)
+                edge_w = clamp_edges and (ix0 == 0 or ix0 + BW >= w)
+                hs = hi.reshape(BH, BW + nt - 1, 4, c)
+                for tx in range(tw):
+                    ix = ix0 + tx
+                    acc = np.zeros((th, c), np.float32)
+                    lo_acc, hi_acc = np.zeros_like(acc), np.zeros_like(acc)
+                    for k in range(nt):
+                        j = ix - off - nt + 1 + k
+                        if not 0 <= j < w:
+                            continue
+                        for q in range(4):
+                            v = hs[:th, tx + k, q]
+                            acc += wts[q, nt - 1 - k] * v
+                            if edge_w:
+                                lo_w, hi_w = _clamped_taps(j, q, w, wts, off)
+                                lo_acc, hi_acc = lo_acc + lo_w * v, hi_acc + hi_w * v
+                    acc += (lo_acc if ix == 0 else 0) + (hi_acc if ix == w - 1 else 0)
+                    dx[bz, iy0:iy0 + th, ix] = np.float32(alpha) * acc
+                    writes[bz, iy0:iy0 + th, ix] += 1
+    assert (writes == 1).all()
+    return dx, reads
+
+
+def _pallas_vjp(g, shape, filt):
+    x = np.random.RandomState(sum(shape) + 2).randn(*shape).astype(np.float32)
+    with _interpret():
+        _, vjp = jax.vjp(lambda t: jax_up._upsample4_pallas(4 * t, filt), jnp.asarray(x))
+        (want,) = vjp(jnp.asarray(g))
+    return np.asarray(want)
 
 
 @pytest.mark.parametrize("filt", ["bilinear", "bicubic"])
 @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 def test_k2_plan_matches_pallas_vjp(shape, filt):
-    """The gather plan, alpha = 4, against ``jax.vjp`` of
+    """The staged plan, alpha = 4, against ``jax.vjp`` of
     ``_upsample4_pallas(4 x)`` (its custom VJP, ``_down_kernel``) in
-    interpret mode, float32."""
+    interpret mode, float32; every g element is read, by one block or, in
+    the halos the tiles share, by up to four."""
     b, h, w, c = shape
-    rng = np.random.RandomState(sum(shape) + 1)
-    x = rng.randn(*shape).astype(np.float32)
-    g = rng.randn(b, 4 * h, 4 * w, c).astype(np.float32)
-    with _interpret():
-        _, vjp = jax.vjp(lambda t: jax_up._upsample4_pallas(4 * t, filt), jnp.asarray(x))
-        (want,) = vjp(jnp.asarray(g))
-    np.testing.assert_allclose(_k2_plan(g, filt, 4.0), np.asarray(want), rtol=0,
-                               atol=16 * ATOL)
+    g = np.random.RandomState(sum(shape) + 1).randn(b, 4 * h, 4 * w, c).astype(np.float32)
+    got, reads = _k2_plan(g, filt, 4.0)
+    np.testing.assert_allclose(got, _pallas_vjp(g, shape, filt), rtol=0, atol=16 * ATOL)
+    assert reads.min() >= 1 and reads.max() <= 4
+
+
+def test_k2_plan_sees_missing_edge_taps():
+    """Dropping the clamped edge taps moves the border of dx by far more
+    than the tolerance (the interior taps alone are not the adjoint)."""
+    shape = (1, 5, 9, 2)
+    g = np.random.RandomState(7).randn(1, 20, 36, 2).astype(np.float32) + 1
+    want = _pallas_vjp(g, shape, "bicubic")
+    np.testing.assert_allclose(_k2_plan(g, "bicubic", 4.0)[0], want, rtol=0, atol=16 * ATOL)
+    assert np.abs(_k2_plan(g, "bicubic", 4.0, clamp_edges=False)[0] - want).max() > 100 * ATOL
