@@ -20,8 +20,11 @@ Phases, each raising on failure (so the exit code is non-zero):
    call, with the bound (bytes over HBM's rate or operations over the
    units' peak, its arithmetic printed) and the kernel's share of it; K1
    also at the training path's shapes, (36,32,32,2) bilinear and
-   (4,32,32,3) bicubic in float32; the float32 chain also at the training
-   shape, (4,32,32,64) with N=10, bound by its 3xTF32 tensor-core
+   (4,32,32,3) bicubic in float32, and at TecoGAN training's, the flow
+   (72,32,32,2) and the discriminator's bilinear LR triplets
+   (24,32,32,9), alpha 1; K2 at (36,128,128,2) and (72,128,128,2); the
+   float32 chain also at the training shapes, (4,32,32,64) with N=10
+   (FRVSR) and N=16 (TecoGAN), bound by its 3xTF32 tensor-core
    products, and untimed at two edge shapes; the bfloat16
    chain also, one block at three shapes, against its own rounding points
    in float32 (8e-3);
@@ -56,12 +59,30 @@ Phases, each raising on failure (so the exit code is non-zero):
    on the 41 outputs against their HR frames (tOF by the torch Farneback
    on the card); and ``evaluate_folders`` with a seeded random LPIPS on the
    card against the CPU on 8 frames. Prints the split of the CLI's wall
-   time and the suite's seconds per frame.
+   time and the suite's seconds per frame;
+10. one TecoGAN step at full width (TECOGAN_PRESET's widths: 16 blocks,
+   the real FNet, the merged Dst, VGG19 with seeded random weights), batch
+   1, crop 32, 3 frames with ping-pong (5), float32 with TF32 off, GPU
+   against CPU, with the discriminator's gate forced open and closed:
+   every loss, every generator, FNet and discriminator gradient, the
+   discriminator's running statistics after the step, and its parameters
+   (moved when open, bit-unchanged when closed);
+11. TecoGAN training at size through ``train.loop.train``: TECOGAN_PRESET
+   (batch 4, crop 32, 10 frames with ping-pong, 16 blocks) with random
+   VGG19 weights on phase 8's scenes, warm-started from phase 8's
+   10-block FRVSR checkpoint (reference case 3), 20 steps and a resume to
+   25, with each step's kernel launches, ms/step, frames/s, peak memory
+   and the gate's counters; then a ``torch.profiler`` split of one step
+   (the chain, which must be the float32 cluster kernel; VGG19's and the
+   discriminator's kernels, attributed through their forwards and
+   backwards; other cuDNN; K1 + K2; glue; Adam; the device idle share).
+   Phase 10 switches TF32 off for its comparison; phase 11 runs with the
+   default flags, as training does.
 
 Then one ``[yardstick]`` line per timed case of phase 3 with its wrapper's
-launches on the streaming and training paths. The second-to-last line of
-stdout is a JSON object with one entry per kernel; the last is
-``{"ok": true, "device": {...}}``. Imports no JAX.
+launches on the streaming, FRVSR and TecoGAN training paths. The
+second-to-last line of stdout is a JSON object with one entry per kernel;
+the last is ``{"ok": true, "device": {...}}``. Imports no JAX.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3 and prints no
 result line (for comparing two trees' kernels in one call).
@@ -69,6 +90,7 @@ result line (for comparing two trees' kernels in one call).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import math
@@ -117,6 +139,13 @@ GRAD_TOL = {"upsample4": 1e-5, "resblock_chain": 1e-4}
 STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-4, 1e-3
 # The training path: FRVSR_PRESET, synthetic "natural" scenes.
 TRAIN_STEPS, RESUME_STEPS, SAVE_FREQ = 40, 45, 20
+# TecoGAN training (phase 11): TECOGAN_PRESET on the same scenes.
+GAN_STEPS, GAN_RESUME_STEPS = 20, 25
+# Phase 10's parameters after one Adam step, GPU vs CPU, where the
+# gradient stands clear of zero (above STEP_PARAM_MASK of its parameter's
+# largest entry and 1e3 x Adam's eps): both moves are lr * sign(g) up to
+# float32 rounding of the parameter.
+STEP_PARAM_ATOL, STEP_PARAM_MASK = 1e-6, 1e-3
 SCENE_FRAMES, SCENE_H, SCENE_W = 14, 240, 320
 # Whole path, GPU kernels vs CPU plain versions, float32: the same tolerance
 # as the chain (it dominates), relative to the output's scale.
@@ -291,8 +320,9 @@ def seeded(shape, scale, gen, device, dtype):
 
 def check_kernels(dev):
     """Phase 3. Returns one record per timed case (the paths' shapes): its
-    kernel, dtype, label, path ("streaming", "training" or None where no
-    path runs that kernel at that shape or dtype), max abs error, the
+    kernel, dtype, label, paths (of "streaming", "training" (FRVSR) and
+    "tecogan"; none where no path runs that kernel at that shape or
+    dtype), max abs error, the
     kernel's, the plain version's and the library call's ms (None with its
     reason where no one call computes the function) and the bound."""
     from tecogan_tpu_torch.kernels import (
@@ -327,6 +357,23 @@ def check_kernels(dev):
         if not bf16:
             flow_t = seeded((36, 32, 32, 2), 2.0, gen, dev, dtype)
             lr_t = torch.rand((4, 32, 32, 3), generator=gen).to(dev, dtype)
+            # TecoGAN training (TECOGAN_PRESET, ping-pong: 19 frames): 72 LR
+            # flows x4, and the Dst's 24 bilinear LR triplets (9 channels,
+            # K1's generic-channel path), alpha 1.
+            flow_g = seeded((72, 32, 32, 2), 2.0, gen, dev, dtype)
+            lr9 = torch.rand((24, 32, 32, 9), generator=gen).to(dev, dtype)
+            cases += [
+                ("upsample4", "bilinear flow x4 TecoGAN (72,32,32,2)",
+                 lambda: upsample4(flow_g, "bilinear", 4.0),
+                 lambda: upsample4_plain(flow_g, "bilinear", 4.0),
+                 ("tecogan", einsum_upsample(flow_g, "bilinear", 4.0),
+                  upsample_bound(flow_g.numel(), flow_g.element_size(), 2))),
+                ("upsample4", "bilinear LR triplets TecoGAN (24,32,32,9)",
+                 lambda: upsample4(lr9, "bilinear"),
+                 lambda: upsample4_plain(lr9, "bilinear"),
+                 ("tecogan", einsum_upsample(lr9, "bilinear", 1.0),
+                  upsample_bound(lr9.numel(), lr9.element_size(), 2))),
+            ]
             cases += [
                 ("upsample4", "bilinear flow x4 training (36,32,32,2)",
                  lambda: upsample4(flow_t, "bilinear", 4.0),
@@ -336,7 +383,7 @@ def check_kernels(dev):
                 ("upsample4", "bicubic skip training (4,32,32,3)",
                  lambda: upsample4(lr_t, "bicubic"),
                  lambda: upsample4_plain(lr_t, "bicubic"),
-                 ("training", einsum_upsample(lr_t, "bicubic", 1.0),
+                 (("training", "tecogan"), einsum_upsample(lr_t, "bicubic", 1.0),
                   upsample_bound(lr_t.numel(), lr_t.element_size(), 4))),
             ]
         cases += [
@@ -350,6 +397,7 @@ def check_kernels(dev):
         # K2 at the training path's flow gradient (B*(T-1) = 36 pairs at
         # HR 128x128), the streaming geometry and a ragged shape.
         g_train = seeded((36, 128, 128, 2), 1.0, gen, dev, dtype)
+        g_gan = seeded((72, 128, 128, 2), 1.0, gen, dev, dtype)
         g_stream = seeded((CHUNK, 4 * LR_H, 4 * LR_W, 2), 1.0, gen, dev, dtype)
         g_ragged = seeded((2, 148, 212, 3), 1.0, gen, dev, dtype)
         cases += [
@@ -358,6 +406,11 @@ def check_kernels(dev):
              lambda: upsample4_bwd_plain(g_train, "bilinear", 4.0),
              (None if bf16 else "training", einsum_upsample_bwd(g_train, "bilinear", 4.0),
               upsample_bound(g_train.numel() // 16, g_train.element_size(), 2))),
+            ("upsample4_bwd", "bilinear x4 TecoGAN (72,128,128,2)",
+             lambda: upsample4_bwd(g_gan, "bilinear", 4.0),
+             lambda: upsample4_bwd_plain(g_gan, "bilinear", 4.0),
+             (None if bf16 else "tecogan", einsum_upsample_bwd(g_gan, "bilinear", 4.0),
+              upsample_bound(g_gan.numel() // 16, g_gan.element_size(), 2))),
             ("upsample4_bwd", "bilinear x4 streaming (23,576,720,2)",
              lambda: upsample4_bwd(g_stream, "bilinear", 4.0),
              lambda: upsample4_bwd_plain(g_stream, "bilinear", 4.0),
@@ -373,12 +426,13 @@ def check_kernels(dev):
         # Half the glorot-uniform scale: activations stay O(1) over 16
         # random blocks instead of growing ~1.5x per block. Streaming runs
         # the bfloat16 chain at N=16 on (1,144,180); training the float32
-        # chain at N=10 on (4,32,32) (FRVSR_PRESET: batch 4, LR crop 32).
+        # chain on (4,32,32) (batch 4, LR crop 32) at N=10 (FRVSR_PRESET)
+        # and N=16 (TECOGAN_PRESET).
         lim = 0.5 * (6.0 / (2 * 9 * CHANNELS)) ** 0.5
         chains = [(1, LR_H, LR_W, NUM_RESBLOCK, True, "streaming" if bf16 else None),
                   (2, 37, 53, 3, False, None), (1, 5, 7, 1, False, None)]
         if not bf16:
-            chains.append((4, 32, 32, 10, True, "training"))
+            chains += [(4, 32, 32, 10, True, "training"), (4, 32, 32, 16, True, "tecogan")]
         for b, h, w, n, timed, path in chains:
             x = torch.relu(seeded((b, h, w, CHANNELS), 1.0, gen, dev, dtype))
             args = (x, seeded((n, 3, 3, CHANNELS, CHANNELS), lim, gen, dev, dtype),
@@ -432,8 +486,9 @@ def check_kernels(dev):
                     line += f" library_ms=None ({lib})"
                 line += (f" (median [min-max]) bound_ms={bound_ms:.5f} by {bound_by}: "
                          f"{arithmetic}; share of bound {bound_ms / ms:.1%}")
-                line += f"; path {path or 'none at this shape and dtype'}"
-                records.append(dict(kernel=kernel, dtype=name, label=label, path=path,
+                paths = [path] if isinstance(path, str) else list(path or ())
+                line += f"; paths {', '.join(paths) or 'none at this shape and dtype'}"
+                records.append(dict(kernel=kernel, dtype=name, label=label, paths=paths,
                                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                     library_ms=lib_ms, bound_ms=bound_ms,
                                     bound_by=bound_by))
@@ -490,6 +545,20 @@ def frvsr_batch(cfg, batch: int, seed: int) -> np.ndarray:
     return (np.stack(clips) * 255).astype(np.uint8)
 
 
+def fix_flows_mid_cell(state) -> None:
+    """At the glorot init every flow is within ~1e-5 px of zero, so each
+    warp query sits on a pixel boundary, where the flow's gradient jumps
+    between two cells and a 1-ulp difference moves it. This bias and a 10x
+    smaller output conv hold the HR flows at 1.43..1.53 / -2.52..-2.45 px
+    (LR: a quarter), mid-cell. Measured on phase 7's batch: float32 vs
+    float64 gradients then differ by 1.5e-4 of a parameter's largest
+    entry, 6.2e-4 with the output conv as drawn (flows then cross pixel
+    boundaries)."""
+    with torch.no_grad():
+        state.fnet.output_conv2.bias.copy_(torch.tensor([0.015625, -0.026]))
+        state.fnet.output_conv2.weight.mul_(0.1)
+
+
 def check_step_vs_cpu(dev) -> None:
     """Phase 7: one FRVSR step at full width, GPU against CPU, float32."""
     from tecogan_tpu_torch.config import FRVSR_PRESET
@@ -501,17 +570,7 @@ def check_step_vs_cpu(dev) -> None:
     for device in (dev, torch.device("cpu")):
         trainer = Trainer(cfg, device)
         state = trainer.init_state(12)
-        with torch.no_grad():
-            # At the glorot init every flow is within ~1e-5 px of zero, so
-            # each warp query sits on a pixel boundary, where the flow's
-            # gradient jumps between two cells and a 1-ulp difference moves
-            # it. This bias and a 10x smaller output conv hold the HR flows
-            # at 1.43..1.53 / -2.52..-2.45 px (LR: a quarter), mid-cell.
-            # Measured on this batch: float32 vs float64 gradients then
-            # differ by 1.5e-4 of a parameter's largest entry, 6.2e-4 with
-            # the output conv as drawn (flows then cross pixel boundaries).
-            state.fnet.output_conv2.bias.copy_(torch.tensor([0.015625, -0.026]))
-            state.fnet.output_conv2.weight.mul_(0.1)
+        fix_flows_mid_cell(state)
         t0 = time.perf_counter()
         _, metrics = trainer.train_step(state, batch)
         losses = {k: float(v) for k, v in metrics.items() if k != "learning_rate"}
@@ -545,12 +604,39 @@ def check_step_vs_cpu(dev) -> None:
         f"gradient non-zero, worst rel {worst:.3e} ({worst_name}) tol {STEP_GRAD_TOL:.0e}")
 
 
+@contextlib.contextmanager
+def timed_train_steps(kernels):
+    """Time each ``Trainer.train_step`` between two synchronisations (loader
+    waits, saves, summaries and validation fall outside) and count each
+    kernel wrapper's launches inside it. Yields the two lists it fills:
+    seconds, and {kernel: launches} per step."""
+    from tecogan_tpu_torch.train import Trainer
+
+    step_secs, step_launches = [], []
+    train_step = Trainer.train_step
+
+    def timed_step(self, state, hr_seq):
+        torch.cuda.synchronize()
+        before = {name: k.launches for name, k in kernels.items()}
+        start = time.perf_counter()
+        result = train_step(self, state, hr_seq)
+        torch.cuda.synchronize()
+        step_secs.append(time.perf_counter() - start)
+        step_launches.append({name: k.launches - before[name] for name, k in kernels.items()})
+        return result
+
+    Trainer.train_step = timed_step
+    try:
+        yield step_secs, step_launches
+    finally:
+        Trainer.train_step = train_step
+
+
 def run_training(dev, card: str, tmp: str):
     """Phase 8: FRVSR_PRESET through ``train()`` on synthetic scenes under
     ``tmp``, 40 steps and a resume to 45 (checkpoints in
     ``<tmp>/run/checkpoints``); then the profile of one step. Returns the
     launch counts of the 45 steps."""
-    import contextlib
     import io
 
     from tecogan_tpu_torch.config import FRVSR_PRESET
@@ -570,22 +656,8 @@ def run_training(dev, card: str, tmp: str):
         f"frames written in {time.perf_counter() - t0:.1f} s")
     cfg = FRVSR_PRESET.replace(input_video_dir=data, max_frm=SCENE_FRAMES - 1,
                                save_freq=SAVE_FREQ, summary_freq=10)
-    # Time each step between two synchronisations (loader waits, saves
-    # and summaries fall outside).
-    step_secs = []
-    train_step = Trainer.train_step
-
-    def timed_step(self, state, hr_seq):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        result = train_step(self, state, hr_seq)
-        torch.cuda.synchronize()
-        step_secs.append(time.perf_counter() - start)
-        return result
-
     printed = io.StringIO()
-    Trainer.train_step = timed_step
-    try:
+    with timed_train_steps(kernels) as (step_secs, _):
         for k in kernels.values():
             k.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -596,8 +668,6 @@ def run_training(dev, card: str, tmp: str):
             first = (state.step, len(step_secs))
             state = train(cfg, out_dir, dev, max_steps=RESUME_STEPS)
         launches = {name: k.launches for name, k in kernels.items()}
-    finally:
-        Trainer.train_step = train_step
     for line in printed.getvalue().splitlines():
         if line.startswith(("step ", "Resumed", "Saved", "Dataset")):
             log(f"[train] | {line}")
@@ -636,7 +706,7 @@ def run_training(dev, card: str, tmp: str):
         f"steady {steady * 1e3:.2f} ms/step over steps 21-40, "
         f"{frames / steady:.1f} frames/s; peak {peak:.0f} MiB; every parameter "
         f"moved; {len(rows)} scalar rows; card: {card}")
-    profile_step(dev, cfg, state, steady)
+    profile_step(dev, cfg, state, steady, "FRVSR_PRESET")
     return launches
 
 
@@ -704,13 +774,81 @@ def log_split(total: float, split, by_op) -> None:
         log(f"[profile]   by op: {us / 1e3:.3f} ms in {count} calls of {key[:80]}")
 
 
-def profile_step(dev, cfg, state, steady: float) -> None:
-    """The device time of one training step by kernel group (torch.profiler)."""
+def _annotated(cls, label: str):
+    """``cls.forward`` inside a ``record_function(label)`` range."""
+    from torch.profiler import record_function
+
+    forward = cls.forward
+
+    def wrapped(self, *args, **kwargs):
+        with record_function(label):
+            return forward(self, *args, **kwargs)
+    return wrapped
+
+
+def module_kernel_us(prof, labels):
+    """{label: (conv us, other us)}: the device time of the kernels launched
+    inside each ``record_function(label)`` range (a module's forward) and
+    inside the autograd engine's functions of the nodes those forwards made
+    (matched by sequence number): the module's forward and backward. Sums
+    of kernel durations, from each CPU op's own kernels."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = {label: {} for label in labels}
+
+    def add(label, e):
+        spans[label].setdefault(e.thread, []).append((e.time_range.start, e.time_range.end))
+
+    def inside(label, e):
+        ranges = spans[label].get(e.thread, [])
+        i = bisect.bisect_right(ranges, (e.time_range.start, math.inf)) - 1
+        return i >= 0 and e.time_range.end <= ranges[i][1]
+
+    for e in cpu:
+        if e.name in labels:
+            add(e.name, e)
+    for label in labels:
+        for ranges in spans[label].values():
+            ranges.sort()
+    seqs = {label: {e.sequence_nr for e in cpu if e.sequence_nr >= 0 and inside(label, e)}
+            for label in labels}
+    for e in cpu:
+        if e.name.startswith("autograd::engine::evaluate_function:"):
+            for label in labels:
+                if e.sequence_nr in seqs[label]:
+                    add(label, e)
+    for label in labels:
+        for ranges in spans[label].values():
+            ranges.sort()
+    conv_needles = PROFILE_GROUPS["cuDNN/cuBLAS convs and GEMMs"]
+    out = {}
+    for label in labels:
+        conv = other = 0.0
+        for e in cpu:
+            if e.kernels and inside(label, e):
+                for k in e.kernels:
+                    if any(n in k.name.lower() for n in conv_needles):
+                        conv += k.duration
+                    else:
+                        other += k.duration
+        out[label] = (conv, other)
+    return out
+
+
+def profile_step(dev, cfg, state, steady: float, name: str, vgg=None) -> None:
+    """The device time of one training step by kernel group (torch.profiler);
+    the chain must have run in the float32 cluster kernel. In TecoGAN mode
+    VGG19's and the discriminator's kernels are split out of the rest
+    (:func:`module_kernel_us`)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from tecogan_tpu_torch.models import Discriminator, VGG19Features
     from tecogan_tpu_torch.train import Trainer
 
-    trainer = Trainer(cfg, dev)
+    trainer = Trainer(cfg, dev, vgg=vgg)
     batch = frvsr_batch(cfg, cfg.batch_size, 21)
     for _ in range(3):
         trainer.train_step(state, batch)
@@ -722,9 +860,16 @@ def profile_step(dev, cfg, state, steady: float) -> None:
         trainer.train_step(state, batch)
     torch.cuda.synchronize()
     alone = (time.perf_counter() - t0) / 10
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(state, batch)
-        torch.cuda.synchronize()
+    forwards = {cls: cls.forward for cls in (VGG19Features, Discriminator)}
+    try:
+        VGG19Features.forward = _annotated(VGG19Features, "vgg19")
+        Discriminator.forward = _annotated(Discriminator, "discriminator")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        for cls, forward in forwards.items():
+            cls.forward = forward
     total, split, names, by_op = device_split(prof)
     if total <= 0:
         log("[profile] torch.profiler recorded no device time; see the CUDA-event times")
@@ -732,13 +877,13 @@ def profile_step(dev, cfg, state, steady: float) -> None:
     chain = names["chain kernel"]
     for key, count in chain.items():
         log(f"[profile]   chain kernel: {count} launches of {key[:100]}")
-    want = cfg.num_resblock * cfg.rnn_n
+    want = cfg.num_resblock * cfg.unroll_frames
     if sum(n for key, n in chain.items() if "resblock_kernel_tf32x3" in key) < want:
         raise RuntimeError(f"[profile] the chain ran {chain}, want >= {want} launches "
                            "of resblock_kernel_tf32x3")
     replay = sum(device_us(e, total=True) for e in prof.events()
                  if e.name.startswith("autograd::engine::evaluate_function: _ResblockChain"))
-    log(f"[profile] one FRVSR_PRESET step: {total / 1e3:.2f} ms of device time "
+    log(f"[profile] one {name} step: {total / 1e3:.2f} ms of device time "
         f"against {steady * 1e3:.2f} ms/step unprofiled in train() (device idle "
         f"share {max(0.0, 1 - total / 1e3 / (steady * 1e3)):.1%}) and "
         f"{alone * 1e3:.2f} ms/step on one batch with no loader running (idle "
@@ -746,6 +891,21 @@ def profile_step(dev, cfg, state, steady: float) -> None:
     log_split(total, split, by_op)
     log(f"[profile]   of which the chain's backward (plain-chain replay + its "
         f"cuDNN backward, all kinds): {replay / 1e3:.3f} ms ({replay / total:.1%})")
+    if not cfg.gan:
+        return
+    modules = module_kernel_us(prof, ("vgg19", "discriminator"))
+    convs = split["cuDNN/cuBLAS convs and GEMMs"]
+    for label, (conv, other) in modules.items():
+        log(f"[profile]   of which {label} (forward and backward, kernel durations): "
+            f"convs {conv / 1e3:.3f} ms ({conv / total:.1%}), other kernels "
+            f"{other / 1e3:.3f} ms ({other / total:.1%})")
+        convs -= conv
+    if not all(conv > 0 for conv, _ in modules.values()):
+        log("[profile]   (the module attribution found no kernels: the profiler's CPU ops "
+            "carry no kernels here)")
+    log(f"[profile]   other cuDNN/cuBLAS (the chain's backward replay, FNet, the "
+        f"generator's stem and upsample, the Gaussian): {convs / 1e3:.3f} ms "
+        f"({convs / total:.1%})")
 
 
 def profile_streaming(sr, frames, secs: float) -> None:
@@ -871,7 +1031,6 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
     """Phase 9: the inference CLI and the metrics suite at the main path's
     width, under ``tmp``; ``ckpt_dir`` is phase 8's checkpoint dir. Returns
     the launch counts of the CLI's run."""
-    import contextlib
     import io
     import shutil
     from concurrent.futures import ThreadPoolExecutor
@@ -1054,6 +1213,185 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
     return launches
 
 
+def check_gan_step_vs_cpu(dev) -> None:
+    """Phase 10: one TecoGAN step at TECOGAN_PRESET's widths, GPU against
+    CPU, float32 with TF32 off, the gate forced open and closed."""
+    from tecogan_tpu_torch.config import TECOGAN_PRESET
+    from tecogan_tpu_torch.models.vgg19 import random_vgg19
+    from tecogan_tpu_torch.train import Trainer
+
+    cfg = TECOGAN_PRESET.replace(batch_size=1, rnn_n=3)
+    batch = frvsr_batch(cfg, cfg.batch_size, 13)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for gate, ema in (("open", -100.0), ("closed", 100.0)):
+            runs = []
+            for device in (dev, torch.device("cpu")):
+                trainer = Trainer(cfg, device, vgg=random_vgg19(7))
+                state = trainer.init_state(12)
+                fix_flows_mid_cell(state)
+                state.ema_tbalance = torch.tensor(ema, device=device)
+                disc = state.discriminator
+                d_before = {n: p.detach().cpu().clone() for n, p in disc.named_parameters()}
+                stats_before = {n: b.detach().cpu().clone() for n, b in disc.named_buffers()}
+                t0 = time.perf_counter()
+                _, metrics = trainer.train_step(state, batch)
+                secs = time.perf_counter() - t0
+                grads = {}
+                for prefix, module in (("generator", state.generator), ("fnet", state.fnet),
+                                       ("discriminator", disc)):
+                    for name, p in module.named_parameters():
+                        if p.grad is None:
+                            raise RuntimeError(f"[gan step] {device}: {prefix}.{name} got no "
+                                               "gradient")
+                        grads[f"{prefix}.{name}"] = p.grad.detach().cpu()
+                runs.append(dict(
+                    losses={k: float(v) for k, v in metrics.items()}, grads=grads,
+                    stats={n: b.detach().cpu() for n, b in disc.named_buffers()},
+                    stats_before=stats_before, before=d_before,
+                    after={n: p.detach().cpu() for n, p in disc.named_parameters()},
+                    counters=(int(state.counter_with_d), int(state.counter_wo_d),
+                              int(state.d_opt.count))))
+                log(f"[gan step] {device}, gate {gate}: one step in {secs:.2f} s, "
+                    + ", ".join(f"{k} {v:.6f}" for k, v in sorted(runs[-1]["losses"].items())))
+            gpu, cpu = runs
+            for k, want in cpu["losses"].items():
+                # t_balance = mean(log D(real)) + adv: a difference of two
+                # ~0.6 terms, held to the tolerance of adv.
+                scale = abs(cpu["losses"]["t_adversarial_loss"]) if k == "t_balance" else abs(want)
+                got = gpu["losses"][k]
+                if not (math.isfinite(got) and abs(got - want) <= STEP_LOSS_TOL * scale):
+                    raise RuntimeError(f"[gan step] {gate} {k}: GPU {got} vs CPU {want}")
+            worst, worst_name = 0.0, ""
+            for name, want in cpu["grads"].items():
+                scale = want.abs().max().item()
+                if scale == 0.0 or gpu["grads"][name].abs().max().item() == 0.0:
+                    raise RuntimeError(f"[gan step] {name}: zero gradient")
+                rel = (gpu["grads"][name] - want).abs().max().item() / scale
+                if rel > worst:
+                    worst, worst_name = rel, name
+                if not rel <= STEP_GRAD_TOL:
+                    raise RuntimeError(f"[gan step] {gate} {name}: gradient rel error {rel:.3e}")
+            stats_err = max((gpu["stats"][n] - b).abs().max().item() / max(1.0, b.abs().max().item())
+                            for n, b in cpu["stats"].items())
+            if not stats_err <= STEP_LOSS_TOL or any(
+                    torch.equal(run["stats"][n], b) for run in runs
+                    for n, b in run["stats_before"].items()):
+                raise RuntimeError(f"[gan step] {gate}: running statistics {stats_err:.3e} "
+                                   "GPU vs CPU, or unmoved")
+            param_err = 0.0
+            for run in runs:
+                moved = [n for n, p in run["after"].items() if not torch.equal(p, run["before"][n])]
+                if gate == "open" and len(moved) != len(run["after"]):
+                    raise RuntimeError(f"[gan step] gate open: only {moved} moved")
+                if gate == "closed" and moved:
+                    raise RuntimeError(f"[gan step] gate closed: {moved} moved")
+                want_counters = (1, 0, 1) if gate == "open" else (0, 1, 0)
+                if run["counters"] != want_counters:
+                    raise RuntimeError(f"[gan step] gate {gate}: counters (with D, without D, "
+                                       f"Adam count) {run['counters']}, want {want_counters}")
+            for n, want in cpu["after"].items():
+                g = cpu["grads"][f"discriminator.{n}"].abs()
+                mask = g > max(STEP_PARAM_MASK * g.max().item(), 1e3 * cfg.adam_eps)
+                if mask.any():
+                    param_err = max(param_err, (gpu["after"][n] - want)[mask].abs().max().item())
+            if not param_err <= STEP_PARAM_ATOL:
+                raise RuntimeError(f"[gan step] {gate}: D parameters after the step differ by "
+                                   f"{param_err:.3e}")
+            log(f"[gan step] GPU vs CPU, float32 (TF32 off), gate {gate}, TECOGAN_PRESET "
+                f"widths ({cfg.num_resblock} resblocks, merged Dst, VGG19 random weights), "
+                f"batch {cfg.batch_size}, {cfg.unroll_frames} frames, crop {cfg.crop_size}: "
+                f"{len(cpu['losses'])} losses within {STEP_LOSS_TOL:.0e}; {len(cpu['grads'])} "
+                f"parameters, every gradient non-zero, worst rel {worst:.3e} ({worst_name}) tol "
+                f"{STEP_GRAD_TOL:.0e}; D running stats {stats_err:.3e}; D parameters "
+                f"{'moved on both, within ' + f'{param_err:.1e}' if gate == 'open' else 'bit-unchanged on both'}; "
+                f"counters {gpu['counters']}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def run_tecogan_training(dev, card: str, tmp: str):
+    """Phase 11: TECOGAN_PRESET through ``train()`` with random VGG19
+    weights on phase 8's scenes under ``tmp``, warm-started from phase 8's
+    FRVSR checkpoint, 20 steps and a resume to 25; then the profile of one
+    step. Returns the launches of one ``train_step``."""
+    import io
+
+    from tecogan_tpu_torch.config import TECOGAN_PRESET
+    from tecogan_tpu_torch.kernels import resblock_chain, upsample4, upsample4_bwd
+    from tecogan_tpu_torch.models.vgg19 import random_vgg19
+    from tecogan_tpu_torch.train.loop import train
+
+    kernels = {"upsample4": upsample4, "upsample4_bwd": upsample4_bwd,
+               "resblock_chain": resblock_chain}
+    frvsr_ckpt = os.path.join(tmp, "run", "checkpoints")
+    out_dir = os.path.join(tmp, "tecogan")
+    cfg = TECOGAN_PRESET.replace(input_video_dir=os.path.join(tmp, "scenes"),
+                                 max_frm=SCENE_FRAMES - 1, save_freq=GAN_STEPS, summary_freq=10)
+    printed = io.StringIO()
+    with timed_train_steps(kernels) as (step_secs, step_launches):
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(printed):
+            t0 = time.perf_counter()
+            state = train(cfg, out_dir, dev, vgg=random_vgg19(cfg.rand_seed),
+                          pre_trained_dir=frvsr_ckpt, max_steps=GAN_STEPS)
+            wall = time.perf_counter() - t0
+            first = (state.step, len(step_secs))
+            state = train(cfg, out_dir, dev, vgg=random_vgg19(cfg.rand_seed),
+                          max_steps=GAN_RESUME_STEPS)
+        launches = {name: k.launches for name, k in kernels.items()}
+    text = printed.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("step ", "Resumed", "Saved", "Dataset", "Warm-started",
+                            "warm_start", "WARNING")):
+            log(f"[gan train] | {line}")
+    if first != (GAN_STEPS, GAN_STEPS) or \
+            (state.step, len(step_secs)) != (GAN_RESUME_STEPS, GAN_RESUME_STEPS):
+        raise RuntimeError(f"[gan train] steps {first} then {state.step}, "
+                           f"{len(step_secs)} step calls")
+    for want in (f"Warm-started weights from {frvsr_ckpt}",
+                 "warm_start: partial generator restore", f"Resumed from step {GAN_STEPS}"):
+        if want not in text:
+            raise RuntimeError(f"[gan train] no {want!r} in train()'s output")
+    rows = [json.loads(line) for line in open(os.path.join(out_dir, "log", "scalars.jsonl"))]
+    if not rows or not all(math.isfinite(v) for r in rows for v in r.values()):
+        raise RuntimeError(f"[gan train] scalars.jsonl: {len(rows)} rows, not all finite")
+    gate_rows = [r for r in rows if "t_balance_EMA" in r]
+    if [r["step"] for r in gate_rows] != [10, 20]:
+        raise RuntimeError(f"[gan train] gate scalars at {[r['step'] for r in gate_rows]}")
+    counters = (int(state.counter_with_d), int(state.counter_wo_d))
+    if sum(counters) != GAN_RESUME_STEPS or int(state.d_opt.count) != counters[0]:
+        raise RuntimeError(f"[gan train] gate counters {counters}, Adam count "
+                           f"{int(state.d_opt.count)}")
+    if not all(math.isfinite(float(v)) for v in [*state.ema_losses.values(), state.ema_tbalance]):
+        raise RuntimeError(f"[gan train] loss EMAs {state.ema_losses}")
+    # One train_step's launches (validation and the profile are outside):
+    # the chain 16 blocks x 19 frames, K1 the flow upsample, 19 skips and
+    # the Dst's LR triplets, K2 the flow upsample's backward.
+    want = {"resblock_chain": cfg.num_resblock * cfg.unroll_frames,
+            "upsample4": cfg.unroll_frames + 2, "upsample4_bwd": 1}
+    if any(n != want for n in step_launches):
+        raise RuntimeError(f"[gan train] launches per step {step_launches}, want {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    steady = sum(step_secs[10:GAN_STEPS]) / (GAN_STEPS - 10)
+    frames = cfg.batch_size * cfg.unroll_frames
+    log(f"[gan train] launches per train_step {step_launches[0]} (all {GAN_RESUME_STEPS} "
+        f"steps), over the two runs with validation {launches}")
+    log(f"[gan train] TECOGAN_PRESET ({cfg.num_resblock} resblocks, batch {cfg.batch_size}, "
+        f"crop {cfg.crop_size}, {cfg.rnn_n} frames ping-pong = {cfg.unroll_frames}, float32, "
+        f"cuDNN TF32 {'on' if torch.backends.cudnn.allow_tf32 else 'off'}, VGG19 random "
+        f"weights), warm-started from phase 8's 10-block FRVSR checkpoint: "
+        f"{GAN_STEPS} steps in {wall:.2f} s wall, resumed to {GAN_RESUME_STEPS}; steady "
+        f"{steady * 1e3:.2f} ms/step over steps 11-{GAN_STEPS}, {frames / steady:.1f} frames/s; "
+        f"peak {peak:.0f} MiB; gate: {counters[0]} steps with D, {counters[1]} without, "
+        f"t_balance EMA {float(state.ema_tbalance):.4f}; {len(rows)} scalar rows; card: {card}")
+    profile_step(dev, cfg, state, steady, "TECOGAN_PRESET", vgg=random_vgg19(cfg.rand_seed))
+    return step_launches[0]
+
+
 def main() -> None:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -1096,10 +1434,14 @@ def main() -> None:
         train_launches = run_training(dev, card, tmp)
         # Phase 9 runs as a user's CLI does, with the same default flags.
         cli_launches = run_cli(dev, card, tmp, os.path.join(tmp, "run", "checkpoints"))
+        check_gan_step_vs_cpu(dev)  # phase 10, TF32 off inside
+        # Phase 11 trains as a user does, with the default flags, on phase
+        # 8's scenes and from its checkpoint.
+        gan_launches = run_tecogan_training(dev, card, tmp)
 
     # Every timed case of phase 3 beside its wrapper's launches on each
-    # path: a 46-frame streaming run (phase 6) and a training step (phase 8,
-    # 45 steps).
+    # path: a 46-frame streaming run (phase 6), an FRVSR training step
+    # (phase 8, 45 steps with validation) and a TecoGAN train_step (phase 11).
     for r in records:
         k = r["kernel"]
         lib = "None" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -1107,14 +1449,17 @@ def main() -> None:
             f"{r['plain_ms']:.4f}, library {lib}, bound {r['bound_ms']:.5f} ({r['bound_by']}), "
             f"share of bound {r['bound_ms'] / r['ms']:.1%}; launches of {k}: "
             f"{stream_launches.get(k, 0)} per {FRAMES}-frame streaming run, "
-            f"{train_launches.get(k, 0) / RESUME_STEPS:g} per training step; path "
-            f"{r['path'] or 'none at this shape and dtype'}; card: {card}")
+            f"{train_launches.get(k, 0) / RESUME_STEPS:g} per FRVSR training step, "
+            f"{gan_launches.get(k, 0)} per TecoGAN train_step; paths "
+            f"{', '.join(r['paths']) or 'none at this shape and dtype'}; card: {card}")
 
     # One entry per kernel, from its timed cases on the path it serves
     # (bfloat16 serves streaming, float32 training; the chain's two kernels
     # share the wrapper's count, and each path runs one of them): ms,
     # plain_ms, library_ms and bound_ms summed over those cases; launches:
-    # that path's count; "cases": every timed case of the kernel and dtype.
+    # that path's count; "cases": every timed case of the kernel and dtype;
+    # "tecogan": the same sums over its float32 cases on TecoGAN training's
+    # path, with the launches of one train_step there (phase 11).
     launches = {"streaming": stream_launches, "training": train_launches}
     kernels = []
     for name, key, source, replaces, dtype, path in (
@@ -1129,7 +1474,7 @@ def main() -> None:
              "tecogan_tpu_torch/csrc/resblock_chain.cu",
              "tecogan_tpu/kernels/resblocks.py:87", "float32", "training")):
         cases = [r for r in records if (r["kernel"], r["dtype"]) == (key, dtype)]
-        own = [r for r in cases if r["path"] == path]
+        own = [r for r in cases if path in r["paths"]]
         libs = [r["library_ms"] for r in own]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[path].get(key, 0),
@@ -1144,6 +1489,16 @@ def main() -> None:
                            for r in cases]}
         if entry["library_ms"] is None:
             entry["library_note"] = CHAIN_NO_LIBRARY
+        gan = [r for r in records if (r["kernel"], r["dtype"]) == (key, "float32")
+               and "tecogan" in r["paths"]]
+        if gan and (dtype == "float32" or key == "upsample4"):
+            gan_libs = [r["library_ms"] for r in gan]
+            entry["tecogan"] = {
+                "launches": gan_launches.get(key, 0),
+                "max_abs_err": max(r["max_abs_err"] for r in gan),
+                **{k: sum(r[k] for r in gan) for k in ("ms", "plain_ms", "bound_ms")},
+                "library_ms": None if None in gan_libs else sum(gan_libs),
+                "cases": [r["label"] for r in gan]}
         if path == "streaming":  # the inference CLI runs the streaming path
             entry["cli_launches"] = cli_launches.get(key, 0)
         if key == "resblock_chain":

@@ -10,9 +10,11 @@
 Flag names keep the JAX package's (and the reference's) spelling; every
 other knob rides :class:`TecoConfig`. ``--device`` (default ``cuda``) names
 the one device to run on; a CUDA device that is not there raises, there is
-no fallback to the CPU. Only FRVSR training is ported: a GAN or VGG
-configuration (the default ``TecoConfig()`` included: its ``ratio`` is
-0.01) raises.
+no fallback to the CPU. Training takes FRVSR (``--preset frvsr``) and
+TecoGAN (``--preset tecogan`` or ``mini``) configurations; with
+``vgg_scaling > 0`` it needs ``--vgg_npz`` (VGG19 weights under their TF
+names) or ``--allow_random_weights`` (seeded random VGG19 weights, for
+smoke runs), as the JAX CLI does.
 
 Weight sources for inference, in precedence order:
   --checkpoint   a checkpoint dir of the port's trainer (train/checkpoint.py)
@@ -57,10 +59,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tf_npz", default=None)
     p.add_argument("--params_npz", default=None)
     p.add_argument("--pre_trained_dir", default=None,
-                   help="warm-start weights from a previous run's checkpoints")
+                   help="warm-start weights from a previous run's checkpoints "
+                        "or a TF checkpoint dumped to npz")
     p.add_argument("--allow_random_weights", action="store_true",
                    help="smoke mode without trained weights (random G/F for "
-                        "inference)")
+                        "inference, random VGG19 for training)")
     # inference
     p.add_argument("--input_dir_LR", default=None)
     p.add_argument("--input_dir_HR", default=None)
@@ -80,8 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="not ported (multi-GPU, ROADMAP queue 1 item 11)")
     # model / train
     p.add_argument("--vgg_npz", default=None,
-                   help="VGG19 weights for the perceptual loss (TecoGAN "
-                        "training, not ported yet)")
+                   help="VGG19 weights for the perceptual loss (an npz keyed "
+                        "by the TF-slim names, vgg_19/conv1/conv1_1/weights ...)")
     p.add_argument("--num_resblock", type=int, default=None)
     p.add_argument("--rand_seed", type=int, default=None)
     p.add_argument("--preset", default=None,
@@ -252,11 +255,22 @@ def run_inference(args, config) -> dict:
 def run_train(args, config) -> None:
     from tecogan_tpu_torch.train.loop import train
 
-    if args.vgg_npz:
-        raise NotImplementedError("--vgg_npz: TecoGAN training (VGG loss) is "
-                                  "ROADMAP queue 1 item 8")
+    vgg = None
+    if config.vgg_scaling > 0:
+        from tecogan_tpu_torch.models.vgg19 import load_vgg19_npz, random_vgg19
+
+        if args.vgg_npz:
+            vgg = load_vgg19_npz(args.vgg_npz)
+        elif args.allow_random_weights:
+            print("WARNING: random VGG19 weights (smoke mode: the perceptual "
+                  "term is untrained; pass --vgg_npz for the reference "
+                  "vgg_19.ckpt conversion)")
+            vgg = random_vgg19(seed=config.rand_seed)
+        else:
+            raise SystemExit("--vgg_npz (or --allow_random_weights) required "
+                             "when vgg_scaling > 0")
     train(config, output_dir=args.output_dir, device=resolve_device(args.device),
-          summary_dir=args.summary_dir, pre_trained_dir=args.pre_trained_dir,
+          summary_dir=args.summary_dir, vgg=vgg, pre_trained_dir=args.pre_trained_dir,
           test_while_train=not args.no_test_while_train)
 
 

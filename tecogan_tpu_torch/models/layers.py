@@ -35,6 +35,61 @@ class Conv2Tran(nn.ConvTranspose2d):
         return super().forward(x)[..., :-1, :-1]
 
 
+class StridedConv4(nn.Conv2d):
+    """4x4 stride-2 conv without bias, TF SAME padding (the discriminator's
+    blocks, reference Teco.py:54-67 via lib/ops.py:47-56).
+
+    SAME pads ``(k - s) = 2`` rows for an even size, one before and one
+    after: ``padding=1``. An odd size gets three, the extra one at the
+    bottom (right), which no symmetric ``padding`` gives, so it is padded
+    explicitly. The pure temporal discriminator reaches odd sizes (a 24 px
+    box: 12, 6, 3)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 4, stride=2, padding=0, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[-2:]
+        if h % 2 == 0 and w % 2 == 0:
+            return F.conv2d(x, self.weight, None, 2, 1)
+        return super().forward(F.pad(x, (1, 1 + w % 2, 1, 1 + h % 2)))
+
+
+class SlimBatchNorm(nn.Module):
+    """``slim.batch_norm`` as the discriminator uses it (counterpart of
+    ``tecogan_tpu/models/layers.py:190-208``; reference lib/ops.py:88-90):
+    always the batch's statistics (the reference builds the discriminator
+    with ``is_training=True``, Teco.py:38), eps 1e-3, a bias, no scale.
+
+    The statistics are flax's: the variance is ``E[x^2] - E[x]^2`` clipped
+    at 0 (biased), in float32. The running statistics are a record only
+    (nothing reads them here) and update with decay 0.9 from that biased
+    variance, and only when ``update_stats`` is passed: the trainer updates
+    them in its discriminator step and not in the forwards that feed the
+    generator's losses. ``nn.BatchNorm2d`` differs in all three: its
+    momentum is the complement (0.1), it folds in the unbiased variance,
+    and train mode always updates."""
+
+    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-3):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        """(B, C, H, W) -> (B, C, H, W)."""
+        mean = x.mean(dim=(0, 2, 3))
+        var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if update_stats:
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        scale = torch.rsqrt(var + self.eps)
+        return (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+
+
 def lrelu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
     """LeakyReLU (reference lib/ops.py:84-85)."""
     return F.leaky_relu(x, alpha)

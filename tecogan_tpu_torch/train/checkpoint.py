@@ -2,11 +2,16 @@
 ``tecogan_tpu/train/checkpoint.py:38-212``; reference Saver workflows,
 main.py:307-352).
 
-- full resume: step, weights, both Adam states and the loss EMAs;
-- warm start: generator and FNet weights only, from another run of the
-  port, everything else fresh (reference ``pre_trained_model``,
-  main.py:312-320), with the JAX package's partial restore for a grown or
-  shrunk model (:func:`merge_partial_restore`);
+- full resume: step, weights, the Adam states and the loss EMAs; in
+  TecoGAN mode also the discriminator (parameters and running statistics),
+  its Adam state, ``ema_tbalance`` and the gate's two counters;
+- warm start: model weights only, from another run of the port or from a
+  TF checkpoint dumped to npz (:func:`warm_start_tf_npz`), everything else
+  fresh (reference ``pre_trained_model``, main.py:312-320), with the JAX
+  package's partial restore for a grown or shrunk model
+  (:func:`merge_partial_restore`): the canonical case-3 chain grows a
+  10-block FRVSR run into a 16-block TecoGAN one, and a source without a
+  discriminator leaves the fresh one;
 - the last ``keep`` (50) checkpoints are kept (reference main.py:307).
 
 Layout: ``<ckpt_dir>/<step>/state.pt``, one ``torch.save`` of a dict of
@@ -14,8 +19,7 @@ tensors and plain values (read back with ``weights_only=True``), written to
 a temporary directory and renamed into place. The JAX package's orbax
 checkpoints are not read; weights cross between the packages through
 ``weights.params_to_npz`` / ``read_params_npz``. :func:`load_models`
-reads a checkpoint's generator and FNet for the inference CLI. Warm starts
-from a TF npz (``warm_start_tf_npz``) are not ported yet.
+reads a checkpoint's generator and FNet for the inference CLI.
 """
 
 from __future__ import annotations
@@ -26,8 +30,11 @@ import shutil
 from typing import Dict, List, Optional
 
 import torch
+import torch.nn as nn
 
 from tecogan_tpu_torch.train.trainer import TrainState
+
+_GAN_FIELDS = ("ema_tbalance", "counter_with_d", "counter_wo_d")
 
 _STATE_FILE = "state.pt"
 _GROWN_CONV_1 = re.compile(r"resblocks\.\d+\.conv_1\.")
@@ -61,14 +68,19 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, keep: int = 50) -> str:
         raise FileExistsError(f"checkpoint {final} exists")
     tmp = f"{final}.tmp{os.getpid()}"
     os.makedirs(tmp, exist_ok=True)
-    torch.save({
+    payload = {
         "step": state.step,
         "generator": state.generator.state_dict(),
         "fnet": state.fnet.state_dict(),
         "gen_opt": state.gen_opt.state_dict(),
         "fnet_opt": state.fnet_opt.state_dict(),
         "ema_losses": dict(state.ema_losses),
-    }, os.path.join(tmp, _STATE_FILE))
+    }
+    if state.discriminator is not None:
+        payload["discriminator"] = state.discriminator.state_dict()
+        payload["d_opt"] = state.d_opt.state_dict()
+        payload.update({k: getattr(state, k) for k in _GAN_FIELDS})
+    torch.save(payload, os.path.join(tmp, _STATE_FILE))
     os.replace(tmp, final)
     for old in _steps(ckpt_dir)[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, str(old)))
@@ -92,6 +104,11 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState,
     state.gen_opt.load_state_dict(payload["gen_opt"])
     state.fnet_opt.load_state_dict(payload["fnet_opt"])
     state.ema_losses = {k: v.to(device) for k, v in payload["ema_losses"].items()}
+    if state.discriminator is not None:
+        state.discriminator.load_state_dict(payload["discriminator"])
+        state.d_opt.load_state_dict(payload["d_opt"])
+        for k in _GAN_FIELDS:
+            setattr(state, k, payload[k].to(device))
     state.step = int(payload["step"])
     return state
 
@@ -167,17 +184,63 @@ def merge_partial_restore(current: Dict[str, torch.Tensor],
     return merged
 
 
-def warm_start(state: TrainState, ckpt_dir: str,
-               step: Optional[int] = None) -> TrainState:
-    """Load only the generator and FNet weights of another run's checkpoint
-    into ``state``; optimizers, EMAs and step stay fresh (reference
-    main.py:312-320,351-352). A model of another depth takes
-    :func:`merge_partial_restore` with zero fill."""
-    payload = _load(ckpt_dir, step)
-    for name, module in (("generator", state.generator), ("fnet", state.fnet)):
-        current, loaded = module.state_dict(), payload[name]
-        same = current.keys() == loaded.keys() and all(
-            current[k].shape == loaded[k].shape for k in current)
-        module.load_state_dict(loaded if same else merge_partial_restore(
-            current, loaded, name, ckpt_dir, zero_missing=True))
+def _warm_load(module: nn.Module, loaded: Dict[str, torch.Tensor], name: str,
+               src: str, zero_missing: bool) -> None:
+    """Load ``loaded`` into ``module`` whole when the names and shapes
+    match, else through :func:`merge_partial_restore`."""
+    current = module.state_dict()
+    same = current.keys() == loaded.keys() and all(
+        current[k].shape == loaded[k].shape for k in current)
+    module.load_state_dict(loaded if same else merge_partial_restore(
+        current, loaded, name, src, zero_missing=zero_missing))
+
+
+def _warm_start_modules(state: TrainState, loaded: Dict[str, Optional[Dict]], src: str,
+                        include_discriminator: bool) -> TrainState:
+    """The JAX package's warm start over state dicts: the generator and FNet
+    with zero fill (``rest_zero``), the discriminator (when asked and the
+    state has one) with fresh init for what the source lacks; a source
+    without a discriminator keeps the fresh one."""
+    modules = [("generator", state.generator, True), ("fnet", state.fnet, True)]
+    if include_discriminator and state.discriminator is not None:
+        modules.append(("discriminator", state.discriminator, False))
+    for name, module, zero_missing in modules:
+        if loaded.get(name) is None:
+            print(f"warm_start: {name} not in {src}; keeping fresh init")
+            continue
+        _warm_load(module, loaded[name], name, src, zero_missing)
     return state
+
+
+def warm_start(state: TrainState, ckpt_dir: str, step: Optional[int] = None,
+               include_discriminator: bool = True) -> TrainState:
+    """Load only the model weights of another run's checkpoint into
+    ``state``; optimizers, EMAs, the gate's counters and the step stay
+    fresh (reference main.py:312-320,351-352; the JAX package's
+    ``checkpoint.py:151-212``). A model of another depth takes
+    :func:`merge_partial_restore` with zero fill; the discriminator, with
+    its running statistics, is taken when ``include_discriminator`` and
+    the checkpoint has one. ``ckpt_dir`` may also be a TF checkpoint dumped
+    to ``.npz`` (:func:`warm_start_tf_npz`)."""
+    if os.path.isfile(ckpt_dir) and ckpt_dir.endswith(".npz"):
+        return warm_start_tf_npz(state, ckpt_dir, include_discriminator)
+    payload = _load(ckpt_dir, step)
+    return _warm_start_modules(state, payload, ckpt_dir, include_discriminator)
+
+
+def warm_start_tf_npz(state: TrainState, npz_path: str,
+                      include_discriminator: bool = True) -> TrainState:
+    """Warm-start the model weights from a TF checkpoint dumped to npz
+    (``weights.convert_tf_npz``), as reference case 3 seeds TecoGAN from the
+    published FRVSR model (runGan.py:200-203; the JAX package's
+    ``checkpoint.py:215-248``). The npz's depth comes from its names; a
+    depth other than the model's takes the partial restore."""
+    from tecogan_tpu_torch import weights
+
+    trees = weights.convert_tf_npz(npz_path, num_resblock=None)
+    gen, fnet = weights.from_jax_params(trees["generator"], trees["fnet"])
+    loaded = {"generator": gen.state_dict(), "fnet": fnet.state_dict()}
+    if "discriminator" in trees:
+        loaded["discriminator"] = weights.discriminator_from_jax(
+            trees["discriminator"], trees["discriminator_batch_stats"]).state_dict()
+    return _warm_start_modules(state, loaded, npz_path, include_discriminator)

@@ -9,7 +9,9 @@ In reference order:
 - the step loop with display / summary / save frequencies
   (main.py:377-421), printing ``image/sec*frames`` like the reference
   (main.py:404-411); validation losses every ``summary_freq`` on the
-  held-out scene split (main.py:394-402);
+  held-out scene split (main.py:394-402); in TecoGAN mode also the gate's
+  ``t_balance_EMA``, ``withD_counter`` and ``w_o_D_counter`` scalars
+  (reference Teco.py:451-452,495-496);
 - after each save, test-while-train: a detached inference run of the
   port's CLI on the fresh checkpoint (main.py:151-174), over the first 10
   frames of ``<input_video_dir>/../LR/calendar`` when that folder exists;
@@ -30,6 +32,7 @@ import time
 from typing import Optional, Union
 
 import torch
+import torch.nn as nn
 
 from tecogan_tpu_torch.config import TecoConfig
 from tecogan_tpu_torch.data.loader import BatchLoader, SceneDataset
@@ -130,12 +133,15 @@ def _save_once(ckpt_dir: str, state: TrainState) -> None:
 
 def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
           summary_dir: Optional[str] = None,
+          vgg: Optional[nn.Module] = None,
           pre_trained_dir: Optional[str] = None,
           max_steps: Optional[int] = None,
           test_while_train: bool = True) -> TrainState:
     """Train on ``device`` to ``config.max_iter`` (or ``max_steps``) steps;
-    returns the final state. Checkpoints go to ``<output_dir>/checkpoints``,
-    scalars to ``<summary_dir>/scalars.jsonl`` (default ``<output_dir>/log``)."""
+    returns the final state. ``vgg``: VGG19 weights for ``vgg_scaling >
+    0``. ``pre_trained_dir``: a run's checkpoint dir or a TF npz to
+    warm-start from. Checkpoints go to ``<output_dir>/checkpoints``, scalars
+    to ``<summary_dir>/scalars.jsonl`` (default ``<output_dir>/log``)."""
     summary_dir = summary_dir or os.path.join(output_dir, "log")
     ckpt_dir = os.path.join(output_dir, "checkpoints")
     os.makedirs(output_dir, exist_ok=True)
@@ -144,10 +150,12 @@ def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
         with open(os.path.join(d, "config.json"), "w") as f:
             f.write(config.to_json())
 
-    trainer = Trainer(config, device)
+    trainer = Trainer(config, device, vgg=vgg)
     state = trainer.init_state(config.rand_seed)
     param_summary("generator", state.generator)
     param_summary("fnet", state.fnet)
+    if config.gan:
+        param_summary("tdiscriminator", state.discriminator)
 
     # Full resume beats warm start (reference main.py:345-352).
     resumed = latest_step(ckpt_dir)
@@ -191,6 +199,10 @@ def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
                 if step % config.summary_freq == 0:
                     logger.scalars(step, state.ema_losses)
                     logger.scalars(step, {"learning_rate": metrics["learning_rate"]})
+                    if config.gan:
+                        logger.scalars(step, {"t_balance_EMA": state.ema_tbalance,
+                                              "withD_counter": state.counter_with_d,
+                                              "w_o_D_counter": state.counter_wo_d})
                     if val_loader is not None:
                         logger.scalars(step, trainer.eval_step(state, val_loader.next_batch()),
                                        prefix="val_")

@@ -1,5 +1,5 @@
-"""The FRVSR trainer (counterpart of ``tecogan_tpu/train/trainer.py`` in its
-FRVSR mode; reference lib/Teco.py:77-517 with ``ratio <= 0``).
+"""The FRVSR and TecoGAN trainer (counterpart of
+``tecogan_tpu/train/trainer.py``; reference lib/Teco.py:77-517).
 
 One step:
 
@@ -16,10 +16,27 @@ One step:
   ``s`` (0-based) uses ``lr_schedule(s)``, optax's order;
 - EMA (0.99) telemetry of every loss scalar (reference Teco.py:415-435).
 
+TecoGAN mode (``ratio > 0``) adds, as the JAX package does
+(``trainer.py:238-447``):
+
+- the VGG19 perceptual loss (``vgg_scaling > 0``, frozen weights passed to
+  the constructor), the adversarial loss and the discriminator's feature
+  losses, both faded in by ``dt_ratio``. The generator's side runs the
+  discriminator twice (real, then fake: one batch would change the batch
+  statistics) at its current parameters as constants: no gradient reaches
+  them and no running statistic moves;
+- the discriminator step on the same real and fake inputs, detached, with
+  the same parameters; its running statistics update on real, then fake;
+- the adaptive gate (reference Teco.py:455-496): the discriminator's Adam
+  update is applied only while the loss EMA ``ema_tbalance`` read before
+  this step is below ``d_balance``. It is applied branch-free on the device
+  (:class:`MaskedAdam`), so a step never waits for the device; a closed
+  gate leaves the parameters, both moments and Adam's count as they were.
+  The running statistics update in both gate states.
+
 The parameters stay on the device in float32, and ``TrainState`` is updated
 in place (the JAX package returns a new state; PyTorch's optimizers own
-theirs). TecoGAN mode (discriminator, VGG, adaptive D gate) is ROADMAP
-queue 1 item 8 and raises here; so does bfloat16 training, which needs
+theirs). bfloat16 training raises (ROADMAP queue 1 item 17): it needs
 float32 master weights beside bfloat16 compute.
 """
 
@@ -27,21 +44,29 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from tecogan_tpu_torch.config import TecoConfig
+from tecogan_tpu_torch.models.discriminator import Discriminator
 from tecogan_tpu_torch.models.fnet import FNet
 from tecogan_tpu_torch.models.generator import Generator
 from tecogan_tpu_torch.models.layers import glorot_init_
+from tecogan_tpu_torch.models.vgg19 import (
+    DEFAULT_FEATURE_KEYS,
+    VGG19Features,
+    vgg19_normalized_features,
+)
 from tecogan_tpu_torch.ops.gauss import gauss_down_by4
 from tecogan_tpu_torch.ops.image import deprocess, preprocess
 from tecogan_tpu_torch.recurrent.step import (
     extend_pingpong,
     flows_for_sequence,
     unroll_generator,
+    upscale_flow,
 )
 from tecogan_tpu_torch.train import losses as L
 
@@ -102,10 +127,64 @@ def prepare_batch(hr_seq: torch.Tensor, config: TecoConfig
             preprocess(targets).reshape(b, t, 4 * crop, 4 * crop, c))
 
 
+class MaskedAdam:
+    """``optax.adam`` (the JAX package's discriminator optimizer) whose
+    update is applied only where a boolean device tensor says so: where it
+    is false the parameters, both moments and the count keep their values
+    (``tecogan_tpu/train/trainer.py:413-422``, ``_tree_where``). The choice
+    is ``torch.where`` on the device, so the host never waits for it.
+
+    The arithmetic is optax's: ``mu = (1-b1) g + b1 mu``, ``nu = (1-b2) g^2 +
+    b2 nu``, bias corrections from the incremented count, ``p += -lr *
+    mu_hat / (sqrt(nu_hat) + eps)``, and the learning rate is the schedule
+    at the count before the update (optax's ``scale_by_schedule``): a
+    closed gate does not advance the schedule either."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter],
+                 schedule: Callable[[torch.Tensor], torch.Tensor],
+                 b1: float, eps: float, b2: float = 0.999):
+        self.params: List[torch.nn.Parameter] = list(params)
+        self.schedule, self.b1, self.b2, self.eps = schedule, b1, b2, eps
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = torch.zeros((), dtype=torch.int32, device=self.params[0].device)
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self, apply: torch.Tensor) -> None:
+        """One update from the parameters' ``.grad``, kept where ``apply``
+        (a bool scalar on the parameters' device) is true."""
+        lr = self.schedule(self.count)
+        count = self.count + 1
+        bc1 = 1 - torch.pow(self.b1, count.float())
+        bc2 = 1 - torch.pow(self.b2, count.float())
+        for p, mu, nu in zip(self.params, self.mu, self.nu):
+            g = p.grad
+            mu_new = (1 - self.b1) * g + self.b1 * mu
+            nu_new = (1 - self.b2) * (g * g) + self.b2 * nu
+            update = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + self.eps)
+            p.copy_(torch.where(apply, p + update * -lr, p))
+            mu.copy_(torch.where(apply, mu_new, mu))
+            nu.copy_(torch.where(apply, nu_new, nu))
+        self.count.copy_(torch.where(apply, count, self.count))
+
+    def state_dict(self) -> Dict:
+        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        self.count.copy_(state["count"])
+        for dst, src in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
+            dst.copy_(src)
+
+
 @dataclasses.dataclass
 class TrainState:
     """Everything a resume needs; :meth:`Trainer.train_step` updates it in
-    place."""
+    place. The discriminator's fields are None in FRVSR mode."""
 
     step: int
     generator: Generator
@@ -113,60 +192,128 @@ class TrainState:
     gen_opt: torch.optim.Adam
     fnet_opt: torch.optim.Adam
     ema_losses: Dict[str, torch.Tensor]  # float32 scalars on the device
+    discriminator: Optional[Discriminator] = None
+    d_opt: Optional[MaskedAdam] = None
+    ema_tbalance: Optional[torch.Tensor] = None    # float32 scalar on the device
+    counter_with_d: Optional[torch.Tensor] = None  # int32 scalars on the device
+    counter_wo_d: Optional[torch.Tensor] = None
 
 
 class Trainer:
-    """FRVSR training on one device (``cuda`` or ``cpu``)."""
+    """FRVSR or TecoGAN training on one device (``cuda`` or ``cpu``).
+    ``vgg``: VGG19 weights for the perceptual loss, required when
+    ``config.vgg_scaling > 0`` (:func:`~tecogan_tpu_torch.models.vgg19.load_vgg19_npz`
+    or ``random_vgg19``); the module is moved to the device in place, as
+    ``nn.Module.to`` moves it."""
 
-    def __init__(self, config: TecoConfig, device: Union[str, torch.device]):
-        if config.gan or config.vgg_scaling > 0:
-            raise NotImplementedError(
-                "tecogan_tpu_torch trains FRVSR only (ratio <= 0 and "
-                "vgg_scaling <= 0, e.g. --preset frvsr); TecoGAN training is "
-                "ROADMAP queue 1 item 8")
+    def __init__(self, config: TecoConfig, device: Union[str, torch.device],
+                 vgg: Optional[VGG19Features] = None):
         if config.compute_dtype != "float32":
             raise NotImplementedError(
                 "tecogan_tpu_torch trains in float32 only; bfloat16 training "
-                "needs float32 master weights, not ported yet")
+                "needs float32 master weights (ROADMAP queue 1 item 17)")
+        if config.vgg_scaling > 0 and vgg is None:
+            raise ValueError("vgg_scaling > 0 requires VGG19 weights "
+                             "(see tecogan_tpu_torch.models.vgg19.load_vgg19_npz)")
+        if config.gan and not config.dt_mergeDs and config.d_layerloss:
+            # The reference's pure-Dt branch defines no layer features
+            # (Teco.py:265-292), so the combination has no semantics.
+            raise ValueError("dt_mergeDs=False (pure temporal Dt) requires "
+                             "d_layerloss=False (reference Teco.py:265-292 defines "
+                             "no layer features on this branch)")
         self.config = config
         self.device = torch.device(device)
         self.remat = resolve_remat(config)
         self.schedule = lr_schedule(config)
+        self.vgg = None
+        if config.vgg_scaling > 0:
+            self.vgg = vgg.to(self.device, torch.float32, memory_format=self._memory_format)
+
+    @property
+    def _memory_format(self):
+        return (torch.channels_last if self.device.type == "cuda"
+                else torch.preserve_format)
 
     # ------------------------------------------------------------ state
-    def telemetry_keys(self):
-        keys = ["l2_content_loss", "l2_warp_loss", "All_loss_Gen"]
-        return keys + ["PingPang"] if self.config.pingpong else keys
-
-    def state_from_modules(self, generator: Generator, fnet: FNet) -> TrainState:
-        """A step-0 state around the given modules, moved to the device, with
-        fresh optimizers and zero EMAs."""
+    def telemetry_keys(self) -> List[str]:
+        """The loss EMAs' keys (``tecogan_tpu/train/trainer.py:216-235``)."""
         cfg = self.config
-        memory_format = (torch.channels_last if self.device.type == "cuda"
-                         else torch.preserve_format)
+        keys = ["l2_content_loss", "l2_warp_loss", "All_loss_Gen"]
+        if self.vgg is not None:
+            keys += [f"vgg_loss_{i + 2}" for i in range(len(DEFAULT_FEATURE_KEYS))]
+            keys += ["vgg_all"]
+        if cfg.pingpong:
+            keys += ["PingPang"]
+        if cfg.gan:
+            keys += ["t_adversarial_loss", "t_discrim_loss", "t_discrim_real_output",
+                     "t_discrim_fake_output", "Dst_ratio"]
+            if cfg.d_layerloss:
+                keys += [f"D_layer_{i}_loss" for i in range(4)] + ["D_layer_loss_sum"]
+        return keys
+
+    def d_input_channels(self) -> int:
+        """27 for the merged Dst, 9 for the pure temporal Dt."""
+        return 27 if self.config.dt_mergeDs else 9
+
+    def d_lr_schedule(self, count: torch.Tensor) -> torch.Tensor:
+        """The discriminator's learning rate at its Adam count, on the
+        device: ``optax.exponential_decay`` in float32, x0.3 for the pure Dt
+        (``tecogan_tpu/train/trainer.py:165-171``; reference Teco.py:423-424)."""
+        cfg = self.config
+        lr = torch.full((), cfg.learning_rate, dtype=torch.float32, device=count.device)
+        if cfg.decay_step > 0:
+            p = count.float() / cfg.decay_step
+            if cfg.stair:
+                p = torch.floor(p)
+            lr = torch.where(count <= 0, lr, cfg.learning_rate * torch.pow(cfg.decay_rate, p))
+        return lr if cfg.dt_mergeDs else lr * 0.3
+
+    def state_from_modules(self, generator: Generator, fnet: FNet,
+                           discriminator: Optional[Discriminator] = None) -> TrainState:
+        """A step-0 state around the given modules, moved to the device, with
+        fresh optimizers and zero EMAs. TecoGAN mode needs the
+        discriminator."""
+        cfg = self.config
         generator = generator.to(self.device, torch.float32,
-                                 memory_format=memory_format).train()
-        fnet = fnet.to(self.device, torch.float32,
-                       memory_format=memory_format).train()
+                                 memory_format=self._memory_format).train()
+        fnet = fnet.to(self.device, torch.float32, memory_format=self._memory_format).train()
 
         def adam(module):
             return torch.optim.Adam(module.parameters(), lr=self.schedule(0),
                                     betas=(cfg.beta1, 0.999), eps=cfg.adam_eps)
 
-        return TrainState(
+        state = TrainState(
             step=0, generator=generator, fnet=fnet,
             gen_opt=adam(generator), fnet_opt=adam(fnet),
             ema_losses={k: torch.zeros((), device=self.device)
                         for k in self.telemetry_keys()})
+        if cfg.gan:
+            if discriminator is None:
+                raise ValueError("TecoGAN training (ratio > 0) needs a discriminator")
+            channels = discriminator.input_stage_conv.in_channels
+            if channels != self.d_input_channels():
+                raise ValueError(f"the discriminator takes {channels} channels; "
+                                 f"dt_mergeDs={cfg.dt_mergeDs} feeds it "
+                                 f"{self.d_input_channels()}")
+            state.discriminator = discriminator.to(
+                self.device, torch.float32, memory_format=self._memory_format).train()
+            state.d_opt = MaskedAdam(state.discriminator.parameters(), self.d_lr_schedule,
+                                     b1=cfg.beta1, eps=cfg.adam_eps)
+            state.ema_tbalance = torch.zeros((), device=self.device)
+            state.counter_with_d = torch.zeros((), dtype=torch.int32, device=self.device)
+            state.counter_wo_d = torch.zeros((), dtype=torch.int32, device=self.device)
+        return state
 
     def init_state(self, seed: int) -> TrainState:
-        """Fresh glorot-uniform weights (zero biases) drawn from ``seed``."""
+        """Fresh glorot-uniform weights (zero biases) drawn from ``seed``:
+        the generator's, FNet's and, in TecoGAN mode, the discriminator's."""
         cfg = self.config
         gen = torch.Generator().manual_seed(seed)
         generator = glorot_init_(Generator(cfg.num_resblock, cfg.gen_channels), gen)
         fnet = glorot_init_(FNet(cfg.fnet_channels, cfg.fnet_up_channels,
                                  cfg.flow_max_velocity), gen)
-        return self.state_from_modules(generator, fnet)
+        disc = glorot_init_(Discriminator(self.d_input_channels()), gen) if cfg.gan else None
+        return self.state_from_modules(generator, fnet, disc)
 
     # ------------------------------------------------------------ steps
     def _inputs(self, hr_seq: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -177,37 +324,110 @@ class Trainer:
             r_inputs, r_targets = extend_pingpong(r_inputs), extend_pingpong(r_targets)
         return r_inputs, r_targets
 
+    @staticmethod
+    def _frozen_d(disc: Discriminator, x: torch.Tensor):
+        """The discriminator at its current parameters taken as constants
+        (no gradient reaches them), statistics not updated."""
+        params = {k: v.detach() for k, v in disc.named_parameters()}
+        return functional_call(disc, params, (x,))
+
+    def _backward_flows(self, fnet: FNet, r_inputs: torch.Tensor) -> torch.Tensor:
+        """Without ping-pong, the triplets' backward flows: FNet on the
+        (next, middle) pairs, HR (reference Teco.py:190-203). Detached where
+        they are used, so computed without a graph."""
+        b, t, h, w, c = r_inputs.shape
+        t_size = 3 * (t // 3)
+        nxt, mid = r_inputs[:, 2:t_size:3], r_inputs[:, 1:t_size:3]
+        n = nxt.shape[1]
+        with torch.no_grad():
+            flow = fnet(torch.cat([nxt, mid], dim=-1).reshape(b * n, h, w, 2 * c))
+            return upscale_flow(flow, h, w).reshape(b, n, 4 * h, 4 * w, 2)
+
     def _forward_losses(self, state: TrainState, r_inputs, r_targets
-                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict]:
+        """The generator's loss, the metrics and, in TecoGAN mode, the
+        discriminator step's inputs and ``t_balance``
+        (``tecogan_tpu/train/trainer.py:238-343``)."""
         cfg = self.config
         flow_lr, flow_hr = flows_for_sequence(state.fnet, r_inputs)
         gen_outputs, _ = unroll_generator(
             state.generator, r_inputs, flow_hr,
             remat=self.remat and torch.is_grad_enabled(), with_warppre=False)
         b, t = gen_outputs.shape[:2]
+        s_gen = gen_outputs.reshape(b * t, *gen_outputs.shape[2:])
+        s_tar = r_targets.reshape(b * t, *r_targets.shape[2:])
         metrics = {
-            "l2_content_loss": L.content_loss(gen_outputs.reshape(b * t, *gen_outputs.shape[2:]),
-                                              r_targets.reshape(b * t, *r_targets.shape[2:])),
+            "l2_content_loss": L.content_loss(s_gen, s_tar),
             "l2_warp_loss": L.warp_loss(r_inputs, flow_lr),
         }
         gen_loss = metrics["l2_content_loss"]
+        if self.vgg is not None:
+            vgg_total, per_layer = L.vgg_cosine_loss(
+                vgg19_normalized_features(self.vgg, s_gen),
+                vgg19_normalized_features(self.vgg, s_tar))
+            gen_loss = gen_loss + cfg.vgg_scaling * vgg_total
+            for i, v in enumerate(per_layer):
+                metrics[f"vgg_loss_{i + 2}"] = v
+            metrics["vgg_all"] = vgg_total
         if cfg.pingpong:
             pp = L.pingpong_loss(gen_outputs, cfg.rnn_n)
             if cfg.pp_scaling > 0:
                 gen_loss = gen_loss + cfg.pp_scaling * pp
             metrics["PingPang"] = pp
+        aux: Dict = {}
+        if cfg.gan:
+            flow_back = None if cfg.pingpong else self._backward_flows(state.fnet, r_inputs)
+            real, fake = L.assemble_dst_inputs(r_inputs, r_targets, gen_outputs, flow_hr,
+                                               cfg, flow_back)
+            d_real, real_layers = self._frozen_d(state.discriminator, real)
+            d_fake, fake_layers = self._frozen_d(state.discriminator, fake)
+            adv = (-torch.log(d_fake + cfg.eps)).mean()
+            # float32, as the JAX package's jnp.minimum over a float32 step.
+            dt_ratio = float(np.minimum(np.float32(cfg.dt_ratio_max), np.float32(
+                cfg.dt_ratio_0) + np.float32(cfg.dt_ratio_add) * np.float32(state.step)))
+            gen_loss = gen_loss + cfg.ratio * adv * dt_ratio
+            metrics["t_adversarial_loss"] = adv
+            metrics["Dst_ratio"] = dt_ratio
+            metrics["t_discrim_real_output"] = d_real.mean()
+            metrics["t_discrim_fake_output"] = d_fake.mean()
+            if cfg.d_layerloss:
+                layer_sum, raw = L.d_layer_losses(real_layers, fake_layers,
+                                                  cfg.d_layer_norm, cfg.d_layer_fix_range)
+                gen_loss = gen_loss + layer_sum * dt_ratio
+                for i, v in enumerate(raw):
+                    metrics[f"D_layer_{i}_loss"] = v
+                metrics["D_layer_loss_sum"] = layer_sum
+            # t_balance drives the adaptive gate (reference Teco.py:397-399).
+            aux = dict(t_balance=torch.log(d_real + cfg.eps).mean() + adv,
+                       real=real, fake=fake)
+            metrics["t_discrim_loss"] = d_loss(d_real, d_fake, cfg.eps)
         metrics["All_loss_Gen"] = gen_loss
-        return gen_loss, metrics
+        return gen_loss, metrics, aux
+
+    def _d_step(self, state: TrainState, real: torch.Tensor, fake: torch.Tensor) -> None:
+        """The discriminator's loss on detached inputs, its gradient and its
+        gated update; the running statistics update on real, then on fake,
+        whatever the gate (``tecogan_tpu/train/trainer.py:345-367,407-435``)."""
+        cfg = self.config
+        train_d = state.ema_tbalance < cfg.d_balance  # the EMA before this step
+        d_real, _ = state.discriminator(real.detach(), update_stats=True)
+        d_fake, _ = state.discriminator(fake.detach(), update_stats=True)
+        state.d_opt.zero_grad()
+        d_loss(d_real, d_fake, cfg.eps).backward()
+        state.d_opt.step(train_d)
+        state.counter_with_d += train_d.int()
+        state.counter_wo_d += (~train_d).int()
 
     def train_step(self, state: TrainState, hr_seq: Batch
                    ) -> Tuple[TrainState, Dict[str, Union[torch.Tensor, float]]]:
-        """One update of G and FNet from (B, T, tar, tar, 3) HR crops.
-        Returns the (same, updated) state and the step's metrics as device
-        scalars, plus the step's ``learning_rate``. The gradients stay in the
-        parameters' ``.grad`` until the next step."""
+        """One update of G and FNet (and, gated, of the discriminator) from
+        (B, T, tar, tar, 3) HR crops. Returns the (same, updated) state and
+        the step's metrics as device scalars, plus the step's
+        ``learning_rate`` and, in TecoGAN mode, ``t_balance``. The gradients
+        stay in the parameters' ``.grad`` until the next step."""
         cfg = self.config
         r_inputs, r_targets = self._inputs(hr_seq)
-        gen_loss, metrics = self._forward_losses(state, r_inputs, r_targets)
+        gen_loss, metrics, aux = self._forward_losses(state, r_inputs, r_targets)
         # One joint backward, valid because the warp loss is G-free
         # (reference computes the two gradients separately, Teco.py:446-447).
         joint = gen_loss + cfg.warp_scaling * metrics["l2_warp_loss"]
@@ -219,8 +439,13 @@ class Trainer:
             for group in opt.param_groups:
                 group["lr"] = lr
             opt.step()
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
         d = cfg.loss_ema_decay
+        if cfg.gan:
+            self._d_step(state, aux["real"], aux["fake"])
+            t_balance = aux["t_balance"].detach()
+            state.ema_tbalance = d * state.ema_tbalance + (1 - d) * t_balance
+            metrics["t_balance"] = t_balance
         for k in state.ema_losses:
             state.ema_losses[k] = d * state.ema_losses[k] + (1 - d) * metrics[k]
         state.step += 1
@@ -242,3 +467,9 @@ class Trainer:
         gen_outputs, warppre = unroll_generator(state.generator, r_inputs, flow_hr,
                                                 remat=False)
         return r_inputs, deprocess(r_targets), deprocess(gen_outputs), deprocess(warppre)
+
+
+def d_loss(d_real: torch.Tensor, d_fake: torch.Tensor, eps: float) -> torch.Tensor:
+    """The discriminator's loss, ``mean(-(log(1 - D(fake)) + log(D(real))))``
+    with ``eps`` inside each log (reference Teco.py:392-396)."""
+    return (-(torch.log(1 - d_fake + eps) + torch.log(d_real + eps))).mean()

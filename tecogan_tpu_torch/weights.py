@@ -13,6 +13,9 @@
   port trained (``npz_to_params``).
 - :func:`convert_tf_npz` maps the variable names of a TF TecoGAN/FRVSR
   checkpoint dumped to npz onto those trees.
+- :func:`discriminator_from_jax` / :func:`discriminator_to_jax` carry the
+  discriminator's parameters and batch statistics (flax ``params`` and
+  ``batch_stats`` trees) across; :func:`vgg19_from_jax` VGG19's.
 
 Layouts: a flax ``Conv`` kernel is HWIO, a torch ``Conv2d`` weight OIHW; a
 flax ``ConvTranspose(transpose_kernel=True)`` kernel is (kh, kw, out, in), a
@@ -33,8 +36,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from tecogan_tpu_torch.models.discriminator import BLOCKS, Discriminator
 from tecogan_tpu_torch.models.fnet import FNet
 from tecogan_tpu_torch.models.generator import Generator
+from tecogan_tpu_torch.models.vgg19 import VGG19Features
 
 Tree = Mapping[str, Any]
 _RESBLOCK = re.compile(r"resblock_(\d+)_conv_1$")
@@ -119,6 +124,61 @@ def to_jax_params(gen: Generator, fnet: FNet
     return _tree(_generator_layers(gen)), _tree(_fnet_layers(fnet))
 
 
+def _array(tree: Tree, *path: str) -> torch.Tensor:
+    for key in path:
+        tree = tree[key]
+    return torch.from_numpy(np.array(tree, np.float32))
+
+
+@torch.no_grad()
+def discriminator_from_jax(d_params: Tree, d_batch_stats: Optional[Tree] = None
+                           ) -> Discriminator:
+    """A float32 CPU :class:`Discriminator` from the flax trees of
+    ``tecogan_tpu/models/discriminator.py`` (input channels read from the
+    shapes); without ``d_batch_stats`` the running statistics keep their
+    fresh values (mean 0, variance 1)."""
+    stem = d_params["input_stage_conv"]
+    disc = Discriminator(in_channels=int(np.shape(stem["kernel"])[2]))
+    _fill([("input_stage_conv", disc.input_stage_conv)], d_params)
+    for (idx, _), block in zip(BLOCKS, disc.blocks):
+        block.conv.weight.copy_(_array(d_params, f"disblock_{idx}_conv", "kernel")
+                                .permute(3, 2, 0, 1))
+        block.bn.bias.copy_(_array(d_params, f"disblock_{idx}_bn", "bn", "bias"))
+        if d_batch_stats is not None:
+            block.bn.running_mean.copy_(_array(d_batch_stats, f"disblock_{idx}_bn", "bn", "mean"))
+            block.bn.running_var.copy_(_array(d_batch_stats, f"disblock_{idx}_bn", "bn", "var"))
+    # flax Dense kernel (256, 1) -> a 1x1 conv's (1, 256, 1, 1).
+    disc.dense.weight.copy_(_array(d_params, "dense", "kernel").t()[:, :, None, None])
+    disc.dense.bias.copy_(_array(d_params, "dense", "bias"))
+    return disc
+
+
+def discriminator_to_jax(disc: Discriminator) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The inverse of :func:`discriminator_from_jax`: (params, batch_stats)
+    as flax trees of float32 numpy arrays."""
+    def arr(t):
+        return t.detach().cpu().float().numpy()
+
+    params: Dict[str, Any] = _tree([("input_stage_conv", disc.input_stage_conv)])
+    stats: Dict[str, Any] = {}
+    for (idx, _), block in zip(BLOCKS, disc.blocks):
+        params[f"disblock_{idx}_conv"] = {"kernel": arr(block.conv.weight.permute(2, 3, 1, 0))}
+        params[f"disblock_{idx}_bn"] = {"bn": {"bias": arr(block.bn.bias)}}
+        stats[f"disblock_{idx}_bn"] = {"bn": {"mean": arr(block.bn.running_mean),
+                                              "var": arr(block.bn.running_var)}}
+    params["dense"] = {"kernel": arr(disc.dense.weight[:, :, 0, 0].t()),
+                       "bias": arr(disc.dense.bias)}
+    return params, stats
+
+
+def vgg19_from_jax(params: Tree) -> VGG19Features:
+    """A float32 CPU :class:`VGG19Features` from the flax tree of
+    ``tecogan_tpu/models/vgg19.py`` (``conv{b}_{i}`` -> kernel, bias)."""
+    vgg = VGG19Features()
+    _fill(vgg.convs.items(), params)
+    return vgg
+
+
 def params_to_npz(path: str, **trees: Tree) -> None:
     """Write nested parameter trees (e.g. ``generator=..., fnet=...``) to one
     npz with flat ``<tree>/<layer>/<param>`` keys, the format of
@@ -145,14 +205,14 @@ def convert_tf_npz(npz_path: str, num_resblock: Optional[int] = 16) -> Dict[str,
     """A TF TecoGAN/FRVSR checkpoint dumped to npz (TF variable name ->
     array) as flax-layout trees of numpy arrays: ``{"generator": ...,
     "fnet": ...}`` (plus ``"global_step"`` when present), which
-    :func:`from_jax_params` takes. Counterpart of
-    ``tecogan_tpu/train/checkpoint.py:convert_tf_npz`` (``:262-331``) for
-    the generator and FNet; the discriminator's trees wait for TecoGAN
-    training.
+    :func:`from_jax_params` takes, plus ``"discriminator"`` and
+    ``"discriminator_batch_stats"`` (:func:`discriminator_from_jax`) when the
+    npz holds ``tdiscriminator/...`` variables. Counterpart of
+    ``tecogan_tpu/train/checkpoint.py:convert_tf_npz`` (``:262-370``).
 
     Both spellings of a conv are read: ``.../conv_1/Conv/weights`` (slim
-    scopes) and flat ``.../conv_1/weights``. Adam slots, EMA shadows and
-    the discriminator are ignored. ``num_resblock=None`` takes the depth
+    scopes) and flat ``.../conv_1/weights``. Adam slots and EMA shadows are
+    ignored. ``num_resblock=None`` takes the depth
     from the npz's own names; unlike the JAX package it raises when there
     are none rather than build a generator without its trunk."""
     with np.load(npz_path) as z:
@@ -194,6 +254,20 @@ def convert_tf_npz(npz_path: str, num_resblock: Optional[int] = 16) -> Dict[str,
     fnet["output_conv1"] = conv(f"{f}/output_stage/conv1")
     fnet["output_conv2"] = conv(f"{f}/output_stage/conv2")
     out: Dict[str, Any] = {"generator": gen, "fnet": fnet}
+    d = "tdiscriminator/discriminator_unit"
+    if any(k.startswith("tdiscriminator") for k in data):
+        disc: Dict[str, Any] = {"input_stage_conv": conv(f"{d}/input_stage/conv")}
+        stats: Dict[str, Any] = {}
+        for idx, _ in BLOCKS:
+            bn = f"{d}/disblock_{idx}/BatchNorm"
+            disc[f"disblock_{idx}_conv"] = {"kernel": get(f"{d}/disblock_{idx}/conv1/Conv/weights")}
+            disc[f"disblock_{idx}_bn"] = {"bn": {"bias": get(f"{bn}/beta")}}
+            stats[f"disblock_{idx}_bn"] = {"bn": {"mean": get(f"{bn}/moving_mean"),
+                                                  "var": get(f"{bn}/moving_variance")}}
+        disc["dense"] = {"kernel": get(f"{d}/dense_layer_2/dense/kernel").reshape(-1, 1),
+                         "bias": get(f"{d}/dense_layer_2/dense/bias")}
+        out["discriminator"] = disc
+        out["discriminator_batch_stats"] = stats
     if "global_step" in data:
         out["global_step"] = int(data["global_step"])
     return out

@@ -364,3 +364,100 @@ def test_inference_cli_matches_streaming(cuda_device, tmp_path, monkeypatch):
     want, _ = sr.run(load_inference_frames(input_dir_lr=str(lr_dir), as_uint8=True).inputs,
                      warmup=5)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(24, 32, 32, 9), (2, 37, 53, 9)], ids=["dst", "ragged"])
+def test_upsample4_nine_channels_matches_plain(cuda_device, shape, dtype):
+    """K1's generic-channel path at the discriminator's LR triplets (9
+    channels, alpha 1) and at a ragged shape: bit-equal in bfloat16, float32
+    within 2e-6 (values in [0, 1])."""
+    x = torch.from_numpy(np.random.RandomState(15).rand(*shape).astype(np.float32))
+    x = x.to(cuda_device, dtype)
+    before = upsample4.launches
+    got, want = upsample4(x, "bilinear"), upsample4_plain(x, "bilinear")
+    assert upsample4.launches == before + 1
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels,size", [(27, 32), (9, 22)], ids=["dst", "odd"])
+def test_discriminator_matches_cpu(cuda_device, channels, size):
+    """The discriminator on the card (cuDNN, TF32 off, channels_last) against
+    the CPU with the same weights: outputs and block activations within
+    1e-4 of their scale, the running statistics after an update, and the
+    gradient of every parameter within 1e-3 of its largest entry. 22 px
+    reaches the odd sizes that TF SAME pads asymmetrically. An lrelu whose
+    input (a batch norm's output, dense near 0) lies within rounding of 0
+    takes different slopes on the two devices: at 128 px, with 1.3M such
+    inputs, that moved one input-gradient entry by 4% of the largest and a
+    block's kernel gradient by 0.5%. So the sizes stay small, and the input
+    gradient, whose entries each see few activations, is not compared;
+    chip_smoke.py phase 10 holds the discriminator at 128 px inside a
+    TecoGAN step."""
+    from tecogan_tpu_torch.models import Discriminator
+    from tecogan_tpu_torch.models.layers import glorot_init_
+
+    disc = glorot_init_(Discriminator(channels), torch.Generator().manual_seed(16))
+    x = torch.from_numpy(np.random.RandomState(17).rand(4, size, size, channels)
+                         .astype(np.float32))
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        d = Discriminator(channels).to(device, memory_format=torch.channels_last)
+        d.load_state_dict(disc.state_dict())
+        out, layers = d(x.to(device), update_stats=True)
+        loss = out.mean() + sum(layer.square().mean() for layer in layers)
+        grads = torch.autograd.grad(loss, list(d.parameters()))
+        runs.append(([t.detach().cpu() for t in (out, *layers)], [g.cpu() for g in grads],
+                     [b.cpu() for b in d.buffers()]))
+    (acts, grads, stats), (acts_c, grads_c, stats_c) = runs
+    for got, want in zip(acts + stats, acts_c + stats_c):
+        assert (got - want).abs().max() <= 1e-4 * max(1.0, want.abs().max())
+    for got, want in zip(grads, grads_c):
+        assert want.abs().max() > 0
+        assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_gan_step_matches_cpu(cuda_device):
+    """One TecoGAN step on the card (2 blocks, the merged Dst, VGG19 random
+    weights, ping-pong) against the CPU: the losses within 1e-4, every
+    gradient of G, FNet and D within 1e-3 of its largest entry; the
+    discriminator's update applied (gate open) and the kernels ran: K1 for
+    the flow, the skips and the Dst's LR triplets, K2 once."""
+    from tecogan_tpu_torch.config import TECOGAN_PRESET
+    from tecogan_tpu_torch.models.vgg19 import random_vgg19
+
+    cfg = TECOGAN_PRESET.replace(num_resblock=2, batch_size=1, rnn_n=3, crop_size=16)
+    tar = cfg.hr_load_size
+    batch = (synthetic_clip(3, tar, tar, seed=18, content="natural")[None] * 255).astype(np.uint8)
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        trainer = Trainer(cfg, device, vgg=random_vgg19(19))
+        state = trainer.init_state(20)
+        with torch.no_grad():  # flows mid-cell (see chip_smoke.py)
+            state.fnet.output_conv2.bias.copy_(torch.tensor([0.015625, -0.026]))
+            state.fnet.output_conv2.weight.mul_(0.1)
+        before = (upsample4.launches, upsample4_bwd.launches, resblock_chain.launches)
+        _, metrics = trainer.train_step(state, batch)
+        after = (upsample4.launches, upsample4_bwd.launches, resblock_chain.launches)
+        if device.type == "cuda":
+            assert [a - b for a, b in zip(after, before)] == [cfg.unroll_frames + 2, 1,
+                                                              2 * cfg.unroll_frames]
+        assert int(state.counter_with_d) == 1 and int(state.d_opt.count) == 1
+        runs.append(({k: float(v) for k, v in metrics.items()},
+                     {f"{prefix}.{name}": p.grad.detach().cpu()
+                      for prefix, module in (("g", state.generator), ("f", state.fnet),
+                                             ("d", state.discriminator))
+                      for name, p in module.named_parameters()}))
+    (losses, grads), (losses_c, grads_c) = runs
+    for k, want in losses_c.items():
+        scale = abs(losses_c["t_adversarial_loss"]) if k == "t_balance" else abs(want)
+        assert abs(losses[k] - want) <= 1e-4 * scale, k
+    for name, want in grads_c.items():
+        assert grads[name].abs().max() > 0, name
+        assert (grads[name] - want).abs().max() <= 1e-3 * want.abs().max(), name

@@ -1,5 +1,6 @@
 """The port's training loop and CLI on the CPU at a tiny size: a run, its
-resume, the summaries and checkpoints it leaves, and the CLI's guards."""
+resume, the summaries and checkpoints it leaves, TecoGAN training through
+the CLI, and the CLI's guards."""
 
 import json
 import os
@@ -77,10 +78,13 @@ def test_cli_guards(scenes, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(_argv(scenes, out))  # --device defaults to cuda
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main(_argv(scenes, out, "--device", "cpu", "--ratio", "0.01"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main(_argv(scenes, out, "--device", "cpu", "--vgg_npz", "vgg.npz"))
+    # TecoGAN training is ported; bfloat16 training is not (item 17), and
+    # the VGG term needs weights, as in the JAX CLI.
+    with pytest.raises(NotImplementedError, match="item 17"):
+        main(_argv(scenes, out, "--device", "cpu", "--ratio", "0.01",
+                   "--compute_dtype", "bfloat16"))
+    with pytest.raises(SystemExit, match="--vgg_npz"):
+        main(_argv(scenes, out, "--device", "cpu", "--vgg_scaling", "0.2"))
     # Inference, as the JAX CLI: no weight source exits; video input is
     # not ported yet and names its ROADMAP item.
     with pytest.raises(SystemExit, match="inference needs --checkpoint"):
@@ -89,4 +93,45 @@ def test_cli_guards(scenes, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="item 12"):
         main(["--mode", "inference", "--device", "cpu", "--input_video", "clip.mp4",
               "--output_dir", out, "--allow_random_weights"])
+    assert latest_step(os.path.join(out, "checkpoints")) is None
+
+
+def _mini_argv(scenes, out, *extra):
+    return ["--mode", "train", "--preset", "mini", "--device", "cpu",
+            "--input_video_dir", scenes, "--output_dir", out, "--max_iter", "2",
+            "--num_resblock", "2", "--crop_size", "8", "--batch_size", "2",
+            "--rnn_n", "3", "--max_frm", "5", "--queue_thread", "2", "--save_freq", "2",
+            "--summary_freq", "1", "--display_freq", "1", "--no_test_while_train", *extra]
+
+
+def test_cli_trains_tecogan_with_random_vgg(scenes, tmp_path, capsys):
+    """--preset mini (TecoGAN, 10 blocks cut to 2 here) with random VGG19
+    weights: the run warns, trains the discriminator and writes the gate's
+    scalars and the GAN losses' EMAs to scalars.jsonl, every summary_freq."""
+    out = str(tmp_path / "mini")
+    main(_mini_argv(scenes, out, "--allow_random_weights"))
+    printed = capsys.readouterr().out
+    assert "WARNING: random VGG19 weights" in printed
+    assert "Scope tdiscriminator:" in printed
+    assert latest_step(os.path.join(out, "checkpoints")) == 2
+    with open(os.path.join(out, "log", "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    gate = [r for r in rows if "t_balance_EMA" in r]
+    assert [r["step"] for r in gate] == [1, 2]
+    assert gate[-1]["withD_counter"] + gate[-1]["w_o_D_counter"] == 2
+    keys = set().union(*rows)
+    for k in ("vgg_all", "t_adversarial_loss", "t_discrim_loss", "D_layer_loss_sum",
+              "PingPang", "Dst_ratio", "val_t_discrim_loss"):
+        assert k in keys, k
+
+
+def test_cli_vgg_npz_missing_exits(scenes, tmp_path):
+    """vgg_scaling > 0 without --vgg_npz or --allow_random_weights exits
+    with the JAX CLI's message before training; a --vgg_npz that is not
+    there raises."""
+    out = str(tmp_path / "novgg")
+    with pytest.raises(SystemExit, match="--vgg_npz .or --allow_random_weights. required"):
+        main(_mini_argv(scenes, out))
+    with pytest.raises(FileNotFoundError):
+        main(_mini_argv(scenes, out, "--vgg_npz", str(tmp_path / "absent.npz")))
     assert latest_step(os.path.join(out, "checkpoints")) is None

@@ -182,17 +182,28 @@ def test_remat_step_equals_plain_step(jax_ref):
                                            rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("kw", [dict(ratio=0.01), dict(vgg_scaling=0.2),
+@pytest.mark.parametrize("kw", [dict(ratio=0.01, compute_dtype="bfloat16"),
+                                dict(vgg_scaling=0.2, compute_dtype="bfloat16"),
                                 dict(compute_dtype="bfloat16")],
                          ids=["gan", "vgg", "bfloat16"])
 def test_unported_modes_raise(kw):
-    with pytest.raises(NotImplementedError):
+    """TecoGAN and VGG training are ported (tests/test_torch_gan.py);
+    bfloat16 training, of any mode, is not (ROADMAP queue 1 item 17)."""
+    with pytest.raises(NotImplementedError, match="item 17"):
         Trainer(tiny(**kw), "cpu")
 
 
 def test_default_config_is_gan_and_raises():
-    with pytest.raises(NotImplementedError):
-        Trainer(TecoConfig(), "cpu")
+    """The default configuration is TecoGAN's (ratio 0.01) and trains with a
+    discriminator; with the VGG term on (vgg_scaling 0.2, as the TecoGAN
+    preset) and no VGG19 weights the trainer raises, as the JAX package's."""
+    assert TecoConfig().gan
+    state = Trainer(TecoConfig(num_resblock=2), "cpu").init_state(0)
+    assert state.discriminator is not None and int(state.counter_with_d) == 0
+    with pytest.raises(ValueError, match="VGG19 weights"):
+        Trainer(TecoConfig(vgg_scaling=0.2), "cpu")
+    with pytest.raises(ValueError):
+        JaxTrainer(JaxConfig(vgg_scaling=0.2))
 
 
 def test_resolve_remat_matches_jax():
