@@ -79,8 +79,29 @@ Phases, each raising on failure (so the exit code is non-zero):
    Phase 10 switches TF32 off for its comparison; phase 11 runs with the
    default flags, as training does.
 
+12. serving (``tecogan_tpu_torch.serve``): (a) a 3-slot ``VSRServer`` at
+   full width, float32 with TF32 off, GPU against CPU with staggered
+   attaches and an idle slot (outputs within PATH_TOL, the idle slot's
+   state bit-unchanged on the card); (b) ``MultiGeometryServer`` in
+   bfloat16, a 4-slot bucket at 144x180 and a bucket of two 120x180
+   streams, 46 ticks after prewarm with the kernels' launch counts (the
+   chain 16 and K1 2 per bucket tick at least), then ``VSRServer`` pools of
+   1, 4 and 8 slots timed (ms/tick, aggregate frames/s, peak memory) and
+   each profiled (device idle share; the chain must be
+   ``resblock_kernel_mma``); (c) the frame step exported at (4,144,180)
+   bfloat16, loaded in a fresh process that imports only torch and
+   ``tecogan_tpu_torch.kernels``, bit-equal to a ``VSRServer`` tick under
+   cuDNN's deterministic algorithms, its launches counted; (d) ``cli.serve``
+   on three LR PNG dirs (two geometries, one with Paeth rows): float32
+   within 1 u8 level of ``cli.main --mode inference`` per dir (the random
+   generator's recurrence damped, see ``run_serve_cli``), then a timed
+   bfloat16 run with its wall split; and the PNG decode of a Paeth frame at
+   144x180 and 576x720. Phase 3 also times the chain N=16 at (4,144,180,64)
+   and K1 at (4,144,180,2/3) in bfloat16, a serving tick's shapes.
+
 Then one ``[yardstick]`` line per timed case of phase 3 with its wrapper's
-launches on the streaming, FRVSR and TecoGAN training paths. The
+launches on the streaming, FRVSR and TecoGAN training paths and per
+serving bucket tick. The
 second-to-last line of stdout is a JSON object with one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. Imports no JAX.
 
@@ -150,6 +171,13 @@ SCENE_FRAMES, SCENE_H, SCENE_W = 14, 240, 320
 # Whole path, GPU kernels vs CPU plain versions, float32: the same tolerance
 # as the chain (it dominates), relative to the output's scale.
 PATH_TOL = 1e-3
+# Serving (phase 12): slots of the calendar bucket, the second bucket's
+# geometry (Vid4's foliage and walk) and the pool sizes timed; ticks per
+# run, as phase 6's frames.
+SERVE_SLOTS, SERVE_GEO2, SERVE_POOLS = 4, (120, 180), (1, 4, 8)
+# Phase 12 (d)'s weights: the stem's weights on the warped previous output
+# scaled by this (see run_serve_cli).
+DAMP_WARPED = 0.1
 # The CLI phase: 41 HR frames (46 with the 5 warm-up frames the CLI
 # prepends: phase 6's 46 frames, 2 chunks); the suite card vs CPU on the
 # first 8 frames (4 scored after CUTFR).
@@ -320,9 +348,9 @@ def seeded(shape, scale, gen, device, dtype):
 
 def check_kernels(dev):
     """Phase 3. Returns one record per timed case (the paths' shapes): its
-    kernel, dtype, label, paths (of "streaming", "training" (FRVSR) and
-    "tecogan"; none where no path runs that kernel at that shape or
-    dtype), max abs error, the
+    kernel, dtype, label, paths (of "streaming", "training" (FRVSR),
+    "tecogan" and "serving"; none where no path runs that kernel at that
+    shape or dtype), max abs error, the
     kernel's, the plain version's and the library call's ms (None with its
     reason where no one call computes the function) and the bound."""
     from tecogan_tpu_torch.kernels import (
@@ -386,6 +414,23 @@ def check_kernels(dev):
                  (("training", "tecogan"), einsum_upsample(lr_t, "bicubic", 1.0),
                   upsample_bound(lr_t.numel(), lr_t.element_size(), 4))),
             ]
+        if bf16:
+            # Serving (phase 12): one tick of a 4-slot pool at the calendar
+            # geometry runs K1 on the batch's flow and skip.
+            flow_s = seeded((SERVE_SLOTS, LR_H, LR_W, 2), 8.0, gen, dev, dtype)
+            lr_s = torch.rand((SERVE_SLOTS, LR_H, LR_W, 3), generator=gen).to(dev, dtype)
+            cases += [
+                ("upsample4", f"bilinear flow x4 serving ({SERVE_SLOTS},144,180,2)",
+                 lambda: upsample4(flow_s, "bilinear", 4.0),
+                 lambda: upsample4_plain(flow_s, "bilinear", 4.0),
+                 ("serving", einsum_upsample(flow_s, "bilinear", 4.0),
+                  upsample_bound(flow_s.numel(), flow_s.element_size(), 2))),
+                ("upsample4", f"bicubic skip serving ({SERVE_SLOTS},144,180,3)",
+                 lambda: upsample4(lr_s, "bicubic"),
+                 lambda: upsample4_plain(lr_s, "bicubic"),
+                 ("serving", einsum_upsample(lr_s, "bicubic", 1.0),
+                  upsample_bound(lr_s.numel(), lr_s.element_size(), 4))),
+            ]
         cases += [
             ("upsample4", "bilinear ragged (2,37,53,3)",
              lambda: upsample4(ragged, "bilinear"),
@@ -431,6 +476,8 @@ def check_kernels(dev):
         lim = 0.5 * (6.0 / (2 * 9 * CHANNELS)) ** 0.5
         chains = [(1, LR_H, LR_W, NUM_RESBLOCK, True, "streaming" if bf16 else None),
                   (2, 37, 53, 3, False, None), (1, 5, 7, 1, False, None)]
+        if bf16:  # a serving tick of the 4-slot pool (phase 12)
+            chains.append((SERVE_SLOTS, LR_H, LR_W, NUM_RESBLOCK, True, "serving"))
         if not bf16:
             chains += [(4, 32, 32, 10, True, "training"), (4, 32, 32, 16, True, "tecogan")]
         for b, h, w, n, timed, path in chains:
@@ -1392,6 +1439,443 @@ def run_tecogan_training(dev, card: str, tmp: str):
     return step_launches[0]
 
 
+def check_serving_vs_cpu(dev) -> None:
+    """Phase 12 (a): a 3-slot VSRServer at full width (16 blocks, the real
+    FNet), float32 with TF32 off, GPU against CPU: streams attach on ticks
+    0, 1 and 2, stream b sits out tick 2. Every output within PATH_TOL of
+    the CPU's; b's state on the card bit-unchanged across its idle tick."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.serve import VSRServer
+
+    cfg = TecoConfig(num_resblock=NUM_RESBLOCK, compute_dtype="float32")
+    h, w = 64, 96
+    rng = np.random.RandomState(12)
+    frames = {sid: rng.rand(4, h, w, 3).astype(np.float32) for sid in "abc"}
+    script = ["a", {"a": 0}, "b", {"a": 1, "b": 0}, "c", {"a": 2, "c": 0},
+              {"a": 3, "b": 1, "c": 1}]
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        outs, frozen = [], None
+        for device in (dev, torch.device("cpu")):
+            srv = VSRServer(cfg, *build_models(5, cfg), h, w, max_streams=3,
+                            output="float32", device=device)
+            got = {}
+            for i, tick in enumerate(script):
+                if isinstance(tick, str):
+                    srv.open(tick)
+                    continue
+                before = [t[1].clone() for t in srv._state]
+                out = srv.step({sid: frames[sid][k] for sid, k in tick.items()})
+                got.update({(i, sid): torch.from_numpy(hr.copy()) for sid, hr in out.items()})
+                if device.type == "cuda" and "b" in srv.open_streams and "b" not in tick:
+                    frozen = all(torch.equal(a, t[1]) for a, t in zip(before, srv._state))
+            outs.append(got)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    worst = 0.0
+    for key, want in outs[1].items():
+        if outs[0][key].shape != (4 * h, 4 * w, 3):
+            raise RuntimeError(f"[serve] output {key} of {tuple(outs[0][key].shape)}")
+        worst = max(worst, rel_err(outs[0][key], want)[1])
+    log(f"[serve] (a) VSRServer GPU vs CPU, float32 (TF32 off), {NUM_RESBLOCK} resblocks, "
+        f"3 slots of {h}x{w}, streams attached on ticks 0-2, b idle on tick 2: "
+        f"{len(outs[1])} outputs, worst rel {worst:.3e} tol {PATH_TOL:.0e}; idle slot's "
+        f"state on the card {'bit-unchanged' if frozen else 'CHANGED'}")
+    if not worst <= PATH_TOL or frozen is not True or outs[0].keys() != outs[1].keys():
+        raise RuntimeError(f"[serve] GPU vs CPU {worst:.3e}, idle slot unchanged: {frozen}")
+
+
+def serve_ticks(srv, frames, ticks: int = FRAMES):
+    """`ticks` ticks of every open stream of `srv` (stream k on frame t + k),
+    fetch=False, each tick's frames read one tick later, as a writer
+    thread reads them. Returns (wall seconds, the last tick's frames);
+    ``serve_ticks.step_s`` holds the host's seconds inside ``step``."""
+    streams = list(srv.open_streams)
+    t0 = time.perf_counter()
+    last, step_s = {}, 0.0
+    for t in range(ticks):
+        t_s = time.perf_counter()
+        out = srv.step({sid: frames[sid][(t + k) % len(frames[sid])]
+                        for k, sid in enumerate(streams)}, fetch=False)
+        step_s += time.perf_counter() - t_s
+        for hr in last.values():
+            np.asarray(hr)
+        last = out
+    arrays = {sid: np.asarray(hr) for sid, hr in last.items()}
+    torch.cuda.synchronize()
+    serve_ticks.step_s = step_s
+    return time.perf_counter() - t0, arrays
+
+
+def profile_serving(srv, frames, secs: float, label: str) -> dict:
+    """One serve_ticks run under torch.profiler, split by kernel group;
+    the bfloat16 chain must have run through the tensor-core kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        serve_ticks(srv, frames)
+    total, split, names, by_op = device_split(prof)
+    if total <= 0:
+        log("[profile] torch.profiler recorded no device time; see the wall times")
+        return {}
+    idle = max(0.0, 1 - total / 1e3 / (secs * 1e3))
+    log(f"[profile] serving {label}, one run of {FRAMES} ticks: {total / 1e3:.2f} ms of "
+        f"device time, {total / 1e3 / FRAMES:.3f} ms/tick, against {secs * 1e3:.2f} ms of "
+        f"wall unprofiled (device idle share {idle:.1%})")
+    log_split(total, split, by_op)
+    chain = names["chain kernel"]
+    for key, count in chain.items():
+        log(f"[profile]   chain kernel: {count} launches of {key[:100]}")
+    if sum(n for key, n in chain.items() if "resblock_kernel_mma" in key) < NUM_RESBLOCK * FRAMES:
+        raise RuntimeError(f"[profile] serving {label}: the chain ran {chain}, want >= "
+                           f"{NUM_RESBLOCK * FRAMES} launches of resblock_kernel_mma")
+    return {"device_ms": total / 1e3, "idle": idle}
+
+
+def run_serving(dev, card: str):
+    """Phase 12 (b): MultiGeometryServer in bfloat16 at full width, a
+    4-slot bucket of 144x180 streams and a bucket of two 120x180 ones,
+    FRAMES ticks after prewarm, counted (the main path of serving); then
+    VSRServer pools of 1, 4 and 8 slots at 144x180, each timed and
+    profiled. Returns (launches per bucket tick, the models, the pool
+    records)."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.kernels import resblock_chain, upsample4
+    from tecogan_tpu_torch.serve import MultiGeometryServer, VSRServer
+
+    cfg = TecoConfig(num_resblock=NUM_RESBLOCK, compute_dtype="bfloat16")
+    rng = np.random.RandomState(13)
+    geos = {"cal": (LR_H, LR_W), "walk": SERVE_GEO2}
+    clips = {g: (rng.rand(FRAMES, *hw, 3) * 255).astype(np.uint8) for g, hw in geos.items()}
+    srv = MultiGeometryServer(cfg, *build_models(6, cfg), slots_per_geometry=SERVE_SLOTS,
+                              output="uint8", device=dev)
+    t0 = time.perf_counter()
+    srv.prewarm(geos.values())
+    warm = time.perf_counter() - t0
+    streams = {**{f"cal{i}": "cal" for i in range(SERVE_SLOTS)}, "walk0": "walk", "walk1": "walk"}
+    for sid, g in streams.items():
+        srv.open(sid, *geos[g])
+    frames = {sid: np.roll(clips[g], -i, axis=0) for i, (sid, g) in enumerate(streams.items())}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    upsample4.launches = 0
+    resblock_chain.launches = 0
+    secs, last = serve_ticks(srv, frames)
+    launches = {"upsample4": upsample4.launches, "resblock_chain": resblock_chain.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    bucket_ticks = FRAMES * len(geos)
+    need = {"upsample4": 2 * bucket_ticks, "resblock_chain": NUM_RESBLOCK * bucket_ticks}
+    log(f"[serve] (b) launches over {FRAMES} ticks of {len(geos)} buckets {launches}, at "
+        f"least {need}")
+    for k, n in need.items():
+        if launches[k] < n:
+            raise RuntimeError(f"[serve] {k} launched {launches[k]} times, want >= {n}")
+    for sid, hr in last.items():
+        h, w = geos[streams[sid]]
+        if hr.shape != (4 * h, 4 * w, 3) or hr.dtype != np.uint8 or hr.min() == hr.max():
+            raise RuntimeError(f"[serve] {sid}: output {hr.shape} {hr.dtype}, "
+                               f"range [{hr.min()}, {hr.max()}]")
+    log(f"[serve] (b) MultiGeometryServer, bfloat16, {NUM_RESBLOCK} resblocks, buckets "
+        f"{srv.geometries}: prewarm {warm:.2f} s; {FRAMES} ticks of {len(streams)} streams "
+        f"in {secs:.3f} s, {secs / FRAMES * 1e3:.2f} ms/tick, "
+        f"{len(streams) * FRAMES / secs:.2f} frames/s aggregate; peak "
+        f"{peak:.0f} MiB; card: {card}")
+    models = (srv.generator, srv.fnet)
+    pools = {}
+    for slots in SERVE_POOLS:
+        pool = VSRServer(cfg, *models, LR_H, LR_W, max_streams=slots, output="uint8",
+                         device=dev)
+        pool.prewarm()
+        ids = [f"s{i}" for i in range(slots)]
+        for sid in ids:
+            pool.open(sid)
+        frames = {sid: np.roll(clips["cal"], -i, axis=0) for i, sid in enumerate(ids)}
+        torch.cuda.reset_peak_memory_stats()
+        first, _ = serve_ticks(pool, frames)  # the first run after prewarm
+        secs, _ = serve_ticks(pool, frames)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        rec = {"slots": slots, "ms_per_tick": secs / FRAMES * 1e3,
+               "frames_per_s": slots * FRAMES / secs, "peak_mib": peak,
+               "first_ms_per_tick": first / FRAMES * 1e3,
+               "host_step_ms": serve_ticks.step_s / FRAMES * 1e3}
+        log(f"[serve] (b) VSRServer {slots} slot(s) of {LR_H}x{LR_W}, bfloat16: {FRAMES} "
+            f"ticks in {secs:.3f} s, {rec['ms_per_tick']:.3f} ms/tick, "
+            f"{rec['frames_per_s']:.2f} frames/s aggregate (the first {FRAMES} ticks after "
+            f"prewarm: {rec['first_ms_per_tick']:.3f} ms/tick); the host spends "
+            f"{rec['host_step_ms']:.3f} ms/tick inside step(); peak {peak:.0f} MiB; "
+            f"card: {card}")
+        rec.update(profile_serving(pool, frames, secs, f"{slots} slot(s)"))
+        if slots == 1:
+            log_tick_host_split(pool)
+        pools[slots] = rec
+    per_tick = {k: v / bucket_ticks for k, v in launches.items()}
+    return per_tick, models, pools
+
+
+def log_tick_host_split(srv) -> None:
+    """The host's seconds to queue a tick's parts (no wait on the device:
+    each part is queued FRAMES times, then the device is synchronised)."""
+    from tecogan_tpu_torch.recurrent.step import RecurrentState, generator_step, upscale_flow
+
+    def host_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FRAMES):
+            fn()
+        ms = (time.perf_counter() - t0) / FRAMES * 1e3
+        torch.cuda.synchronize()
+        return ms
+
+    lr = srv._lr_batch(torch.uint8)
+    with torch.inference_mode():
+        state = RecurrentState(*(t.clone() for t in srv._state))
+        x = (lr.float() / 255.0).to(srv.dtype)
+        pair = torch.cat([state.prev_lr, x], dim=-1)
+        flow = upscale_flow(srv.fnet(pair), srv.height, srv.width)
+        parts = {"tick (masks, frame step, state)": lambda: srv._tick(lr),
+                 "FNet": lambda: srv.fnet(pair),
+                 "warp + generator": lambda: generator_step(srv.generator, state, x, flow)}
+        times = {name: host_ms(fn) for name, fn in parts.items()}
+    log("[serve] (b) host time to queue one 1-slot tick's parts: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+
+
+def recurrence_gain(dev, gen, fnet, frames: int = 16) -> list:
+    """max|hr - hr'| after frames 1, frames // 2 and frames of two float32
+    runs from the zero state, one with 1e-4 added to prev_hr: how much the
+    generator amplifies a change of its previous output."""
+    from tecogan_tpu_torch.data.synthetic import synthetic_clip
+    from tecogan_tpu_torch.recurrent.step import frame_step, init_state
+
+    clip = torch.from_numpy(synthetic_clip(frames, 48, 64, seed=45, content="natural")
+                            .astype(np.float32)).to(dev)
+    a = init_state(1, 48, 64, device=dev)
+    b = a._replace(prev_hr=a.prev_hr + 1e-4)
+    diffs = []
+    with torch.inference_mode():
+        for t in range(frames):
+            a, hr_a = frame_step(gen, fnet, a, clip[t:t + 1])
+            b, hr_b = frame_step(gen, fnet, b, clip[t:t + 1])
+            diffs.append((hr_a - hr_b).abs().max().item())
+    return [diffs[0], diffs[frames // 2 - 1], diffs[-1]]
+
+
+EXPORT_CHILD = r"""
+import json, sys
+import torch
+import tecogan_tpu_torch.kernels as kernels
+torch.backends.cudnn.deterministic = True
+program = torch.export.load(sys.argv[1]).module()
+inputs = torch.load(sys.argv[2])
+args = [inputs[k].cuda() for k in ("prev_lr", "prev_hr", "lr")]
+kernels.upsample4.launches = kernels.resblock_chain.launches = 0
+with torch.inference_mode():
+    out = program(*args)
+torch.cuda.synchronize()
+torch.save([t.cpu() for t in out], sys.argv[3])
+print(json.dumps({"upsample4": kernels.upsample4.launches,
+                  "resblock_chain": kernels.resblock_chain.launches,
+                  "modules": sorted(m for m in sys.modules if m.startswith("tecogan_tpu"))}))
+"""
+
+
+def check_export(dev, tmp: str, models) -> None:
+    """Phase 12 (c): the frame step exported at (4, 144, 180) in bfloat16,
+    saved, then loaded and run in a fresh process that imports only torch
+    and tecogan_tpu_torch.kernels: bit-equal to a VSRServer tick on the same
+    state and frames, both under cuDNN's deterministic algorithms."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.serve import VSRServer, export_frame_step, save_frame_step
+
+    cfg = TecoConfig(num_resblock=NUM_RESBLOCK, compute_dtype="bfloat16")
+    rng = np.random.RandomState(14)
+    clip = (rng.rand(3, SERVE_SLOTS, LR_H, LR_W, 3) * 255).astype(np.uint8)
+    path, inputs, outputs = (os.path.join(tmp, n) for n in ("step.pt2", "in.pt", "out.pt"))
+    torch.backends.cudnn.deterministic = True
+    try:
+        srv = VSRServer(cfg, *models, LR_H, LR_W, max_streams=SERVE_SLOTS, output="uint8",
+                        device=dev)
+        ids = [f"s{i}" for i in range(SERVE_SLOTS)]
+        for sid in ids:
+            srv.open(sid)
+        for t in range(2):
+            srv.step(dict(zip(ids, clip[t])))
+        torch.save({"prev_lr": srv._state.prev_lr.cpu(), "prev_hr": srv._state.prev_hr.cpu(),
+                    "lr": torch.from_numpy(clip[2])}, inputs)
+        out = srv.step(dict(zip(ids, clip[2])))
+        want = [srv._state.prev_lr.cpu(), srv._state.prev_hr.cpu(),
+                torch.from_numpy(np.stack([out[sid] for sid in ids]))]
+        t0 = time.perf_counter()
+        save_frame_step(export_frame_step(cfg, *models, batch=SERVE_SLOTS, height=LR_H,
+                                          width=LR_W, device=dev), path)
+        export_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", EXPORT_CHILD, path, inputs, outputs],
+                           cwd=REPO, capture_output=True, text=True, timeout=300)
+    child_s = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise RuntimeError(f"[serve] the exported step's process failed:\n{child.stderr[-4000:]}")
+    report = json.loads(child.stdout.strip().splitlines()[-1])
+    got = torch.load(outputs)
+    equal = [torch.equal(g, w) for g, w in zip(got, want)]
+    loaded = [m for m in report["modules"] if m.startswith(("tecogan_tpu_torch.models",
+                                                             "tecogan_tpu_torch.serve",
+                                                             "tecogan_tpu_torch.recurrent"))]
+    log(f"[serve] (c) exported frame step ({SERVE_SLOTS},{LR_H},{LR_W}) bfloat16 uint8: "
+        f"export + save {export_s:.2f} s, {os.path.getsize(path) / 1e6:.1f} MB; a fresh "
+        f"process loaded and ran it in {child_s:.2f} s with launches upsample4 "
+        f"{report['upsample4']}, resblock_chain {report['resblock_chain']}; (prev_lr, "
+        f"prev_hr, hr) bit-equal to VSRServer's tick: {equal}; model modules imported "
+        f"there: {loaded or 'none'}")
+    if not all(equal) or loaded or report["upsample4"] != 2 or \
+            report["resblock_chain"] != NUM_RESBLOCK:
+        raise RuntimeError(f"[serve] exported step: equal {equal}, modules {loaded}, {report}")
+
+
+def write_png_paeth(path: str, img: np.ndarray) -> None:
+    """An RGB PNG whose every row is Paeth-filtered (as PIL writes
+    natural images), filtered in numpy from the original pixels."""
+    import struct
+    import zlib
+
+    from tecogan_tpu_torch.data.png import SIGNATURE, _chunk
+
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int16)
+    a, b, d = (np.zeros_like(x) for _ in range(3))
+    a[:, c:], b[1:], d[1:, c:] = x[:, :-c], x[:-1], x[:-1, :-c]
+    p = a + b - d
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - d)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, d))
+    raw = np.concatenate([np.full((h, 1), 4, np.uint8), ((x - pred) & 0xFF).astype(np.uint8)],
+                         axis=1)
+    with open(path, "wb") as f:
+        f.write(SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def run_serve_cli(dev, card: str, tmp: str) -> None:
+    """Phase 12 (d): ``cli.serve`` on three LR PNG dirs (two 144x180, one
+    120x180 written with Paeth rows) with a 16-block params npz: in float32
+    (TF32 off) each stream within 1 u8 level of ``cli.main --mode
+    inference`` on its dir; then a timed bfloat16 run with the split of its
+    wall. Also times the PNG decode of one Paeth frame at 144x180 and at
+    576x720."""
+    import io
+
+    from tecogan_tpu_torch.cli import main as cli_main
+    from tecogan_tpu_torch.cli import serve as cli_serve
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.data.inference import read_frames
+    from tecogan_tpu_torch.data.png import read_png, write_png
+    from tecogan_tpu_torch.data.synthetic import synthetic_clip
+    from tecogan_tpu_torch.weights import params_to_npz, to_jax_params
+
+    npz = os.path.join(tmp, "serve_params.npz")
+    cfg = TecoConfig(num_resblock=NUM_RESBLOCK)
+    gen, fnet = build_models(6, cfg)
+    # At full width the random generator amplifies a change of its warped
+    # previous output from frame to frame (logged below), so a float32
+    # rounding difference between two batchings (cli.serve's 4-slot ticks,
+    # cli.main's 23-frame FNet chunks) grows to 255 levels within a few
+    # dozen frames. Trained weights are stable; scaling the stem's weights
+    # on the 48 warped channels by DAMP_WARPED makes these so, and the
+    # comparison then checks the plumbing: frame order, warm-up, streams
+    # and buckets.
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        gains = {"as drawn": recurrence_gain(dev, *(m.to(dev) for m in (gen, fnet)))}
+        with torch.no_grad():
+            gen.input_stage_conv.weight[:, 3:].mul_(DAMP_WARPED)
+        gains[f"damped x{DAMP_WARPED}"] = recurrence_gain(dev, gen, fnet)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    log("[serve] (d) a 1e-4 change of prev_hr, float32, 48x64, max|hr - hr'| after frames "
+        "1, 8, 16: " + "; ".join(f"{k} " + ", ".join(f"{v:.1e}" for v in g)
+                                 for k, g in gains.items()))
+    if not gains[f"damped x{DAMP_WARPED}"][-1] < 1e-3:
+        raise RuntimeError(f"[serve] the damped recurrence does not settle: {gains}")
+    params_to_npz(npz, **dict(zip(("generator", "fnet"), to_jax_params(gen, fnet))))
+    dirs = {"cal_a": ((LR_H, LR_W), 24, write_png), "cal_b": ((LR_H, LR_W), 16, write_png),
+            "walk": (SERVE_GEO2, 20, write_png_paeth)}
+    for i, (name, ((h, w), n, writer)) in enumerate(dirs.items()):
+        os.makedirs(os.path.join(tmp, "LR", name))
+        clip = (synthetic_clip(n, h, w, seed=40 + i, content="natural") * 255).astype(np.uint8)
+        for t in range(n):
+            writer(os.path.join(tmp, "LR", name, f"{t:04d}.png"), clip[t])
+    paths = [os.path.join(tmp, "LR", name) for name in dirs]
+
+    def quiet(fn, argv):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            t0 = time.perf_counter()
+            result = fn(argv)
+            wall = time.perf_counter() - t0
+        return result, wall, printed.getvalue()
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        stats, _, _ = quiet(cli_serve.main, [
+            "--device", str(dev), "--input_dirs", ",".join(paths), "--output_dir",
+            os.path.join(tmp, "served32"), "--params_npz", npz, "--compute_dtype", "float32"])
+        worst = {}
+        for name, path in zip(dirs, paths):
+            quiet(cli_main.main, ["--mode", "inference", "--device", str(dev), "--input_dir_LR",
+                                  path, "--output_dir", os.path.join(tmp, "single32"),
+                                  "--output_pre", name, "--params_npz", npz,
+                                  "--compute_dtype", "float32"])
+            files = [f"output_{i:04d}.png" for i in range(dirs[name][1])]
+            got = read_frames([os.path.join(tmp, "served32", name, f) for f in files])
+            want = read_frames([os.path.join(tmp, "single32", name, f) for f in files])
+            diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+            worst[name] = (int(diff.max()), float((diff != 0).mean()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    log(f"[serve] (d) cli.serve float32 (TF32 off) vs cli.main --mode inference per dir: "
+        f"(max u8 difference, share of values that differ) {worst}; written {stats['written']}")
+    if stats["written"] != {n: d[1] for n, d in dirs.items()} or \
+            max(m for m, _ in worst.values()) > 1:
+        raise RuntimeError(f"[serve] cli.serve vs cli.main: {worst}, {stats['written']}")
+
+    stats, wall, printed = quiet(cli_serve.main, [
+        "--device", str(dev), "--input_dirs", ",".join(paths), "--output_dir",
+        os.path.join(tmp, "served16"), "--params_npz", npz, "--compute_dtype", "bfloat16"])
+    for line in printed.splitlines():
+        if line.startswith(("total time", "io:", "[serve] prewarmed")) or "aggregate" in line:
+            log(f"[serve] (d) | {line}")
+    log(f"[serve] (d) cli.serve bfloat16, 3 PNG dirs ({', '.join(f'{n} {d[0][0]}x{d[0][1]} x{d[1]}' for n, d in dirs.items())}; walk Paeth-filtered): "
+        f"{stats['frames']} HR PNGs in {stats['secs']:.3f} s of serving, "
+        f"{stats['frames'] / stats['secs']:.2f} frames/s aggregate, {wall:.3f} s end to end "
+        f"with the writer flush; {stats['ticks']} ticks; decode {stats['decode_s']:.3f} s "
+        f"on the source threads, ticks {stats['tick_s']:.3f} s, waiting for decode "
+        f"{stats['idle_s']:.3f} s, writer flush {stats['flush_s']:.3f} s; card: {card}")
+
+    rng = np.random.RandomState(15)
+    for h, w in ((LR_H, LR_W), (4 * LR_H, 4 * LR_W)):
+        img = (synthetic_clip(1, h, w, seed=50, content="natural")[0] * 255).astype(np.uint8)
+        img = np.clip(img.astype(np.int16) + rng.randint(-3, 4, img.shape), 0, 255).astype(np.uint8)
+        times = {}
+        for kind, writer in (("filter 0", write_png), ("Paeth", write_png_paeth)):
+            path = os.path.join(tmp, f"decode_{h}x{w}_{kind[0]}.png")
+            writer(path, img)
+            if not np.array_equal(read_png(path), img):
+                raise RuntimeError(f"[serve] {kind} PNG {h}x{w} decodes wrong")
+            reps = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                read_png(path)
+                reps.append(time.perf_counter() - t0)
+            times[kind] = float(np.median(reps)) * 1e3
+        log(f"[serve] PNG decode {h}x{w} RGB (median of 5, host CPU of the card's machine): "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items()))
+
+
 def main() -> None:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -1438,6 +1922,11 @@ def main() -> None:
         # Phase 11 trains as a user does, with the default flags, on phase
         # 8's scenes and from its checkpoint.
         gan_launches = run_tecogan_training(dev, card, tmp)
+        # Phase 12: serving. (a) and (d)'s comparison switch TF32 off inside.
+        check_serving_vs_cpu(dev)
+        serve_launches, serve_models, _ = run_serving(dev, card)
+        check_export(dev, tmp, serve_models)
+        run_serve_cli(dev, card, tmp)
 
     # Every timed case of phase 3 beside its wrapper's launches on each
     # path: a 46-frame streaming run (phase 6), an FRVSR training step
@@ -1450,7 +1939,8 @@ def main() -> None:
             f"share of bound {r['bound_ms'] / r['ms']:.1%}; launches of {k}: "
             f"{stream_launches.get(k, 0)} per {FRAMES}-frame streaming run, "
             f"{train_launches.get(k, 0) / RESUME_STEPS:g} per FRVSR training step, "
-            f"{gan_launches.get(k, 0)} per TecoGAN train_step; paths "
+            f"{gan_launches.get(k, 0)} per TecoGAN train_step, "
+            f"{serve_launches.get(k, 0):g} per serving bucket tick; paths "
             f"{', '.join(r['paths']) or 'none at this shape and dtype'}; card: {card}")
 
     # One entry per kernel, from its timed cases on the path it serves
@@ -1501,6 +1991,16 @@ def main() -> None:
                 "cases": [r["label"] for r in gan]}
         if path == "streaming":  # the inference CLI runs the streaming path
             entry["cli_launches"] = cli_launches.get(key, 0)
+            # Serving (phase 12 (b)): launches per bucket tick, and the sums
+            # over the kernel's cases at a 4-slot tick's shapes.
+            served = [r for r in cases if "serving" in r["paths"]]
+            entry["serving_launches"] = serve_launches.get(key, 0)
+            entry["serving"] = {
+                "max_abs_err": max(r["max_abs_err"] for r in served),
+                **{k: sum(r[k] for r in served) for k in ("ms", "plain_ms", "bound_ms")},
+                "library_ms": (None if any(r["library_ms"] is None for r in served)
+                               else sum(r["library_ms"] for r in served)),
+                "cases": [r["label"] for r in served]}
         if key == "resblock_chain":
             entry["also_replaces"] = ["tecogan_tpu/kernels/resblocks.py:305",
                                       "tecogan_tpu/kernels/resblocks.py:466"]

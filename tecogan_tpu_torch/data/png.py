@@ -9,12 +9,29 @@ gray + alpha, Adam7 interlacing) raises ValueError.
 
 Images are numpy uint8 arrays in RGB(A) order: (H, W) gray, (H, W, 3) RGB,
 (H, W, 4) RGBA.
+
+Rows filtered with None, Sub and Up are undone in numpy. Average and Paeth
+predict each byte from the reconstructed one to its left, a serial
+recurrence: they are undone by ``csrc/png_unfilter.c``, compiled with the
+host C compiler (``$CC``, else ``cc``, ``gcc`` or ``clang``) on first use
+into the git-ignored ``tecogan_tpu_torch/_build/`` and loaded with ctypes.
+Without a C compiler such a file raises; there is no slow fallback. The
+Python loops :func:`_unfilter_average` and :func:`_unfilter_paeth` are the
+plain version the tests hold the C code to.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
 import struct
+import subprocess
+import threading
 import zlib
+from pathlib import Path
 from typing import Iterator, Tuple
 
 import numpy as np
@@ -58,6 +75,50 @@ def _unfilter_paeth(line: bytes, prev: bytes, bpp: int) -> bytearray:
     return cur
 
 
+_PKG = Path(__file__).resolve().parent.parent
+_UNFILTER_SRC = _PKG / "csrc" / "png_unfilter.c"
+_CFLAGS = ("-O2", "-std=c99", "-shared", "-fPIC")
+_LOCK = threading.Lock()
+
+
+def _c_compiler() -> str:
+    for name in (os.environ.get("CC"), "cc", "gcc", "clang"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("reading a PNG with Average or Paeth rows needs a C compiler "
+                       f"to build {_UNFILTER_SRC.name}: set CC or put cc, gcc or "
+                       "clang on PATH")
+
+
+def _native() -> ctypes.CDLL:
+    """The compiled Average/Paeth unfilter (built on first call)."""
+    with _LOCK:
+        return _load_native()
+
+
+@functools.lru_cache(maxsize=None)
+def _load_native() -> ctypes.CDLL:
+    source = _UNFILTER_SRC.read_bytes()
+    digest = hashlib.sha256(" ".join(_CFLAGS).encode() + source).hexdigest()[:16]
+    lib_path = _PKG / "_build" / f"png-{digest}" / "libpng_unfilter.so"
+    if not lib_path.exists():
+        lib_path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        cmd = [_c_compiler(), *_CFLAGS, "-o", str(tmp), str(_UNFILTER_SRC)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"C compiler failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib_path)  # atomic: another process never sees half a file
+    lib = ctypes.CDLL(str(lib_path))
+    for fn in (lib.tt_unfilter_average, lib.tt_unfilter_paeth):
+        fn.argtypes = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2
+        fn.restype = None
+    return lib
+
+
 def read_png(path: str) -> np.ndarray:
     """Decode a PNG file to uint8 (H, W), (H, W, 3) or (H, W, 4)."""
     with open(path, "rb") as f:
@@ -88,7 +149,10 @@ def read_png(path: str) -> np.ndarray:
                          f"{h * (stride + 1)}")
     rows = raw.reshape(h, stride + 1)
     out = np.empty((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
+    prev = zeros = np.zeros(stride, np.uint8)
+    if np.isin(rows[:, 0], (3, 4)).any():
+        native = _native()
+        raw_ptr, out_ptr, zeros_ptr = raw.ctypes.data, out.ctypes.data, zeros.ctypes.data
     for y in range(h):
         kind, line = rows[y, 0], rows[y, 1:]
         if kind == 0:    # None
@@ -98,12 +162,11 @@ def read_png(path: str) -> np.ndarray:
                                dtype=np.uint8).reshape(-1)
         elif kind == 2:  # Up
             out[y] = line + prev
-        elif kind == 3:  # Average
-            out[y] = np.frombuffer(_unfilter_average(line.tobytes(), prev.tobytes(), bpp),
-                                   np.uint8)
-        elif kind == 4:  # Paeth
-            out[y] = np.frombuffer(_unfilter_paeth(line.tobytes(), prev.tobytes(), bpp),
-                                   np.uint8)
+        elif kind in (3, 4):  # Average, Paeth: the C unfilter, row by row
+            fn = native.tt_unfilter_average if kind == 3 else native.tt_unfilter_paeth
+            fn(raw_ptr + y * (stride + 1) + 1,
+               out_ptr + (y - 1) * stride if y else zeros_ptr,
+               out_ptr + y * stride, stride, bpp)
         else:
             raise ValueError(f"{path}: row {y} has filter type {kind}")
         prev = out[y]

@@ -3,7 +3,10 @@
 Each wrapper runs its plain PyTorch version for a CPU tensor, launches its
 kernel for a CUDA tensor (or raises), and counts its launches in an
 integer attribute ``launches``. ``upsample4`` and ``resblock_chain`` are
-differentiable (``torch.autograd.Function``s) on both devices.
+differentiable (``torch.autograd.Function``s) on both devices. Importing
+this package registers the launches as operators,
+``torch.ops.tecogan_torch.{upsample4,upsample4_bwd,resblock_chain}``
+(``ops.py``), which an exported program calls.
 """
 
 from tecogan_tpu_torch.kernels.resblocks import (

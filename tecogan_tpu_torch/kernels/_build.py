@@ -11,7 +11,9 @@ rebuilt and an unchanged one is loaded as it is. It is loaded with
 its launches, which :func:`check` turns into an exception.
 
 ``nvcc`` is found through ``$CUDA_HOME/bin``, then ``PATH``, then
-``/usr/local/cuda/bin``. Nothing here runs at import time.
+``/usr/local/cuda/bin``. Nothing here runs at import time. :func:`build`
+and :func:`library` hold one lock: two threads of a process (a serving
+bucket warmed in the background beside a serving tick) never build at once.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -86,10 +89,18 @@ def library_path() -> Path:
     return BUILD_ROOT / _digest() / _LIB_NAME
 
 
+_LOCK = threading.RLock()
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the sources unless a library for them exists; returns its
     path. ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and
     spills per kernel) and prints the compiler's output."""
+    with _LOCK:
+        return _compile(verbose)
+
+
+def _compile(verbose: bool) -> Path:
     out = library_path()
     if out.exists() and not verbose:
         return out
@@ -122,10 +133,15 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
-@functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build()))
+    with _LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_compile(False)))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -16,6 +16,12 @@ CTAs per tile, each computing a quarter of the channels; see their headers.
 Layout as in the JAX package: x (B, H, W, C), w1/w2 (N, 3, 3, C, C) HWIO,
 b1/b2 (N, C). The kernel is specialised to C = 64, the TecoGAN width.
 
+The launch is a registered operator, ``torch.ops.tecogan_torch.
+resblock_chain`` (``kernels/ops.py``), with a fake kernel that gives its
+output's shape, so ``torch.export`` traces through it; its ``launches``
+counter is kept in the operator's body, so an exported program's replays
+count too.
+
 :func:`resblock_chain` is differentiable on both devices through one
 ``torch.autograd.Function``. Its forward takes the plain version
 (:func:`resblock_chain_plain`, the counterpart of ``resblock_chain_xla``) for
@@ -31,7 +37,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tecogan_tpu_torch.kernels import _build
+from tecogan_tpu_torch.kernels import _build, ops
 
 KERNEL_CHANNELS = 64
 _ENTRY = {torch.float32: "tt_resblock_chain_f32",
@@ -73,11 +79,12 @@ def _check_cuda_args(x, w1, b1, w2, b2) -> None:
 
 
 def _forward(x, w1, b1, w2, b2) -> torch.Tensor:
-    """The kernel on a CUDA tensor, the plain chain on a CPU one."""
+    """The kernel on a CUDA tensor, the plain chain on a CPU one: the body
+    of ``tecogan_torch::resblock_chain`` (a new tensor, never a view of x)."""
     if x.device.type == "cpu":
+        if w1.shape[0] == 0:
+            return x.clone()
         return resblock_chain_plain(x, w1, b1, w2, b2)
-    if x.device.type != "cuda":
-        raise ValueError(f"resblock_chain runs on cpu or cuda, not {x.device}")
     _check_cuda_args(x, w1, b1, w2, b2)
     n = w1.shape[0]
     if n == 0:
@@ -101,7 +108,7 @@ class _ResblockChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
         ctx.save_for_backward(x, w1, b1, w2, b2)
-        return _forward(x, w1, b1, w2, b2)
+        return torch.ops.tecogan_torch.resblock_chain(x, w1, b1, w2, b2)
 
     @staticmethod
     def backward(ctx, g):
@@ -117,11 +124,21 @@ class _ResblockChain(torch.autograd.Function):
 
 def resblock_chain(x, w1, b1, w2, b2) -> torch.Tensor:
     """N residual blocks over x (B, H, W, C); returns a new tensor.
-    Differentiable in every argument."""
+    Differentiable in every argument; with no gradient to take, the
+    operator is called without the autograd Function."""
     if x.dim() != 4 or w1.dim() != 5:
         raise ValueError(f"expected x (B, H, W, C) and w (N, 3, 3, C, C), got "
                          f"{tuple(x.shape)} and {tuple(w1.shape)}")
-    return _ResblockChain.apply(x, w1, b1, w2, b2)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"resblock_chain runs on cpu or cuda, not {x.device}")
+    args = (x, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _ResblockChain.apply(*args)
+    return torch.ops.tecogan_torch.resblock_chain(*args)
 
 
 resblock_chain.launches = 0  # kernel launches (CUDA tensors only)
+
+
+ops.register("resblock_chain(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) "
+             "-> Tensor", _forward, lambda x, w1, b1, w2, b2: torch.empty_like(x))

@@ -30,13 +30,19 @@ backward ``alpha * K2(g)`` (:func:`upsample4_bwd_plain` on the CPU), and
 only when the input needs a gradient. Each wrapper takes its plain version
 for a tensor on the CPU, and launches its kernel for a CUDA tensor or
 raises.
+
+Each launch is a registered operator, ``torch.ops.tecogan_torch.upsample4``
+and ``.upsample4_bwd`` (``kernels/ops.py``), with a fake kernel that gives
+its output's shape, so ``torch.export`` traces through it and an exported
+program replays it. The ``launches`` counters are kept in the operators'
+bodies, so replays count too.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tecogan_tpu_torch.kernels import _build
+from tecogan_tpu_torch.kernels import _build, ops
 from tecogan_tpu_torch.ops import resize
 
 _FILTERS = {"bilinear": 0, "bicubic": 1}
@@ -93,10 +99,13 @@ def _check_args(t: torch.Tensor, filter_: str) -> None:
         raise ValueError(f"filter_={filter_!r}; expected one of {tuple(_FILTERS)}")
     if t.dim() != 4:
         raise ValueError(f"expected (B, H, W, C), got {tuple(t.shape)}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"upsample4 runs on cpu or cuda, not {t.device}")
 
 
 def _forward(x: torch.Tensor, filter_: str, alpha: float) -> torch.Tensor:
-    """K1 on a CUDA tensor, the plain version on a CPU one."""
+    """K1 on a CUDA tensor, the plain version on a CPU one: the body of
+    ``tecogan_torch::upsample4``."""
     if x.device.type == "cpu":
         return upsample4_plain(x, filter_, alpha)
     _check_cuda(x, "upsample4", 16 * x.numel())
@@ -120,6 +129,12 @@ def upsample4_bwd(g: torch.Tensor, filter_: str = "bilinear",
     _check_args(g, filter_)
     if g.shape[1] % 4 or g.shape[2] % 4:
         raise ValueError(f"g {tuple(g.shape)}: H and W must be multiples of 4")
+    return torch.ops.tecogan_torch.upsample4_bwd(g, filter_, float(alpha))
+
+
+def _backward(g: torch.Tensor, filter_: str, alpha: float) -> torch.Tensor:
+    """K2 on a CUDA tensor, the plain version on a CPU one: the body of
+    ``tecogan_torch::upsample4_bwd``."""
     if g.device.type == "cpu":
         return upsample4_bwd_plain(g, filter_, alpha)
     _check_cuda(g, "upsample4_bwd", g.numel())
@@ -145,7 +160,7 @@ class _Upsample4(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, filter_, alpha):
         ctx.filter_, ctx.alpha = filter_, alpha
-        return _forward(x, filter_, alpha)
+        return torch.ops.tecogan_torch.upsample4(x, filter_, alpha)
 
     @staticmethod
     def backward(ctx, g):
@@ -157,9 +172,13 @@ class _Upsample4(torch.autograd.Function):
 def upsample4(x: torch.Tensor, filter_: str = "bilinear",
               alpha: float = 1.0) -> torch.Tensor:
     """4x upsample of ``alpha * x``: (B, H, W, C) -> (B, 4H, 4W, C), float32
-    or bfloat16; ``filter_`` is "bilinear" or "bicubic". Differentiable."""
+    or bfloat16; ``filter_`` is "bilinear" or "bicubic". Differentiable;
+    with no gradient to take, the operator is called without the autograd
+    Function (``torch.export`` then sees the operator itself)."""
     _check_args(x, filter_)
-    return _Upsample4.apply(x, filter_, float(alpha))
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Upsample4.apply(x, filter_, float(alpha))
+    return torch.ops.tecogan_torch.upsample4(x, filter_, float(alpha))
 
 
 upsample4.launches = 0  # kernel launches (CUDA tensors only)
@@ -173,3 +192,19 @@ def upscale_bilinear4(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
 def bicubic_four(x: torch.Tensor) -> torch.Tensor:
     """4x Catmull-Rom upsample (the generator's residual skip)."""
     return upsample4(x, "bicubic")
+
+
+def _fake_upsample4(x, filter_, alpha):
+    b, h, w, c = x.shape
+    return x.new_empty((b, 4 * h, 4 * w, c))
+
+
+def _fake_upsample4_bwd(g, filter_, alpha):
+    b, h4, w4, c = g.shape
+    return g.new_empty((b, h4 // 4, w4 // 4, c))
+
+
+ops.register("upsample4(Tensor x, str filter_, float alpha) -> Tensor",
+             _forward, _fake_upsample4)
+ops.register("upsample4_bwd(Tensor g, str filter_, float alpha) -> Tensor",
+             _backward, _fake_upsample4_bwd)

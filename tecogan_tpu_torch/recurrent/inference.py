@@ -38,6 +38,17 @@ from tecogan_tpu_torch.recurrent.step import (
 WARMUP_FRAMES = 5  # reference dataloader.py:42-44
 
 
+def place_models(generator: Generator, fnet: FNet, device: torch.device,
+                 dtype: torch.dtype) -> Tuple[Generator, FNet]:
+    """Move the models to ``device`` and ``dtype`` in place, in eval mode;
+    on the card in ``channels_last``, the layout of the NHWC activations
+    the convolutions see."""
+    memory_format = (torch.channels_last if device.type == "cuda"
+                     else torch.preserve_format)
+    return tuple(m.to(device=device, dtype=dtype, memory_format=memory_format).eval()
+                 for m in (generator, fnet))
+
+
 def prepend_warmup(frames: List) -> List:
     """Prepend reversed frames [5..1] (reference dataloader.py:42-44)."""
     return list(frames[5:0:-1]) + list(frames)
@@ -49,28 +60,21 @@ class StreamingSR:
     Args:
       config: model/runtime configuration (``compute_dtype``, ``infer_chunk``).
       generator / fnet: the models; they are moved to ``device`` and cast to
-        the compute dtype in place.
+        the compute dtype in place (:func:`place_models`).
       output: "float32" (HR in [0, 1]) or "uint8" (quantised on the device).
-      device: where to run; defaults to the generator's device.
+      device: where to run; the card unless the caller asks for the CPU.
     """
 
     def __init__(self, config: TecoConfig, generator: Generator, fnet: FNet,
-                 output: str = "float32", device=None):
+                 output: str = "float32", device="cuda"):
         if output not in ("float32", "uint8"):
             raise ValueError(f"output must be float32|uint8, got {output}")
         self.config = config
         self.output = output
         self.dtype = config.torch_dtype
-        self.device = torch.device(
-            device if device is not None
-            else next(generator.parameters()).device)
-        memory_format = (torch.channels_last if self.device.type == "cuda"
-                         else torch.preserve_format)
-        self.generator = generator.to(
-            device=self.device, dtype=self.dtype,
-            memory_format=memory_format).eval()
-        self.fnet = fnet.to(device=self.device, dtype=self.dtype,
-                            memory_format=memory_format).eval()
+        self.device = torch.device(device)
+        self.generator, self.fnet = place_models(generator, fnet, self.device,
+                                                 self.dtype)
 
     @torch.inference_mode()
     def _run_chunk(self, state: RecurrentState, lr_chunk: torch.Tensor

@@ -1,0 +1,479 @@
+"""Multi-stream VSR serving (counterpart of ``tecogan_tpu/serve/engine.py``;
+reference main.py:253-270 serves one video per process).
+
+:class:`VSRServer` batches N independent streams into one recurrent step:
+a fixed pool of ``max_streams`` slots, each holding one stream's recurrent
+state (``prev_lr``/``prev_hr``) on the device. Streams attach and detach at
+any time; every tick runs one batched frame step and two masks reconcile
+the streams with the fixed batch:
+
+- ``reset``: slots whose stream delivers its first frame restart from the
+  zero state (the reference's first-frame convention, main.py:197-199);
+- ``active``: slots with no frame this tick keep their state bit for bit
+  (the step computes on their stale inputs and the result is not kept).
+
+Both are ``torch.where`` selections on device bool masks, so a tick reads
+nothing from the device on the host. The masks and the LR batch go up in
+one host-to-device copy each, from pinned host buffers the server keeps,
+into device buffers it keeps; the state tensors keep their storage from
+tick to tick (the new state is written into them). A tick's launches
+therefore touch the same device addresses every time, which is what a
+captured CUDA graph of the tick needs (ROADMAP queue 1 item 16).
+
+The frame step is the streaming engine's (recurrent/step.py:frame_step):
+the packed warp + space-to-depth route. The JAX package's folded-input
+route (``fold_s2d_active``) is TPU tuning and is not ported.
+
+:class:`MultiGeometryServer` buckets streams by LR geometry, one slot pool
+each, under a device-memory budget.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Dict, Iterable, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tecogan_tpu_torch.config import TecoConfig
+from tecogan_tpu_torch.models.fnet import FNet
+from tecogan_tpu_torch.models.generator import Generator
+from tecogan_tpu_torch.recurrent.inference import place_models
+from tecogan_tpu_torch.recurrent.step import RecurrentState, frame_step, init_state
+
+_FRAME_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.float32): torch.float32}
+
+
+def build_frame_fn(config: TecoConfig, output: str = "uint8"):
+    """The single-frame serving body, shared by :class:`VSRServer` and the
+    exported artifact (serve/export.py).
+
+    Returns ``fn(generator, fnet, state, lr) -> (state, out)`` where ``lr``
+    is (B, h, w, 3) uint8 (divided by 255 on the device, in float32) or
+    float in [0, 1], and ``out`` the HR batch (B, 4h, 4w, 3): uint8,
+    quantised on the device as ``StreamingSR`` does (reference
+    ops.py:520-523), or float32 in [0, 1], per ``output``.
+    """
+    if output not in ("float32", "uint8"):
+        raise ValueError(f"output must be float32|uint8, got {output}")
+    dtype = config.torch_dtype
+
+    def frame_fn(generator: Generator, fnet: FNet, state: RecurrentState,
+                 lr: torch.Tensor) -> Tuple[RecurrentState, torch.Tensor]:
+        if lr.dtype == torch.uint8:
+            lr = lr.float() / 255.0
+        state, hr = frame_step(generator, fnet, state, lr.to(dtype))
+        if output == "uint8":
+            out = (hr.float() * 255.0).clamp_(0.0, 255.0).to(torch.uint8)
+        else:
+            out = hr.float()
+        return state, out
+
+    return frame_fn
+
+
+class HostFrame:
+    """One stream's HR frame of a tick whose device-to-host copy may still
+    be in flight. ``np.asarray(frame)`` waits for that tick's copy only (a
+    CUDA event) and gives the (4h, 4w, 3) frame; it stays valid across
+    later ticks (each tick copies into its own pinned buffer) and may be
+    read on another thread."""
+
+    __slots__ = ("_host", "_done", "_slot")
+
+    def __init__(self, host: torch.Tensor, done: Optional[torch.cuda.Event], slot: int):
+        self._host, self._done, self._slot = host, done, slot
+
+    def __array__(self, dtype=None, copy=None):
+        if self._done is not None:
+            self._done.synchronize()
+        frame = self._host.numpy()[self._slot]
+        if dtype is not None and frame.dtype != dtype:
+            return frame.astype(dtype)
+        return frame.copy() if copy else frame
+
+
+class _Staging:
+    """The pinned host buffers of one tick's uploads (the LR batch per frame
+    dtype and the (2, S) reset/active masks) and the event of their last
+    copy, so a buffer is refilled only after the device has read it."""
+
+    def __init__(self, slots: int, device: torch.device):
+        self.pinned = device.type == "cuda"
+        self.masks = torch.zeros((2, slots), dtype=torch.bool, pin_memory=self.pinned)
+        self.lr: Dict[torch.dtype, torch.Tensor] = {}
+        self.done: Optional[torch.cuda.Event] = None
+
+    def lr_buffer(self, shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+        if dtype not in self.lr:
+            self.lr[dtype] = torch.zeros(shape, dtype=dtype, pin_memory=self.pinned)
+        return self.lr[dtype]
+
+
+class VSRServer:
+    """Continuous-batching 4x VSR server over a fixed slot pool.
+
+    Args:
+      config: model/runtime configuration (``compute_dtype``; geometry-free).
+      generator / fnet: the models; moved to ``device`` and the compute
+        dtype in place (as ``StreamingSR`` does).
+      height / width: LR frame geometry of every stream of this pool.
+      max_streams: slot-pool size, the served batch.
+      output: "uint8" (quantised on the device, the PNG byte format) or
+        "float32".
+      mesh: not ported (a slot pool across GPUs is ROADMAP queue 1 item 11).
+      device: where to run; the card unless the caller asks for the CPU.
+    """
+
+    def __init__(self, config: TecoConfig, generator: Generator, fnet: FNet,
+                 height: int, width: int, max_streams: int = 4,
+                 output: str = "uint8", mesh=None, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError("a slot pool sharded across GPUs (mesh=) is "
+                                      "ROADMAP queue 1 item 11")
+        self.config = config
+        self.height, self.width = height, width
+        self.max_streams = max_streams
+        self.output = output
+        self.device = torch.device(device)
+        self.dtype = config.torch_dtype
+        self.generator, self.fnet = place_models(generator, fnet, self.device, self.dtype)
+        self._frame_fn = build_frame_fn(config, output=output)
+        self._state = init_state(max_streams, height, width, self.dtype, self.device)
+        self._masks = torch.zeros((2, max_streams), dtype=torch.bool, device=self.device)
+        self._lr: Dict[torch.dtype, torch.Tensor] = {}  # device LR batch per frame dtype
+        # Two sets of host buffers, used in turn: the host fills one while
+        # the device may still be reading the other's last upload.
+        self._staging = [_Staging(max_streams, self.device) for _ in range(2)]
+        self._ticks = 0
+        self._slot_of: Dict[object, int] = {}
+        self._fresh: Dict[object, bool] = {}
+        self._free = list(range(max_streams - 1, -1, -1))  # pop() -> slot 0 first
+        # Serializes ticks: a background prewarm
+        # (MultiGeometryServer.prewarm(background=True)) may race a tick.
+        self._dispatch_lock = threading.Lock()
+
+    def _lr_batch(self, dtype: torch.dtype) -> torch.Tensor:
+        if dtype not in self._lr:
+            self._lr[dtype] = torch.zeros((self.max_streams, self.height, self.width, 3),
+                                          dtype=dtype, device=self.device)
+        return self._lr[dtype]
+
+    @torch.inference_mode()
+    def _tick(self, lr: torch.Tensor) -> torch.Tensor:
+        """One batched step on the device LR batch under the device masks;
+        the new state is written into the state tensors. Returns the HR
+        batch."""
+        reset = self._masks[0].view(-1, 1, 1, 1)
+        active = self._masks[1].view(-1, 1, 1, 1)
+        base = RecurrentState(*(torch.where(reset, 0.0, s) for s in self._state))
+        stepped, out = self._frame_fn(self.generator, self.fnet, base, lr)
+        for dst, new, old in zip(self._state, stepped, base):
+            torch.where(active, new, old, out=dst)
+        return out
+
+    def prewarm(self, frame_dtype=np.uint8) -> None:
+        """Run one all-inactive tick before the first stream's: it loads the
+        kernel library (building it on first use) and settles cuDNN's
+        choices for this geometry, and keeps every slot's state bit for bit
+        (``active`` all False), so it is safe at any point in the server's
+        life. ``frame_dtype``: the LR dtype to warm (uint8 is the serving
+        feed)."""
+        lr = self._lr_batch(_FRAME_DTYPES[np.dtype(frame_dtype)])
+        on_cuda = self.device.type == "cuda"
+        # A background thread starts on CUDA device 0: name the server's.
+        with self._dispatch_lock, (torch.cuda.device(self.device) if on_cuda
+                                   else contextlib.nullcontext()):
+            self._masks.zero_()
+            self._tick(lr)
+            if on_cuda:
+                torch.cuda.synchronize()
+
+    # ------------------------------------------------------------ lifecycle
+    def open(self, stream_id) -> int:
+        """Attach a stream; returns its slot. Raises when the pool is full
+        (admission control is the caller's policy: queue or shed)."""
+        if stream_id in self._slot_of:
+            raise ValueError(f"stream {stream_id!r} already open")
+        if not self._free:
+            raise RuntimeError(f"no free slots (max_streams={self.max_streams})")
+        slot = self._free.pop()
+        self._slot_of[stream_id] = slot
+        self._fresh[stream_id] = True
+        return slot
+
+    def close(self, stream_id) -> None:
+        """Detach a stream and free its slot (its state is reset on reuse)."""
+        slot = self._slot_of.pop(stream_id)
+        self._fresh.pop(stream_id, None)
+        self._free.append(slot)
+
+    @property
+    def open_streams(self):
+        return tuple(self._slot_of)
+
+    # ------------------------------------------------------------- serving
+    def step(self, frames: Mapping[object, np.ndarray], fetch: bool = True
+             ) -> Dict[object, np.ndarray]:
+        """Advance every stream that delivered a frame by one step.
+
+        Args:
+          frames: {stream_id: (h, w, 3) LR frame}, uint8 or float32 in
+            [0, 1] (all the same dtype). Streams must be ``open``; streams
+            omitted this tick keep their state untouched.
+          fetch: True returns numpy arrays (the tick's output copied to the
+            host and waited for). False returns per-stream :class:`HostFrame`
+            objects at once; ``np.asarray`` of one waits for this tick's
+            copy only, so a writer thread can read it while the next tick
+            computes. They stay valid across later ticks.
+
+        Returns:
+          {stream_id: (4h, 4w, 3) HR frame} per ``output`` dtype.
+        """
+        if not frames:
+            return {}
+        ids = list(frames)
+        missing = [s for s in ids if s not in self._slot_of]
+        if missing:
+            raise KeyError(f"streams not open: {missing}")
+        first = np.asarray(frames[ids[0]])
+        if first.dtype not in _FRAME_DTYPES:
+            raise ValueError(
+                f"frames must be uint8 or float32 in [0, 1], got "
+                f"{first.dtype} (cast float inputs to float32)")
+        dtype = _FRAME_DTYPES[first.dtype]
+        with self._dispatch_lock:
+            staging = self._staging[self._ticks % len(self._staging)]
+            if staging.done is not None:
+                staging.done.synchronize()  # its last upload has been read
+            lr_host = staging.lr_buffer((self.max_streams, self.height, self.width, 3), dtype)
+            lr_np, masks_np = lr_host.numpy(), staging.masks.numpy()
+            masks_np[:] = False
+            for sid in ids:
+                slot = self._slot_of[sid]
+                frame = np.asarray(frames[sid])
+                if frame.shape != (self.height, self.width, 3):
+                    raise ValueError(
+                        f"stream {sid!r}: frame shape {frame.shape} != "
+                        f"({self.height}, {self.width}, 3)")
+                if frame.dtype != first.dtype:
+                    raise ValueError("mixed frame dtypes in one tick")
+                lr_np[slot] = frame
+                masks_np[1, slot] = True
+                masks_np[0, slot] = self._fresh[sid]
+            lr = self._lr_batch(dtype)
+            lr.copy_(lr_host, non_blocking=True)
+            self._masks.copy_(staging.masks, non_blocking=True)
+            if self.device.type == "cuda":
+                staging.done = torch.cuda.Event()
+                staging.done.record()
+            out = self._tick(lr)
+            host, done = out, None
+            if self.device.type == "cuda":
+                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            self._ticks += 1
+        for sid in ids:
+            self._fresh[sid] = False
+        handles = {sid: HostFrame(host, done, self._slot_of[sid]) for sid in ids}
+        if fetch:
+            return {sid: np.asarray(h) for sid, h in handles.items()}
+        return handles
+
+
+class MultiGeometryServer:
+    """Continuous batching across streams of several LR geometries.
+
+    A slot pool holds one geometry, and a serving endpoint receives 144x180
+    and 540x960 streams alike, so streams are bucketed by their LR
+    ``(height, width)``: each geometry gets its own :class:`VSRServer`
+    pool, created on demand, and one :meth:`step` fans a tick's frames out
+    to the buckets that received any. All buckets share the models and the
+    config; per-stream semantics are :class:`VSRServer`'s.
+
+    Every bucket's tick is queued before any output is read, so one
+    bucket's download overlaps the next bucket's compute.
+
+    Args:
+      slots_per_geometry: slot-pool size of each bucket.
+      state_budget_mb: cap on the device bytes the buckets pin (their
+        recurrent state plus one tick's LR input and HR output,
+        :meth:`bucket_bytes`). A new geometry first evicts idle buckets
+        (no open stream), least recently used first; if it still does not
+        fit, ``open`` raises RuntimeError with the computed numbers instead
+        of running the card out of memory. ``None`` disables the guard.
+      mesh: not ported (ROADMAP queue 1 item 11).
+      device: where to run; the card unless the caller asks for the CPU.
+    """
+
+    def __init__(self, config: TecoConfig, generator: Generator, fnet: FNet,
+                 slots_per_geometry: int = 4, output: str = "uint8",
+                 mesh=None, state_budget_mb: Optional[float] = 2048.0,
+                 device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError("a slot pool sharded across GPUs (mesh=) is "
+                                      "ROADMAP queue 1 item 11")
+        self.config = config
+        self.device = torch.device(device)
+        self.generator, self.fnet = place_models(generator, fnet, self.device,
+                                                 config.torch_dtype)
+        self.slots_per_geometry = slots_per_geometry
+        self.output = output
+        self.state_budget_mb = state_budget_mb
+        self._buckets: Dict[Tuple[int, int], VSRServer] = {}
+        self._geo_of: Dict[object, Tuple[int, int]] = {}
+        self._bucket_lock = threading.Lock()
+        self._use_clock = 0  # LRU ordinal for idle-bucket eviction
+        self._last_use: Dict[Tuple[int, int], int] = {}
+
+    def bucket_bytes(self, height: int, width: int) -> int:
+        """Device bytes one (height, width) bucket pins while it exists: the
+        slot pool's recurrent state (prev_lr (h, w, 3) + prev_hr (4h, 4w, 3)
+        = 51·h·w·itemsize a slot) plus one tick's LR input and HR output.
+        The step's temporaries are not counted (PyTorch's allocator reuses
+        them from tick to tick)."""
+        hw = int(height) * int(width)
+        item = self.config.torch_dtype.itemsize
+        state = 51 * hw * item
+        out_item = 1 if self.output == "uint8" else 4
+        tick_io = 3 * hw * 1 + 48 * hw * out_item  # uint8 LR in, HR out
+        return self.slots_per_geometry * (state + tick_io)
+
+    @property
+    def footprint_bytes(self) -> int:
+        """Total estimated device bytes across the buckets."""
+        return sum(self.bucket_bytes(h, w) for h, w in self._buckets)
+
+    def _bucket(self, geo: Tuple[int, int]) -> VSRServer:
+        with self._bucket_lock:
+            srv = self._buckets.get(geo)
+            if srv is None:
+                self._admit_locked(geo)
+                srv = self._buckets[geo] = VSRServer(
+                    self.config, self.generator, self.fnet, geo[0], geo[1],
+                    max_streams=self.slots_per_geometry, output=self.output,
+                    device=self.device)
+            self._use_clock += 1
+            self._last_use[geo] = self._use_clock
+        return srv
+
+    def _admit_locked(self, geo: Tuple[int, int]) -> None:
+        """Fit a new geometry under ``state_budget_mb``: evict idle buckets
+        LRU-first, refuse with the computed bytes if that is not enough.
+        Caller holds ``_bucket_lock``."""
+        if self.state_budget_mb is None:
+            return
+        budget = int(self.state_budget_mb * 2**20)
+        need = self.bucket_bytes(*geo)
+        if need > budget:
+            raise RuntimeError(
+                f"geometry {geo} alone needs ~{need / 2**20:.1f} MB of "
+                f"device state ({self.slots_per_geometry} slots) — over the "
+                f"{self.state_budget_mb:.0f} MB state_budget_mb; lower "
+                f"slots_per_geometry or raise the budget")
+        idle = sorted(
+            (g for g, srv in self._buckets.items() if not srv.open_streams),
+            key=lambda g: self._last_use.get(g, 0))
+        while self.footprint_bytes + need > budget and idle:
+            g = idle.pop(0)
+            del self._buckets[g]  # its device tensors are freed with it
+            self._last_use.pop(g, None)
+        if self.footprint_bytes + need > budget:
+            busy = {g: f"{self.bucket_bytes(*g) / 2**20:.1f} MB"
+                    for g in self._buckets}
+            raise RuntimeError(
+                f"opening geometry {geo} (~{need / 2**20:.1f} MB) would put "
+                f"the server at "
+                f"{(self.footprint_bytes + need) / 2**20:.1f} MB resident "
+                f"state, over state_budget_mb={self.state_budget_mb:.0f} and "
+                f"every remaining bucket has open streams: {busy}. Close "
+                f"streams, lower slots_per_geometry, or raise the budget.")
+
+    def prewarm(self, geometries: Iterable[Tuple[int, int]],
+                frame_dtype=np.uint8, background: bool = False
+                ) -> Optional[threading.Thread]:
+        """Create each ``(height, width)`` bucket and run its all-inactive
+        warm tick (:meth:`VSRServer.prewarm`), so no stream's first tick
+        pays for the kernel library's load or cuDNN's first choices.
+
+        ``background=True`` returns a started daemon thread that warms the
+        menu while the other buckets keep serving (each bucket's dispatch
+        lock serializes its own ticks); join it to wait. In the foreground
+        it returns None when done.
+        """
+        geos = [(int(h), int(w)) for h, w in geometries]
+
+        def work():
+            for geo in geos:
+                self._bucket(geo).prewarm(frame_dtype)
+
+        if background:
+            t = threading.Thread(target=work, daemon=True, name="tecogan-serve-prewarm")
+            t.start()
+            return t
+        work()
+        return None
+
+    # ------------------------------------------------------------ lifecycle
+    def open(self, stream_id, height: int, width: int) -> int:
+        """Attach a stream of LR geometry (height, width); returns its slot
+        within the geometry's bucket. Raises RuntimeError when that bucket
+        is full (admission control is the caller's policy)."""
+        if stream_id in self._geo_of:
+            raise ValueError(f"stream {stream_id!r} already open")
+        geo = (int(height), int(width))
+        slot = self._bucket(geo).open(stream_id)
+        self._geo_of[stream_id] = geo
+        return slot
+
+    def close(self, stream_id) -> None:
+        geo = self._geo_of.pop(stream_id)
+        self._buckets[geo].close(stream_id)
+
+    def free_slots(self, height: int, width: int) -> int:
+        """Free slots in the (height, width) bucket; the full pool size when
+        the bucket does not exist yet."""
+        srv = self._buckets.get((int(height), int(width)))
+        if srv is None:
+            return self.slots_per_geometry
+        return self.slots_per_geometry - len(srv.open_streams)
+
+    @property
+    def open_streams(self):
+        return tuple(self._geo_of)
+
+    @property
+    def geometries(self):
+        """The buckets as {(height, width): (open, capacity)}."""
+        return {geo: (len(srv.open_streams), self.slots_per_geometry)
+                for geo, srv in self._buckets.items()}
+
+    # ------------------------------------------------------------- serving
+    def step(self, frames: Mapping[object, np.ndarray], fetch: bool = True
+             ) -> Dict[object, np.ndarray]:
+        """Advance every stream that delivered a frame (any mix of
+        geometries) by one step; the contract of :meth:`VSRServer.step`."""
+        if not frames:
+            return {}
+        by_geo: Dict[Tuple[int, int], Dict[object, np.ndarray]] = {}
+        for sid, frame in frames.items():
+            geo = self._geo_of.get(sid)
+            if geo is None:
+                raise KeyError(f"streams not open: [{sid!r}]")
+            by_geo.setdefault(geo, {})[sid] = frame
+        with self._bucket_lock:
+            self._use_clock += 1
+            for geo in by_geo:
+                self._last_use[geo] = self._use_clock
+        # Queue every bucket's tick before reading any output.
+        parts: List[Dict[object, HostFrame]] = [
+            self._buckets[geo].step(fs, fetch=False) for geo, fs in by_geo.items()]
+        out: Dict[object, np.ndarray] = {}
+        for part in parts:
+            for sid, hr in part.items():
+                out[sid] = np.asarray(hr) if fetch else hr
+        return out

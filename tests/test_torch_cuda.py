@@ -461,3 +461,75 @@ def test_gan_step_matches_cpu(cuda_device):
     for name, want in grads_c.items():
         assert grads[name].abs().max() > 0, name
         assert (grads[name] - want).abs().max() <= 1e-3 * want.abs().max(), name
+
+
+def _serving_models(seed, num_resblock):
+    from tecogan_tpu_torch.models import FNet, Generator
+    from tecogan_tpu_torch.models.layers import glorot_init_
+
+    gen = torch.Generator().manual_seed(seed)
+    return (glorot_init_(Generator(num_resblock, 64), gen),
+            glorot_init_(FNet((32, 64, 128), (256, 128, 64)), gen))
+
+
+@pytest.mark.cuda
+def test_server_tick_matches_streaming(cuda_device):
+    """A 1-slot VSRServer, tick by tick, against StreamingSR.run on the same
+    stream, float32 with TF32 off: the same frame step at the same batch
+    (FNet once a frame with chunks of 1); the chain and K1 launch on every
+    tick."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.recurrent import StreamingSR
+    from tecogan_tpu_torch.serve import VSRServer
+
+    cfg = TecoConfig(num_resblock=4, infer_chunk=1)
+    frames = (synthetic_clip(4, 32, 48, seed=21, content="natural") * 255).astype(np.uint8)
+    srv = VSRServer(cfg, *_serving_models(22, 4), 32, 48, max_streams=1, output="float32",
+                    device=cuda_device)
+    srv.open("a")
+    before = (upsample4.launches, resblock_chain.launches)
+    got = np.stack([srv.step({"a": f})["a"] for f in frames])
+    assert (upsample4.launches - before[0], resblock_chain.launches - before[1]) == (8, 16)
+    want, _ = StreamingSR(cfg, *_serving_models(22, 4), output="float32",
+                          device=cuda_device).run(frames)
+    assert got.shape == want.shape == (4, 128, 192, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_export_round_trip_on_the_card(cuda_device, tmp_path, dtype):
+    """The exported frame step, saved and loaded, against the live frame
+    function on the card under cuDNN's deterministic algorithms: bit-equal,
+    with the kernels' launches counted in the loaded program's replays."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.recurrent.step import RecurrentState
+    from tecogan_tpu_torch.serve import (
+        build_frame_fn, export_frame_step, load_frame_step, save_frame_step)
+    from tecogan_tpu_torch.recurrent.inference import place_models
+
+    cfg = TecoConfig(num_resblock=3, compute_dtype=dtype)
+    gen, fnet = _serving_models(23, 3)
+    path = str(tmp_path / "step.pt2")
+    save_frame_step(export_frame_step(cfg, gen, fnet, batch=2, height=24, width=40,
+                                      device=cuda_device), path)
+    step = load_frame_step(path)
+    rng = np.random.RandomState(24)
+    state = RecurrentState(
+        torch.from_numpy(rng.rand(2, 24, 40, 3)).to(cuda_device, cfg.torch_dtype),
+        torch.from_numpy(rng.rand(2, 96, 160, 3)).to(cuda_device, cfg.torch_dtype))
+    lr = torch.from_numpy((rng.rand(2, 24, 40, 3) * 255).astype(np.uint8)).to(cuda_device)
+    gen, fnet = place_models(gen, fnet, cuda_device, cfg.torch_dtype)
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = (upsample4.launches, resblock_chain.launches)
+        new_state, hr = step(state, lr)
+        assert (upsample4.launches - before[0], resblock_chain.launches - before[1]) == (2, 3)
+        with torch.inference_mode():
+            ref_state, ref_hr = build_frame_fn(cfg, "uint8")(gen, fnet, state, lr)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert hr.dtype == torch.uint8 and hr.shape == (2, 96, 160, 3)
+    assert torch.equal(hr, ref_hr)
+    assert torch.equal(new_state.prev_hr, ref_state.prev_hr)
+    assert torch.equal(new_state.prev_lr, ref_state.prev_lr)

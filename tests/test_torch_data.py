@@ -16,6 +16,7 @@ from tecogan_tpu.data.loader import SceneDataset as JaxSceneDataset
 from tecogan_tpu.data.synthetic import synthetic_clip as jax_synthetic_clip
 from tecogan_tpu_torch.config import TecoConfig
 from tecogan_tpu_torch.data.loader import BatchLoader, SceneDataset, png_dims
+from tecogan_tpu_torch.data import png
 from tecogan_tpu_torch.data.png import SIGNATURE, read_png, write_png
 from tecogan_tpu_torch.data.synthetic import synthetic_clip, write_synthetic_scenes
 
@@ -78,26 +79,104 @@ def _filter_row(kind, row, prev, bpp):
     return bytes(out)
 
 
-def test_read_png_every_filter(rng, tmp_path):
-    """Rows filtered with each of the five filter types in turn."""
-    img = _images(rng, 15, 11)["rgb"]
-    h, w, bpp = img.shape
+def _write_filtered(path, img, kinds):
+    """A PNG of uint8 gray/RGB/RGBA ``img`` whose row y is filtered with
+    ``kinds(y)``."""
+    h, w = img.shape[:2]
+    bpp = 1 if img.ndim == 2 else img.shape[2]
     prev, raw = bytes(w * bpp), b""
     for y in range(h):
         row = img[y].tobytes()
-        raw += bytes([y % 5]) + _filter_row(y % 5, row, prev, bpp)
+        raw += bytes([kinds(y)]) + _filter_row(kinds(y), row, prev, bpp)
         prev = row
 
     def chunk(kind, body):
         return struct.pack(">I", len(body)) + kind + body + struct.pack(
             ">I", zlib.crc32(kind + body))
 
-    path = str(tmp_path / "filters.png")
+    color = {1: 0, 3: 2, 4: 6}[bpp]
     with open(path, "wb") as f:
-        f.write(SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+        f.write(SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    return raw
+
+
+def _python_unfilter(raw, h, stride, bpp):
+    """The plain version: the codec's Python loops for Average and Paeth
+    rows, numpy for the others."""
+    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+    out, prev = np.empty((h, stride), np.uint8), bytes(stride)
+    for y in range(h):
+        kind, line = rows[y, 0], rows[y, 1:].tobytes()
+        if kind == 3:
+            out[y] = np.frombuffer(png._unfilter_average(line, prev, bpp), np.uint8)
+        elif kind == 4:
+            out[y] = np.frombuffer(png._unfilter_paeth(line, prev, bpp), np.uint8)
+        else:
+            out[y] = np.frombuffer(line, np.uint8) + (np.frombuffer(prev, np.uint8)
+                                                      if kind == 2 else 0)
+        prev = out[y].tobytes()
+    return out
+
+
+def test_read_png_every_filter(rng, tmp_path):
+    """Rows filtered with each of the five filter types in turn; Average
+    and Paeth rows (the C unfilter) also against the Python loops, at an
+    odd width and at the calendar geometry 144x180."""
+    img = _images(rng, 15, 11)["rgb"]
+    path = str(tmp_path / "filters.png")
+    _write_filtered(path, img, lambda y: y % 5)
     np.testing.assert_array_equal(read_png(path), img)
     np.testing.assert_array_equal(cv2.imread(path)[..., ::-1], img)
+    for h, w in ((9, 37), (144, 180)):
+        img = _images(rng, h, w)["rgb"]
+        for kind in (3, 4):
+            path = str(tmp_path / f"k{kind}_{h}x{w}.png")
+            raw = _write_filtered(path, img, lambda y: kind if y % 7 else 2)
+            got = read_png(path)
+            np.testing.assert_array_equal(got.reshape(h, -1), _python_unfilter(raw, h, w * 3, 3))
+            np.testing.assert_array_equal(got, img)
+
+
+@pytest.mark.parametrize("kind", [3, 4], ids=["average", "paeth"])
+@pytest.mark.parametrize("channels", ["gray", "rgb", "rgba"])
+def test_png_unfilter_native_matches_python(rng, kind, channels):
+    """The C unfilter of one row against the Python loop: random rows and
+    previous rows (every wrap-around and every Paeth tie-break), at odd
+    widths, 1, 3 and 4 bytes a pixel."""
+    bpp = {"gray": 1, "rgb": 3, "rgba": 4}[channels]
+    native = png._native()
+    fn = native.tt_unfilter_average if kind == 3 else native.tt_unfilter_paeth
+    plain = png._unfilter_average if kind == 3 else png._unfilter_paeth
+    for width in (1, 2, 13, 181):
+        n = width * bpp
+        line = rng.randint(0, 256, n).astype(np.uint8)
+        prev = rng.randint(0, 256, n).astype(np.uint8)
+        if width == 13:  # equal neighbours: the predictor's ties
+            prev[:] = line[:] = rng.randint(0, 2, n) * 255
+        out = np.empty(n, np.uint8)
+        fn(line.ctypes.data, prev.ctypes.data, out.ctypes.data, n, bpp)
+        want = np.frombuffer(plain(line.tobytes(), prev.tobytes(), bpp), np.uint8)
+        np.testing.assert_array_equal(out, want)
+
+
+def test_png_unfilter_needs_a_compiler(rng, tmp_path, monkeypatch):
+    """No C compiler raises; the codec never falls back to the byte loops."""
+    monkeypatch.setenv("CC", "")
+    monkeypatch.setattr(png.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="C compiler"):
+        png._c_compiler()
+
+    def no_native():
+        raise RuntimeError("no unfilter")
+
+    monkeypatch.setattr(png, "_native", no_native)
+    path = str(tmp_path / "paeth.png")
+    _write_filtered(path, _images(rng, 5, 7)["rgb"], lambda y: 4)
+    with pytest.raises(RuntimeError, match="no unfilter"):
+        read_png(path)
+    _write_filtered(path, _images(rng, 5, 7)["rgb"], lambda y: y % 3)  # None, Sub, Up
+    assert read_png(path).shape == (5, 7, 3)
 
 
 def test_read_png_rejects_what_it_does_not_read(tmp_path):

@@ -138,3 +138,14 @@ def test_frame_step_matches_jax(engines, rng):
 def test_prepend_warmup_matches_jax():
     frames = list(range(9))
     assert prepend_warmup(frames) == jax_prepend_warmup(frames)
+
+
+def test_entry_points_default_to_the_card():
+    """StreamingSR, the servers and the export run on the card unless the
+    caller asks for the CPU."""
+    import inspect
+
+    from tecogan_tpu_torch.serve import MultiGeometryServer, VSRServer, export_frame_step
+
+    for fn in (StreamingSR, VSRServer, MultiGeometryServer, export_frame_step):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
