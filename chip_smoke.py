@@ -34,10 +34,14 @@ Phases, each raising on failure (so the exit code is non-zero):
    the GPU against the same seeded weights on the CPU (plain versions),
    float32, 6 frames of 64x96;
 6. the streaming path at size: 46 uint8 frames of 144x180 -> 41 of
-   576x720, bfloat16, chunks of 23, with the kernels' launch counts and
-   frames/s; then a ``torch.profiler`` split of one run (chain / K1 /
-   cuDNN / glue, device idle share), which must show the chain in the
-   tensor-core kernel;
+   576x720, bfloat16, chunks of 23, captured as one CUDA graph per chunk
+   (the default on the card) and with ``capture=False`` in the same call:
+   the two outputs bit-equal under cuDNN's deterministic algorithms; each
+   mode's frames/s (runs in turns), launch counts (exactly 736 chain and 48
+   K1 a run, the captured ones added per replay), peak memory and graph
+   pool; then a ``torch.profiler`` split of one run of each (chain / K1 /
+   cuDNN / glue, device idle share), whose chain (the tensor-core kernel)
+   and K1 launches must equal the counters';
 7. one FRVSR training step at full width (10 resblocks, real FNet),
    batch 2, 4 frames, crop 32, float32, GPU against CPU: losses and the
    gradient of every parameter;
@@ -52,8 +56,9 @@ Phases, each raising on failure (so the exit code is non-zero):
    synthetic 576x720 HR PNGs -> ``cli.main --mode inference
    --input_dir_HR`` (blur and 4x subsample on the card, 5 warm-up frames
    prepended, bfloat16, 16 resblocks, chunks of 23) -> 41 HR PNGs, with
-   the kernels' launch counts, byte-equal to ``StreamingSR.run`` on the
-   same LR frames (both under cuDNN's deterministic algorithms; a second,
+   the kernels' launch counts (the run's and its capture's warm-up chunk:
+   the CLI reaches the captured path), byte-equal to ``StreamingSR.run`` on
+   the same LR frames (both under cuDNN's deterministic algorithms; a second,
    timed CLI run keeps the default flags); the blur on the card against the CPU; a ``--checkpoint``
    run on phase 8's checkpoint (10 blocks: the depth NOTE); ``cli.metrics``
    on the 41 outputs against their HR frames (tOF by the torch Farneback
@@ -84,13 +89,19 @@ Phases, each raising on failure (so the exit code is non-zero):
    attaches and an idle slot (outputs within PATH_TOL, the idle slot's
    state bit-unchanged on the card); (b) ``MultiGeometryServer`` in
    bfloat16, a 4-slot bucket at 144x180 and a bucket of two 120x180
-   streams, 46 ticks after prewarm with the kernels' launch counts (the
-   chain 16 and K1 2 per bucket tick at least), then ``VSRServer`` pools of
-   1, 4 and 8 slots timed (ms/tick, aggregate frames/s, peak memory) and
-   each profiled (device idle share; the chain must be
-   ``resblock_kernel_mma``); (c) the frame step exported at (4,144,180)
-   bfloat16, loaded in a fresh process that imports only torch and
-   ``tecogan_tpu_torch.kernels``, bit-equal to a ``VSRServer`` tick under
+   streams, each tick captured by the prewarm, 46 ticks with the kernels'
+   launch counts (exactly 16 chain and 2 K1 per bucket tick), each
+   bucket's graph pool, and an eviction whose bucket's pool leaves no
+   device segment behind; then ``VSRServer`` pools of 1, 4 and 8 slots,
+   captured and with ``capture=False``, timed in turns (ms/tick, host ms
+   inside ``step()``, aggregate frames/s, peak memory, graph pool) and each
+   profiled (device idle share; the chain, as ``resblock_kernel_mma``, and
+   K1 launched as often as the counters say); (c) a 4-slot server's
+   captured ticks bit-equal to ``capture=False`` ones at 144x180 under
+   cuDNN's deterministic algorithms, and the frame step exported
+   at (4,144,180) bfloat16, loaded in a fresh process that imports only
+   torch and ``tecogan_tpu_torch.kernels``, bit-equal to a ``VSRServer``
+   captured tick under
    cuDNN's deterministic algorithms, its launches counted; (d) ``cli.serve``
    on three LR PNG dirs (two geometries, one with Paeth rows): float32
    within 1 u8 level of ``cli.main --mode inference`` per dir (the random
@@ -955,30 +966,49 @@ def profile_step(dev, cfg, state, steady: float, name: str, vgg=None) -> None:
         f"({convs / total:.1%})")
 
 
-def profile_streaming(sr, frames, secs: float) -> None:
+def profiled_launches(names, chain_want: int, k1_want: int, label: str):
+    """The profile's launches of the bfloat16 chain kernel and of K1, which
+    must equal the counters' (``want``): the chain only as
+    ``resblock_kernel_mma``. Returns (chain, K1)."""
+    chain = names["chain kernel"]
+    for key, count in chain.items():
+        log(f"[profile]   chain kernel: {count} launches of {key[:100]}")
+    mma = sum(n for key, n in chain.items() if "resblock_kernel_mma" in key)
+    k1 = sum(names["K1 (flow upsample, bicubic skip)"].values())
+    log(f"[profile]   {label}: the profile shows {mma} launches of resblock_kernel_mma "
+        f"and {k1} of K1; the counters {chain_want} and {k1_want}")
+    if (mma, k1) != (chain_want, k1_want) or sum(chain.values()) != mma:
+        raise RuntimeError(f"[profile] {label}: the chain ran {chain} and K1 {k1} times, "
+                           f"want {chain_want} launches of resblock_kernel_mma and "
+                           f"{k1_want} of K1")
+    return mma, k1
+
+
+def profile_streaming(sr, frames, secs: float, launches) -> dict:
     """One StreamingSR.run under torch.profiler, split by kernel group; the
-    bfloat16 chain must have run through the tensor-core kernel."""
+    profile's chain (the bfloat16 tensor-core kernel) and K1 launches must
+    equal the counters' ``launches`` of a run. Returns the device time and
+    the idle share against ``secs`` of unprofiled wall."""
     from torch.profiler import ProfilerActivity, profile
 
+    mode = "captured" if sr.capture else "eager (capture=False)"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sr.run(frames, warmup=WARMUP)
         torch.cuda.synchronize()
     total, split, names, by_op = device_split(prof)
     if total <= 0:
-        log("[profile] torch.profiler recorded no device time; see the CUDA-event times")
-        return
-    log(f"[profile] streaming, one StreamingSR.run of {FRAMES} frames: "
+        raise RuntimeError(f"[profile] streaming {mode}: torch.profiler recorded no device time")
+    idle = max(0.0, 1 - total / 1e3 / (secs * 1e3))
+    log(f"[profile] streaming {mode}, one StreamingSR.run of {FRAMES} frames: "
         f"{total / 1e3:.2f} ms of device time, {total / 1e3 / FRAMES:.3f} ms/frame, "
         f"against {secs * 1e3:.2f} ms of wall unprofiled ({FRAMES / secs:.2f} "
-        f"frames/s processed; device idle share {max(0.0, 1 - total / 1e3 / (secs * 1e3)):.1%})")
+        f"frames/s processed; device idle share {idle:.1%})")
     log_split(total, split, by_op)
-    chain = names["chain kernel"]
-    for key, count in chain.items():
-        log(f"[profile]   chain kernel: {count} launches of {key[:100]}")
-    mma = sum(n for key, n in chain.items() if "resblock_kernel_mma" in key)
-    if mma < NUM_RESBLOCK * FRAMES or any("__nv_bfloat16>" in key for key in chain):
-        raise RuntimeError(f"[profile] the chain ran {chain}, want >= "
-                           f"{NUM_RESBLOCK * FRAMES} launches of resblock_kernel_mma")
+    profiled_launches(names, launches["resblock_chain"], launches["upsample4"],
+                      f"streaming {mode}")
+    return {"device_ms": total / 1e3, "idle": idle,
+            "chain_ms": split["chain kernel"] / 1e3,
+            "k1_ms": split["K1 (flow upsample, bicubic skip)"] / 1e3}
 
 
 def build_models(seed: int, config):
@@ -1023,42 +1053,100 @@ def check_path_vs_cpu(dev) -> float:
 
 
 def run_main_path(dev, card: str):
-    """Phase 6: the streaming path at size; returns launch counts."""
+    """Phase 6: the streaming path at size, captured (the default on the
+    card) and with ``capture=False``, in the same call: the two outputs
+    bit-equal under cuDNN's deterministic algorithms; then, with the
+    default flags, each mode's frames/s (runs in turns: eager, captured,
+    captured, eager), launches, peak memory (and the graph's pool) and a
+    profile. Returns the captured run's launch counts."""
     from tecogan_tpu_torch.config import TecoConfig
     from tecogan_tpu_torch.kernels import resblock_chain, upsample4
     from tecogan_tpu_torch.recurrent import StreamingSR
+    from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
 
     cfg = TecoConfig(num_resblock=NUM_RESBLOCK, compute_dtype="bfloat16",
                      infer_chunk=CHUNK)
-    sr = StreamingSR(cfg, *build_models(6, cfg), output="uint8", device=dev)
+    models = build_models(6, cfg)
     rng = np.random.RandomState(7)
     frames = (rng.rand(FRAMES, LR_H, LR_W, 3) * 255).astype(np.uint8)
-    sr.run(frames, warmup=WARMUP)  # untimed warm run
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    upsample4.launches = 0
-    resblock_chain.launches = 0
-    hr, secs = sr.run(frames, warmup=WARMUP)
-    launches = {"upsample4": upsample4.launches,
-                "resblock_chain": resblock_chain.launches}
     want = (FRAMES - WARMUP, 4 * LR_H, 4 * LR_W, 3)
-    if hr.shape != want or hr.dtype != np.uint8:
-        raise RuntimeError(f"output {hr.shape} {hr.dtype}, want {want} uint8")
-    if hr.min() == hr.max():
-        raise RuntimeError("output is constant")
-    need = {"upsample4": FRAMES + FRAMES // CHUNK,
-            "resblock_chain": NUM_RESBLOCK * FRAMES}
-    log(f"[main] launches {launches}, at least {need}")
-    for k, n in need.items():
-        if launches[k] < n:
-            raise RuntimeError(f"{k} launched {launches[k]} times, want >= {n}")
-    log(f"[main] {FRAMES} frames ({FRAMES - WARMUP} delivered) {LR_H}x{LR_W} -> "
-        f"{4 * LR_H}x{4 * LR_W}, bfloat16, {NUM_RESBLOCK} resblocks, chunk "
-        f"{CHUNK}: {secs:.3f} s wall, {FRAMES / secs:.2f} frames/s processed, "
-        f"{(FRAMES - WARMUP) / secs:.2f} frames/s delivered, peak "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; card: {card}")
-    profile_streaming(sr, frames, secs)
-    return launches
+    modes = {"captured": None, "eager": False}
+
+    # (a) Captured against eager, under cuDNN's deterministic algorithms:
+    # the same kernels on the same inputs, so bit-equal.
+    torch.backends.cudnn.deterministic = True
+    try:
+        equal = {m: StreamingSR(cfg, *models, output="uint8", device=dev,
+                                capture=c).run(frames, warmup=WARMUP)[0]
+                 for m, c in modes.items()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = np.array_equal(equal["captured"], equal["eager"])
+    log(f"[main] streaming {LR_H}x{LR_W} -> {4 * LR_H}x{4 * LR_W}, bfloat16, cuDNN "
+        f"deterministic: captured vs capture=False outputs "
+        f"{'bit-equal' if same else 'DIFFER in %d values' % (equal['captured'] != equal['eager']).sum()}")
+    if not same or equal["captured"].shape != want:
+        raise RuntimeError("[main] the captured streaming run differs from the eager one")
+
+    # (b) Each mode with the default flags: a first run (the capture, for
+    # the captured mode), peak memory from there; then timed runs in turns.
+    runs = {}
+    for mode, capture in modes.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        captures = CapturedProgram.captures
+        sr = StreamingSR(cfg, *models, output="uint8", device=dev, capture=capture)
+        _, first = sr.run(frames, warmup=WARMUP)
+        torch.cuda.synchronize()
+        pool = sum(c.run.pool_bytes() for c in sr._chunks.values()) if sr.capture else 0
+        runs[mode] = {"sr": sr, "secs": [], "first_s": first, "capture_s": sr.capture_s,
+                      "captures": CapturedProgram.captures - captures,
+                      "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20,
+                      "reserved_mib": torch.cuda.max_memory_reserved() / 2**20,
+                      "pool_mib": pool / 2**20}
+    for mode in ("eager", "captured", "captured", "eager"):
+        rec = runs[mode]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        upsample4.launches = 0
+        resblock_chain.launches = 0
+        hr, secs = rec["sr"].run(frames, warmup=WARMUP)
+        rec["launches"] = {"upsample4": upsample4.launches,
+                           "resblock_chain": resblock_chain.launches}
+        rec["steady_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        rec["secs"].append(secs)
+        if hr.shape != want or hr.dtype != np.uint8 or hr.min() == hr.max():
+            raise RuntimeError(f"[main] {mode}: output {hr.shape} {hr.dtype}, want {want} uint8")
+    need = {"upsample4": FRAMES + FRAMES // CHUNK, "resblock_chain": NUM_RESBLOCK * FRAMES}
+    for mode, rec in runs.items():
+        log(f"[main] {mode}: launches of a run {rec['launches']}, want {need}")
+        if rec["launches"] != need:
+            raise RuntimeError(f"[main] {mode} launched {rec['launches']}, want {need}")
+    if (runs["captured"]["captures"], runs["eager"]["captures"]) != (1, 0):
+        raise RuntimeError(f"[main] captures: {runs['captured']['captures']} captured, "
+                           f"{runs['eager']['captures']} eager; want 1 and 0")
+    for mode, rec in runs.items():
+        secs = min(rec["secs"])
+        rec["frames_per_s"] = [FRAMES / s for s in rec["secs"]]
+        log(f"[main] {mode}: {FRAMES} frames ({FRAMES - WARMUP} delivered) {LR_H}x{LR_W} -> "
+            f"{4 * LR_H}x{4 * LR_W}, bfloat16, {NUM_RESBLOCK} resblocks, chunk {CHUNK}: "
+            f"runs of {', '.join(f'{s:.4f}' for s in rec['secs'])} s wall, "
+            f"{', '.join(f'{f:.2f}' for f in rec['frames_per_s'])} frames/s processed "
+            f"({(FRAMES - WARMUP) / secs:.2f} delivered at best); the first run "
+            f"{rec['first_s']:.3f} s (of which building the chunk's program "
+            f"{rec['capture_s']:.3f} s); peak allocated above the models "
+            f"{rec['peak_mib']:.0f} MiB in the first run, {rec['steady_peak_mib']:.0f} MiB in a "
+            f"later one; graph pool {rec['pool_mib']:.0f} MiB; card: {card}")
+    for mode in ("captured", "eager"):
+        rec = runs[mode]
+        rec.update(profile_streaming(rec["sr"], frames, float(np.median(rec["secs"])),
+                                     rec["launches"]))
+    log("[main] streaming records " + json.dumps(
+        {m: {k: v for k, v in r.items() if k != "sr"} for m, r in runs.items()}))
+    return runs["captured"]["launches"]
 
 
 def _csv_cells(path: str):
@@ -1092,6 +1180,7 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
     from tecogan_tpu_torch.kernels import resblock_chain, upsample4
     from tecogan_tpu_torch.ops import list_png_in_dir
     from tecogan_tpu_torch.recurrent import StreamingSR
+    from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
     from tecogan_tpu_torch.weights import (
         from_jax_params, params_to_npz, read_params_npz, to_jax_params)
 
@@ -1131,9 +1220,11 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
     try:
         upsample4.launches = 0
         resblock_chain.launches = 0
+        captures = CapturedProgram.captures
         runs = [cli(out_dir, *argv)]
         launches = {"upsample4": upsample4.launches,
                     "resblock_chain": resblock_chain.launches}
+        captures = CapturedProgram.captures - captures
         data = load_inference_frames(input_dir_hr=hr_dir, device=dev)
         trees = read_params_npz(npz)
         sr = StreamingSR(cfg, *from_jax_params(trees["generator"], trees["fnet"]),
@@ -1160,18 +1251,23 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
         f"the card; HR->LR blur card vs CPU max_abs_err={blur_err:.3e} tol={BLUR_TOL:.0e}")
     if not blur_err <= BLUR_TOL:
         raise RuntimeError(f"[cli] blur card vs CPU {blur_err:.3e}")
-    need = {"upsample4": FRAMES + FRAMES // CHUNK, "resblock_chain": NUM_RESBLOCK * FRAMES}
-    log(f"[cli] launches {launches}, at least {need}")
-    for k, n in need.items():
-        if launches[k] < n:
-            raise RuntimeError(f"[cli] {k} launched {launches[k]} times, want >= {n}")
+    # The CLI's StreamingSR captures its chunk on the first chunk: the
+    # capture's eager warm-up runs one chunk more than the 2 chunks of the run.
+    ran = FRAMES + CHUNK
+    need = {"upsample4": ran + ran // CHUNK, "resblock_chain": NUM_RESBLOCK * ran}
+    log(f"[cli] launches {launches} and {captures} capture(s), want {need} (the run's "
+        f"{FRAMES} frames and the capture's warm-up chunk of {CHUNK}) and 1")
+    if launches != need or captures != 1:
+        raise RuntimeError(f"[cli] launched {launches} with {captures} captures, want "
+                           f"{need} and 1")
     for i, (stats, wall, printed) in enumerate(runs, 1):
         flags = "cuDNN deterministic" if i == 1 else "default flags"
         log(f"[cli] run {i} ({flags}): {CLI_FRAMES} HR PNGs {4 * LR_H}x{4 * LR_W} -> LR {LR_H}x{LR_W} "
             f"(+{WARMUP} warm-up) -> {stats['written']} HR PNGs, bfloat16, "
             f"{NUM_RESBLOCK} resblocks, chunk {CHUNK}: decode + blur "
             f"{stats['decode_s']:.3f} s, stream {stats['stream_s']:.3f} s "
-            f"({stats['frames'] / stats['stream_s']:.2f} frames/s processed), writer "
+            f"({stats['frames'] / stats['stream_s']:.2f} frames/s processed; of it the "
+            f"capture {stats['capture_s']:.3f} s), writer "
             f"flush {stats['flush_s']:.3f} s, {stats['threads']} writer threads; end to "
             f"end {wall:.3f} s wall, {stats['written'] / wall:.2f} frames/s PNG dir to "
             f"PNG dir; card: {card}")
@@ -1509,37 +1605,41 @@ def serve_ticks(srv, frames, ticks: int = FRAMES):
 
 
 def profile_serving(srv, frames, secs: float, label: str) -> dict:
-    """One serve_ticks run under torch.profiler, split by kernel group;
-    the bfloat16 chain must have run through the tensor-core kernel."""
+    """One serve_ticks run under torch.profiler, split by kernel group; the
+    profile must show the chain (the bfloat16 tensor-core kernel) and K1
+    launched as often as the counters say."""
     from torch.profiler import ProfilerActivity, profile
 
+    from tecogan_tpu_torch.kernels import resblock_chain, upsample4
+
+    before = (upsample4.launches, resblock_chain.launches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         serve_ticks(srv, frames)
+    counted = (upsample4.launches - before[0], resblock_chain.launches - before[1])
     total, split, names, by_op = device_split(prof)
     if total <= 0:
-        log("[profile] torch.profiler recorded no device time; see the wall times")
-        return {}
+        raise RuntimeError(f"[profile] serving {label}: torch.profiler recorded no device time")
     idle = max(0.0, 1 - total / 1e3 / (secs * 1e3))
     log(f"[profile] serving {label}, one run of {FRAMES} ticks: {total / 1e3:.2f} ms of "
         f"device time, {total / 1e3 / FRAMES:.3f} ms/tick, against {secs * 1e3:.2f} ms of "
         f"wall unprofiled (device idle share {idle:.1%})")
     log_split(total, split, by_op)
-    chain = names["chain kernel"]
-    for key, count in chain.items():
-        log(f"[profile]   chain kernel: {count} launches of {key[:100]}")
-    if sum(n for key, n in chain.items() if "resblock_kernel_mma" in key) < NUM_RESBLOCK * FRAMES:
-        raise RuntimeError(f"[profile] serving {label}: the chain ran {chain}, want >= "
-                           f"{NUM_RESBLOCK * FRAMES} launches of resblock_kernel_mma")
+    if counted != (2 * FRAMES, NUM_RESBLOCK * FRAMES):
+        raise RuntimeError(f"[profile] serving {label}: the counters say K1 {counted[0]}, "
+                           f"chain {counted[1]}; want {2 * FRAMES}, {NUM_RESBLOCK * FRAMES}")
+    profiled_launches(names, counted[1], counted[0], f"serving {label}")
     return {"device_ms": total / 1e3, "idle": idle}
 
 
 def run_serving(dev, card: str):
     """Phase 12 (b): MultiGeometryServer in bfloat16 at full width, a
     4-slot bucket of 144x180 streams and a bucket of two 120x180 ones,
-    FRAMES ticks after prewarm, counted (the main path of serving); then
-    VSRServer pools of 1, 4 and 8 slots at 144x180, each timed and
-    profiled. Returns (launches per bucket tick, the models, the pool
-    records)."""
+    FRAMES ticks after prewarm (which captures each bucket's tick),
+    counted (the main path of serving), each bucket's graph pool, and an
+    eviction that gives the evicted bucket's pool back; then VSRServer
+    pools of 1, 4 and 8 slots at 144x180, captured and with
+    ``capture=False``, each timed in turns and profiled. Returns (launches
+    per bucket tick, the models, the pool records)."""
     from tecogan_tpu_torch.config import TecoConfig
     from tecogan_tpu_torch.kernels import resblock_chain, upsample4
     from tecogan_tpu_torch.serve import MultiGeometryServer, VSRServer
@@ -1566,56 +1666,109 @@ def run_serving(dev, card: str):
     peak = torch.cuda.max_memory_allocated() / 2**20
     bucket_ticks = FRAMES * len(geos)
     need = {"upsample4": 2 * bucket_ticks, "resblock_chain": NUM_RESBLOCK * bucket_ticks}
-    log(f"[serve] (b) launches over {FRAMES} ticks of {len(geos)} buckets {launches}, at "
-        f"least {need}")
-    for k, n in need.items():
-        if launches[k] < n:
-            raise RuntimeError(f"[serve] {k} launched {launches[k]} times, want >= {n}")
+    log(f"[serve] (b) launches over {FRAMES} ticks of {len(geos)} captured buckets "
+        f"{launches}, want {need}")
+    if launches != need:
+        raise RuntimeError(f"[serve] launched {launches}, want {need}")
     for sid, hr in last.items():
         h, w = geos[streams[sid]]
         if hr.shape != (4 * h, 4 * w, 3) or hr.dtype != np.uint8 or hr.min() == hr.max():
             raise RuntimeError(f"[serve] {sid}: output {hr.shape} {hr.dtype}, "
                                f"range [{hr.min()}, {hr.max()}]")
+    pools = {geo: b.graph_pool_bytes() / 2**20 for geo, b in srv._buckets.items()}
     log(f"[serve] (b) MultiGeometryServer, bfloat16, {NUM_RESBLOCK} resblocks, buckets "
-        f"{srv.geometries}: prewarm {warm:.2f} s; {FRAMES} ticks of {len(streams)} streams "
-        f"in {secs:.3f} s, {secs / FRAMES * 1e3:.2f} ms/tick, "
-        f"{len(streams) * FRAMES / secs:.2f} frames/s aggregate; peak "
-        f"{peak:.0f} MiB; card: {card}")
+        f"{srv.geometries}: prewarm (capture) {warm:.2f} s; {FRAMES} ticks of {len(streams)} "
+        f"streams in {secs:.3f} s, {secs / FRAMES * 1e3:.2f} ms/tick, "
+        f"{len(streams) * FRAMES / secs:.2f} frames/s aggregate; peak allocated "
+        f"{peak:.0f} MiB; graph pools {', '.join(f'{g}: {m:.1f} MiB' for g, m in pools.items())} "
+        f"(bucket_bytes, the JAX formula, counts {', '.join(f'{g}: {srv.bucket_bytes(*g) / 2**20:.1f} MiB' for g in pools)}); card: {card}")
+    check_eviction(srv, geos["walk"], ["walk0", "walk1"])
     models = (srv.generator, srv.fnet)
     pools = {}
     for slots in SERVE_POOLS:
-        pool = VSRServer(cfg, *models, LR_H, LR_W, max_streams=slots, output="uint8",
-                         device=dev)
-        pool.prewarm()
         ids = [f"s{i}" for i in range(slots)]
-        for sid in ids:
-            pool.open(sid)
         frames = {sid: np.roll(clips["cal"], -i, axis=0) for i, sid in enumerate(ids)}
-        torch.cuda.reset_peak_memory_stats()
-        first, _ = serve_ticks(pool, frames)  # the first run after prewarm
-        secs, _ = serve_ticks(pool, frames)
-        peak = torch.cuda.max_memory_allocated() / 2**20
-        rec = {"slots": slots, "ms_per_tick": secs / FRAMES * 1e3,
-               "frames_per_s": slots * FRAMES / secs, "peak_mib": peak,
-               "first_ms_per_tick": first / FRAMES * 1e3,
-               "host_step_ms": serve_ticks.step_s / FRAMES * 1e3}
-        log(f"[serve] (b) VSRServer {slots} slot(s) of {LR_H}x{LR_W}, bfloat16: {FRAMES} "
-            f"ticks in {secs:.3f} s, {rec['ms_per_tick']:.3f} ms/tick, "
-            f"{rec['frames_per_s']:.2f} frames/s aggregate (the first {FRAMES} ticks after "
-            f"prewarm: {rec['first_ms_per_tick']:.3f} ms/tick); the host spends "
-            f"{rec['host_step_ms']:.3f} ms/tick inside step(); peak {peak:.0f} MiB; "
-            f"card: {card}")
-        rec.update(profile_serving(pool, frames, secs, f"{slots} slot(s)"))
+        recs = {}
+        for mode, capture in (("captured", None), ("eager", False)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            pool = VSRServer(cfg, *models, LR_H, LR_W, max_streams=slots, output="uint8",
+                             device=dev, capture=capture)
+            pool.prewarm()
+            for sid in ids:
+                pool.open(sid)
+            first, _ = serve_ticks(pool, frames)  # the first run after prewarm
+            recs[mode] = {"pool": pool, "first_ms_per_tick": first / FRAMES * 1e3,
+                          "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20,
+                          "graph_pool_mib": pool.graph_pool_bytes() / 2**20,
+                          "secs": [], "step_s": []}
+        for mode in ("eager", "captured", "captured", "eager"):
+            rec = recs[mode]
+            secs, _ = serve_ticks(rec["pool"], frames)
+            rec["secs"].append(secs)
+            rec["step_s"].append(serve_ticks.step_s)
+        for mode, rec in recs.items():
+            secs = float(np.median(rec["secs"]))
+            rec.update({"slots": slots, "ms_per_tick": [s / FRAMES * 1e3 for s in rec["secs"]],
+                        "frames_per_s": [slots * FRAMES / s for s in rec["secs"]],
+                        "host_step_ms": [s / FRAMES * 1e3 for s in rec["step_s"]]})
+            log(f"[serve] (b) VSRServer {slots} slot(s) of {LR_H}x{LR_W}, bfloat16, {mode}: "
+                f"{FRAMES} ticks, {', '.join(f'{m:.3f}' for m in rec['ms_per_tick'])} ms/tick, "
+                f"{', '.join(f'{f:.2f}' for f in rec['frames_per_s'])} frames/s aggregate (the "
+                f"first {FRAMES} ticks after prewarm: {rec['first_ms_per_tick']:.3f} ms/tick); "
+                f"the host spends {', '.join(f'{m:.3f}' for m in rec['host_step_ms'])} ms/tick "
+                f"inside step(); peak allocated {rec['peak_mib']:.0f} MiB above what was "
+                f"allocated before the pool (prewarm and first run), graph pool "
+                f"{rec['graph_pool_mib']:.1f} MiB; card: {card}")
+            rec.update(profile_serving(rec["pool"], frames, secs, f"{slots} slot(s) {mode}"))
         if slots == 1:
-            log_tick_host_split(pool)
-        pools[slots] = rec
+            log_tick_host_split(recs["captured"]["pool"], recs["eager"]["pool"])
+        pools[slots] = {m: {k: v for k, v in r.items() if k not in ("pool", "secs", "step_s")}
+                        for m, r in recs.items()}
+    log("[serve] (b) pool records " + json.dumps({str(k): v for k, v in pools.items()}))
     per_tick = {k: v / bucket_ticks for k, v in launches.items()}
     return per_tick, models, pools
 
 
-def log_tick_host_split(srv) -> None:
-    """The host's seconds to queue a tick's parts (no wait on the device:
-    each part is queued FRAMES times, then the device is synchronised)."""
+def check_eviction(srv, geo, stream_ids) -> None:
+    """Close the streams of bucket ``geo``, then open a smaller third
+    geometry under a budget that fits two buckets: the idle ``geo`` bucket
+    is evicted, and no device segment of its graphs' pools remains."""
+    tick = next(iter(srv._buckets[geo]._programs.values()))
+    pool_id, held = tick.pool_id, tick.pool_bytes()
+    for sid in stream_ids:
+        srv.close(sid)
+    third = (geo[0] - 24, geo[1])
+    saved = srv.state_budget_mb
+    srv.state_budget_mb = (srv.footprint_bytes + srv.bucket_bytes(*third) - 1) / 2**20
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    try:
+        srv.open("third", *third)
+    finally:
+        srv.state_budget_mb = saved
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == pool_id)
+    log(f"[serve] (b) eviction: opening {third[0]}x{third[1]} evicted the idle "
+        f"{geo[0]}x{geo[1]} bucket (its graph pool held {held / 2**20:.1f} MiB); the card's "
+        f"reserved memory went from {reserved / 2**20:.1f} to "
+        f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB with the new bucket's buffers, "
+        f"{left} bytes of the evicted pool left; buckets {srv.geometries}")
+    if geo in srv.geometries or left or held <= 0:
+        raise RuntimeError(f"[serve] eviction: buckets {srv.geometries}, {left} bytes of the "
+                           f"pool left of {held}")
+    srv.close("third")
+
+
+def log_tick_host_split(captured, eager) -> None:
+    """The host's seconds to queue a 1-slot tick (no wait on the device:
+    each is queued FRAMES times, then the device is synchronised): the
+    captured tick's replay, and the eager tick and its parts."""
     from tecogan_tpu_torch.recurrent.step import RecurrentState, generator_step, upscale_flow
 
     def host_ms(fn):
@@ -1628,15 +1781,16 @@ def log_tick_host_split(srv) -> None:
         torch.cuda.synchronize()
         return ms
 
-    lr = srv._lr_batch(torch.uint8)
+    lr = eager._lr_batch(torch.uint8)
     with torch.inference_mode():
-        state = RecurrentState(*(t.clone() for t in srv._state))
-        x = (lr.float() / 255.0).to(srv.dtype)
+        state = RecurrentState(*(t.clone() for t in eager._state))
+        x = (lr.float() / 255.0).to(eager.dtype)
         pair = torch.cat([state.prev_lr, x], dim=-1)
-        flow = upscale_flow(srv.fnet(pair), srv.height, srv.width)
-        parts = {"tick (masks, frame step, state)": lambda: srv._tick(lr),
-                 "FNet": lambda: srv.fnet(pair),
-                 "warp + generator": lambda: generator_step(srv.generator, state, x, flow)}
+        flow = upscale_flow(eager.fnet(pair), eager.height, eager.width)
+        parts = {"captured tick (replay)": captured._programs[torch.uint8],
+                 "eager tick (masks, frame step, state)": eager._programs[torch.uint8],
+                 "FNet": lambda: eager.fnet(pair),
+                 "warp + generator": lambda: generator_step(eager.generator, state, x, flow)}
         times = {name: host_ms(fn) for name, fn in parts.items()}
     log("[serve] (b) host time to queue one 1-slot tick's parts: "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
@@ -1682,12 +1836,15 @@ print(json.dumps({"upsample4": kernels.upsample4.launches,
 
 
 def check_export(dev, tmp: str, models) -> None:
-    """Phase 12 (c): the frame step exported at (4, 144, 180) in bfloat16,
-    saved, then loaded and run in a fresh process that imports only torch
-    and tecogan_tpu_torch.kernels: bit-equal to a VSRServer tick on the same
-    state and frames, both under cuDNN's deterministic algorithms."""
+    """Phase 12 (c): three ticks of a 4-slot VSRServer at 144x180 in
+    bfloat16, captured and with ``capture=False``, bit-equal (outputs and
+    state) under cuDNN's deterministic algorithms; then the frame step
+    exported at (4, 144, 180), saved, loaded and run in a fresh process
+    that imports only torch and tecogan_tpu_torch.kernels: bit-equal to the
+    captured tick on the same state and frames."""
     from tecogan_tpu_torch.config import TecoConfig
     from tecogan_tpu_torch.serve import VSRServer, export_frame_step, save_frame_step
+    from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
 
     cfg = TecoConfig(num_resblock=NUM_RESBLOCK, compute_dtype="bfloat16")
     rng = np.random.RandomState(14)
@@ -1695,16 +1852,31 @@ def check_export(dev, tmp: str, models) -> None:
     path, inputs, outputs = (os.path.join(tmp, n) for n in ("step.pt2", "in.pt", "out.pt"))
     torch.backends.cudnn.deterministic = True
     try:
-        srv = VSRServer(cfg, *models, LR_H, LR_W, max_streams=SERVE_SLOTS, output="uint8",
-                        device=dev)
         ids = [f"s{i}" for i in range(SERVE_SLOTS)]
-        for sid in ids:
-            srv.open(sid)
-        for t in range(2):
-            srv.step(dict(zip(ids, clip[t])))
-        torch.save({"prev_lr": srv._state.prev_lr.cpu(), "prev_hr": srv._state.prev_hr.cpu(),
-                    "lr": torch.from_numpy(clip[2])}, inputs)
-        out = srv.step(dict(zip(ids, clip[2])))
+        ticks = {}
+        for mode, capture in (("eager", False), ("captured", None)):
+            srv = VSRServer(cfg, *models, LR_H, LR_W, max_streams=SERVE_SLOTS,
+                            output="uint8", device=dev, capture=capture)
+            for sid in ids:
+                srv.open(sid)
+            ticks[mode] = []
+            for t in range(3):
+                if t == 2:
+                    torch.save({"prev_lr": srv._state.prev_lr.cpu(),
+                                "prev_hr": srv._state.prev_hr.cpu(),
+                                "lr": torch.from_numpy(clip[2])}, inputs)
+                out = srv.step(dict(zip(ids, clip[t])))
+                ticks[mode].append([np.stack([out[sid] for sid in ids]),
+                                    *(t_.view(torch.int16).cpu().numpy() for t_ in srv._state)])
+        if not isinstance(srv._programs[torch.uint8], CapturedProgram):
+            raise RuntimeError("[serve] (c) the server's tick is not a captured graph")
+        same = all(np.array_equal(a, b) for got, want in zip(ticks["captured"], ticks["eager"])
+                   for a, b in zip(got, want))
+        log(f"[serve] (c) VSRServer {SERVE_SLOTS} slots of {LR_H}x{LR_W}, bfloat16, cuDNN "
+            f"deterministic: 3 captured ticks vs capture=False, outputs and state "
+            f"{'bit-equal' if same else 'DIFFER'}")
+        if not same:
+            raise RuntimeError("[serve] (c) the captured tick differs from the eager one")
         want = [srv._state.prev_lr.cpu(), srv._state.prev_hr.cpu(),
                 torch.from_numpy(np.stack([out[sid] for sid in ids]))]
         t0 = time.perf_counter()
@@ -1729,7 +1901,7 @@ def check_export(dev, tmp: str, models) -> None:
         f"export + save {export_s:.2f} s, {os.path.getsize(path) / 1e6:.1f} MB; a fresh "
         f"process loaded and ran it in {child_s:.2f} s with launches upsample4 "
         f"{report['upsample4']}, resblock_chain {report['resblock_chain']}; (prev_lr, "
-        f"prev_hr, hr) bit-equal to VSRServer's tick: {equal}; model modules imported "
+        f"prev_hr, hr) bit-equal to VSRServer's captured tick: {equal}; model modules imported "
         f"there: {loaded or 'none'}")
     if not all(equal) or loaded or report["upsample4"] != 2 or \
             report["resblock_chain"] != NUM_RESBLOCK:
@@ -1773,6 +1945,7 @@ def run_serve_cli(dev, card: str, tmp: str) -> None:
     from tecogan_tpu_torch.data.inference import read_frames
     from tecogan_tpu_torch.data.png import read_png, write_png
     from tecogan_tpu_torch.data.synthetic import synthetic_clip
+    from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
     from tecogan_tpu_torch.weights import params_to_npz, to_jax_params
 
     npz = os.path.join(tmp, "serve_params.npz")
@@ -1843,9 +2016,13 @@ def run_serve_cli(dev, card: str, tmp: str) -> None:
             max(m for m, _ in worst.values()) > 1:
         raise RuntimeError(f"[serve] cli.serve vs cli.main: {worst}, {stats['written']}")
 
+    captures = CapturedProgram.captures
     stats, wall, printed = quiet(cli_serve.main, [
         "--device", str(dev), "--input_dirs", ",".join(paths), "--output_dir",
         os.path.join(tmp, "served16"), "--params_npz", npz, "--compute_dtype", "bfloat16"])
+    captures = CapturedProgram.captures - captures
+    if captures != 2:  # one tick graph per geometry bucket, captured by its prewarm
+        raise RuntimeError(f"[serve] (d) cli.serve captured {captures} graphs, want 2")
     for line in printed.splitlines():
         if line.startswith(("total time", "io:", "[serve] prewarmed")) or "aggregate" in line:
             log(f"[serve] (d) | {line}")
@@ -1853,8 +2030,9 @@ def run_serve_cli(dev, card: str, tmp: str) -> None:
         f"{stats['frames']} HR PNGs in {stats['secs']:.3f} s of serving, "
         f"{stats['frames'] / stats['secs']:.2f} frames/s aggregate, {wall:.3f} s end to end "
         f"with the writer flush; {stats['ticks']} ticks; decode {stats['decode_s']:.3f} s "
-        f"on the source threads, ticks {stats['tick_s']:.3f} s, waiting for decode "
-        f"{stats['idle_s']:.3f} s, writer flush {stats['flush_s']:.3f} s; card: {card}")
+        f"on the source threads, ticks {stats['tick_s']:.3f} s, waiting for decode or a prewarm "
+        f"{stats['idle_s']:.3f} s, writer flush {stats['flush_s']:.3f} s; {captures} tick "
+        f"graphs captured (one a geometry); card: {card}")
 
     rng = np.random.RandomState(15)
     for h, w in ((LR_H, LR_W), (4 * LR_H, 4 * LR_W)):
@@ -1874,6 +2052,18 @@ def run_serve_cli(dev, card: str, tmp: str) -> None:
             times[kind] = float(np.median(reps)) * 1e3
         log(f"[serve] PNG decode {h}x{w} RGB (median of 5, host CPU of the card's machine): "
             + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items()))
+
+
+def phase(name: str, fn, *args):
+    """Run one phase; its seconds go to ``phase.seconds``."""
+    t0 = time.perf_counter()
+    result = fn(*args)
+    phase.seconds[name] = time.perf_counter() - t0
+    return result
+
+
+phase.seconds = {}
+START = time.perf_counter()
 
 
 def main() -> None:
@@ -1903,30 +2093,33 @@ def main() -> None:
         f"(cudaOccupancyMaxActiveClusters) on "
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
-    records = check_kernels(dev)
+    records = phase("3 kernels", check_kernels, dev)
     if "--kernels-only" in sys.argv[1:]:
         log("[main] --kernels-only: phases 1-3 done; no result line")
         return
-    check_autograd(dev)
-    check_path_vs_cpu(dev)
-    stream_launches = run_main_path(dev, card)
-    check_step_vs_cpu(dev)
+    phase("4 autograd", check_autograd, dev)
+    phase("5 path vs CPU", check_path_vs_cpu, dev)
+    stream_launches = phase("6 streaming", run_main_path, dev, card)
+    phase("7 FRVSR step vs CPU", check_step_vs_cpu, dev)
     # Phase 8 runs as a user's training does, with PyTorch's default flags:
     # cuDNN convolutions in TF32, float32 matmuls in full float32.
     torch.backends.cudnn.allow_tf32 = True
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches = run_training(dev, card, tmp)
+        train_launches = phase("8 FRVSR training", run_training, dev, card, tmp)
         # Phase 9 runs as a user's CLI does, with the same default flags.
-        cli_launches = run_cli(dev, card, tmp, os.path.join(tmp, "run", "checkpoints"))
-        check_gan_step_vs_cpu(dev)  # phase 10, TF32 off inside
+        cli_launches = phase("9 CLI and suite", run_cli, dev, card, tmp,
+                             os.path.join(tmp, "run", "checkpoints"))
+        phase("10 TecoGAN step vs CPU", check_gan_step_vs_cpu, dev)  # TF32 off inside
         # Phase 11 trains as a user does, with the default flags, on phase
         # 8's scenes and from its checkpoint.
-        gan_launches = run_tecogan_training(dev, card, tmp)
+        gan_launches = phase("11 TecoGAN training", run_tecogan_training, dev, card, tmp)
         # Phase 12: serving. (a) and (d)'s comparison switch TF32 off inside.
-        check_serving_vs_cpu(dev)
-        serve_launches, serve_models, _ = run_serving(dev, card)
-        check_export(dev, tmp, serve_models)
-        run_serve_cli(dev, card, tmp)
+        phase("12a server vs CPU", check_serving_vs_cpu, dev)
+        serve_launches, serve_models, _ = phase("12b serving", run_serving, dev, card)
+        phase("12c export", check_export, dev, tmp, serve_models)
+        phase("12d cli.serve", run_serve_cli, dev, card, tmp)
+    log("[main] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase.seconds.items())
+        + f"; in all {time.perf_counter() - START:.1f} s since the script started")
 
     # Every timed case of phase 3 beside its wrapper's launches on each
     # path: a 46-frame streaming run (phase 6), an FRVSR training step

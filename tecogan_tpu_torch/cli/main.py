@@ -211,9 +211,10 @@ def load_inference_params(args, config):
 def run_inference(args, config) -> dict:
     """Streaming inference over a PNG directory (reference main.py:180-270):
     decode (and blur, on the HR route) up front, stream the chunks through
-    :class:`StreamingSR` on the device, encode the HR PNGs on
-    ``queue_thread`` threads while the next chunk computes. Returns the wall
-    seconds of each stage and the counts."""
+    :class:`StreamingSR` on the device (one captured CUDA graph per chunk on
+    the card, its capture inside the stream's seconds), encode the HR PNGs
+    on ``queue_thread`` threads while the next chunk computes. Returns the
+    wall seconds of each stage and the counts."""
     from tecogan_tpu_torch.data.inference import FrameWriter, load_inference_frames
     from tecogan_tpu_torch.recurrent import WARMUP_FRAMES, StreamingSR
 
@@ -246,10 +247,12 @@ def run_inference(args, config) -> dict:
     n = data.inputs.shape[0]
     print(f"total time {secs:.2f}, frame number {n}")  # main.py:270 format
     print(f"Wrote {written} frames to {out_dir}")
-    print(f"io: read {decode:.3f} s, stream {secs:.3f} s, writer flush {flush:.3f} s "
+    print(f"io: read {decode:.3f} s, stream {secs:.3f} s (of which building the chunk's "
+          f"program {sr.capture_s:.3f} s), writer flush {flush:.3f} s "
           f"({writer.num_threads} encode threads)")
-    return {"decode_s": decode, "stream_s": secs, "flush_s": flush, "frames": n,
-            "written": written, "threads": writer.num_threads, "out_dir": out_dir}
+    return {"decode_s": decode, "stream_s": secs, "capture_s": sr.capture_s, "flush_s": flush,
+            "frames": n, "written": written, "threads": writer.num_threads,
+            "out_dir": out_dir}
 
 
 def run_train(args, config) -> None:

@@ -194,7 +194,7 @@ def run_serve(args, config, device: torch.device) -> dict:
             if not tick_frames:
                 if pending or srv.open_streams:
                     t_i = time.perf_counter()
-                    time.sleep(0.002)  # decoders lagging; don't spin hot
+                    time.sleep(0.002)  # decoders or a prewarm lagging; do not spin hot
                     idle_s += time.perf_counter() - t_i
                 continue
             # fetch=False: the downloads are waited for on the writer
@@ -226,7 +226,7 @@ def run_serve(args, config, device: torch.device) -> dict:
     print(f"total time {secs:.2f}, frame number {sum(written.values())}")
     print(f"{ticks} ticks, {frames_done / secs:.1f} frames/sec aggregate; wrote {written}")
     print(f"io: decode {decode:.3f} s on the source threads, ticks {tick_s:.3f} s, "
-          f"waiting for decode {idle_s:.3f} s, writer flush {flush:.3f} s")
+          f"waiting for decode or a prewarm {idle_s:.3f} s, writer flush {flush:.3f} s")
     return {"secs": secs, "ticks": ticks, "frames": frames_done, "written": written,
             "decode_s": decode, "tick_s": tick_s, "idle_s": idle_s, "flush_s": flush}
 

@@ -2,13 +2,18 @@
 
 Each wrapper runs its plain PyTorch version for a CPU tensor, launches its
 kernel for a CUDA tensor (or raises), and counts its launches in an
-integer attribute ``launches``. ``upsample4`` and ``resblock_chain`` are
+integer attribute ``launches`` (through ``ops.count``, which also keeps the
+calling thread's tally: a :class:`LaunchRecord` reads it around a CUDA
+graph's capture, and the graph adds those launches on every replay, so the
+counters count the kernels that ran, captured or not). ``upsample4`` and
+``resblock_chain`` are
 differentiable (``torch.autograd.Function``s) on both devices. Importing
 this package registers the launches as operators,
 ``torch.ops.tecogan_torch.{upsample4,upsample4_bwd,resblock_chain}``
 (``ops.py``), which an exported program calls.
 """
 
+from tecogan_tpu_torch.kernels.ops import LaunchRecord
 from tecogan_tpu_torch.kernels.resblocks import (
     resblock_chain,
     resblock_chain_plain,
@@ -23,6 +28,7 @@ from tecogan_tpu_torch.kernels.upsample4 import (
 )
 
 __all__ = [
+    "LaunchRecord",
     "bicubic_four",
     "resblock_chain",
     "resblock_chain_plain",

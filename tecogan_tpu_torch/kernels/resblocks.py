@@ -19,8 +19,9 @@ b1/b2 (N, C). The kernel is specialised to C = 64, the TecoGAN width.
 The launch is a registered operator, ``torch.ops.tecogan_torch.
 resblock_chain`` (``kernels/ops.py``), with a fake kernel that gives its
 output's shape, so ``torch.export`` traces through it; its ``launches``
-counter is kept in the operator's body, so an exported program's replays
-count too.
+counter is kept in the operator's body (``ops.count``), so an exported
+program's replays count too, and a captured CUDA graph adds its launches on
+every replay.
 
 :func:`resblock_chain` is differentiable on both devices through one
 ``torch.autograd.Function``. Its forward takes the plain version
@@ -97,7 +98,7 @@ def _forward(x, w1, b1, w2, b2) -> torch.Tensor:
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), b, h, w, n,
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "resblock_chain")
-    resblock_chain.launches += n  # one kernel launch per residual block
+    ops.count(resblock_chain, n)  # one kernel launch per residual block
     return buf_a if n % 2 else buf_b
 
 

@@ -35,7 +35,8 @@ Each launch is a registered operator, ``torch.ops.tecogan_torch.upsample4``
 and ``.upsample4_bwd`` (``kernels/ops.py``), with a fake kernel that gives
 its output's shape, so ``torch.export`` traces through it and an exported
 program replays it. The ``launches`` counters are kept in the operators'
-bodies, so replays count too.
+bodies (``ops.count``), so an exported program's replays count too, and a
+captured CUDA graph adds its launches on every replay.
 """
 
 from __future__ import annotations
@@ -118,7 +119,7 @@ def _forward(x: torch.Tensor, filter_: str, alpha: float) -> torch.Tensor:
         x.data_ptr(), out.data_ptr(), b, h, w, c, _FILTERS[filter_], alpha,
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "upsample4")
-    upsample4.launches += 1
+    ops.count(upsample4)
     return out
 
 
@@ -147,7 +148,7 @@ def _backward(g: torch.Tensor, filter_: str, alpha: float) -> torch.Tensor:
         g.data_ptr(), dx.data_ptr(), b, h4 // 4, w4 // 4, c, _FILTERS[filter_],
         alpha, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "upsample4_bwd")
-    upsample4_bwd.launches += 1
+    ops.count(upsample4_bwd)
     return dx
 
 

@@ -8,9 +8,14 @@ frames may arrive as uint8 and are normalised on the device; HR frames may
 leave as uint8, quantised on the device exactly as
 ``np.clip(img * 255, 0, 255).astype(np.uint8)`` (reference ops.py:520-523).
 
-On CUDA, each chunk's output is copied to pinned host memory without
-blocking, and read only after the next chunk has been queued, so the copy
-and the host's work overlap the device's.
+On CUDA, each chunk runs as one captured CUDA graph (the JAX package's
+``jax.jit`` of the chunk's ``lax.scan`` with the state donated,
+``tecogan_tpu/recurrent/inference.py:259``): the chunk goes up from pinned
+host buffers used in turn into a static LR buffer, the graph replays over
+it and the static state, which it updates in place, and its output is
+copied to pinned host memory without blocking and read only after the next
+chunk has been queued, so the copies and the host's work overlap the
+device's. On the CPU the same chunk body runs eagerly.
 
 Warm-up protocol: the first 5 outputs belong to reversed frames [5..1]
 prepended by :func:`prepend_warmup` and are dropped (reference
@@ -19,8 +24,9 @@ dataloader.py:42-44, main.py:262-269).
 
 from __future__ import annotations
 
+import functools
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +40,7 @@ from tecogan_tpu_torch.recurrent.step import (
     init_state,
     upscale_flow,
 )
+from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram, resolve_capture
 
 WARMUP_FRAMES = 5  # reference dataloader.py:42-44
 
@@ -54,6 +61,75 @@ def prepend_warmup(frames: List) -> List:
     return list(frames[5:0:-1]) + list(frames)
 
 
+@torch.inference_mode()
+def run_chunk(generator: Generator, fnet: FNet, dtype: torch.dtype, output: str,
+              state: RecurrentState, lr_chunk: torch.Tensor) -> torch.Tensor:
+    """One chunk: (T, B, h, w, 3) LR frames on the device -> (T, B, 4h, 4w,
+    3) HR frames (float32 or uint8, per ``output``). The new state is written
+    into ``state``'s tensors in place (the JAX package's donated state)."""
+    if lr_chunk.dtype == torch.uint8:
+        lr_chunk = lr_chunk.float() / 255.0
+    lr_chunk = lr_chunk.to(dtype)
+    t, b, h, w, c = lr_chunk.shape
+    prev = torch.cat([state.prev_lr[None], lr_chunk[:-1]], dim=0)
+    pairs = torch.cat([prev, lr_chunk], dim=-1).reshape(t * b, h, w, 2 * c)
+    flow = upscale_flow(fnet(pairs), h, w).reshape(t, b, 4 * h, 4 * w, 2)
+    outs, st = [], state
+    for i in range(t):
+        st, hr = generator_step(generator, st, lr_chunk[i], flow[i])
+        if output == "uint8":
+            outs.append((hr.float() * 255.0).clamp_(0.0, 255.0).to(torch.uint8))
+        else:
+            outs.append(hr.float())
+    for dst, new in zip(state, st):
+        dst.copy_(new)
+    return torch.stack(outs)
+
+
+class _Chunk:
+    """One chunk shape's program: the static device buffers (the LR chunk
+    and the recurrent state), the host buffers its uploads go through, and
+    :func:`run_chunk` over them, captured on the card (the graph's pool holds
+    its temporaries and its HR output) or eager."""
+
+    def __init__(self, sr: "StreamingSR", chunk: int, batch: int, h: int, w: int,
+                 frame_dtype: torch.dtype):
+        device = sr.device
+        self.lr = torch.zeros((chunk, batch, h, w, 3), dtype=frame_dtype, device=device)
+        self.state = init_state(batch, h, w, sr.dtype, device)
+        if device.type == "cuda":
+            # Two pinned buffers used in turn: the host fills one while the
+            # device may still be reading the other's last upload.
+            self.staging = [torch.zeros(self.lr.shape, dtype=frame_dtype, pin_memory=True)
+                            for _ in range(2)]
+        else:
+            self.staging = [self.lr]  # the host writes the input itself
+        self.done: List[Optional[torch.cuda.Event]] = [None] * len(self.staging)
+        self.uploads = 0
+        body = functools.partial(run_chunk, sr.generator, sr.fnet, sr.dtype, sr.output,
+                                 self.state, self.lr)
+        if sr.capture:
+            self.run = CapturedProgram(body, (self.lr, *self.state),
+                                       name=f"StreamingSR chunk {tuple(self.lr.shape)}")
+        else:
+            self.run = body
+
+    def upload(self, piece: np.ndarray) -> None:
+        """Put (n <= chunk, B, h, w, 3) frames into the LR buffer, padded by
+        repeating the last frame (the extra outputs are discarded)."""
+        i = self.uploads % len(self.staging)
+        if self.done[i] is not None:
+            self.done[i].synchronize()  # the device has read its last upload
+        host = self.staging[i].numpy()
+        host[:len(piece)] = piece
+        host[len(piece):] = piece[-1]
+        if self.staging[i] is not self.lr:
+            self.lr.copy_(self.staging[i], non_blocking=True)
+            self.done[i] = torch.cuda.Event()
+            self.done[i].record()
+        self.uploads += 1
+
+
 class StreamingSR:
     """Chunked streaming super-resolver.
 
@@ -63,70 +139,60 @@ class StreamingSR:
         the compute dtype in place (:func:`place_models`).
       output: "float32" (HR in [0, 1]) or "uint8" (quantised on the device).
       device: where to run; the card unless the caller asks for the CPU.
+      capture: None (the default) runs each chunk shape as one captured CUDA
+        graph on the card (``utils/cuda_graphs.py``; the JAX package's jitted
+        chunk with its donated state) and eagerly on the CPU; False runs
+        eagerly on the card too; True on the CPU raises.
+
+    Each chunk shape (chunk length, batch, h, w, LR dtype) gets its static
+    buffers and its program on first use, kept for later runs; a new shape
+    warms up and captures once, inside that run's wall time
+    (:attr:`capture_s` sums those seconds). Each run zeroes the state first.
     """
 
     def __init__(self, config: TecoConfig, generator: Generator, fnet: FNet,
-                 output: str = "float32", device="cuda"):
+                 output: str = "float32", device="cuda",
+                 capture: Optional[bool] = None):
         if output not in ("float32", "uint8"):
             raise ValueError(f"output must be float32|uint8, got {output}")
         self.config = config
         self.output = output
         self.dtype = config.torch_dtype
         self.device = torch.device(device)
+        self.capture = resolve_capture(capture, self.device)
         self.generator, self.fnet = place_models(generator, fnet, self.device,
                                                  self.dtype)
+        self._chunks: Dict[Tuple, _Chunk] = {}
+        self.capture_s = 0.0
 
-    @torch.inference_mode()
-    def _run_chunk(self, state: RecurrentState, lr_chunk: torch.Tensor
-                   ) -> Tuple[RecurrentState, torch.Tensor]:
-        """(T, B, h, w, 3) LR frames on the device -> new state and
-        (T, B, 4h, 4w, 3) HR frames (float32 or uint8)."""
-        if lr_chunk.dtype == torch.uint8:
-            lr_chunk = lr_chunk.float() / 255.0
-        lr_chunk = lr_chunk.to(self.dtype)
-        t, b, h, w, c = lr_chunk.shape
-        prev = torch.cat([state.prev_lr[None], lr_chunk[:-1]], dim=0)
-        pairs = torch.cat([prev, lr_chunk], dim=-1).reshape(t * b, h, w, 2 * c)
-        flow = upscale_flow(self.fnet(pairs), h, w).reshape(
-            t, b, 4 * h, 4 * w, 2)
-        outs = []
-        for i in range(t):
-            state, hr = generator_step(self.generator, state, lr_chunk[i],
-                                       flow[i])
-            if self.output == "uint8":
-                outs.append((hr.float() * 255.0).clamp_(0.0, 255.0)
-                            .to(torch.uint8))
-            else:
-                outs.append(hr.float())
-        return state, torch.stack(outs)
-
-    def _chunks(self, frames: np.ndarray, chunk: int):
-        """Yield (piece, n, start): (chunk, B, h, w, 3) device tensors from
-        (T, B, h, w, 3) frames, the last padded by repeating its last frame
-        (the extra outputs are discarded)."""
-        for s in range(0, frames.shape[0], chunk):
-            piece = frames[s:s + chunk]
-            n = piece.shape[0]
-            if n < chunk:
-                piece = np.concatenate(
-                    [piece, np.repeat(piece[-1:], chunk - n, axis=0)], axis=0)
-            yield torch.from_numpy(np.ascontiguousarray(piece)).to(self.device), n, s
+    def _chunk(self, chunk: int, frames: np.ndarray) -> _Chunk:
+        _, batch, h, w, _ = frames.shape
+        key = (chunk, batch, h, w, torch.from_numpy(np.zeros(0, frames.dtype)).dtype)
+        prog = self._chunks.get(key)
+        if prog is None:
+            t0 = time.perf_counter()
+            prog = self._chunks[key] = _Chunk(self, *key)
+            self.capture_s += time.perf_counter() - t0
+        return prog
 
     def _stream(self, frames: np.ndarray, chunk: int,
                 deliver: Callable[[np.ndarray, int], None]) -> float:
         """Run (T, B, h, w, 3) frames; ``deliver(hr, start)`` gets each
         chunk's (n, B, 4h, 4w, 3) outputs in order. Returns wall seconds."""
-        _, bsz, h, w, _ = frames.shape
-        state = init_state(bsz, h, w, self.dtype, self.device)
         on_cuda = self.device.type == "cuda"
         t0 = time.perf_counter()
+        prog = self._chunk(chunk, frames)
+        for t in prog.state:  # the zero state (reference main.py:197-199)
+            t.zero_()
         pending = None
-        for lr, n, s in self._chunks(frames, chunk):
-            state, hr = self._run_chunk(state, lr)
-            host, done = hr[:n], None
-            if on_cuda:
+        for s in range(0, frames.shape[0], chunk):
+            piece = frames[s:s + chunk]
+            prog.upload(piece)
+            hr = prog.run()
+            host, done = hr[:len(piece)], None
+            if on_cuda:  # the next chunk's run overwrites hr: copy it first
                 host = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-                host.copy_(hr[:n], non_blocking=True)
+                host.copy_(hr[:len(piece)], non_blocking=True)
                 done = torch.cuda.Event()
                 done.record()
             if pending is not None:

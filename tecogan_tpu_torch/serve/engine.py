@@ -16,9 +16,13 @@ Both are ``torch.where`` selections on device bool masks, so a tick reads
 nothing from the device on the host. The masks and the LR batch go up in
 one host-to-device copy each, from pinned host buffers the server keeps,
 into device buffers it keeps; the state tensors keep their storage from
-tick to tick (the new state is written into them). A tick's launches
-therefore touch the same device addresses every time, which is what a
-captured CUDA graph of the tick needs (ROADMAP queue 1 item 16).
+tick to tick (the new state is written into them). On the card the tick
+is one captured CUDA graph per LR frame dtype over those buffers
+(``utils/cuda_graphs.py``; the JAX package's ``jax.jit(server_step,
+donate_argnums=(2,))``, ``tecogan_tpu/serve/engine.py:163``), replayed
+every tick; its output batch is static, and each tick copies it into its
+own pinned host buffer before the next replay can overwrite it (stream
+order). On the CPU the same tick runs eagerly.
 
 The frame step is the streaming engine's (recurrent/step.py:frame_step):
 the packed warp + space-to-depth route. The JAX package's folded-input
@@ -31,8 +35,9 @@ each, under a device-memory budget.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
-from typing import Dict, Iterable, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +47,7 @@ from tecogan_tpu_torch.models.fnet import FNet
 from tecogan_tpu_torch.models.generator import Generator
 from tecogan_tpu_torch.recurrent.inference import place_models
 from tecogan_tpu_torch.recurrent.step import RecurrentState, frame_step, init_state
+from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram, resolve_capture
 
 _FRAME_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.float32): torch.float32}
 
@@ -72,6 +78,21 @@ def build_frame_fn(config: TecoConfig, output: str = "uint8"):
         return state, out
 
     return frame_fn
+
+
+@torch.inference_mode()
+def server_tick(frame_fn, generator: Generator, fnet: FNet, masks: torch.Tensor,
+                state: RecurrentState, lr: torch.Tensor) -> torch.Tensor:
+    """One batched step on the device LR batch under the device (2, S)
+    reset/active masks; the new state is written into ``state``'s tensors
+    (the JAX package's donated state). Returns the HR batch."""
+    reset = masks[0].view(-1, 1, 1, 1)
+    active = masks[1].view(-1, 1, 1, 1)
+    base = RecurrentState(*(torch.where(reset, 0.0, s) for s in state))
+    stepped, out = frame_fn(generator, fnet, base, lr)
+    for dst, new, old in zip(state, stepped, base):
+        torch.where(active, new, old, out=dst)
+    return out
 
 
 class HostFrame:
@@ -125,11 +146,16 @@ class VSRServer:
         "float32".
       mesh: not ported (a slot pool across GPUs is ROADMAP queue 1 item 11).
       device: where to run; the card unless the caller asks for the CPU.
+      capture: None (the default) runs the tick as a captured CUDA graph on
+        the card, captured by :meth:`prewarm` or the first tick of each LR
+        frame dtype, and eagerly on the CPU; False runs eagerly on the card
+        too; True on the CPU raises.
     """
 
     def __init__(self, config: TecoConfig, generator: Generator, fnet: FNet,
                  height: int, width: int, max_streams: int = 4,
-                 output: str = "uint8", mesh=None, device="cuda"):
+                 output: str = "uint8", mesh=None, device="cuda",
+                 capture: Optional[bool] = None):
         if mesh is not None:
             raise NotImplementedError("a slot pool sharded across GPUs (mesh=) is "
                                       "ROADMAP queue 1 item 11")
@@ -138,12 +164,14 @@ class VSRServer:
         self.max_streams = max_streams
         self.output = output
         self.device = torch.device(device)
+        self.capture = resolve_capture(capture, self.device)
         self.dtype = config.torch_dtype
         self.generator, self.fnet = place_models(generator, fnet, self.device, self.dtype)
         self._frame_fn = build_frame_fn(config, output=output)
         self._state = init_state(max_streams, height, width, self.dtype, self.device)
         self._masks = torch.zeros((2, max_streams), dtype=torch.bool, device=self.device)
         self._lr: Dict[torch.dtype, torch.Tensor] = {}  # device LR batch per frame dtype
+        self._programs: Dict[torch.dtype, Callable[[], torch.Tensor]] = {}
         # Two sets of host buffers, used in turn: the host fills one while
         # the device may still be reading the other's last upload.
         self._staging = [_Staging(max_streams, self.device) for _ in range(2)]
@@ -161,35 +189,56 @@ class VSRServer:
                                           dtype=dtype, device=self.device)
         return self._lr[dtype]
 
-    @torch.inference_mode()
-    def _tick(self, lr: torch.Tensor) -> torch.Tensor:
-        """One batched step on the device LR batch under the device masks;
-        the new state is written into the state tensors. Returns the HR
-        batch."""
-        reset = self._masks[0].view(-1, 1, 1, 1)
-        active = self._masks[1].view(-1, 1, 1, 1)
-        base = RecurrentState(*(torch.where(reset, 0.0, s) for s in self._state))
-        stepped, out = self._frame_fn(self.generator, self.fnet, base, lr)
-        for dst, new, old in zip(self._state, stepped, base):
-            torch.where(active, new, old, out=dst)
-        return out
+    def _program(self, dtype: torch.dtype) -> Callable[[], torch.Tensor]:
+        """The tick over the static LR batch of ``dtype``: on first use
+        captured (its warm-up tick runs with every slot inactive, so it
+        keeps every state bit for bit) or, eager, the tick itself. Caller
+        holds ``_dispatch_lock``."""
+        tick = self._programs.get(dtype)
+        if tick is None:
+            lr = self._lr_batch(dtype)
+            body = functools.partial(server_tick, self._frame_fn, self.generator, self.fnet,
+                                     self._masks, self._state, lr)
+            if self.capture:
+                self._masks.zero_()
+                tick = CapturedProgram(body, (lr, self._masks, *self._state),
+                                       name=f"VSRServer tick {tuple(lr.shape)} {dtype}")
+            else:
+                tick = body
+            self._programs[dtype] = tick
+        return tick
 
     def prewarm(self, frame_dtype=np.uint8) -> None:
-        """Run one all-inactive tick before the first stream's: it loads the
-        kernel library (building it on first use) and settles cuDNN's
-        choices for this geometry, and keeps every slot's state bit for bit
-        (``active`` all False), so it is safe at any point in the server's
-        life. ``frame_dtype``: the LR dtype to warm (uint8 is the serving
-        feed)."""
-        lr = self._lr_batch(_FRAME_DTYPES[np.dtype(frame_dtype)])
+        """Capture the tick for ``frame_dtype`` (uint8 is the serving feed)
+        and run one all-inactive tick before the first stream's: the
+        capture's warm-up loads the kernel library (building it on first
+        use) and settles cuDNN's choices for this geometry, so no stream's
+        tick pays for them. Every slot's state stays bit for bit (``active``
+        all False), so it is safe at any point in the server's life."""
         on_cuda = self.device.type == "cuda"
         # A background thread starts on CUDA device 0: name the server's.
         with self._dispatch_lock, (torch.cuda.device(self.device) if on_cuda
                                    else contextlib.nullcontext()):
+            tick = self._program(_FRAME_DTYPES[np.dtype(frame_dtype)])
             self._masks.zero_()
-            self._tick(lr)
+            tick()
             if on_cuda:
                 torch.cuda.synchronize()
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes held by the captured ticks' memory pools (their
+        temporaries and output batches); 0 when the ticks run eagerly."""
+        return sum(t.pool_bytes() for t in self._programs.values()
+                   if isinstance(t, CapturedProgram))
+
+    def release(self) -> None:
+        """Free the captured ticks' graphs and memory pools (a bucket that a
+        :class:`MultiGeometryServer` evicts); a later tick captures anew."""
+        with self._dispatch_lock:
+            for tick in self._programs.values():
+                if isinstance(tick, CapturedProgram):
+                    tick.close()
+            self._programs.clear()
 
     # ------------------------------------------------------------ lifecycle
     def open(self, stream_id) -> int:
@@ -245,6 +294,7 @@ class VSRServer:
                 f"{first.dtype} (cast float inputs to float32)")
         dtype = _FRAME_DTYPES[first.dtype]
         with self._dispatch_lock:
+            tick = self._program(dtype)  # before the uploads: a capture zeroes the masks
             staging = self._staging[self._ticks % len(self._staging)]
             if staging.done is not None:
                 staging.done.synchronize()  # its last upload has been read
@@ -269,9 +319,9 @@ class VSRServer:
             if self.device.type == "cuda":
                 staging.done = torch.cuda.Event()
                 staging.done.record()
-            out = self._tick(lr)
-            host, done = out, None
-            if self.device.type == "cuda":
+            out = tick()
+            host, done = out, None  # on the CPU, the eager tick's own new tensor
+            if self.device.type == "cuda":  # the next replay overwrites out
                 host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
                 host.copy_(out, non_blocking=True)
                 done = torch.cuda.Event()
@@ -308,17 +358,19 @@ class MultiGeometryServer:
         of running the card out of memory. ``None`` disables the guard.
       mesh: not ported (ROADMAP queue 1 item 11).
       device: where to run; the card unless the caller asks for the CPU.
+      capture: each bucket's :class:`VSRServer` ``capture``.
     """
 
     def __init__(self, config: TecoConfig, generator: Generator, fnet: FNet,
                  slots_per_geometry: int = 4, output: str = "uint8",
                  mesh=None, state_budget_mb: Optional[float] = 2048.0,
-                 device="cuda"):
+                 device="cuda", capture: Optional[bool] = None):
         if mesh is not None:
             raise NotImplementedError("a slot pool sharded across GPUs (mesh=) is "
                                       "ROADMAP queue 1 item 11")
         self.config = config
         self.device = torch.device(device)
+        self.capture = resolve_capture(capture, self.device)
         self.generator, self.fnet = place_models(generator, fnet, self.device,
                                                  config.torch_dtype)
         self.slots_per_geometry = slots_per_geometry
@@ -333,9 +385,12 @@ class MultiGeometryServer:
     def bucket_bytes(self, height: int, width: int) -> int:
         """Device bytes one (height, width) bucket pins while it exists: the
         slot pool's recurrent state (prev_lr (h, w, 3) + prev_hr (4h, 4w, 3)
-        = 51·h·w·itemsize a slot) plus one tick's LR input and HR output.
-        The step's temporaries are not counted (PyTorch's allocator reuses
-        them from tick to tick)."""
+        = 51·h·w·itemsize a slot) plus one tick's LR input and HR output:
+        the JAX package's formula, whose budget errors the tests hold the
+        port to. A captured bucket also holds its tick's temporaries in the
+        graph's memory pool (:meth:`VSRServer.graph_pool_bytes`), which
+        this does not count; an eager tick's temporaries go back to
+        PyTorch's allocator from tick to tick."""
         hw = int(height) * int(width)
         item = self.config.torch_dtype.itemsize
         state = 51 * hw * item
@@ -356,7 +411,7 @@ class MultiGeometryServer:
                 srv = self._buckets[geo] = VSRServer(
                     self.config, self.generator, self.fnet, geo[0], geo[1],
                     max_streams=self.slots_per_geometry, output=self.output,
-                    device=self.device)
+                    device=self.device, capture=self.capture)
             self._use_clock += 1
             self._last_use[geo] = self._use_clock
         return srv
@@ -380,7 +435,7 @@ class MultiGeometryServer:
             key=lambda g: self._last_use.get(g, 0))
         while self.footprint_bytes + need > budget and idle:
             g = idle.pop(0)
-            del self._buckets[g]  # its device tensors are freed with it
+            self._buckets.pop(g).release()  # its graph's pool; its tensors go with it
             self._last_use.pop(g, None)
         if self.footprint_bytes + need > budget:
             busy = {g: f"{self.bucket_bytes(*g) / 2**20:.1f} MB"

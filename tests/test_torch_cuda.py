@@ -476,8 +476,9 @@ def _serving_models(seed, num_resblock):
 def test_server_tick_matches_streaming(cuda_device):
     """A 1-slot VSRServer, tick by tick, against StreamingSR.run on the same
     stream, float32 with TF32 off: the same frame step at the same batch
-    (FNet once a frame with chunks of 1); the chain and K1 launch on every
-    tick."""
+    (FNet once a frame with chunks of 1); after the prewarm (which captures
+    the tick, its warm-up tick running the kernels once) the chain and K1
+    launch on every tick."""
     from tecogan_tpu_torch.config import TecoConfig
     from tecogan_tpu_torch.recurrent import StreamingSR
     from tecogan_tpu_torch.serve import VSRServer
@@ -486,6 +487,7 @@ def test_server_tick_matches_streaming(cuda_device):
     frames = (synthetic_clip(4, 32, 48, seed=21, content="natural") * 255).astype(np.uint8)
     srv = VSRServer(cfg, *_serving_models(22, 4), 32, 48, max_streams=1, output="float32",
                     device=cuda_device)
+    srv.prewarm()
     srv.open("a")
     before = (upsample4.launches, resblock_chain.launches)
     got = np.stack([srv.step({"a": f})["a"] for f in frames])
@@ -533,3 +535,177 @@ def test_export_round_trip_on_the_card(cuda_device, tmp_path, dtype):
     assert torch.equal(hr, ref_hr)
     assert torch.equal(new_state.prev_hr, ref_state.prev_hr)
     assert torch.equal(new_state.prev_lr, ref_state.prev_lr)
+
+
+def _run_server_script(srv, clips):
+    """Streams attach on ticks 0 and 1, b sits out tick 2, a leaves and c
+    takes its slot (a reset) on tick 3. Returns every output and the state
+    after each tick, and each tick's launches (K1, chain)."""
+    script = ["a", {"a": 0}, "b", {"a": 1, "b": 0}, {"a": 2},
+              "-a", "c", {"b": 1, "c": 0}, {"b": 2, "c": 1}]
+    outs, states, launches = [], [], []
+    for step in script:
+        if isinstance(step, str):
+            srv.close(step[1:]) if step.startswith("-") else srv.open(step)
+            continue
+        before = (upsample4.launches, resblock_chain.launches)
+        got = srv.step({sid: clips[sid][k] for sid, k in step.items()})
+        launches.append((upsample4.launches - before[0], resblock_chain.launches - before[1]))
+        outs.append({sid: got[sid] for sid in sorted(got)})
+        states.append([t.cpu() for t in srv._state])
+    return outs, states, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_streaming_captured_matches_eager(cuda_device, monkeypatch, dtype):
+    """StreamingSR captured (the default on the card) against capture=False
+    under cuDNN's deterministic algorithms, 2 blocks, 32x48, chunks of 4
+    with a ragged last one: bit-equal outputs, the same launches per run
+    (3 chunks: K1 3 flows + 12 skips, the chain 2 x 12), one capture for the
+    chunk shape across three runs and none on the eager side."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.recurrent import StreamingSR
+    from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = TecoConfig(num_resblock=2, compute_dtype=dtype, infer_chunk=4)
+    frames = (synthetic_clip(10, 32, 48, seed=25, content="natural") * 255).astype(np.uint8)
+    outs, counts = [], []
+    for capture in (None, False):
+        sr = StreamingSR(cfg, *_serving_models(26, 2), output="float32", device=cuda_device,
+                         capture=capture)
+        assert sr.capture is (capture is None)
+        captures = CapturedProgram.captures
+        sr.run(frames, warmup=2)
+        before = (upsample4.launches, resblock_chain.launches)
+        out, _ = sr.run(frames, warmup=2)
+        counts.append((upsample4.launches - before[0], resblock_chain.launches - before[1]))
+        outs.append(out)
+        sr.run(frames[:7], warmup=2)  # the same chunk shape
+        assert CapturedProgram.captures - captures == (capture is None)
+    assert counts[0] == counts[1] == (15, 24)
+    assert outs[0].shape == (8, 128, 192, 3)
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_server_captured_matches_eager(cuda_device, monkeypatch):
+    """A 2-slot VSRServer, bfloat16, captured against capture=False under
+    cuDNN's deterministic algorithms, through a staggered attach, an idle
+    slot and a slot handed to a new stream (a reset): bit-equal outputs and
+    states after every tick, 2 K1 and 2 chain launches a tick on both."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.serve import VSRServer
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = TecoConfig(num_resblock=2, compute_dtype="bfloat16")
+    rng = np.random.RandomState(27)
+    clips = {sid: (rng.rand(3, 24, 40, 3) * 255).astype(np.uint8) for sid in "abc"}
+    runs = []
+    for capture in (None, False):
+        srv = VSRServer(cfg, *_serving_models(28, 2), 24, 40, max_streams=2, output="uint8",
+                        device=cuda_device, capture=capture)
+        srv.prewarm()
+        runs.append(_run_server_script(srv, clips))
+    (outs, states, launches), (outs_e, states_e, launches_e) = runs
+    assert launches == launches_e == [(2, 2)] * len(outs)
+    for got, want in zip(outs, outs_e):
+        assert got.keys() == want.keys()
+        for sid in got:
+            np.testing.assert_array_equal(got[sid], want[sid])
+    for got, want in zip(states, states_e):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_background_prewarm_captures_beside_ticks(cuda_device, monkeypatch):
+    """MultiGeometryServer: two buckets captured on a background thread while
+    a warm bucket keeps ticking on this one; afterwards every bucket's tick
+    is a captured graph, and the outputs equal an eager server's on the
+    same script (cuDNN deterministic)."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.serve import MultiGeometryServer
+    from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = TecoConfig(num_resblock=2, compute_dtype="bfloat16")
+    rng = np.random.RandomState(29)
+    clip_a = (rng.rand(4, 32, 48, 3) * 255).astype(np.uint8)
+    clip_b = (rng.rand(4, 24, 40, 3) * 255).astype(np.uint8)
+    models = _serving_models(30, 2)
+    srv = MultiGeometryServer(cfg, *models, slots_per_geometry=2, device=cuda_device)
+    srv.prewarm([(32, 48)])
+    srv.open("a", 32, 48)
+    outs = []
+    thread = srv.prewarm([(24, 40), (40, 56)], background=True)
+    while thread.is_alive() and len(outs) < 400:
+        outs.append(srv.step({"a": clip_a[len(outs) % 4]})["a"])
+    thread.join(timeout=300)
+    assert not thread.is_alive()
+    assert sorted(srv.geometries) == [(24, 40), (32, 48), (40, 56)]
+    assert all(isinstance(p, CapturedProgram)
+               for b in srv._buckets.values() for p in b._programs.values())
+    srv.open("b", 24, 40)
+    for t in range(3):
+        got = srv.step({"a": clip_a[(len(outs)) % 4], "b": clip_b[t]})
+        outs.append((got["a"], got["b"]))
+    eager = MultiGeometryServer(cfg, *models, slots_per_geometry=2, device=cuda_device,
+                                capture=False)
+    eager.open("a", 32, 48)
+    for t, out in enumerate(outs[:-3]):
+        np.testing.assert_array_equal(out, eager.step({"a": clip_a[t % 4]})["a"])
+    eager.open("b", 24, 40)
+    for t, (a, b) in enumerate(outs[-3:]):
+        want = eager.step({"a": clip_a[(len(outs) - 3 + t) % 4], "b": clip_b[t]})
+        np.testing.assert_array_equal(a, want["a"])
+        np.testing.assert_array_equal(b, want["b"])
+
+
+@pytest.mark.cuda
+def test_eviction_frees_the_graph_pool(cuda_device):
+    """An evicted bucket's captured tick gives its memory pool back: after
+    the eviction no device segment belongs to that graph's pool."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.serve import MultiGeometryServer
+
+    cfg = TecoConfig(num_resblock=2, compute_dtype="bfloat16")
+    srv = MultiGeometryServer(cfg, *_serving_models(31, 2), slots_per_geometry=1,
+                              device=cuda_device)
+    srv.state_budget_mb = srv.bucket_bytes(32, 48) / 2**20 * 1.5
+    srv.open("a", 32, 48)
+    srv.step({"a": np.zeros((32, 48, 3), np.uint8)})
+    (tick,) = srv._buckets[(32, 48)]._programs.values()
+    pool, held = tick.pool_id, tick.pool_bytes()
+    assert held > 0
+    srv.close("a")
+    srv.open("b", 40, 48)  # evicts the idle 32x48 bucket
+    assert list(srv.geometries) == [(40, 48)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert not [s for s in torch.cuda.memory_snapshot()
+                if tuple(s["segment_pool_id"]) == pool]
+
+
+@pytest.mark.cuda
+def test_capture_of_a_host_read_raises(cuda_device):
+    """A body that reads a device value on the host cannot be captured: the
+    capture raises, naming that line, and nothing runs eagerly in its
+    place; the card keeps working. (Last in this file: it leaves a failed
+    capture behind.)"""
+    from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
+
+    x = torch.ones(4, device=cuda_device)
+    out = torch.zeros(1, device=cuda_device)
+
+    def body():
+        if x.sum().item() > 0:  # a host read
+            out.add_(1.0)
+        return out
+
+    captures = CapturedProgram.captures
+    with pytest.raises(RuntimeError, match=r"capturing host read failed at .*\.item\(\)"):
+        CapturedProgram(body, (x, out), name="host read")
+    assert CapturedProgram.captures == captures
+    assert out.item() == 1.0  # the warm-up ran once; no eager run replaced the capture
+    assert torch.equal((x * 2).cpu(), torch.full((4,), 2.0))
