@@ -43,15 +43,24 @@ Phases, each raising on failure (so the exit code is non-zero):
    cuDNN / glue, device idle share), whose chain (the tensor-core kernel)
    and K1 launches must equal the counters';
 7. one FRVSR training step at full width (10 resblocks, real FNet),
-   batch 2, 4 frames, crop 32, float32, GPU against CPU: losses and the
-   gradient of every parameter;
+   batch 2, 4 frames, crop 32, float32, GPU (the captured step, the
+   default on the card) against CPU: losses and the gradient of every
+   parameter;
 8. the training path at size through ``train.loop.train``: FRVSR_PRESET
    (batch 4, crop 32, 10 frames, 10 resblocks) on synthetic PNG scenes,
-   40 steps, then a resume to 45, with the kernels' launch counts,
-   ms/step, frames/s and peak memory; then a ``torch.profiler`` split of
-   one step, which must show the chain in the float32 cluster kernel. This phase runs with PyTorch's default precision flags (cuDNN
-   in TF32), as the training CLI does; the comparisons before it with TF32
-   off;
+   captured (the default): 40 steps, then a resume to 45; then 15 steps
+   with ``capture=False``; each mode's ms/step, frames/s, peak memory,
+   graph pool and capture seconds, and exactly 100 chain, 11 K1 and 1 K2
+   launches a step (twice that at a program's first step: its eager
+   warm-up and one replay); the same state stepped 3 times captured and 3
+   times eagerly, bit-equal in every state tensor under
+   ``torch.use_deterministic_algorithms``; then both modes on one batch
+   timed in turns (captured, eager, eager, captured) and one step of each
+   under ``torch.profiler`` (device time, idle share, split; the profile's
+   chain, which must be the float32 cluster kernel, K1 and K2 launches
+   equal to the counters'). This phase runs with PyTorch's default
+   precision flags (cuDNN in TF32), as the training CLI does; the
+   comparisons before it with TF32 off;
 9. the inference CLI and the metrics suite at the main path's width: 41
    synthetic 576x720 HR PNGs -> ``cli.main --mode inference
    --input_dir_HR`` (blur and 4x subsample on the card, 5 warm-up frames
@@ -68,19 +77,21 @@ Phases, each raising on failure (so the exit code is non-zero):
 10. one TecoGAN step at full width (TECOGAN_PRESET's widths: 16 blocks,
    the real FNet, the merged Dst, VGG19 with seeded random weights), batch
    1, crop 32, 3 frames with ping-pong (5), float32 with TF32 off, GPU
-   against CPU, with the discriminator's gate forced open and closed:
+   (captured) against CPU, with the discriminator's gate forced open and closed:
    every loss, every generator, FNet and discriminator gradient, the
    discriminator's running statistics after the step, and its parameters
    (moved when open, bit-unchanged when closed);
 11. TecoGAN training at size through ``train.loop.train``: TECOGAN_PRESET
    (batch 4, crop 32, 10 frames with ping-pong, 16 blocks) with random
    VGG19 weights on phase 8's scenes, warm-started from phase 8's
-   10-block FRVSR checkpoint (reference case 3), 20 steps and a resume to
-   25, with each step's kernel launches, ms/step, frames/s, peak memory
-   and the gate's counters; then a ``torch.profiler`` split of one step
-   (the chain, which must be the float32 cluster kernel; VGG19's and the
-   discriminator's kernels, attributed through their forwards and
-   backwards; other cuDNN; K1 + K2; glue; Adam; the device idle share).
+   10-block FRVSR checkpoint (reference case 3), captured: 20 steps and a
+   resume to 25, then 10 steps with ``capture=False``, as phase 8 (exactly
+   304 chain, 21 K1 and 1 K2 launches a step; the gate's counters; 3
+   steps captured against 3 eager, bit-equal, D's statistics, Adam state
+   and gate included); then the in-turn timing and the profiles (the
+   eager step's split by module: VGG19's and the discriminator's kernels,
+   attributed through their forwards and backwards; other cuDNN; K1 + K2;
+   glue; Adam; the device idle share of each mode).
    Phase 10 switches TF32 off for its comparison; phase 11 runs with the
    default flags, as training does.
 
@@ -134,8 +145,13 @@ import time
 from pathlib import Path
 
 import numpy as np
-import torch
-import torch.nn.functional as F
+
+# cuBLAS's deterministic workspace, for the phases that compare under
+# torch.use_deterministic_algorithms; read when cuBLAS starts.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 REPO = Path(__file__).resolve().parent
 LR_H, LR_W = 144, 180          # Vid4 calendar geometry (-> 576x720)
@@ -169,10 +185,13 @@ GRAD_TOL = {"upsample4": 1e-5, "resblock_chain": 1e-4}
 # One FRVSR step, GPU vs CPU, float32: loss scalars relative; each
 # parameter's gradient as max|diff| / max|CPU grad|.
 STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-4, 1e-3
-# The training path: FRVSR_PRESET, synthetic "natural" scenes.
-TRAIN_STEPS, RESUME_STEPS, SAVE_FREQ = 40, 45, 20
+# The training path: FRVSR_PRESET, synthetic "natural" scenes; captured
+# (the default), then a shorter eager run.
+TRAIN_STEPS, RESUME_STEPS, SAVE_FREQ, EAGER_STEPS = 40, 45, 20, 15
 # TecoGAN training (phase 11): TECOGAN_PRESET on the same scenes.
-GAN_STEPS, GAN_RESUME_STEPS = 20, 25
+GAN_STEPS, GAN_RESUME_STEPS, GAN_EAGER_STEPS = 20, 25, 10
+# Steps a window of the in-turn timing on one batch (profile_step).
+PROFILE_STEPS = 5
 # Phase 10's parameters after one Adam step, GPU vs CPU, where the
 # gradient stands clear of zero (above STEP_PARAM_MASK of its parameter's
 # largest entry and 1e3 x Adam's eps): both moves are lr * sign(g) up to
@@ -622,6 +641,8 @@ def check_step_vs_cpu(dev) -> None:
     from tecogan_tpu_torch.config import FRVSR_PRESET
     from tecogan_tpu_torch.train import Trainer
 
+    from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
+
     cfg = FRVSR_PRESET.replace(batch_size=2, rnn_n=4)
     batch = frvsr_batch(cfg, cfg.batch_size, 11)
     runs = []
@@ -629,8 +650,13 @@ def check_step_vs_cpu(dev) -> None:
         trainer = Trainer(cfg, device)
         state = trainer.init_state(12)
         fix_flows_mid_cell(state)
+        captures = CapturedProgram.captures
         t0 = time.perf_counter()
         _, metrics = trainer.train_step(state, batch)
+        if trainer.capture != (device.type == "cuda") or \
+                CapturedProgram.captures - captures != trainer.capture:
+            raise RuntimeError(f"[step] {device}: capture {trainer.capture}, "
+                               f"{CapturedProgram.captures - captures} captures")
         losses = {k: float(v) for k, v in metrics.items() if k != "learning_rate"}
         grads = {}
         for prefix, module in (("generator", state.generator), ("fnet", state.fnet)):
@@ -638,7 +664,8 @@ def check_step_vs_cpu(dev) -> None:
                 if p.grad is None:
                     raise RuntimeError(f"[step] {device}: {prefix}.{name} got no gradient")
                 grads[f"{prefix}.{name}"] = p.grad.detach().cpu()
-        log(f"[step] {device}: one step in {time.perf_counter() - t0:.2f} s, "
+        log(f"[step] {device} ({'captured' if trainer.capture else 'eager'}): one step in "
+            f"{time.perf_counter() - t0:.2f} s, "
             + ", ".join(f"{k} {v:.6f}" for k, v in sorted(losses.items())))
         runs.append((losses, grads))
     (loss_gpu, grad_gpu), (loss_cpu, grad_cpu) = runs
@@ -656,7 +683,7 @@ def check_step_vs_cpu(dev) -> None:
             worst, worst_name = rel, name
         if not rel <= STEP_GRAD_TOL:
             raise RuntimeError(f"[step] {name}: gradient rel error {rel:.3e}")
-    log(f"[step] GPU vs CPU, float32, {cfg.num_resblock} resblocks, batch "
+    log(f"[step] GPU (the captured step) vs CPU, float32, {cfg.num_resblock} resblocks, batch "
         f"{cfg.batch_size}, {cfg.rnn_n} frames, crop {cfg.crop_size}: "
         f"losses within {STEP_LOSS_TOL:.0e}; {len(grad_cpu)} parameters, every "
         f"gradient non-zero, worst rel {worst:.3e} ({worst_name}) tol {STEP_GRAD_TOL:.0e}")
@@ -666,14 +693,16 @@ def check_step_vs_cpu(dev) -> None:
 def timed_train_steps(kernels):
     """Time each ``Trainer.train_step`` between two synchronisations (loader
     waits, saves, summaries and validation fall outside) and count each
-    kernel wrapper's launches inside it. Yields the two lists it fills:
-    seconds, and {kernel: launches} per step."""
+    kernel wrapper's launches inside it. Yields the three lists it fills:
+    seconds, {kernel: launches} per step, and the trainers that stepped."""
     from tecogan_tpu_torch.train import Trainer
 
-    step_secs, step_launches = [], []
+    step_secs, step_launches, trainers = [], [], []
     train_step = Trainer.train_step
 
     def timed_step(self, state, hr_seq):
+        if self not in trainers:
+            trainers.append(self)
         torch.cuda.synchronize()
         before = {name: k.launches for name, k in kernels.items()}
         start = time.perf_counter()
@@ -685,16 +714,131 @@ def timed_train_steps(kernels):
 
     Trainer.train_step = timed_step
     try:
-        yield step_secs, step_launches
+        yield step_secs, step_launches, trainers
     finally:
         Trainer.train_step = train_step
 
 
+def step_launch_want(cfg):
+    """The kernel launches of one training step: the chain once a block and
+    frame, K1 for the flow, each frame's bicubic skip and (TecoGAN) the
+    Dst's LR triplets, K2 once for the flow's backward."""
+    return {"resblock_chain": cfg.num_resblock * cfg.unroll_frames,
+            "upsample4": cfg.unroll_frames + 1 + int(cfg.gan), "upsample4_bwd": 1}
+
+
+def check_step_launches(step_launches, capturing, want, label) -> None:
+    """Exactly ``want`` launches a step; twice that at the steps in
+    ``capturing`` (a program's first step: its eager warm-up, then one
+    replay; the capture itself launches nothing)."""
+    for i, got in enumerate(step_launches):
+        need = {k: n * (2 if i in capturing else 1) for k, n in want.items()}
+        if got != need:
+            raise RuntimeError(f"{label} step {i + 1}: launches {got}, want {need}")
+
+
+def check_captured_equals_eager(dev, cfg, label: str, vgg=None, steps: int = 3) -> None:
+    """The same initial state stepped ``steps`` times by the captured
+    program and by the eager step on the same batches, under
+    ``torch.use_deterministic_algorithms`` and cuDNN's deterministic
+    algorithms: every state tensor (weights, Adam moments and counts, the
+    learning rates, EMAs, the device step; in TecoGAN mode the
+    discriminator's statistics, its Adam state, the gate's EMA and
+    counters) must end bit-equal."""
+    from tecogan_tpu_torch.train import Trainer
+    from tecogan_tpu_torch.train.trainer import named_state_tensors
+
+    batches = [frvsr_batch(cfg, cfg.batch_size, 41 + i) for i in range(steps)]
+    flags = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    finals = {}
+    try:
+        for capture in (None, False):
+            trainer = Trainer(cfg, dev, vgg=None if vgg is None else vgg(), capture=capture)
+            state = trainer.init_state(cfg.rand_seed)
+            for batch in batches:
+                trainer.train_step(state, batch)
+            finals[trainer.capture] = [(n, t.detach().clone())
+                                       for n, t in named_state_tensors(state)]
+            del trainer, state
+    finally:
+        torch.use_deterministic_algorithms(flags[0])
+        torch.backends.cudnn.deterministic = flags[1]
+    captured, eager = finals[True], finals[False]
+    if [n for n, _ in captured] != [n for n, _ in eager]:
+        raise RuntimeError(f"{label} captured vs eager: the states hold other tensors")
+    differ = [(n, (a.double() - b.double()).abs().max().item())
+              for (n, a), (_, b) in zip(captured, eager) if not torch.equal(a, b)]
+    if differ:
+        raise RuntimeError(f"{label} captured vs eager after {steps} steps: {len(differ)} of "
+                           f"{len(captured)} state tensors differ, e.g. {differ[:5]}")
+    log(f"{label} {steps} steps captured vs {steps} eager from one initial state, under "
+        f"torch.use_deterministic_algorithms and cudnn.deterministic: all {len(captured)} "
+        f"state tensors bit-equal (weights, Adam moments and counts, learning rates, EMAs, "
+        f"device step{', D statistics, D Adam, gate EMA and counters' if cfg.gan else ''})")
+
+
+def train_modes(cfg, kernels, runs, capturing, label):
+    """``runs``: {mode: [calls of train()]}, captured (the default) then
+    eager (``capture=False``), each step timed and its launches counted:
+    exactly ``step_launch_want`` a step, twice that at the ``capturing``
+    steps of the captured mode. Returns {mode: dict(secs, launches, totals,
+    peak MiB and graph pool MiB of the largest call, capture s, wall s, the
+    last call's state)}."""
+    want = step_launch_want(cfg)
+    out = {}
+    for mode, calls in runs.items():
+        m = dict(peak=0.0, pool=0.0, capture_s=0.0, recaptures=0, modes=set())
+        with timed_train_steps(kernels) as (step_secs, step_launches, trainers):
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            for call in calls:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                m["state"] = call()
+                m["peak"] = max(m["peak"], (torch.cuda.max_memory_allocated() - base) / 2**20)
+                m["pool"] = max(m["pool"], sum(t.pool_bytes() for t in trainers) / 2**20)
+                m["capture_s"] += sum(t.capture_s for t in trainers)
+                m["recaptures"] += sum(t.recaptures for t in trainers)
+                m["modes"] |= {t.capture for t in trainers}
+                del trainers[:]  # its graphs and pools go with it
+            m["wall"] = time.perf_counter() - t0
+            m["totals"] = {name: k.launches for name, k in kernels.items()}
+        m.update(secs=step_secs, launches=step_launches)
+        if m["modes"] != {mode == "captured"} or m["recaptures"]:
+            raise RuntimeError(f"{label} {mode}: capture {m['modes']}, "
+                               f"{m['recaptures']} recaptures")
+        check_step_launches(step_launches, capturing if mode == "captured" else (), want,
+                            f"{label} {mode}")
+        out[mode] = m
+    return out
+
+
+def log_modes(label, cfg, modes, steady, card) -> None:
+    """ms/step, frames/s, peak memory, graph pool and capture seconds of
+    each mode's train() run."""
+    frames = cfg.batch_size * cfg.unroll_frames
+    for mode, m in modes.items():
+        a, b = steady[mode]
+        ms = sum(m["secs"][a:b]) / (b - a) * 1e3
+        m["ms"] = ms
+        log(f"{label} {mode}: steady {ms:.2f} ms/step over steps {a + 1}-{b}, "
+            f"{frames / ms * 1e3:.1f} frames/s; {len(m['secs'])} steps in {m['wall']:.2f} s "
+            f"wall; peak {m['peak']:.0f} MiB above the run's start; graph pools "
+            f"{m['pool']:.0f} MiB; capture (warm-up + capture) {m['capture_s']:.3f} s; "
+            f"launches a step {m['launches'][-1]}; card: {card}")
+
+
 def run_training(dev, card: str, tmp: str):
     """Phase 8: FRVSR_PRESET through ``train()`` on synthetic scenes under
-    ``tmp``, 40 steps and a resume to 45 (checkpoints in
-    ``<tmp>/run/checkpoints``); then the profile of one step. Returns the
-    launch counts of the 45 steps."""
+    ``tmp``, captured: 40 steps and a resume to 45 (checkpoints in
+    ``<tmp>/run/checkpoints``); then 15 steps with ``capture=False``; then
+    the captured and eager programs stepped 3 times from one state and
+    compared, and the profile. Returns the launch counts of the 45 captured
+    steps and of one steady step."""
     import io
 
     from tecogan_tpu_torch.config import FRVSR_PRESET
@@ -715,24 +859,21 @@ def run_training(dev, card: str, tmp: str):
     cfg = FRVSR_PRESET.replace(input_video_dir=data, max_frm=SCENE_FRAMES - 1,
                                save_freq=SAVE_FREQ, summary_freq=10)
     printed = io.StringIO()
-    with timed_train_steps(kernels) as (step_secs, _):
-        for k in kernels.values():
-            k.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        with contextlib.redirect_stdout(printed):
-            t0 = time.perf_counter()
-            state = train(cfg, out_dir, dev, max_steps=TRAIN_STEPS)
-            wall = time.perf_counter() - t0
-            first = (state.step, len(step_secs))
-            state = train(cfg, out_dir, dev, max_steps=RESUME_STEPS)
-        launches = {name: k.launches for name, k in kernels.items()}
+    runs = {"captured": [lambda: train(cfg, out_dir, dev, max_steps=TRAIN_STEPS),
+                         lambda: train(cfg, out_dir, dev, max_steps=RESUME_STEPS)],
+            "eager": [lambda: train(cfg, os.path.join(tmp, "run_eager"), dev,
+                                    max_steps=EAGER_STEPS, capture=False)]}
+    with contextlib.redirect_stdout(printed):
+        modes = train_modes(cfg, kernels, runs, (0, TRAIN_STEPS), "[train]")
+    state = modes["captured"]["state"]
     for line in printed.getvalue().splitlines():
         if line.startswith(("step ", "Resumed", "Saved", "Dataset")):
             log(f"[train] | {line}")
-    if first != (TRAIN_STEPS, TRAIN_STEPS) or \
-            (state.step, len(step_secs)) != (RESUME_STEPS, RESUME_STEPS):
-        raise RuntimeError(f"[train] steps {first} then {state.step}, "
-                           f"{len(step_secs)} step calls")
+    if state.step != RESUME_STEPS or len(modes["captured"]["secs"]) != RESUME_STEPS or \
+            modes["eager"]["state"].step != EAGER_STEPS:
+        raise RuntimeError(f"[train] steps to {state.step}, "
+                           f"{len(modes['captured']['secs'])} step calls; eager "
+                           f"{modes['eager']['state'].step}")
     if f"Resumed from step {TRAIN_STEPS}" not in printed.getvalue():
         raise RuntimeError("[train] the second run did not resume")
     rows = [json.loads(line) for line in
@@ -747,25 +888,20 @@ def run_training(dev, card: str, tmp: str):
         for (name, p0), p1 in zip(a.named_parameters(), b.parameters()):
             if torch.equal(p0, p1.detach().cpu()):
                 raise RuntimeError(f"[train] {prefix}.{name} did not move")
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    need = {"upsample4_bwd": RESUME_STEPS,
-            "resblock_chain": cfg.num_resblock * cfg.rnn_n * RESUME_STEPS,
-            "upsample4": (cfg.rnn_n + 1) * RESUME_STEPS}
-    log(f"[train] launches over {RESUME_STEPS} steps {launches}, at least {need}")
-    for k, n in need.items():
-        if launches[k] < n:
-            raise RuntimeError(f"{k} launched {launches[k]} times, want >= {n}")
-    steady = sum(step_secs[TRAIN_STEPS - 20:TRAIN_STEPS]) / 20
-    frames = cfg.batch_size * cfg.rnn_n
+    launches = modes["captured"]["totals"]
+    log(f"[train] launches over {RESUME_STEPS} captured steps with validation {launches}; "
+        f"every step exactly {step_launch_want(cfg)} (the first of each train() call "
+        f"twice that: its warm-up and one replay), eager too")
     log(f"[train] FRVSR_PRESET ({cfg.num_resblock} resblocks, batch "
         f"{cfg.batch_size}, crop {cfg.crop_size}, {cfg.rnn_n} frames, float32, "
-        f"cuDNN TF32 {'on' if torch.backends.cudnn.allow_tf32 else 'off'}): "
-        f"{TRAIN_STEPS} steps in {wall:.2f} s wall, resumed to {RESUME_STEPS}; "
-        f"steady {steady * 1e3:.2f} ms/step over steps 21-40, "
-        f"{frames / steady:.1f} frames/s; peak {peak:.0f} MiB; every parameter "
-        f"moved; {len(rows)} scalar rows; card: {card}")
-    profile_step(dev, cfg, state, steady, "FRVSR_PRESET")
-    return launches
+        f"cuDNN TF32 {'on' if torch.backends.cudnn.allow_tf32 else 'off'}): captured "
+        f"{TRAIN_STEPS} steps, resumed to {RESUME_STEPS}; eager {EAGER_STEPS} steps; every "
+        f"parameter moved; {len(rows)} scalar rows")
+    log_modes("[train]", cfg, modes, {"captured": (20, TRAIN_STEPS),
+                                      "eager": (EAGER_STEPS - 10, EAGER_STEPS)}, card)
+    check_captured_equals_eager(dev, cfg, "[train]")
+    profile_step(dev, cfg, state, {m: modes[m]["ms"] for m in modes}, "FRVSR_PRESET")
+    return launches, modes["captured"]["launches"][-1]
 
 
 # Profile groups: a kernel goes to the first group one of whose needles is
@@ -896,74 +1032,97 @@ def module_kernel_us(prof, labels):
     return out
 
 
-def profile_step(dev, cfg, state, steady: float, name: str, vgg=None) -> None:
-    """The device time of one training step by kernel group (torch.profiler);
-    the chain must have run in the float32 cluster kernel. In TecoGAN mode
-    VGG19's and the discriminator's kernels are split out of the rest
-    (:func:`module_kernel_us`)."""
+def profile_step(dev, cfg, state, steady: dict, name: str, vgg=None) -> None:
+    """Both modes on one batch, with no loader running: ms/step in turns
+    (captured, eager, eager, captured), then one step of each under
+    torch.profiler, split by kernel group: device time (the union of kernel
+    intervals) and the idle share against each mode's ms/step in train()
+    (``steady``) and alone. A replay's profile must show the chain (as the
+    float32 cluster kernel), K1 and K2 as often as the counters say. In
+    TecoGAN mode VGG19's and the discriminator's kernels are split out of
+    the eager step's profile (``record_function`` ranges are not replayed;
+    :func:`module_kernel_us`)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from tecogan_tpu_torch.kernels import resblock_chain, upsample4, upsample4_bwd
     from tecogan_tpu_torch.models import Discriminator, VGG19Features
     from tecogan_tpu_torch.train import Trainer
 
-    trainer = Trainer(cfg, dev, vgg=vgg)
+    trainers = {"captured": Trainer(cfg, dev, vgg=vgg),
+                "eager": Trainer(cfg, dev, vgg=vgg, capture=False)}
     batch = frvsr_batch(cfg, cfg.batch_size, 21)
-    for _ in range(3):
-        trainer.train_step(state, batch)
-    torch.cuda.synchronize()
-    # The same step with no loader thread beside it (train() has stopped
-    # its loaders): how much of the step is the host's own dispatch.
-    t0 = time.perf_counter()
-    for _ in range(10):
-        trainer.train_step(state, batch)
-    torch.cuda.synchronize()
-    alone = (time.perf_counter() - t0) / 10
-    forwards = {cls: cls.forward for cls in (VGG19Features, Discriminator)}
-    try:
-        VGG19Features.forward = _annotated(VGG19Features, "vgg19")
-        Discriminator.forward = _annotated(Discriminator, "discriminator")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for trainer in trainers.values():
+        for _ in range(2):
             trainer.train_step(state, batch)
-            torch.cuda.synchronize()
-    finally:
-        for cls, forward in forwards.items():
-            cls.forward = forward
-    total, split, names, by_op = device_split(prof)
-    if total <= 0:
-        log("[profile] torch.profiler recorded no device time; see the CUDA-event times")
-        return
-    chain = names["chain kernel"]
-    for key, count in chain.items():
-        log(f"[profile]   chain kernel: {count} launches of {key[:100]}")
-    want = cfg.num_resblock * cfg.unroll_frames
-    if sum(n for key, n in chain.items() if "resblock_kernel_tf32x3" in key) < want:
-        raise RuntimeError(f"[profile] the chain ran {chain}, want >= {want} launches "
-                           "of resblock_kernel_tf32x3")
-    replay = sum(device_us(e, total=True) for e in prof.events()
-                 if e.name.startswith("autograd::engine::evaluate_function: _ResblockChain"))
-    log(f"[profile] one {name} step: {total / 1e3:.2f} ms of device time "
-        f"against {steady * 1e3:.2f} ms/step unprofiled in train() (device idle "
-        f"share {max(0.0, 1 - total / 1e3 / (steady * 1e3)):.1%}) and "
-        f"{alone * 1e3:.2f} ms/step on one batch with no loader running (idle "
-        f"{max(0.0, 1 - total / 1e3 / (alone * 1e3)):.1%})")
-    log_split(total, split, by_op)
-    log(f"[profile]   of which the chain's backward (plain-chain replay + its "
-        f"cuDNN backward, all kinds): {replay / 1e3:.3f} ms ({replay / total:.1%})")
-    if not cfg.gan:
-        return
-    modules = module_kernel_us(prof, ("vgg19", "discriminator"))
-    convs = split["cuDNN/cuBLAS convs and GEMMs"]
-    for label, (conv, other) in modules.items():
-        log(f"[profile]   of which {label} (forward and backward, kernel durations): "
-            f"convs {conv / 1e3:.3f} ms ({conv / total:.1%}), other kernels "
-            f"{other / 1e3:.3f} ms ({other / total:.1%})")
-        convs -= conv
-    if not all(conv > 0 for conv, _ in modules.values()):
-        log("[profile]   (the module attribution found no kernels: the profiler's CPU ops "
-            "carry no kernels here)")
-    log(f"[profile]   other cuDNN/cuBLAS (the chain's backward replay, FNet, the "
-        f"generator's stem and upsample, the Gaussian): {convs / 1e3:.3f} ms "
-        f"({convs / total:.1%})")
+    alone = {mode: [] for mode in trainers}
+    for mode in ("captured", "eager", "eager", "captured"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            trainers[mode].train_step(state, batch)
+        torch.cuda.synchronize()
+        alone[mode].append((time.perf_counter() - t0) / PROFILE_STEPS * 1e3)
+    log(f"[profile] {name} on one batch, no loader running, {PROFILE_STEPS} steps a window "
+        f"in turns: " + "; ".join(f"{mode} {', '.join(f'{ms:.2f}' for ms in v)} ms/step"
+                                 for mode, v in alone.items()))
+    kernels = {"resblock_chain": resblock_chain, "upsample4": upsample4,
+               "upsample4_bwd": upsample4_bwd}
+    want = step_launch_want(cfg)
+    for mode, trainer in trainers.items():
+        forwards = {cls: cls.forward for cls in (VGG19Features, Discriminator)}
+        before = {k: w.launches for k, w in kernels.items()}
+        try:
+            if mode == "eager":
+                VGG19Features.forward = _annotated(VGG19Features, "vgg19")
+                Discriminator.forward = _annotated(Discriminator, "discriminator")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                trainer.train_step(state, batch)
+                torch.cuda.synchronize()
+        finally:
+            for cls, forward in forwards.items():
+                cls.forward = forward
+        counted = {k: w.launches - before[k] for k, w in kernels.items()}
+        total, split, names, by_op = device_split(prof)
+        if total <= 0:
+            raise RuntimeError(f"[profile] {name} {mode}: torch.profiler recorded no device time")
+        chain = names["chain kernel"]
+        shown = {"resblock_chain": sum(n for key, n in chain.items()
+                                       if "resblock_kernel_tf32x3" in key),
+                 "upsample4": sum(names["K1 (flow upsample, bicubic skip)"].values()),
+                 "upsample4_bwd": sum(names["K2 (flow upsample backward)"].values())}
+        log(f"[profile] {name} {mode}: the profile shows {shown} launches (the chain as "
+            f"resblock_kernel_tf32x3); the counters {counted}; want {want}")
+        if not shown == counted == want or sum(chain.values()) != shown["resblock_chain"]:
+            raise RuntimeError(f"[profile] {name} {mode}: profile {shown} (chain {chain}), "
+                               f"counters {counted}, want {want}")
+        ms = total / 1e3
+        log(f"[profile] one {name} step {mode}: {ms:.2f} ms of device time against "
+            f"{steady[mode]:.2f} ms/step in train() (device idle share "
+            f"{max(0.0, 1 - ms / steady[mode]):.1%}) and {min(alone[mode]):.2f}-"
+            f"{max(alone[mode]):.2f} ms/step on one batch with no loader running (idle "
+            f"{max(0.0, 1 - ms / min(alone[mode])):.1%}-{max(0.0, 1 - ms / max(alone[mode])):.1%})")
+        log_split(total, split, by_op)
+        if mode == "captured":
+            continue
+        replay = sum(device_us(e, total=True) for e in prof.events() if e.name.startswith(
+            "autograd::engine::evaluate_function: _ResblockChain"))
+        log(f"[profile]   of which the chain's backward (plain-chain replay + its "
+            f"cuDNN backward, all kinds): {replay / 1e3:.3f} ms ({replay / total:.1%})")
+        if not cfg.gan:
+            continue
+        modules = module_kernel_us(prof, ("vgg19", "discriminator"))
+        convs = split["cuDNN/cuBLAS convs and GEMMs"]
+        for label, (conv, other) in modules.items():
+            log(f"[profile]   of which {label} (forward and backward, kernel durations): "
+                f"convs {conv / 1e3:.3f} ms ({conv / total:.1%}), other kernels "
+                f"{other / 1e3:.3f} ms ({other / total:.1%})")
+            convs -= conv
+        if not all(conv > 0 for conv, _ in modules.values()):
+            log("[profile]   (the module attribution found no kernels: the profiler's CPU "
+                "ops carry no kernels here)")
+        log(f"[profile]   other cuDNN/cuBLAS (the chain's backward replay, FNet, the "
+            f"generator's stem and upsample, the Gaussian): {convs / 1e3:.3f} ms "
+            f"({convs / total:.1%})")
 
 
 def profiled_launches(names, chain_want: int, k1_want: int, label: str):
@@ -1396,7 +1555,8 @@ def check_gan_step_vs_cpu(dev) -> None:
                     after={n: p.detach().cpu() for n, p in disc.named_parameters()},
                     counters=(int(state.counter_with_d), int(state.counter_wo_d),
                               int(state.d_opt.count))))
-                log(f"[gan step] {device}, gate {gate}: one step in {secs:.2f} s, "
+                log(f"[gan step] {device} ({'captured' if trainer.capture else 'eager'}), "
+                    f"gate {gate}: one step in {secs:.2f} s, "
                     + ", ".join(f"{k} {v:.6f}" for k, v in sorted(runs[-1]["losses"].items())))
             gpu, cpu = runs
             for k, want in cpu["losses"].items():
@@ -1457,8 +1617,10 @@ def check_gan_step_vs_cpu(dev) -> None:
 def run_tecogan_training(dev, card: str, tmp: str):
     """Phase 11: TECOGAN_PRESET through ``train()`` with random VGG19
     weights on phase 8's scenes under ``tmp``, warm-started from phase 8's
-    FRVSR checkpoint, 20 steps and a resume to 25; then the profile of one
-    step. Returns the launches of one ``train_step``."""
+    FRVSR checkpoint, captured: 20 steps and a resume to 25; then 10 steps
+    with ``capture=False`` from the same warm start; then the captured and
+    eager programs stepped 3 times from one state and compared, and the
+    profile. Returns the launches of one steady ``train_step``."""
     import io
 
     from tecogan_tpu_torch.config import TECOGAN_PRESET
@@ -1472,29 +1634,31 @@ def run_tecogan_training(dev, card: str, tmp: str):
     out_dir = os.path.join(tmp, "tecogan")
     cfg = TECOGAN_PRESET.replace(input_video_dir=os.path.join(tmp, "scenes"),
                                  max_frm=SCENE_FRAMES - 1, save_freq=GAN_STEPS, summary_freq=10)
+
+    def vgg():
+        return random_vgg19(cfg.rand_seed)
+
+    runs = {"captured": [
+        lambda: train(cfg, out_dir, dev, vgg=vgg(), pre_trained_dir=frvsr_ckpt,
+                      max_steps=GAN_STEPS),
+        lambda: train(cfg, out_dir, dev, vgg=vgg(), max_steps=GAN_RESUME_STEPS)],
+        "eager": [lambda: train(cfg, os.path.join(tmp, "tecogan_eager"), dev, vgg=vgg(),
+                                pre_trained_dir=frvsr_ckpt, max_steps=GAN_EAGER_STEPS,
+                                capture=False)]}
     printed = io.StringIO()
-    with timed_train_steps(kernels) as (step_secs, step_launches):
-        for k in kernels.values():
-            k.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        with contextlib.redirect_stdout(printed):
-            t0 = time.perf_counter()
-            state = train(cfg, out_dir, dev, vgg=random_vgg19(cfg.rand_seed),
-                          pre_trained_dir=frvsr_ckpt, max_steps=GAN_STEPS)
-            wall = time.perf_counter() - t0
-            first = (state.step, len(step_secs))
-            state = train(cfg, out_dir, dev, vgg=random_vgg19(cfg.rand_seed),
-                          max_steps=GAN_RESUME_STEPS)
-        launches = {name: k.launches for name, k in kernels.items()}
+    with contextlib.redirect_stdout(printed):
+        modes = train_modes(cfg, kernels, runs, (0, GAN_STEPS), "[gan train]")
+    state = modes["captured"]["state"]
     text = printed.getvalue()
     for line in text.splitlines():
         if line.startswith(("step ", "Resumed", "Saved", "Dataset", "Warm-started",
                             "warm_start", "WARNING")):
             log(f"[gan train] | {line}")
-    if first != (GAN_STEPS, GAN_STEPS) or \
-            (state.step, len(step_secs)) != (GAN_RESUME_STEPS, GAN_RESUME_STEPS):
-        raise RuntimeError(f"[gan train] steps {first} then {state.step}, "
-                           f"{len(step_secs)} step calls")
+    if state.step != GAN_RESUME_STEPS or len(modes["captured"]["secs"]) != GAN_RESUME_STEPS \
+            or modes["eager"]["state"].step != GAN_EAGER_STEPS:
+        raise RuntimeError(f"[gan train] steps to {state.step}, "
+                           f"{len(modes['captured']['secs'])} step calls; eager "
+                           f"{modes['eager']['state'].step}")
     for want in (f"Warm-started weights from {frvsr_ckpt}",
                  "warm_start: partial generator restore", f"Resumed from step {GAN_STEPS}"):
         if want not in text:
@@ -1514,25 +1678,23 @@ def run_tecogan_training(dev, card: str, tmp: str):
     # One train_step's launches (validation and the profile are outside):
     # the chain 16 blocks x 19 frames, K1 the flow upsample, 19 skips and
     # the Dst's LR triplets, K2 the flow upsample's backward.
-    want = {"resblock_chain": cfg.num_resblock * cfg.unroll_frames,
-            "upsample4": cfg.unroll_frames + 2, "upsample4_bwd": 1}
-    if any(n != want for n in step_launches):
-        raise RuntimeError(f"[gan train] launches per step {step_launches}, want {want}")
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    steady = sum(step_secs[10:GAN_STEPS]) / (GAN_STEPS - 10)
-    frames = cfg.batch_size * cfg.unroll_frames
-    log(f"[gan train] launches per train_step {step_launches[0]} (all {GAN_RESUME_STEPS} "
-        f"steps), over the two runs with validation {launches}")
+    step = modes["captured"]["launches"][-1]
+    log(f"[gan train] launches per train_step {step} (every step of both modes; the "
+        f"first of each captured train() call twice that), over the {GAN_RESUME_STEPS} "
+        f"captured steps with validation {modes['captured']['totals']}")
     log(f"[gan train] TECOGAN_PRESET ({cfg.num_resblock} resblocks, batch {cfg.batch_size}, "
         f"crop {cfg.crop_size}, {cfg.rnn_n} frames ping-pong = {cfg.unroll_frames}, float32, "
         f"cuDNN TF32 {'on' if torch.backends.cudnn.allow_tf32 else 'off'}, VGG19 random "
-        f"weights), warm-started from phase 8's 10-block FRVSR checkpoint: "
-        f"{GAN_STEPS} steps in {wall:.2f} s wall, resumed to {GAN_RESUME_STEPS}; steady "
-        f"{steady * 1e3:.2f} ms/step over steps 11-{GAN_STEPS}, {frames / steady:.1f} frames/s; "
-        f"peak {peak:.0f} MiB; gate: {counters[0]} steps with D, {counters[1]} without, "
-        f"t_balance EMA {float(state.ema_tbalance):.4f}; {len(rows)} scalar rows; card: {card}")
-    profile_step(dev, cfg, state, steady, "TECOGAN_PRESET", vgg=random_vgg19(cfg.rand_seed))
-    return step_launches[0]
+        f"weights), warm-started from phase 8's 10-block FRVSR checkpoint: captured "
+        f"{GAN_STEPS} steps, resumed to {GAN_RESUME_STEPS}; eager {GAN_EAGER_STEPS}; gate: "
+        f"{counters[0]} steps with D, {counters[1]} without, t_balance EMA "
+        f"{float(state.ema_tbalance):.4f}; {len(rows)} scalar rows")
+    log_modes("[gan train]", cfg, modes, {"captured": (10, GAN_STEPS),
+                                          "eager": (GAN_EAGER_STEPS - 5, GAN_EAGER_STEPS)}, card)
+    check_captured_equals_eager(dev, cfg, "[gan train]", vgg=vgg)
+    profile_step(dev, cfg, state, {m: modes[m]["ms"] for m in modes}, "TECOGAN_PRESET",
+                 vgg=vgg())
+    return step
 
 
 def check_serving_vs_cpu(dev) -> None:
@@ -2105,7 +2267,8 @@ def main() -> None:
     # cuDNN convolutions in TF32, float32 matmuls in full float32.
     torch.backends.cudnn.allow_tf32 = True
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches = phase("8 FRVSR training", run_training, dev, card, tmp)
+        train_launches, train_step_launches = phase("8 FRVSR training", run_training, dev,
+                                                    card, tmp)
         # Phase 9 runs as a user's CLI does, with the same default flags.
         cli_launches = phase("9 CLI and suite", run_cli, dev, card, tmp,
                              os.path.join(tmp, "run", "checkpoints"))
@@ -2131,7 +2294,7 @@ def main() -> None:
             f"{r['plain_ms']:.4f}, library {lib}, bound {r['bound_ms']:.5f} ({r['bound_by']}), "
             f"share of bound {r['bound_ms'] / r['ms']:.1%}; launches of {k}: "
             f"{stream_launches.get(k, 0)} per {FRAMES}-frame streaming run, "
-            f"{train_launches.get(k, 0) / RESUME_STEPS:g} per FRVSR training step, "
+            f"{train_step_launches.get(k, 0)} per FRVSR train_step, "
             f"{gan_launches.get(k, 0)} per TecoGAN train_step, "
             f"{serve_launches.get(k, 0):g} per serving bucket tick; paths "
             f"{', '.join(r['paths']) or 'none at this shape and dtype'}; card: {card}")

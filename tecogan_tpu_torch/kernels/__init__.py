@@ -2,9 +2,9 @@
 
 Each wrapper runs its plain PyTorch version for a CPU tensor, launches its
 kernel for a CUDA tensor (or raises), and counts its launches in an
-integer attribute ``launches`` (through ``ops.count``, which also keeps the
-calling thread's tally: a :class:`LaunchRecord` reads it around a CUDA
-graph's capture, and the graph adds those launches on every replay, so the
+integer attribute ``launches`` (through ``ops.count``, which also feeds the
+:class:`LaunchRecord` of a CUDA graph's capture on the current stream,
+whatever the thread: the graph adds those launches on every replay, so the
 counters count the kernels that ran, captured or not). ``upsample4`` and
 ``resblock_chain`` are
 differentiable (``torch.autograd.Function``s) on both devices. Importing

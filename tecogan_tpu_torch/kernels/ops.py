@@ -15,17 +15,21 @@ whose Python kernels cost less to dispatch than ``torch.library.custom_op``'s
 wrapper; the inference path calls them several times a frame.
 
 Each body counts its kernel launches with :func:`count`, in its wrapper's
-``launches`` integer and in the calling thread's tally. A captured CUDA
-graph replays launches without running any Python, so the captured program
+``launches`` integer, in the calling thread's tally and in the record of a
+capture running on the current CUDA stream. A captured CUDA graph replays
+launches without running any Python, so the captured program
 (``utils/cuda_graphs.py``) reads the launches its capture made in a
 :class:`LaunchRecord` and adds them again on every replay: ``launches``
-counts the kernels that ran.
+counts the kernels that ran. A capture's record is keyed by its stream,
+not by the capturing thread: a backward runs on autograd's device thread,
+on the stream of its forward, so the K2 launch of a captured training
+step lands in the capture's record.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -45,6 +49,9 @@ def register(schema: str, body: Callable, fake: Callable) -> None:
 
 _COUNT_LOCK = threading.Lock()  # += on a shared integer is not atomic
 _THREAD = threading.local()
+# The records of the captures running now, by their CUDA stream (at most one
+# at a time: torch.cuda.graph allows one capture in a process).
+_STREAM_RECORDS: Dict[int, "LaunchRecord"] = {}
 
 
 def _tally() -> Dict[Callable, int]:
@@ -55,29 +62,56 @@ def _tally() -> Dict[Callable, int]:
     return tally
 
 
+def _stream_key() -> int:
+    """The calling thread's current CUDA stream, as a capture's record is
+    keyed (autograd's device thread runs a backward on its forward's
+    stream)."""
+    return torch.cuda.current_stream().cuda_stream
+
+
 def count(wrapper: Callable, n: int = 1) -> None:
-    """Add ``n`` kernel launches to ``wrapper.launches`` and to the calling
-    thread's tally."""
+    """Add ``n`` kernel launches to ``wrapper.launches``, to the calling
+    thread's tally and, during a capture on the current stream, to that
+    capture's record."""
+    record = _STREAM_RECORDS.get(_stream_key()) if _STREAM_RECORDS else None
     with _COUNT_LOCK:
         wrapper.launches += n
+        if record is not None:
+            record.launches[wrapper] = record.launches.get(wrapper, 0) + n
     tally = _tally()
     tally[wrapper] = tally.get(wrapper, 0) + n
 
 
 class LaunchRecord:
-    """The kernel launches the calling thread counts inside a ``with``
-    block, by wrapper (a snapshot of its tally at entry and at exit, so the
-    launches of other threads are not mixed in); :meth:`add` counts them
-    again, ``times`` over (negative takes them back)."""
+    """The kernel launches counted inside a ``with`` block, by wrapper;
+    :meth:`add` counts them again, ``times`` over (negative takes them
+    back).
 
-    def __init__(self):
+    With no ``stream``: the calling thread's launches (a snapshot of its
+    tally at entry and at exit, so the launches of other threads are not
+    mixed in). With ``stream`` (a ``cuda_stream`` handle): every launch
+    counted while that stream is the counting thread's current one,
+    whatever the thread; launches on other streams stay out."""
+
+    def __init__(self, stream: Optional[int] = None):
+        self.stream = stream
         self.launches: Dict[Callable, int] = {}
 
     def __enter__(self) -> "LaunchRecord":
-        self._before = dict(_tally())
+        if self.stream is None:
+            self._before = dict(_tally())
+        else:
+            with _COUNT_LOCK:
+                if self.stream in _STREAM_RECORDS:
+                    raise RuntimeError(f"stream {self.stream:#x} already has a launch record")
+                _STREAM_RECORDS[self.stream] = self
         return self
 
     def __exit__(self, *exc) -> None:
+        if self.stream is not None:
+            with _COUNT_LOCK:
+                del _STREAM_RECORDS[self.stream]
+            return
         after = _tally()
         self.launches = {w: n - self._before.get(w, 0) for w, n in after.items()
                          if n != self._before.get(w, 0)}

@@ -15,6 +15,7 @@ or seeded random ones, :func:`random_vgg19`, for smoke runs and timing
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Sequence
 
 import numpy as np
@@ -66,13 +67,20 @@ class VGG19Features(nn.Module):
         return {k: out[k] for k in keys}
 
 
+@functools.lru_cache(maxsize=None)
+def _device_mean(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``VGG_MEAN`` on ``device``, uploaded once: a captured training step
+    cannot copy from pageable host memory."""
+    return torch.tensor(VGG_MEAN, dtype=dtype, device=device)
+
+
 def vgg19_normalized_features(vgg: VGG19Features, images_pm1: torch.Tensor,
                               keys: Sequence[str] = DEFAULT_FEATURE_KEYS
                               ) -> Dict[str, torch.Tensor]:
     """``VGG19_slim`` (reference Teco.py:5-24): (B, H, W, 3) in [-1, 1] ->
     {key: endpoint / its channel L2 norm}, the norm taken with 1e-12 inside
     the square root."""
-    mean = torch.tensor(VGG_MEAN, dtype=images_pm1.dtype, device=images_pm1.device)
+    mean = _device_mean(images_pm1.dtype, images_pm1.device)
     feats = vgg(deprocess(images_pm1) * 255.0 - mean, keys)
     return {k: f / torch.sqrt(f.square().sum(dim=-1, keepdim=True) + 1e-12)
             for k, f in feats.items()}

@@ -27,12 +27,19 @@ def _gaussian_taps(sigma: float) -> np.ndarray:
     return taps
 
 
+@functools.lru_cache(maxsize=None)
+def _device_taps(sigma: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The taps on ``device``, uploaded once: a captured training step
+    cannot copy from pageable host memory."""
+    return torch.tensor(_gaussian_taps(sigma), dtype=dtype, device=device)
+
+
 def gauss_down_by4(hr: torch.Tensor, sigma: float = 1.5) -> torch.Tensor:
     """Gaussian-blur + stride-4 VALID downsample of (B, H, W, C): the output
     is ``(H - k + 4) // 4`` by ``(W - k + 4) // 4``, k the tap count, so an
     HR crop of ``4*crop + 2*int(3*sigma)`` gives an LR frame of ``crop``
     (reference dataloader.py:279-280)."""
-    taps = torch.tensor(_gaussian_taps(sigma), dtype=hr.dtype, device=hr.device)
+    taps = _device_taps(sigma, hr.dtype, hr.device)
     k, c = taps.numel(), hr.shape[-1]
     net = hr.permute(0, 3, 1, 2)
     net = F.conv2d(net, taps.view(1, 1, k, 1).expand(c, 1, k, 1),

@@ -131,7 +131,11 @@ def unroll_generator(generator: Generator, r_inputs: torch.Tensor,
     for i in range(1, t):
         args = (generator, outs[-1], r_inputs[:, i], flow_hr[:, i - 1])
         if remat:
-            out, packed = checkpoint(_generator_frame, *args, use_reentrant=False)
+            # The frame draws no random numbers: no RNG state to save, and
+            # reading the CUDA generator's state is not allowed while a
+            # training step is captured.
+            out, packed = checkpoint(_generator_frame, *args, use_reentrant=False,
+                                     preserve_rng_state=False)
         else:
             out, packed = _generator_frame(*args)
         outs.append(out)

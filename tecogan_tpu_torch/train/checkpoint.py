@@ -4,7 +4,8 @@ main.py:307-352).
 
 - full resume: step, weights, the Adam states and the loss EMAs; in
   TecoGAN mode also the discriminator (parameters and running statistics),
-  its Adam state, ``ema_tbalance`` and the gate's two counters;
+  its Adam state, ``ema_tbalance`` and the gate's two counters; all copied
+  into the state's tensors in place, so a captured step stays valid;
 - warm start: model weights only, from another run of the port or from a
   TF checkpoint dumped to npz (:func:`warm_start_tf_npz`), everything else
   fresh (reference ``pre_trained_model``, main.py:312-320), with the JAX
@@ -88,28 +89,59 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, keep: int = 50) -> str:
 
 
 def _load(ckpt_dir: str, step: Optional[int]) -> Dict:
-    # CPU first: Optimizer.load_state_dict moves the moments to each
-    # parameter's device and keeps Adam's step counts on the host.
     return torch.load(_path(ckpt_dir, step), map_location="cpu", weights_only=True)
 
 
+@torch.no_grad()
+def _load_adam_(opt: torch.optim.Adam, saved: Dict) -> None:
+    """Adam's saved moments and step counts copied into ``opt``'s state in
+    place (made where the optimizer has none yet: Adam makes it lazily).
+    Unlike ``Optimizer.load_state_dict``, which puts new tensors in place
+    and the saved run's ``param_groups`` (its ``capturable``, its learning
+    rate tensor), this keeps every tensor a captured step reads where it
+    was, and the optimizer as this run built it; the learning rate is
+    written from the device step before each update anyway."""
+    params = [p for group in opt.param_groups for p in group["params"]]
+    capturable = {id(p): group["capturable"] for group in opt.param_groups
+                  for p in group["params"]}
+    for i, p in enumerate(params):
+        src = saved["state"].get(i)
+        if not src:  # saved before its first update: a fresh state
+            for t in opt.state.get(p, {}).values():
+                t.zero_()
+            continue
+        dst = opt.state[p]
+        for k, v in src.items():
+            if k in dst:
+                dst[k].copy_(v)
+            elif k == "step":  # where Adam keeps it
+                dst[k] = v.to(torch.float32, copy=True).to(
+                    p.device if capturable[id(p)] else "cpu")
+            else:
+                dst[k] = v.to(p.device, p.dtype, copy=True)
+
+
+@torch.no_grad()
 def restore_checkpoint(ckpt_dir: str, state: TrainState,
                        step: Optional[int] = None) -> TrainState:
     """Full resume into ``state`` (modules and optimizers built as for the
-    saved run) from ``step`` or the newest checkpoint; returns it."""
+    saved run) from ``step`` or the newest checkpoint; returns it. Every
+    tensor is restored in place, so the trainer's captured steps over
+    ``state`` go on replaying over it."""
     payload = _load(ckpt_dir, step)
-    device = next(state.generator.parameters()).device
     state.generator.load_state_dict(payload["generator"])
     state.fnet.load_state_dict(payload["fnet"])
-    state.gen_opt.load_state_dict(payload["gen_opt"])
-    state.fnet_opt.load_state_dict(payload["fnet_opt"])
-    state.ema_losses = {k: v.to(device) for k, v in payload["ema_losses"].items()}
+    _load_adam_(state.gen_opt, payload["gen_opt"])
+    _load_adam_(state.fnet_opt, payload["fnet_opt"])
+    for k, v in payload["ema_losses"].items():
+        state.ema_losses[k].copy_(v)
     if state.discriminator is not None:
         state.discriminator.load_state_dict(payload["discriminator"])
         state.d_opt.load_state_dict(payload["d_opt"])
         for k in _GAN_FIELDS:
-            setattr(state, k, payload[k].to(device))
+            getattr(state, k).copy_(payload[k])
     state.step = int(payload["step"])
+    state.device_step.fill_(state.step)
     return state
 
 

@@ -19,7 +19,10 @@ In reference order:
   (preemption), after the step in flight.
 
 Not ported yet: the GIF sequence summaries (PIL, ROADMAP queue 1 item 10).
-Training runs on the one device it is given, with no fallback.
+Training runs on the one device it is given, with no fallback; on the card
+each step and each validation runs as a captured CUDA graph by default
+(``Trainer``'s ``capture``), and the loop reads device values on the host
+only at ``display_freq`` and ``summary_freq``.
 """
 
 from __future__ import annotations
@@ -136,12 +139,15 @@ def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
           vgg: Optional[nn.Module] = None,
           pre_trained_dir: Optional[str] = None,
           max_steps: Optional[int] = None,
-          test_while_train: bool = True) -> TrainState:
+          test_while_train: bool = True,
+          capture: Optional[bool] = None) -> TrainState:
     """Train on ``device`` to ``config.max_iter`` (or ``max_steps``) steps;
     returns the final state. ``vgg``: VGG19 weights for ``vgg_scaling >
     0``. ``pre_trained_dir``: a run's checkpoint dir or a TF npz to
     warm-start from. Checkpoints go to ``<output_dir>/checkpoints``, scalars
-    to ``<summary_dir>/scalars.jsonl`` (default ``<output_dir>/log``)."""
+    to ``<summary_dir>/scalars.jsonl`` (default ``<output_dir>/log``).
+    ``capture``: as :class:`Trainer`'s (None captures on the card)."""
+    trainer = Trainer(config, device, vgg=vgg, capture=capture)
     summary_dir = summary_dir or os.path.join(output_dir, "log")
     ckpt_dir = os.path.join(output_dir, "checkpoints")
     os.makedirs(output_dir, exist_ok=True)
@@ -150,14 +156,14 @@ def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
         with open(os.path.join(d, "config.json"), "w") as f:
             f.write(config.to_json())
 
-    trainer = Trainer(config, device, vgg=vgg)
     state = trainer.init_state(config.rand_seed)
     param_summary("generator", state.generator)
     param_summary("fnet", state.fnet)
     if config.gan:
         param_summary("tdiscriminator", state.discriminator)
 
-    # Full resume beats warm start (reference main.py:345-352).
+    # Full resume beats warm start (reference main.py:345-352); both load in
+    # place, before the first step captures.
     resumed = latest_step(ckpt_dir)
     if resumed is not None:
         state = restore_checkpoint(ckpt_dir, state)

@@ -13,7 +13,9 @@ One step:
   d(warp_scaling * warp_loss + gen_loss), since the warp loss does not
   depend on G (reference Teco.py:437-447);
 - two Adam optimizers (G, FNet) on the exponential-decay schedule: update
-  ``s`` (0-based) uses ``lr_schedule(s)``, optax's order;
+  ``s`` (0-based) uses ``lr_schedule(s)``, optax's order, computed in
+  float32 on the device from the state's device step counter
+  (:meth:`Trainer.lr_at`) into a tensor learning rate;
 - EMA (0.99) telemetry of every loss scalar (reference Teco.py:415-435).
 
 TecoGAN mode (``ratio > 0``) adds, as the JAX package does
@@ -36,14 +38,33 @@ TecoGAN mode (``ratio > 0``) adds, as the JAX package does
 
 The parameters stay on the device in float32, and ``TrainState`` is updated
 in place (the JAX package returns a new state; PyTorch's optimizers own
-theirs). bfloat16 training raises (ROADMAP queue 1 item 17): it needs
-float32 master weights beside bfloat16 compute.
+theirs): every tensor the step reads or writes keeps its storage, the step
+counts on the device too, and the host never waits on the device inside a
+step. bfloat16 training raises (ROADMAP queue 1 item 17): it needs float32
+master weights beside bfloat16 compute.
+
+On the card, each step runs as a captured CUDA graph by default (the JAX
+package's ``jax.jit(self._train_step_impl, donate_argnums=(0,))`` and
+jitted eval step, ``tecogan_tpu/train/trainer.py:173-174``): one program
+per (state, batch shape, batch dtype) and kind (train or eval), whose batch
+goes up from pinned host buffers used in turn into a static device buffer;
+the body returns the metrics stacked in one vector, cloned after each
+replay. The Adams are then built ``capturable`` (state and step counts on
+the device). The first call of a shape saves the state, lets the program
+warm up and capture, restores the state and replays: each call is one
+update. A state tensor that has moved (rebound, or restored by
+``load_state_dict``) since the capture makes the program capture again
+(``Trainer.recaptures``); nothing falls back to eager. On the CPU, and with
+``capture=False``, the same body runs eagerly over the same buffers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import time
+import weakref
 from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
@@ -69,6 +90,7 @@ from tecogan_tpu_torch.recurrent.step import (
     upscale_flow,
 )
 from tecogan_tpu_torch.train import losses as L
+from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram, resolve_capture
 
 _REMAT_BUDGET_BYTES = 4 << 30  # unrolled activations above which "auto" remats
 
@@ -192,6 +214,7 @@ class TrainState:
     gen_opt: torch.optim.Adam
     fnet_opt: torch.optim.Adam
     ema_losses: Dict[str, torch.Tensor]  # float32 scalars on the device
+    device_step: torch.Tensor  # int32 scalar on the device, equal to ``step``
     discriminator: Optional[Discriminator] = None
     d_opt: Optional[MaskedAdam] = None
     ema_tbalance: Optional[torch.Tensor] = None    # float32 scalar on the device
@@ -199,15 +222,148 @@ class TrainState:
     counter_wo_d: Optional[torch.Tensor] = None
 
 
+def _init_adam_state(opt: torch.optim.Adam) -> None:
+    """Adam's state as its first ``step()`` would make it (zero moments,
+    step count 0, on the device when capturable), so that a capture finds
+    it: Adam creates it lazily."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if not opt.state[p]:
+                opt.state[p] = {
+                    "step": torch.zeros((), dtype=torch.float32,
+                                        device=p.device if group["capturable"] else "cpu"),
+                    "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                    "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format)}
+
+
+def named_state_tensors(state: TrainState) -> List[Tuple[str, torch.Tensor]]:
+    """Every tensor of ``state`` that a step writes, with a name: the
+    models' parameters and buffers, the optimizers' states and learning
+    rates, the EMAs, the gate's counters and the device step."""
+    out = []
+    for name, module in (("generator", state.generator), ("fnet", state.fnet),
+                         ("discriminator", state.discriminator)):
+        if module is not None:
+            out += [(f"{name}.{k}", t) for k, t in (*module.named_parameters(),
+                                                    *module.named_buffers())]
+    for name, opt in (("gen_opt", state.gen_opt), ("fnet_opt", state.fnet_opt)):
+        for group in opt.param_groups:
+            out.append((f"{name}.lr", group["lr"]))
+            out += [(f"{name}.{i}.{k}", t) for i, p in enumerate(group["params"])
+                    for k, t in opt.state.get(p, {}).items()]
+    out += [(f"ema_losses.{k}", v) for k, v in state.ema_losses.items()]
+    out.append(("device_step", state.device_step))
+    if state.d_opt is not None:
+        out += [(f"d_opt.mu.{i}", t) for i, t in enumerate(state.d_opt.mu)]
+        out += [(f"d_opt.nu.{i}", t) for i, t in enumerate(state.d_opt.nu)]
+        out += [(k, getattr(state, k)) for k in ("ema_tbalance", "counter_with_d",
+                                                 "counter_wo_d")]
+        out.append(("d_opt.count", state.d_opt.count))
+    return out
+
+
+def state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """The tensors of :func:`named_state_tensors`."""
+    return [t for _, t in named_state_tensors(state)]
+
+
+class _Program:
+    """One kind of step ("train" or "eval") over one state at one batch shape
+    and dtype: the static device batch, the host buffers its uploads go
+    through, and the step's body over them, captured on the card or eager.
+
+    The body holds the trainer through a weak proxy, so a dropped trainer
+    frees its graphs at once."""
+
+    def __init__(self, trainer: "Trainer", state: TrainState, kind: str,
+                 shape: Tuple[int, ...], dtype: torch.dtype):
+        device = trainer.device
+        self.kind, self.state = kind, state
+        self.hr = torch.zeros(shape, dtype=dtype, device=device)
+        if device.type == "cuda":
+            # Two pinned buffers used in turn: the host fills one while the
+            # device may still be reading the other's last upload.
+            self.staging = [torch.zeros(shape, dtype=dtype, pin_memory=True) for _ in range(2)]
+        else:
+            self.staging = [self.hr]  # the host writes the batch itself
+        self.done: List[Optional[torch.cuda.Event]] = [None] * len(self.staging)
+        self.uploads = 0
+        body = _train_body if kind == "train" else _eval_body
+        self.body = functools.partial(body, weakref.proxy(trainer), state, self.hr)
+        self.graph: Optional[CapturedProgram] = None
+        self.addresses: Tuple[int, ...] = ()
+        if kind == "train":
+            _init_adam_state(state.gen_opt)
+            _init_adam_state(state.fnet_opt)
+
+    def upload(self, batch: Batch) -> None:
+        """Put the (B, T, tar, tar, 3) batch into the static buffer."""
+        if torch.is_tensor(batch) and batch.device.type != "cpu":
+            self.hr.copy_(batch)
+            return
+        i = self.uploads % len(self.staging)
+        if self.done[i] is not None:
+            self.done[i].synchronize()  # the device has read its last upload
+        host = self.staging[i]
+        if isinstance(batch, np.ndarray):
+            host.numpy()[...] = batch
+        else:
+            host.copy_(batch)
+        if host is not self.hr:
+            self.hr.copy_(host, non_blocking=True)
+            self.done[i] = torch.cuda.Event()
+            self.done[i].record()
+        self.uploads += 1
+
+    def _addresses(self, trainer: "Trainer") -> Tuple[int, ...]:
+        vgg = [] if trainer.vgg is None else list(trainer.vgg.parameters())
+        return tuple(t.data_ptr() for t in [*state_tensors(self.state), *vgg])
+
+    def _capture(self, trainer: "Trainer") -> None:
+        """Warm up and capture the body; a train step's warm-up is undone:
+        the state is saved before it and restored after the capture."""
+        if self.graph is not None:
+            self.graph.close()
+            self.graph = None
+            trainer.recaptures += 1
+        t0 = time.perf_counter()
+        live = state_tensors(self.state) if self.kind == "train" else []
+        with torch.no_grad():
+            saved = [t.clone() for t in live]
+        shape = tuple(self.hr.shape)
+        self.graph = CapturedProgram(self.body, (self.hr,),
+                                     name=f"Trainer.{self.kind}_step {shape} {self.hr.dtype}")
+        with torch.no_grad():
+            for t, s in zip(live, saved):
+                t.copy_(s)
+        self.addresses = self._addresses(trainer)
+        trainer.capture_s += time.perf_counter() - t0
+
+    def run(self, trainer: "Trainer", batch: Batch) -> torch.Tensor:
+        """One step on ``batch``: its metrics as one vector of its own."""
+        self.upload(batch)
+        if not trainer.capture:
+            return self.body()
+        if self.graph is None or self._addresses(trainer) != self.addresses:
+            self._capture(trainer)
+        return self.graph().clone()
+
+
 class Trainer:
     """FRVSR or TecoGAN training on one device (``cuda`` or ``cpu``).
     ``vgg``: VGG19 weights for the perceptual loss, required when
     ``config.vgg_scaling > 0`` (:func:`~tecogan_tpu_torch.models.vgg19.load_vgg19_npz`
     or ``random_vgg19``); the module is moved to the device in place, as
-    ``nn.Module.to`` moves it."""
+    ``nn.Module.to`` moves it. ``capture``: None (the default) runs each
+    step as a captured CUDA graph on the card and eagerly on the CPU; False
+    runs eagerly on the card too; True on the CPU raises.
+
+    ``capture_s`` sums the seconds spent warming up and capturing, and
+    ``recaptures`` counts the captures made again because a state tensor
+    had moved."""
 
     def __init__(self, config: TecoConfig, device: Union[str, torch.device],
-                 vgg: Optional[VGG19Features] = None):
+                 vgg: Optional[VGG19Features] = None, capture: Optional[bool] = None):
         if config.compute_dtype != "float32":
             raise NotImplementedError(
                 "tecogan_tpu_torch trains in float32 only; bfloat16 training "
@@ -223,11 +379,15 @@ class Trainer:
                              "no layer features on this branch)")
         self.config = config
         self.device = torch.device(device)
+        self.capture = resolve_capture(capture, self.device)
         self.remat = resolve_remat(config)
         self.schedule = lr_schedule(config)
         self.vgg = None
         if config.vgg_scaling > 0:
             self.vgg = vgg.to(self.device, torch.float32, memory_format=self._memory_format)
+        self._programs: Dict[Tuple, _Program] = {}
+        self.capture_s = 0.0
+        self.recaptures = 0
 
     @property
     def _memory_format(self):
@@ -255,10 +415,10 @@ class Trainer:
         """27 for the merged Dst, 9 for the pure temporal Dt."""
         return 27 if self.config.dt_mergeDs else 9
 
-    def d_lr_schedule(self, count: torch.Tensor) -> torch.Tensor:
-        """The discriminator's learning rate at its Adam count, on the
-        device: ``optax.exponential_decay`` in float32, x0.3 for the pure Dt
-        (``tecogan_tpu/train/trainer.py:165-171``; reference Teco.py:423-424)."""
+    def lr_at(self, count: torch.Tensor) -> torch.Tensor:
+        """The learning rate at an int32 count on the device:
+        ``optax.exponential_decay`` in float32 (the JAX package's schedule,
+        ``tecogan_tpu/train/trainer.py:62-69``)."""
         cfg = self.config
         lr = torch.full((), cfg.learning_rate, dtype=torch.float32, device=count.device)
         if cfg.decay_step > 0:
@@ -266,7 +426,21 @@ class Trainer:
             if cfg.stair:
                 p = torch.floor(p)
             lr = torch.where(count <= 0, lr, cfg.learning_rate * torch.pow(cfg.decay_rate, p))
-        return lr if cfg.dt_mergeDs else lr * 0.3
+        return lr
+
+    def d_lr_schedule(self, count: torch.Tensor) -> torch.Tensor:
+        """The discriminator's learning rate at its Adam count, on the
+        device: :meth:`lr_at`, x0.3 for the pure Dt
+        (``tecogan_tpu/train/trainer.py:165-171``; reference Teco.py:423-424)."""
+        lr = self.lr_at(count)
+        return lr if self.config.dt_mergeDs else lr * 0.3
+
+    def dt_ratio_at(self, step: torch.Tensor) -> torch.Tensor:
+        """The adversarial terms' fade-in at an int32 step on the device,
+        ``min(dt_ratio_max, dt_ratio_0 + dt_ratio_add * step)`` in float32
+        (``tecogan_tpu/train/trainer.py:315-316``)."""
+        cfg = self.config
+        return (cfg.dt_ratio_0 + cfg.dt_ratio_add * step.float()).clamp_max(cfg.dt_ratio_max)
 
     def state_from_modules(self, generator: Generator, fnet: FNet,
                            discriminator: Optional[Discriminator] = None) -> TrainState:
@@ -278,15 +452,24 @@ class Trainer:
                                  memory_format=self._memory_format).train()
         fnet = fnet.to(self.device, torch.float32, memory_format=self._memory_format).train()
 
+        # The learning rate is a float32 device tensor that each step writes
+        # from the device step. On the card the Adams are capturable (step
+        # counts on the device), captured or not, so both run the same
+        # arithmetic; on the CPU a tensor rate needs capturable and foreach
+        # off.
+        on_card = self.device.type == "cuda"
+
         def adam(module):
-            return torch.optim.Adam(module.parameters(), lr=self.schedule(0),
-                                    betas=(cfg.beta1, 0.999), eps=cfg.adam_eps)
+            lr = torch.full((), self.schedule(0), dtype=torch.float32, device=self.device)
+            return torch.optim.Adam(module.parameters(), lr=lr, betas=(cfg.beta1, 0.999),
+                                    eps=cfg.adam_eps, foreach=on_card, capturable=on_card)
 
         state = TrainState(
             step=0, generator=generator, fnet=fnet,
             gen_opt=adam(generator), fnet_opt=adam(fnet),
             ema_losses={k: torch.zeros((), device=self.device)
-                        for k in self.telemetry_keys()})
+                        for k in self.telemetry_keys()},
+            device_step=torch.zeros((), dtype=torch.int32, device=self.device))
         if cfg.gan:
             if discriminator is None:
                 raise ValueError("TecoGAN training (ratio > 0) needs a discriminator")
@@ -316,13 +499,33 @@ class Trainer:
         return self.state_from_modules(generator, fnet, disc)
 
     # ------------------------------------------------------------ steps
-    def _inputs(self, hr_seq: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        if isinstance(hr_seq, np.ndarray):
-            hr_seq = torch.from_numpy(np.ascontiguousarray(hr_seq))
-        r_inputs, r_targets = prepare_batch(hr_seq.to(self.device), self.config)
+    def _prepare(self, hr_seq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        r_inputs, r_targets = prepare_batch(hr_seq, self.config)
         if self.config.pingpong:
             r_inputs, r_targets = extend_pingpong(r_inputs), extend_pingpong(r_targets)
         return r_inputs, r_targets
+
+    def _program(self, kind: str, state: TrainState, batch: Batch) -> _Program:
+        if isinstance(batch, np.ndarray):
+            dtype = torch.from_numpy(np.zeros(0, batch.dtype)).dtype
+        else:
+            dtype = batch.dtype
+        key = (kind, id(state), tuple(batch.shape), dtype)
+        prog = self._programs.get(key)
+        if prog is None:  # the program holds its state: the id stays its own
+            prog = self._programs[key] = _Program(self, state, kind, key[2], dtype)
+        return prog
+
+    def metric_keys(self, kind: str = "train") -> List[str]:
+        """The order of the step's metric vector: the telemetry keys, and
+        ``t_balance`` after a TecoGAN train step."""
+        keys = self.telemetry_keys()
+        return keys + ["t_balance"] if kind == "train" and self.config.gan else keys
+
+    def pool_bytes(self) -> int:
+        """Device bytes held by the captured programs' memory pools."""
+        return sum(p.graph.pool_bytes() for p in self._programs.values()
+                   if p.graph is not None)
 
     @staticmethod
     def _frozen_d(disc: Discriminator, x: torch.Tensor):
@@ -382,9 +585,7 @@ class Trainer:
             d_real, real_layers = self._frozen_d(state.discriminator, real)
             d_fake, fake_layers = self._frozen_d(state.discriminator, fake)
             adv = (-torch.log(d_fake + cfg.eps)).mean()
-            # float32, as the JAX package's jnp.minimum over a float32 step.
-            dt_ratio = float(np.minimum(np.float32(cfg.dt_ratio_max), np.float32(
-                cfg.dt_ratio_0) + np.float32(cfg.dt_ratio_add) * np.float32(state.step)))
+            dt_ratio = self.dt_ratio_at(state.device_step)
             gen_loss = gen_loss + cfg.ratio * adv * dt_ratio
             metrics["t_adversarial_loss"] = adv
             metrics["Dst_ratio"] = dt_ratio
@@ -422,51 +623,76 @@ class Trainer:
                    ) -> Tuple[TrainState, Dict[str, Union[torch.Tensor, float]]]:
         """One update of G and FNet (and, gated, of the discriminator) from
         (B, T, tar, tar, 3) HR crops. Returns the (same, updated) state and
-        the step's metrics as device scalars, plus the step's
-        ``learning_rate`` and, in TecoGAN mode, ``t_balance``. The gradients
-        stay in the parameters' ``.grad`` until the next step."""
-        cfg = self.config
-        r_inputs, r_targets = self._inputs(hr_seq)
-        gen_loss, metrics, aux = self._forward_losses(state, r_inputs, r_targets)
-        # One joint backward, valid because the warp loss is G-free
-        # (reference computes the two gradients separately, Teco.py:446-447).
-        joint = gen_loss + cfg.warp_scaling * metrics["l2_warp_loss"]
-        state.gen_opt.zero_grad(set_to_none=True)
-        state.fnet_opt.zero_grad(set_to_none=True)
-        joint.backward()
+        the step's metrics as device scalars (views of one vector of their
+        own, so they keep this step's values after the next), plus the
+        step's ``learning_rate`` (a host float) and, in TecoGAN mode,
+        ``t_balance``. The gradients stay in the parameters' ``.grad`` until
+        the next step."""
         lr = self.schedule(state.step)
-        for opt in (state.gen_opt, state.fnet_opt):
-            for group in opt.param_groups:
-                group["lr"] = lr
-            opt.step()
-        metrics = {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
-        d = cfg.loss_ema_decay
-        if cfg.gan:
-            self._d_step(state, aux["real"], aux["fake"])
-            t_balance = aux["t_balance"].detach()
-            state.ema_tbalance = d * state.ema_tbalance + (1 - d) * t_balance
-            metrics["t_balance"] = t_balance
-        for k in state.ema_losses:
-            state.ema_losses[k] = d * state.ema_losses[k] + (1 - d) * metrics[k]
+        vec = self._program("train", state, hr_seq).run(self, hr_seq)
         state.step += 1
+        metrics: Dict[str, Union[torch.Tensor, float]] = dict(
+            zip(self.metric_keys("train"), vec.unbind()))
         metrics["learning_rate"] = lr
         return state, metrics
 
-    @torch.no_grad()
     def eval_step(self, state: TrainState, hr_seq: Batch) -> Dict[str, torch.Tensor]:
         """Validation losses, no update (reference main.py:394-402)."""
-        return self._forward_losses(state, *self._inputs(hr_seq))[1]
+        vec = self._program("eval", state, hr_seq).run(self, hr_seq)
+        return dict(zip(self.metric_keys("eval"), vec.unbind()))
 
     @torch.no_grad()
     def generate(self, state: TrainState, hr_seq: Batch):
         """Forward-only sequences in [0, 1] for summaries (reference
         Teco.py:498-503): LR inputs, HR targets, generated frames and the
-        warped previous outputs."""
-        r_inputs, r_targets = self._inputs(hr_seq)
+        warped previous outputs. Eager on every device: nothing on the
+        training loop's path calls it (ROADMAP queue 1 item 10)."""
+        if isinstance(hr_seq, np.ndarray):
+            hr_seq = torch.from_numpy(np.ascontiguousarray(hr_seq))
+        r_inputs, r_targets = self._prepare(hr_seq.to(self.device))
         _, flow_hr = flows_for_sequence(state.fnet, r_inputs)
         gen_outputs, warppre = unroll_generator(state.generator, r_inputs, flow_hr,
                                                 remat=False)
         return r_inputs, deprocess(r_targets), deprocess(gen_outputs), deprocess(warppre)
+
+
+def _train_body(trainer: Trainer, state: TrainState, hr: torch.Tensor) -> torch.Tensor:
+    """One training step on the static batch ``hr``, all on the device and
+    in place: the joint backward, both Adams at the device step's learning
+    rate, the gated discriminator step, the EMAs and the device step.
+    Returns the metrics in :meth:`Trainer.metric_keys` order as one vector."""
+    cfg = trainer.config
+    gen_loss, metrics, aux = trainer._forward_losses(state, *trainer._prepare(hr))
+    # One joint backward, valid because the warp loss is G-free
+    # (reference computes the two gradients separately, Teco.py:446-447).
+    joint = gen_loss + cfg.warp_scaling * metrics["l2_warp_loss"]
+    state.gen_opt.zero_grad(set_to_none=True)
+    state.fnet_opt.zero_grad(set_to_none=True)
+    joint.backward()
+    lr = trainer.lr_at(state.device_step)
+    for opt in (state.gen_opt, state.fnet_opt):
+        for group in opt.param_groups:
+            group["lr"].copy_(lr)
+        opt.step()
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if cfg.gan:
+        trainer._d_step(state, aux["real"], aux["fake"])
+        metrics["t_balance"] = aux["t_balance"].detach()
+    d = cfg.loss_ema_decay
+    with torch.no_grad():
+        if cfg.gan:
+            state.ema_tbalance.copy_(d * state.ema_tbalance + (1 - d) * metrics["t_balance"])
+        for k, ema in state.ema_losses.items():
+            ema.copy_(d * ema + (1 - d) * metrics[k])
+        state.device_step += 1
+    return torch.stack([metrics[k] for k in trainer.metric_keys("train")])
+
+
+@torch.no_grad()
+def _eval_body(trainer: Trainer, state: TrainState, hr: torch.Tensor) -> torch.Tensor:
+    """The validation losses on the static batch ``hr``, as one vector."""
+    metrics = trainer._forward_losses(state, *trainer._prepare(hr))[1]
+    return torch.stack([metrics[k] for k in trainer.metric_keys("eval")])
 
 
 def d_loss(d_real: torch.Tensor, d_fake: torch.Tensor, eps: float) -> torch.Tensor:

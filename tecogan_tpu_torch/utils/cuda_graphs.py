@@ -1,11 +1,13 @@
 """One captured CUDA graph over static tensors: the port's counterpart of
 ``jax.jit`` with donated arguments.
 
-The JAX package runs each inference path as one compiled program: the
-streaming chunk is a ``jax.jit`` of a ``lax.scan`` whose recurrent state is
-donated (``tecogan_tpu/recurrent/inference.py:259,324``), the server tick
-``jax.jit(server_step, donate_argnums=(2,))``
-(``tecogan_tpu/serve/engine.py:163``). Here the same body is captured once
+The JAX package runs each inference path and each training step as one
+compiled program: the streaming chunk is a ``jax.jit`` of a ``lax.scan``
+whose recurrent state is donated (``tecogan_tpu/recurrent/inference.py:259,324``),
+the server tick ``jax.jit(server_step, donate_argnums=(2,))``
+(``tecogan_tpu/serve/engine.py:163``), the train step
+``jax.jit(self._train_step_impl, donate_argnums=(0,))`` and the eval step
+(``tecogan_tpu/train/trainer.py:173-174``). Here the same body is captured once
 per shape into a ``torch.cuda.CUDAGraph`` and replayed: it reads static
 input tensors, writes the recurrent state into static tensors in place (the
 donation) and returns its output, whose storage, from the graph's private
@@ -20,15 +22,18 @@ that pool too.
   ``csrc/resblock_chain.cu``) and settles cuDNN's algorithm choices, none
   of which may happen under capture. The caller makes that run harmless:
   the streaming state is zeroed after it, a server's warm tick has every
-  slot inactive;
+  slot inactive, a training step's state is saved before it and restored
+  after the capture;
 - captures under ``torch.cuda.graph(..., capture_error_mode="thread_local")``,
   so other threads keep using the card meanwhile (a serving bucket warmed
   in the background while another bucket ticks; writer threads waiting on
   events), one capture at a time in the process. A capture that fails
   raises, naming the line that broke it; nothing falls back to eager;
 - replays on the caller's current stream, and adds the kernel launches its
-  capture counted (:class:`~tecogan_tpu_torch.kernels.LaunchRecord`) to the
-  wrappers' ``launches`` counters, so they count the kernels that ran;
+  capture counted (:class:`~tecogan_tpu_torch.kernels.LaunchRecord`, keyed
+  by the capture's stream, so a backward's launches on autograd's device
+  thread count) to the wrappers' ``launches`` counters, so they count the
+  kernels that ran;
 - releases its graph and its memory pool on :meth:`close`, or when it is
   dropped (a ``CUDAGraph`` resets itself when freed).
 
@@ -105,7 +110,7 @@ class CapturedProgram:
                 body()
             torch.cuda.current_stream().wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            record = LaunchRecord()
+            record = LaunchRecord(stream=side.cuda_stream)
             try:
                 with record, torch.cuda.graph(graph, stream=side,
                                               capture_error_mode="thread_local"):

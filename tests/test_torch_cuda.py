@@ -245,9 +245,10 @@ def test_function_grads_match_cpu(cuda_device, case):
 
 @pytest.mark.cuda
 def test_train_step_reaches_every_parameter(cuda_device):
-    """One FRVSR step on the card (2 blocks, 64 channels, real FNet): every
-    parameter of the generator and FNet gets a non-zero gradient, equal to
-    the CPU's within 1e-3 of its largest entry, and K2 ran once."""
+    """One FRVSR step on the card (2 blocks, 64 channels, real FNet), the
+    captured step: every parameter of the generator and FNet gets a
+    non-zero gradient, equal to the CPU's within 1e-3 of its largest entry,
+    and K2 ran twice (the program's eager warm-up and one replay)."""
     cfg = FRVSR_PRESET.replace(num_resblock=2, batch_size=2, rnn_n=3, crop_size=16)
     tar = cfg.hr_load_size
     batch = (np.stack([synthetic_clip(3, tar, tar, seed=s, content="natural")
@@ -261,7 +262,7 @@ def test_train_step_reaches_every_parameter(cuda_device):
             state.fnet.output_conv2.weight.mul_(0.1)
         before = upsample4_bwd.launches
         _, metrics = trainer.train_step(state, batch)
-        assert upsample4_bwd.launches == before + (device.type == "cuda")
+        assert upsample4_bwd.launches == before + 2 * (device.type == "cuda")
         losses.append(float(metrics["All_loss_Gen"]))
         grads.append({f"{prefix}.{name}": p.grad.detach().cpu()
                       for prefix, module in (("g", state.generator), ("f", state.fnet))
@@ -428,7 +429,8 @@ def test_gan_step_matches_cpu(cuda_device):
     weights, ping-pong) against the CPU: the losses within 1e-4, every
     gradient of G, FNet and D within 1e-3 of its largest entry; the
     discriminator's update applied (gate open) and the kernels ran: K1 for
-    the flow, the skips and the Dst's LR triplets, K2 once."""
+    the flow, the skips and the Dst's LR triplets, K2 once, each twice in
+    this first, capturing call (the eager warm-up and one replay)."""
     from tecogan_tpu_torch.config import TECOGAN_PRESET
     from tecogan_tpu_torch.models.vgg19 import random_vgg19
 
@@ -446,8 +448,8 @@ def test_gan_step_matches_cpu(cuda_device):
         _, metrics = trainer.train_step(state, batch)
         after = (upsample4.launches, upsample4_bwd.launches, resblock_chain.launches)
         if device.type == "cuda":
-            assert [a - b for a, b in zip(after, before)] == [cfg.unroll_frames + 2, 1,
-                                                              2 * cfg.unroll_frames]
+            assert [a - b for a, b in zip(after, before)] == [
+                2 * (cfg.unroll_frames + 2), 2, 4 * cfg.unroll_frames]
         assert int(state.counter_with_d) == 1 and int(state.d_opt.count) == 1
         runs.append(({k: float(v) for k, v in metrics.items()},
                      {f"{prefix}.{name}": p.grad.detach().cpu()
@@ -461,6 +463,62 @@ def test_gan_step_matches_cpu(cuda_device):
     for name, want in grads_c.items():
         assert grads[name].abs().max() > 0, name
         assert (grads[name] - want).abs().max() <= 1e-3 * want.abs().max(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["frvsr", "tecogan"])
+def test_training_captured_matches_eager(cuda_device, mode):
+    """Four steps of the captured training step (the default on the card)
+    against four with capture=False from the same initial state, under
+    torch.use_deterministic_algorithms and cuDNN's deterministic
+    algorithms (2 blocks, the real FNet; TecoGAN with the merged Dst and
+    VGG19 random weights): every state tensor bit-equal, the metrics of
+    every step too. Then K2 counts once a replay, and a rebound state
+    tensor makes the next step capture again."""
+    from tecogan_tpu_torch.config import TECOGAN_PRESET
+    from tecogan_tpu_torch.models.vgg19 import random_vgg19
+    from tecogan_tpu_torch.train.trainer import named_state_tensors
+    from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
+
+    base = TECOGAN_PRESET if mode == "tecogan" else FRVSR_PRESET
+    cfg = base.replace(num_resblock=2, batch_size=1, rnn_n=3, crop_size=16)
+    tar = cfg.hr_load_size
+    batches = [(synthetic_clip(3, tar, tar, seed=30 + i, content="natural")[None] * 255
+                ).astype(np.uint8) for i in range(4)]
+    flags = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=False)
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for capture in (None, False):
+            vgg = random_vgg19(3) if cfg.gan else None
+            trainer = Trainer(cfg, cuda_device, vgg=vgg, capture=capture)
+            state = trainer.init_state(6)
+            captures = CapturedProgram.captures
+            metrics = [{k: float(v) for k, v in trainer.train_step(state, b)[1].items()}
+                       for b in batches]
+            assert CapturedProgram.captures - captures == (capture is None)
+            # Detached copies: a clone of a parameter would keep its grad
+            # accumulator alive on this stream, and a later capture's
+            # backward would have to wait on it.
+            runs[capture] = (metrics, [(n, t.detach().clone())
+                                       for n, t in named_state_tensors(state)])
+            if capture is None:
+                kept = (trainer, state)
+    finally:
+        torch.use_deterministic_algorithms(flags[0])
+        torch.backends.cudnn.deterministic = flags[1]
+    assert runs[None][0] == runs[False][0]
+    for (name, a), (_, b) in zip(runs[None][1], runs[False][1]):
+        assert torch.equal(a, b), name
+    trainer, state = kept
+    before = upsample4_bwd.launches
+    trainer.train_step(state, batches[0])
+    assert upsample4_bwd.launches == before + 1  # one replay, one K2
+    state.ema_losses["l2_content_loss"] = state.ema_losses["l2_content_loss"].clone()
+    trainer.train_step(state, batches[1])
+    assert trainer.recaptures == 1
+    assert upsample4_bwd.launches == before + 3  # a warm-up and a replay more
 
 
 def _serving_models(seed, num_resblock):

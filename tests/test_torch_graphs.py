@@ -17,7 +17,7 @@ from tecogan_tpu.models import FNet as JaxFNet
 from tecogan_tpu.models import Generator as JaxGenerator
 from tecogan_tpu.recurrent.inference import StreamingSR as JaxStreamingSR
 from tecogan_tpu_torch.config import TecoConfig
-from tecogan_tpu_torch.kernels import LaunchRecord, resblock_chain, upsample4
+from tecogan_tpu_torch.kernels import LaunchRecord, resblock_chain, upsample4, upsample4_bwd
 from tecogan_tpu_torch.kernels import ops
 from tecogan_tpu_torch.recurrent import StreamingSR
 from tecogan_tpu_torch.serve import MultiGeometryServer, VSRServer
@@ -188,3 +188,41 @@ def test_launch_counts_survive_concurrent_threads():
     finally:
         sys.setswitchinterval(saved)
     assert upsample4.launches == start + threads_n * reps
+
+
+def test_capture_record_counts_its_stream_from_any_thread(monkeypatch):
+    """A capture's record is keyed by its stream (the current-stream query
+    monkeypatched on the CPU): a launch counted on another thread whose
+    current stream is the capture's lands in it, as a captured backward's
+    K2 does on autograd's device thread; launches on another stream, from
+    the capturing thread or another, stay out, as an eager bucket's tick
+    beside a background capture; none lands after the capture ends."""
+    local = threading.local()
+    monkeypatch.setattr(ops, "_stream_key", lambda: getattr(local, "stream", 0))
+
+    def count_on(stream, wrapper, n=1):
+        local.stream = stream
+        ops.count(wrapper, n)
+
+    def on_thread(*args):
+        thread = threading.Thread(target=count_on, args=args)
+        thread.start()
+        thread.join(timeout=10)
+        assert not thread.is_alive()
+
+    kernels = (upsample4, upsample4_bwd, resblock_chain)
+    before = [k.launches for k in kernels]
+    with LaunchRecord(stream=7) as record:
+        count_on(7, resblock_chain, 10)  # the capturing thread
+        on_thread(7, upsample4_bwd)      # the backward's device thread
+        on_thread(9, upsample4, 3)       # a bucket ticking on its own stream
+        count_on(9, upsample4)
+        with pytest.raises(RuntimeError, match="already has a launch record"):
+            LaunchRecord(stream=7).__enter__()
+    count_on(7, resblock_chain)
+    assert record.launches == {resblock_chain: 10, upsample4_bwd: 1}
+    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 1, 11]
+    record.add(-1)  # the capture ran none of them; each replay adds them
+    record.add()
+    record.add()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 2, 21]
