@@ -28,6 +28,10 @@ Phases, each raising on failure (so the exit code is non-zero):
    products, and untimed at two edge shapes; the bfloat16
    chain also, one block at three shapes, against its own rounding points
    in float32 (8e-3);
+3b. the native data-loader core: the machine's toolchain (``<png.h>``,
+   ``<zlib.h>``, ``ldconfig -p``'s libpng and libz) and the build of
+   ``tecogan_tpu_torch/csrc/tecodata.cpp`` (its own PNG codec on zlib)
+   with g++ into ``tecogan_tpu_torch/_build/``;
 4. autograd: the upsample (both filters) and the chain on the card against
    the same functions on the CPU, gradients of every input, float32;
 5. the whole streaming path at full width (16 resblocks, 64 channels) on
@@ -61,6 +65,14 @@ Phases, each raising on failure (so the exit code is non-zero):
    equal to the counters'). This phase runs with PyTorch's default
    precision flags (cuDNN in TF32), as the training CLI does; the
    comparisons before it with TF32 off;
+8b. where FRVSR_PRESET's ``train()`` loses time against its one-batch
+   step: ``train()`` with the native executor (asserted to run), the
+   python executor and a loader whose batches were all decoded before the
+   first step, captured, each timed with a synchronisation around every
+   step and paced by the device, with the uploads' and the loader waits'
+   host time; one batch with no loader synchronised step by step and
+   queued; the upload alone (``_Program.upload``); ms/step, frames/s and
+   idle share against a replay's profiled device time;
 9. the inference CLI and the metrics suite at the main path's width: 41
    synthetic 576x720 HR PNGs -> ``cli.main --mode inference
    --input_dir_HR`` (blur and 4x subsample on the card, 5 warm-up frames
@@ -73,7 +85,13 @@ Phases, each raising on failure (so the exit code is non-zero):
    on the 41 outputs against their HR frames (tOF by the torch Farneback
    on the card); and ``evaluate_folders`` with a seeded random LPIPS on the
    card against the CPU on 8 frames. Prints the split of the CLI's wall
-   time and the suite's seconds per frame;
+   time (decode + blur, stream, encode, flush) and the suite's seconds per
+   frame; the CLI runs again with the native and the python PNG codec in
+   turns, the native library's decode and encode counters asserted (41
+   and 41 frames, or 0 and 0);
+9b. the native PNG codec against ``data/png.py`` on the 41 576x720 PNGs
+   (filter 0) and 8 Paeth-filtered ones: decode bit-equal, encode then
+   ``read_png`` gives the input back, both codecs timed;
 10. one TecoGAN step at full width (TECOGAN_PRESET's widths: 16 blocks,
    the real FNet, the merged Dst, VGG19 with seeded random weights), batch
    1, crop 32, 3 frames with ping-pong (5), float32 with TF32 off, GPU
@@ -116,10 +134,15 @@ Phases, each raising on failure (so the exit code is non-zero):
    cuDNN's deterministic algorithms, its launches counted; (d) ``cli.serve``
    on three LR PNG dirs (two geometries, one with Paeth rows): float32
    within 1 u8 level of ``cli.main --mode inference`` per dir (the random
-   generator's recurrence damped, see ``run_serve_cli``), then a timed
-   bfloat16 run with its wall split; and the PNG decode of a Paeth frame at
-   144x180 and 576x720. Phase 3 also times the chain N=16 at (4,144,180,64)
-   and K1 at (4,144,180,2/3) in bfloat16, a serving tick's shapes.
+   generator's recurrence damped, see ``run_serve_cli``), then timed
+   bfloat16 runs with the native and the python PNG codec in turns, each
+   with its wall split and the native library's counters asserted; and
+   the PNG decode of a Paeth frame at 144x180 and 576x720; (e) the state
+   budget counting a captured bucket's graph pool: under a budget below a
+   4-slot 144x180 pool a 120x180 geometry is refused while that bucket is
+   busy, and evicts it once idle. Phase 3 also times the chain N=16 at
+   (4,144,180,64) and K1 at (4,144,180,2/3) in bfloat16, a serving tick's
+   shapes.
 
 Then one ``[yardstick]`` line per timed case of phase 3 with its wrapper's
 launches on the streaming, FRVSR and TecoGAN training paths and per
@@ -1364,13 +1387,18 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
     # float ulp can flip a uint8 level. Run 2, into another directory, keeps
     # PyTorch's default flags, as a user's run does, and shows the spread of
     # the wall time.
-    def cli(out_dir, *extra):
+    def cli(out_dir, *extra, codec="native"):
+        """One CLI run with the native or the python PNG codec; ``stats``
+        gains the frames the native library decoded and encoded in it."""
         printed = io.StringIO()
-        with contextlib.redirect_stdout(printed):
+        counts = codec_counts()
+        with contextlib.redirect_stdout(printed), (
+                python_codec() if codec == "python" else contextlib.nullcontext()):
             t0 = time.perf_counter()
             stats = cli_main.main(["--mode", "inference", "--input_dir_HR", hr_dir,
                                    "--output_dir", out_dir, "--device", "cuda", *extra])
             wall = time.perf_counter() - t0
+        stats.update(codec=codec, native=tuple(n - c for n, c in zip(codec_counts(), counts)))
         return stats, wall, printed.getvalue()
 
     out_dir = os.path.join(tmp, "cli_out")
@@ -1391,7 +1419,15 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
         direct, _ = sr.run(data.inputs, warmup=WARMUP)
     finally:
         torch.backends.cudnn.deterministic = False
-    runs.append(cli(os.path.join(tmp, "cli_out2"), *argv))
+    # Runs 2-5 keep the default flags, the PNG codecs in turns (phase 9b
+    # holds the two codecs' pixels equal).
+    for codec in ("native", "python", "python", "native"):
+        runs.append(cli(os.path.join(tmp, f"cli_out{len(runs) + 1}"), *argv, codec=codec))
+    for i, (stats, _, _) in enumerate(runs, 1):
+        want = (CLI_FRAMES, CLI_FRAMES) if stats["codec"] == "native" else (0, 0)
+        if stats["native"] != want:
+            raise RuntimeError(f"[cli] run {i} ({stats['codec']} codec): the native library "
+                               f"decoded and encoded {stats['native']} frames, want {want}")
 
     # (c) 41 PNGs of 576x720x3, byte-equal to StreamingSR.run on the card.
     names = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
@@ -1421,15 +1457,17 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
                            f"{need} and 1")
     for i, (stats, wall, printed) in enumerate(runs, 1):
         flags = "cuDNN deterministic" if i == 1 else "default flags"
-        log(f"[cli] run {i} ({flags}): {CLI_FRAMES} HR PNGs {4 * LR_H}x{4 * LR_W} -> LR {LR_H}x{LR_W} "
+        log(f"[cli] run {i} ({flags}, {stats['codec']} PNG codec: the native library decoded "
+            f"and encoded {stats['native']} frames): {CLI_FRAMES} HR PNGs {4 * LR_H}x{4 * LR_W} "
+            f"-> LR {LR_H}x{LR_W} "
             f"(+{WARMUP} warm-up) -> {stats['written']} HR PNGs, bfloat16, "
             f"{NUM_RESBLOCK} resblocks, chunk {CHUNK}: decode + blur "
             f"{stats['decode_s']:.3f} s, stream {stats['stream_s']:.3f} s "
             f"({stats['frames'] / stats['stream_s']:.2f} frames/s processed; of it the "
-            f"capture {stats['capture_s']:.3f} s), writer "
-            f"flush {stats['flush_s']:.3f} s, {stats['threads']} writer threads; end to "
-            f"end {wall:.3f} s wall, {stats['written'] / wall:.2f} frames/s PNG dir to "
-            f"PNG dir; card: {card}")
+            f"capture {stats['capture_s']:.3f} s), encode {stats['encode_s']:.3f} s on the "
+            f"writer thread, writer flush {stats['flush_s']:.3f} s, {stats['threads']} encode "
+            f"threads; end to end {wall:.3f} s wall, {stats['written'] / wall:.2f} frames/s "
+            f"PNG dir to PNG dir; card: {card}")
     for line in runs[0][2].splitlines():
         if line.startswith(("total time", "Wrote", "io:")):
             log(f"[cli] | {line}")
@@ -2156,9 +2194,13 @@ def run_serve_cli(dev, card: str, tmp: str) -> None:
     saved = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
+        # The budget counts the captured ticks' graph pools, about twice
+        # bfloat16's in float32: two 4-slot buckets need more than the
+        # default 2048 MB.
         stats, _, _ = quiet(cli_serve.main, [
             "--device", str(dev), "--input_dirs", ",".join(paths), "--output_dir",
-            os.path.join(tmp, "served32"), "--params_npz", npz, "--compute_dtype", "float32"])
+            os.path.join(tmp, "served32"), "--params_npz", npz, "--compute_dtype", "float32",
+            "--state_budget_mb", "16384"])
         worst = {}
         for name, path in zip(dirs, paths):
             quiet(cli_main.main, ["--mode", "inference", "--device", str(dev), "--input_dir_LR",
@@ -2178,23 +2220,37 @@ def run_serve_cli(dev, card: str, tmp: str) -> None:
             max(m for m, _ in worst.values()) > 1:
         raise RuntimeError(f"[serve] cli.serve vs cli.main: {worst}, {stats['written']}")
 
-    captures = CapturedProgram.captures
-    stats, wall, printed = quiet(cli_serve.main, [
-        "--device", str(dev), "--input_dirs", ",".join(paths), "--output_dir",
-        os.path.join(tmp, "served16"), "--params_npz", npz, "--compute_dtype", "bfloat16"])
-    captures = CapturedProgram.captures - captures
-    if captures != 2:  # one tick graph per geometry bucket, captured by its prewarm
-        raise RuntimeError(f"[serve] (d) cli.serve captured {captures} graphs, want 2")
-    for line in printed.splitlines():
-        if line.startswith(("total time", "io:", "[serve] prewarmed")) or "aggregate" in line:
-            log(f"[serve] (d) | {line}")
-    log(f"[serve] (d) cli.serve bfloat16, 3 PNG dirs ({', '.join(f'{n} {d[0][0]}x{d[0][1]} x{d[1]}' for n, d in dirs.items())}; walk Paeth-filtered): "
-        f"{stats['frames']} HR PNGs in {stats['secs']:.3f} s of serving, "
-        f"{stats['frames'] / stats['secs']:.2f} frames/s aggregate, {wall:.3f} s end to end "
-        f"with the writer flush; {stats['ticks']} ticks; decode {stats['decode_s']:.3f} s "
-        f"on the source threads, ticks {stats['tick_s']:.3f} s, waiting for decode or a prewarm "
-        f"{stats['idle_s']:.3f} s, writer flush {stats['flush_s']:.3f} s; {captures} tick "
-        f"graphs captured (one a geometry); card: {card}")
+    # Timed bfloat16 runs, the PNG codecs in turns.
+    source_frames = sum(d[1] for d in dirs.values())
+    for i, codec in enumerate(("native", "python", "python", "native")):
+        captures, counts = CapturedProgram.captures, codec_counts()
+        with python_codec() if codec == "python" else contextlib.nullcontext():
+            stats, wall, printed = quiet(cli_serve.main, [
+                "--device", str(dev), "--input_dirs", ",".join(paths), "--output_dir",
+                os.path.join(tmp, f"served16_{i}"), "--params_npz", npz,
+                "--compute_dtype", "bfloat16"])
+        captures = CapturedProgram.captures - captures
+        native = tuple(n - c for n, c in zip(codec_counts(), counts))
+        if captures != 2:  # one tick graph per geometry bucket, captured by its prewarm
+            raise RuntimeError(f"[serve] (d) cli.serve captured {captures} graphs, want 2")
+        want = (source_frames, stats["frames"]) if codec == "native" else (0, 0)
+        if native != want:
+            raise RuntimeError(f"[serve] (d) cli.serve ({codec} codec): the native library "
+                               f"decoded and encoded {native} frames, want {want}")
+        if i == 0:
+            for line in printed.splitlines():
+                if line.startswith(("total time", "io:", "[serve] prewarmed")) or \
+                        "aggregate" in line:
+                    log(f"[serve] (d) | {line}")
+        log(f"[serve] (d) cli.serve bfloat16, {codec} PNG codec (the native library decoded "
+            f"and encoded {native} frames), 3 PNG dirs ({', '.join(f'{n} {d[0][0]}x{d[0][1]} x{d[1]}' for n, d in dirs.items())}; walk Paeth-filtered): "
+            f"{stats['frames']} HR PNGs in {stats['secs']:.3f} s of serving, "
+            f"{stats['frames'] / stats['secs']:.2f} frames/s aggregate, {wall:.3f} s end to end "
+            f"with the writer flush; {stats['ticks']} ticks; decode {stats['decode_s']:.3f} s "
+            f"on the source threads, ticks {stats['tick_s']:.3f} s, waiting for decode or a "
+            f"prewarm {stats['idle_s']:.3f} s, encode {stats['encode_s']:.3f} s on the writer "
+            f"threads, writer flush {stats['flush_s']:.3f} s; {captures} tick graphs captured "
+            f"(one a geometry); card: {card}")
 
     rng = np.random.RandomState(15)
     for h, w in ((LR_H, LR_W), (4 * LR_H, 4 * LR_W)):
@@ -2214,6 +2270,347 @@ def run_serve_cli(dev, card: str, tmp: str) -> None:
             times[kind] = float(np.median(reps)) * 1e3
         log(f"[serve] PNG decode {h}x{w} RGB (median of 5, host CPU of the card's machine): "
             + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items()))
+
+
+# ---------------------------------------------------------------- native data path
+# The FRVSR train() split (phase 8b): steps a train() call, the steady
+# window (steps 11-25, 1-based), steps of the one-batch and upload timings.
+SPLIT_STEPS, SPLIT_STEADY, SPLIT_ALONE = 25, (10, 24), 20
+
+
+@contextlib.contextmanager
+def python_codec():
+    """The python PNG codec (``data/png.py``) for the inference CLI's and
+    the serving sources' frame I/O, as where the native library cannot be
+    built: ``_native_io`` returns None."""
+    from tecogan_tpu_torch.data import inference
+
+    native_io = inference._native_io
+    inference._native_io = lambda num_threads=8: None
+    try:
+        yield
+    finally:
+        inference._native_io = native_io
+
+
+def codec_counts():
+    """(frames decoded, frames encoded) by the native library so far."""
+    from tecogan_tpu_torch.data.native_loader import NativeFrameIO
+
+    return NativeFrameIO.decoded, NativeFrameIO.encoded
+
+
+def build_native(card: str) -> None:
+    """Phase 3b: the card machine's toolchain for the native data-loader
+    core, and its build from ``tecogan_tpu_torch/csrc/tecodata.cpp``."""
+    from tecogan_tpu_torch.data import native_loader
+
+    found = {}
+    for header in ("png.h", "zlib.h"):
+        probe = subprocess.run(["g++", "-xc++", "-E", "-"], input=f"#include <{header}>\n",
+                               capture_output=True, text=True)
+        found[header] = probe.returncode == 0
+    ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True).stdout
+    libs = [line.strip() for line in ldconfig.splitlines()
+            if "libpng" in line or "libz." in line]
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout
+    log(f"[native] toolchain: {gxx.splitlines()[0]}; "
+        + ", ".join(f"<{h}> {'found' if ok else 'missing'}" for h, ok in found.items())
+        + f"; ldconfig -p: {libs or 'no libpng or libz'}")
+    if not found["zlib.h"]:
+        raise RuntimeError("[native] no <zlib.h>: the native data-loader core cannot build")
+    path = native_loader.library_path()
+    fresh = not path.exists()
+    t0 = time.perf_counter()
+    native_loader.load_library()
+    log(f"[native] {'built' if fresh else 'found'} {path.relative_to(REPO)} in "
+        f"{time.perf_counter() - t0:.2f} s from tecogan_tpu_torch/csrc/tecodata.cpp: "
+        f"{' '.join(('g++', *native_loader._CXXFLAGS, '...', *native_loader._LDFLAGS))}, the "
+        f"port's own PNG codec on zlib (libpng {'present' if found['png.h'] else 'absent'} "
+        f"here; the build never uses it); card: {card}")
+
+
+def run_loader_split(dev, card: str, tmp: str) -> None:
+    """Phase 8b: where FRVSR_PRESET's ``train()`` loses time against its
+    one-batch step. On phase 8's scenes, captured, in turns: ``train()``
+    with the native executor, the python executor, and a loader whose
+    every batch was decoded before the first step; each once with a
+    synchronisation around every step (as phase 8 times it) and once
+    paced by the device (a user's run: the time between successive steps'
+    starts, one synchronisation at the end); the uploads' and the loader
+    waits' host seconds inside. Then on one batch with no loader: steps
+    synchronised one by one and queued back to back, and the upload alone
+    (``_Program.upload``: the staging copy and its event wait). Idle share
+    = 1 - a replay's device time (profiled) / ms a step."""
+    import io
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tecogan_tpu_torch.config import FRVSR_PRESET
+    from tecogan_tpu_torch.data.loader import BatchLoader
+    from tecogan_tpu_torch.data.native_loader import NativeExecutor
+    from tecogan_tpu_torch.train import Trainer
+    from tecogan_tpu_torch.train import loop
+    from tecogan_tpu_torch.train import trainer as trainer_mod
+
+    cfg = FRVSR_PRESET.replace(input_video_dir=os.path.join(tmp, "scenes"),
+                               max_frm=SCENE_FRAMES - 1, display_freq=10**6,
+                               summary_freq=10**6, save_freq=10**6)
+    frames = cfg.batch_size * cfg.unroll_frames
+    a, b = SPLIT_STEADY
+
+    class Prefilled:
+        """Stands in for train()'s loader: every batch of the run decoded
+        (natively) before the first step, so no decode runs during the
+        steps."""
+
+        executor_used = "prefilled"
+
+        def __init__(self, dataset, seed=None, executor=None):
+            self.dataset, self.seed, self.batches = dataset, seed, None
+
+        def start(self):
+            if self.batches is None:
+                with BatchLoader(self.dataset, seed=self.seed, executor="native") as src:
+                    self.batches = [src.next_batch() for _ in range(SPLIT_STEPS)]
+            return self
+
+        def next_batch(self):
+            return self.start().batches.pop(0)
+
+        def stop(self):
+            pass
+
+        __enter__ = start
+
+        def __exit__(self, *exc):
+            self.stop()
+
+    upload = trainer_mod._Program.upload
+    train_step = Trainer.train_step
+    results = {}
+    for executor, synced in (("native", True), ("python", True), ("prefilled", True),
+                             ("prefilled", False), ("python", False), ("native", False)):
+        made, waits, uploads, starts, synced_s = [], [], [], [], []
+
+        def make(dataset, **kw):
+            loader = (Prefilled(dataset, kw.get("seed")) if executor == "prefilled"
+                      else BatchLoader(dataset, **{**kw, "executor": executor}))
+            made.append(loader)
+            next_batch = loader.next_batch
+
+            def timed_next():
+                t0 = time.perf_counter()
+                batch = next_batch()
+                waits.append(time.perf_counter() - t0)
+                return batch
+            loader.next_batch = timed_next
+            return loader
+
+        def timed_upload(self, batch):
+            t0 = time.perf_counter()
+            upload(self, batch)
+            uploads.append(time.perf_counter() - t0)
+
+        def step(self, state, hr_seq):
+            if synced:
+                torch.cuda.synchronize()
+            starts.append(time.perf_counter())
+            out = train_step(self, state, hr_seq)
+            if synced:
+                torch.cuda.synchronize()
+                synced_s.append(time.perf_counter() - starts[-1])
+            return out
+
+        loop.BatchLoader, trainer_mod._Program.upload, Trainer.train_step = (
+            make, timed_upload, step)
+        sequences = NativeExecutor.sequences
+        try:
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                state = loop.train(cfg, os.path.join(tmp, f"split_{executor}_{synced}"), dev,
+                                   max_steps=SPLIT_STEPS, test_while_train=False)
+            torch.cuda.synchronize()
+            end = time.perf_counter()
+        finally:
+            loop.BatchLoader, trainer_mod._Program.upload, Trainer.train_step = (
+                BatchLoader, upload, train_step)
+        sequences = NativeExecutor.sequences - sequences
+        used = made[0].executor_used
+        if used != executor or state.step != SPLIT_STEPS or len(starts) != SPLIT_STEPS:
+            raise RuntimeError(f"[split] {executor}: the loader ran {used}, {state.step} steps; "
+                               f"{printed.getvalue()[-2000:]}")
+        if (sequences > 0) != (executor != "python"):
+            raise RuntimeError(f"[split] {executor}: the native executor loaded {sequences} "
+                               "sequences")
+        ms = (sum(synced_s[a:b + 1]) / (b + 1 - a) if synced
+              else (starts[b] - starts[a]) / (b - a)) * 1e3
+        results[(executor, synced)] = dict(
+            ms=ms, upload_ms=1e3 * float(np.mean(uploads[a:b + 1])),
+            wait_ms=1e3 * float(np.mean(waits[a:b + 1])), sequences=sequences,
+            wall=end - starts[0])
+
+    # One batch, no loader: synchronised step by step, and back to back.
+    trainer = Trainer(cfg, dev)
+    state = trainer.init_state(cfg.rand_seed)
+    batch = frvsr_batch(cfg, cfg.batch_size, 21)
+    for _ in range(2):
+        trainer.train_step(state, batch)
+    alone = {}
+    for mode in ("synced", "queued", "queued", "synced"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SPLIT_ALONE):
+            trainer.train_step(state, batch)
+            if mode == "synced":
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        alone.setdefault(mode, []).append((time.perf_counter() - t0) / SPLIT_ALONE * 1e3)
+    prog = trainer._program("train", state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SPLIT_ALONE):
+            prog.upload(batch)
+        torch.cuda.synchronize()
+        upload_ms = (time.perf_counter() - t0) / SPLIT_ALONE * 1e3
+    copy_ms = device_split(prof)[0] / 1e3 / SPLIT_ALONE  # the staging copies' device time
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    device_ms = device_split(prof)[0] / 1e3
+    if device_ms <= 0:
+        raise RuntimeError("[split] torch.profiler recorded no device time")
+
+    def idle(ms):
+        return f"idle {max(0.0, 1 - device_ms / ms):.1%}"
+
+    log(f"[split] FRVSR_PRESET train(), captured, batch {cfg.batch_size} x {cfg.unroll_frames} "
+        f"frames ({batch.nbytes / 2**20:.2f} MiB uint8 a batch), steps {a + 1}-{b + 1} of "
+        f"{SPLIT_STEPS}; a replay's device time {device_ms:.2f} ms; card: {card}")
+    for (executor, synced), r in results.items():
+        log(f"[split] train() {executor} loader, "
+            f"{'a synchronisation around each step' if synced else 'paced by the device'}: "
+            f"{r['ms']:.2f} ms/step, {frames / r['ms'] * 1e3:.1f} frames/s, {idle(r['ms'])}; "
+            f"inside: upload {r['upload_ms']:.3f} ms, waiting for the loader "
+            f"{r['wait_ms']:.3f} ms a step; native sequences {r['sequences']}")
+    log(f"[split] one batch, no loader, {SPLIT_ALONE} steps a window in turns: "
+        + "; ".join(f"{mode} {', '.join(f'{ms:.2f}' for ms in v)} ms/step ({idle(min(v))}-"
+                    f"{idle(max(v))[5:]})" for mode, v in alone.items())
+        + f"; the upload alone (staging copy + event wait, {batch.nbytes / 2**20:.2f} MiB): "
+        f"{upload_ms:.3f} ms, {frames / upload_ms * 1e3:.1f} frames/s, the device busy "
+        f"{copy_ms:.3f} ms of it with the copy (idle {max(0.0, 1 - copy_ms / upload_ms):.1%})")
+
+
+def check_codec(tmp: str, card: str) -> None:
+    """Phase 9b: the native PNG codec against the python one on the card's
+    machine: the 41 synthetic 576x720 HR PNGs of phase 9 (filter 0) and 8
+    of them rewritten with every row Paeth-filtered decode bit-equal
+    (``decode_frames_u8`` against ``read_rgb``); ``encode_frames`` then
+    ``read_png`` gives the input back. Times both codecs on 8 threads."""
+    from tecogan_tpu_torch.data.inference import read_frames
+    from tecogan_tpu_torch.data.native_loader import NativeFrameIO
+    from tecogan_tpu_torch.data.png import read_png, write_png
+    from tecogan_tpu_torch.ops import list_png_in_dir
+
+    paths = list_png_in_dir(os.path.join(tmp, "cli_hr"), prefix_skip="\x00")
+    io = NativeFrameIO(8)
+    try:
+        t0 = time.perf_counter()
+        native = io.decode_frames_u8(paths)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        python = read_frames(paths, 8)
+        python_s = time.perf_counter() - t0
+        if len(paths) != CLI_FRAMES or not np.array_equal(native, python):
+            raise RuntimeError(f"[codec] {len(paths)} filter-0 PNGs: native != read_rgb in "
+                               f"{int((native != python).sum())} values")
+        paeth = [os.path.join(tmp, "codec", f"paeth_{i}.png") for i in range(8)]
+        os.makedirs(os.path.dirname(paeth[0]))
+        for path, img in zip(paeth, native):
+            write_png_paeth(path, img)
+        t0 = time.perf_counter()
+        got = io.decode_frames_u8(paeth)
+        paeth_native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = read_frames(paeth, 8)
+        paeth_python_s = time.perf_counter() - t0
+        if not (np.array_equal(got, want) and np.array_equal(got, native[:8])):
+            raise RuntimeError("[codec] Paeth PNGs: native != read_rgb")
+        encoded = [os.path.join(tmp, "codec", f"enc_{i}.png") for i in range(8)]
+        t0 = time.perf_counter()
+        io.encode_frames(encoded, native[:8])
+        encode_s = time.perf_counter() - t0
+    finally:
+        io.close()
+    back = np.stack([read_png(p) for p in encoded])
+    if not np.array_equal(back, native[:8]):
+        raise RuntimeError("[codec] encode_frames -> read_png does not give the input back")
+    t0 = time.perf_counter()
+    for i, img in enumerate(native[:8]):
+        write_png(os.path.join(tmp, "codec", f"py_{i}.png"), img)
+    write_s = time.perf_counter() - t0
+    mb = {name: np.mean([os.path.getsize(p) for p in ps]) / 1e6
+          for name, ps in (("filter 0", paths), ("Paeth", paeth), ("native", encoded))}
+    h, w = native.shape[1:3]
+    log(f"[codec] native decode_frames_u8 == data/png.py read_rgb, bit for bit: {len(paths)} "
+        f"{h}x{w} filter-0 PNGs and 8 Paeth-filtered ones; encode_frames -> read_png gives "
+        f"the 8 frames back")
+    log(f"[codec] {h}x{w} RGB, ms a frame (host CPU of the card's machine): decode, 8 threads: "
+        f"filter 0 native {native_s / len(paths) * 1e3:.2f}, python "
+        f"{python_s / len(paths) * 1e3:.2f}; Paeth native {paeth_native_s / 8 * 1e3:.2f}, "
+        f"python {paeth_python_s / 8 * 1e3:.2f}; encode: native (8 threads, Sub, level 1, "
+        f"Z_RLE) {encode_s / 8 * 1e3:.2f}, python write_png (one thread, filter 0, level 6) "
+        f"{write_s / 8 * 1e3:.2f}; mean file MB: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in mb.items()) + f"; card: {card}")
+
+
+def check_budget(dev, card: str, models) -> None:
+    """Phase 12e: the serving state budget counts a captured bucket's graph
+    pool. A 4-slot 144x180 bfloat16 bucket is prewarmed (its tick
+    captured); the budget is then set below its pool, halfway between it
+    and what a 120x180 bucket needs with its estimated pool, far above
+    what the JAX formula (``bucket_bytes``) counts for both buckets
+    together: the 120x180 geometry is refused while the first bucket
+    serves a stream and evicts it once it is idle."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.serve import MultiGeometryServer
+
+    cfg = TecoConfig(num_resblock=NUM_RESBLOCK, compute_dtype="bfloat16")
+    geo1, geo2 = (LR_H, LR_W), SERVE_GEO2
+    srv = MultiGeometryServer(cfg, *models, slots_per_geometry=SERVE_SLOTS, output="uint8",
+                              state_budget_mb=None, device=dev)
+    srv.prewarm([geo1])
+    pool = srv._buckets[geo1].graph_pool_bytes()
+    formula = srv.bucket_bytes(*geo1) + srv.bucket_bytes(*geo2)
+    estimate = srv.pool_estimate(*geo2)
+    need = srv.bucket_bytes(*geo2) + estimate
+    budget = (need + pool) / 2
+    if not formula < need < budget < pool:
+        raise RuntimeError(f"[budget] cannot set a budget below the pool: formula {formula}, "
+                           f"the second bucket's need {need}, pool {pool}")
+    srv.state_budget_mb = budget / 2**20
+    srv.open("a", *geo1)
+    try:
+        srv.open("b", *geo2)
+        refused = None
+    except RuntimeError as exc:
+        refused = str(exc)
+    if refused is None or set(srv.geometries) != {geo1}:
+        raise RuntimeError(f"[budget] {geo2} admitted beside a busy captured bucket: "
+                           f"{srv.geometries}")
+    srv.close("a")
+    srv.open("b", *geo2)
+    if set(srv.geometries) != {geo2}:
+        raise RuntimeError(f"[budget] {geo2} did not evict the idle bucket: {srv.geometries}")
+    srv.close("b")
+    log(f"[budget] {SERVE_SLOTS}-slot {geo1[0]}x{geo1[1]} bfloat16 bucket captured: graph pool "
+        f"{pool / 2**20:.1f} MiB; state_budget_mb {srv.state_budget_mb:.1f} while "
+        f"bucket_bytes, the JAX formula, counts {formula / 2**20:.1f} MiB for it and a "
+        f"{geo2[0]}x{geo2[1]} bucket together; the {geo2[0]}x{geo2[1]} bucket's estimated pool "
+        f"{estimate / 2**20:.1f} MiB. With a stream open it was refused ({refused[:120]}...); "
+        f"once idle, the {geo1[0]}x{geo1[1]} bucket was evicted for it; card: {card}")
 
 
 def phase(name: str, fn, *args):
@@ -2259,6 +2656,7 @@ def main() -> None:
     if "--kernels-only" in sys.argv[1:]:
         log("[main] --kernels-only: phases 1-3 done; no result line")
         return
+    phase("3b native loader build", build_native, card)
     phase("4 autograd", check_autograd, dev)
     phase("5 path vs CPU", check_path_vs_cpu, dev)
     stream_launches = phase("6 streaming", run_main_path, dev, card)
@@ -2269,9 +2667,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, train_step_launches = phase("8 FRVSR training", run_training, dev,
                                                     card, tmp)
+        phase("8b loader split", run_loader_split, dev, card, tmp)
         # Phase 9 runs as a user's CLI does, with the same default flags.
         cli_launches = phase("9 CLI and suite", run_cli, dev, card, tmp,
                              os.path.join(tmp, "run", "checkpoints"))
+        phase("9b codec parity", check_codec, tmp, card)
         phase("10 TecoGAN step vs CPU", check_gan_step_vs_cpu, dev)  # TF32 off inside
         # Phase 11 trains as a user does, with the default flags, on phase
         # 8's scenes and from its checkpoint.
@@ -2281,6 +2681,7 @@ def main() -> None:
         serve_launches, serve_models, _ = phase("12b serving", run_serving, dev, card)
         phase("12c export", check_export, dev, tmp, serve_models)
         phase("12d cli.serve", run_serve_cli, dev, card, tmp)
+        phase("12e state budget", check_budget, dev, card, serve_models)
     log("[main] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase.seconds.items())
         + f"; in all {time.perf_counter() - START:.1f} s since the script started")
 

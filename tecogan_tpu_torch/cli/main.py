@@ -249,10 +249,10 @@ def run_inference(args, config) -> dict:
     print(f"Wrote {written} frames to {out_dir}")
     print(f"io: read {decode:.3f} s, stream {secs:.3f} s (of which building the chunk's "
           f"program {sr.capture_s:.3f} s), writer flush {flush:.3f} s "
-          f"({writer.num_threads} encode threads)")
+          f"({writer.num_threads} encode threads, {writer.encode_s:.3f} s encoding)")
     return {"decode_s": decode, "stream_s": secs, "capture_s": sr.capture_s, "flush_s": flush,
-            "frames": n, "written": written, "threads": writer.num_threads,
-            "out_dir": out_dir}
+            "encode_s": writer.encode_s, "frames": n, "written": written,
+            "threads": writer.num_threads, "out_dir": out_dir}
 
 
 def run_train(args, config) -> None:

@@ -223,12 +223,15 @@ def run_serve(args, config, device: torch.device) -> dict:
     written = close_all()
     flush = time.perf_counter() - t_f
     decode = sum(src.decode_s for src in sources.values())
+    encode = sum(wtr.encode_s for wtr in writers.values())
     print(f"total time {secs:.2f}, frame number {sum(written.values())}")
     print(f"{ticks} ticks, {frames_done / secs:.1f} frames/sec aggregate; wrote {written}")
     print(f"io: decode {decode:.3f} s on the source threads, ticks {tick_s:.3f} s, "
-          f"waiting for decode or a prewarm {idle_s:.3f} s, writer flush {flush:.3f} s")
+          f"waiting for decode or a prewarm {idle_s:.3f} s, encode {encode:.3f} s on the "
+          f"writer threads, writer flush {flush:.3f} s")
     return {"secs": secs, "ticks": ticks, "frames": frames_done, "written": written,
-            "decode_s": decode, "tick_s": tick_s, "idle_s": idle_s, "flush_s": flush}
+            "decode_s": decode, "tick_s": tick_s, "idle_s": idle_s, "encode_s": encode,
+            "flush_s": flush}
 
 
 def main(argv=None):

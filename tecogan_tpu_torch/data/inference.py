@@ -6,10 +6,13 @@ per-frame save loop main.py:253-270).
 - HR -> LR when only an HR directory is given: OpenCV's Gaussian blur
   (sigma 1.5, ``ops/blur.py``), every 4th pixel, / 255;
 - prepends reversed frames [5..1] as warm-up padding;
-- decodes with the port's PNG codec (``data/png.py``) on worker threads, in
-  place of the JAX package's libpng pool or ``cv2.imread``;
-- :class:`FrameWriter` encodes the HR PNGs on worker threads while the
-  device computes the next chunk.
+- decodes through the native thread pool (``data/native_loader.py``,
+  ``csrc/tecodata.cpp``) where it builds, on both routes, else with the
+  port's python codec (``data/png.py``) on worker threads, in place of
+  the JAX package's libpng pool or ``cv2.imread``; the pixels are the same
+  either way;
+- :class:`FrameWriter` encodes the HR PNGs (natively where it can) while
+  the device computes the next chunk.
 
 Images are RGB, as ``cv2.imread(path, 3)[..., ::-1]`` gives them: a gray
 PNG is replicated into three channels and an alpha channel is dropped.
@@ -23,12 +26,14 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
+from tecogan_tpu_torch.data import native_loader
 from tecogan_tpu_torch.data.png import read_png, write_png
 from tecogan_tpu_torch.ops.blur import gaussian_blur_reflect101
 from tecogan_tpu_torch.ops.image import list_png_in_dir
@@ -38,6 +43,17 @@ from tecogan_tpu_torch.recurrent.inference import prepend_warmup
 class InferenceData(NamedTuple):
     paths_lr: List[str]
     inputs: np.ndarray  # (T, h, w, 3) [0, 1] f32 or raw uint8, warm-up included
+
+
+def _native_io(num_threads: int = 8) -> Optional[native_loader.NativeFrameIO]:
+    """The native frame codec, or None (the cause printed) where its library
+    cannot be built or loaded: callers then use ``data/png.py``."""
+    try:
+        return native_loader.NativeFrameIO(num_threads)
+    except native_loader.UNAVAILABLE_ERRORS as exc:
+        print("inference IO: native decoder unavailable "
+              f"({native_loader.unavailable_detail(exc)}); using data/png.py")
+        return None
 
 
 def read_rgb(path: str) -> np.ndarray:
@@ -75,6 +91,7 @@ def load_inference_frames(
     as_uint8: bool = False,
     device: Union[str, torch.device] = "cuda",
     num_threads: int = 8,
+    use_native: bool = True,
 ) -> InferenceData:
     """Load the LR input sequence: the PNGs of ``input_dir_lr`` or, when that
     is not given or missing, the HR PNGs of ``input_dir_hr`` blurred and
@@ -82,7 +99,10 @@ def load_inference_frames(
     for the CPU); reversed frames [5..1] are prepended as warm-up.
 
     ``as_uint8`` keeps LR frames as raw uint8 (StreamingSR normalises on the
-    device); ignored on the HR route, which is float by construction."""
+    device); ignored on the HR route, which is float by construction.
+    ``use_native`` decodes through the native thread pool where it builds
+    (the JAX package decodes only the LR route so; here the HR route's
+    frames go through it too, as uint8, before the same blur)."""
     filedir, down_sp = input_dir_lr, False
     if filedir is None or not os.path.exists(filedir):
         if input_dir_hr is None or not os.path.exists(input_dir_hr):
@@ -94,11 +114,19 @@ def load_inference_frames(
         paths = paths[:max_frames]
     if not paths:
         raise ValueError(f"no .png frames in {filedir}")
-    frames = read_frames(paths, num_threads)
+    u8 = as_uint8 or down_sp
+    io = _native_io(num_threads) if use_native else None
+    if io is not None:
+        try:
+            frames = io.decode_frames_u8(paths) if u8 else io.decode_frames(paths)
+        finally:
+            io.close()
+    else:
+        frames = read_frames(paths, num_threads)
+        if not u8:
+            frames = frames.astype(np.float32) / 255.0
     if down_sp:
         frames = hr_to_lr(frames, device)
-    elif not as_uint8:
-        frames = frames.astype(np.float32) / 255.0
 
     paths = prepend_warmup(paths)
     frames = np.concatenate([frames[5:0:-1], frames], axis=0)
@@ -152,8 +180,11 @@ class AsyncChunkWriter:
 class FrameWriter(AsyncChunkWriter):
     """Writes HR chunks as ``<name>_<i:04d>.png``, ``i`` counted from 0
     after the warm-up (reference main.py:262-269), each chunk's frames
-    encoded on ``num_threads`` threads through :func:`data.png.write_png`.
-    Only ``ext="png"`` is supported."""
+    encoded on ``num_threads`` threads: by the native library's pool
+    (:meth:`NativeFrameIO.encode_frames`, Sub rows, deflate level 1) where
+    it builds, else through :func:`data.png.write_png`. Only ``ext="png"``
+    is supported. ``encode_s`` counts the writer thread's seconds in
+    encoding (and waiting for ``fetch=False`` frames to download)."""
 
     def __init__(self, out_dir: str, name: str = "output", ext: str = "png",
                  warmup: int = 0, num_threads: int = 8):
@@ -166,19 +197,29 @@ class FrameWriter(AsyncChunkWriter):
         self.ext = ext
         self.warmup = warmup
         self.num_threads = max(1, num_threads)
-        self._pool = ThreadPoolExecutor(self.num_threads)
+        self.encode_s = 0.0
+        self._native = _native_io(self.num_threads)
+        self._pool = ThreadPoolExecutor(self.num_threads) if self._native is None else None
         super().__init__()
 
     def _path(self, out_idx: int) -> str:
         return os.path.join(self.out_dir, f"{self.name}_{out_idx:04d}.{self.ext}")
 
     def _write(self, frames: np.ndarray, start: int) -> None:
+        t0 = time.perf_counter()
         frames = np.ascontiguousarray(frames)
         first = start - self.warmup
         paths = [self._path(first + i) for i in range(frames.shape[0])]
-        for done in [self._pool.submit(write_png, p, f) for p, f in zip(paths, frames)]:
-            done.result()
+        if self._native is not None:
+            self._native.encode_frames(paths, frames)
+        else:
+            for done in [self._pool.submit(write_png, p, f) for p, f in zip(paths, frames)]:
+                done.result()
         self.count += len(paths)
+        self.encode_s += time.perf_counter() - t0
 
     def _finalize(self) -> None:
-        self._pool.shutdown()
+        if self._native is not None:
+            self._native.close()
+        else:
+            self._pool.shutdown()

@@ -17,13 +17,16 @@ Functional parity with reference lib/dataloader.py:170-348 (``loadHR`` +
 - shuffled batches; a validation split uses scene indices
   [end_dir+1, end_dir_val] (dataloader.py:290-297)
 
-Decode/augment is plain numpy on host threads (no TF queue runners), and the
-HR->LR Gaussian runs on the device inside the train step, so only the HR
-crops cross to the device. The augmentation decisions (:class:`SeqPlan`)
+The HR->LR Gaussian runs on the device inside the train step, so only the
+HR crops cross to the device. The augmentation decisions (:class:`SeqPlan`)
 draw from the RNG in the JAX loader's order, so a seed gives the same
-windows, crops and flips. Frames are decoded by ``data/png.py`` (the GPU
-machine has no OpenCV). The JAX package's native libpng executor is ROADMAP
-queue 1 item 13; only the python executor is ported.
+windows, crops and flips under either executor: ``"python"`` decodes with
+``data/png.py`` (the GPU machine has no OpenCV) and crops in numpy on host
+threads; ``"native"`` runs the plans through the C++ thread pool of
+``data/native_loader.py`` (``csrc/tecodata.cpp``) with its byte-budgeted
+frame cache, off the interpreter lock; ``"auto"`` (the training loop's)
+takes the native one and falls back to python only where the library
+cannot be built or loaded.
 """
 
 from __future__ import annotations
@@ -38,6 +41,11 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 
 from tecogan_tpu_torch.config import TecoConfig
+from tecogan_tpu_torch.data.native_loader import (
+    UNAVAILABLE_ERRORS,
+    NativeExecutor,
+    unavailable_detail,
+)
 from tecogan_tpu_torch.data.png import read_png
 
 
@@ -238,21 +246,43 @@ class BatchLoader:
         seed: Optional[int] = None,
         num_threads: Optional[int] = None,
         prefetch: Optional[int] = None,
+        executor: str = "python",
     ):
-        """The JAX loader's per-host sharding (``shard_id``/``num_shards``)
-        waits for multi-GPU training (ROADMAP queue 1 item 11); this is its
-        single-shard case, batch for batch."""
+        """``executor``: ``"python"``, ``"native"`` (raises where the C++
+        library cannot be built or loaded) or ``"auto"`` (falls back to
+        python then, printing the cause); :attr:`executor_used` says which
+        runs. The JAX loader's per-host sharding (``shard_id``/
+        ``num_shards``) waits for multi-GPU training (ROADMAP queue 1 item
+        11); this is its single-shard case, batch for batch."""
         cfg = dataset.config
         self.dataset = dataset
         self.batch_size = batch_size or cfg.batch_size
         self.seed = cfg.rand_seed if seed is None else seed
         self.num_threads = num_threads or max(1, cfg.queue_thread)
         self.prefetch = prefetch or cfg.prefetch_depth
+        if executor not in ("python", "native", "auto"):
+            raise ValueError(f"executor must be python|native|auto, got {executor}")
+        self._native: Optional[NativeExecutor] = None
+        if executor in ("native", "auto"):
+            # Only build/load failures fall back (no compiler, no zlib); a
+            # fault in the native path must not silently degrade to python.
+            try:
+                self._native = NativeExecutor(num_threads=self.num_threads, rnn_n=cfg.rnn_n,
+                                              tar=cfg.hr_load_size,
+                                              cache_mb=cfg.loader_cache_mb)
+            except UNAVAILABLE_ERRORS as exc:
+                if executor == "native":
+                    raise
+                print("BatchLoader: native decoder unavailable "
+                      f"({type(exc).__name__}: {unavailable_detail(exc)}); "
+                      "using the python executor (slower)")
+        self.executor_used = "python" if self._native is None else "native"
         # Emit raw uint8 batches (4x less host->device traffic; the train
         # step normalizes on the device, trainer.py:prepare_batch).
         self.as_uint8 = bool(cfg.train_upload_uint8)
-        if cfg.loader_cache_mb > 0:
-            # Shared across the decode pool; batches stay bit-identical.
+        if self._native is None and cfg.loader_cache_mb > 0:
+            # The python executor's analog of the C++ frame cache, shared
+            # across the decode pool; batches stay bit-identical.
             dataset.frame_cache = _FrameLRU(cfg.loader_cache_mb)
         self._queue: "queue.Queue[np.ndarray]" = queue.Queue(maxsize=self.prefetch)
         self._stop = threading.Event()
@@ -276,14 +306,19 @@ class BatchLoader:
                     idxs.append(int(perm[cursor]))
                     cursor += 1
                 seeds = rng.randint(0, 2**31 - 1, size=len(idxs))
-                futures = [
-                    pool.submit(
-                        self.dataset.load_sequence, i,
-                        np.random.RandomState(s), self.as_uint8
-                    )
-                    for i, s in zip(idxs, seeds)
-                ]
-                batch = np.stack([f.result() for f in futures])
+                if self._native is not None:
+                    plans = [self.dataset.plan_sequence(i, np.random.RandomState(s))
+                             for i, s in zip(idxs, seeds)]
+                    batch = self._native.load(plans, as_uint8=self.as_uint8)
+                else:
+                    futures = [
+                        pool.submit(
+                            self.dataset.load_sequence, i,
+                            np.random.RandomState(s), self.as_uint8
+                        )
+                        for i, s in zip(idxs, seeds)
+                    ]
+                    batch = np.stack([f.result() for f in futures])
                 while not self._stop.is_set():
                     try:
                         self._queue.put(batch, timeout=0.5)

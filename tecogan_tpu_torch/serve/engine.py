@@ -228,8 +228,8 @@ class VSRServer:
     def graph_pool_bytes(self) -> int:
         """Device bytes held by the captured ticks' memory pools (their
         temporaries and output batches); 0 when the ticks run eagerly."""
-        return sum(t.pool_bytes() for t in self._programs.values()
-                   if isinstance(t, CapturedProgram))
+        ticks = list(self._programs.values())  # one read: a prewarm may add one meanwhile
+        return sum(t.pool_bytes() for t in ticks if isinstance(t, CapturedProgram))
 
     def release(self) -> None:
         """Free the captured ticks' graphs and memory pools (a bucket that a
@@ -350,12 +350,15 @@ class MultiGeometryServer:
 
     Args:
       slots_per_geometry: slot-pool size of each bucket.
-      state_budget_mb: cap on the device bytes the buckets pin (their
-        recurrent state plus one tick's LR input and HR output,
-        :meth:`bucket_bytes`). A new geometry first evicts idle buckets
-        (no open stream), least recently used first; if it still does not
-        fit, ``open`` raises RuntimeError with the computed numbers instead
-        of running the card out of memory. ``None`` disables the guard.
+      state_budget_mb: cap on the device bytes the buckets pin: each
+        resident bucket's recurrent state plus one tick's LR input and HR
+        output (:meth:`bucket_bytes`) and its captured ticks' graph pool
+        (:meth:`VSRServer.graph_pool_bytes`), and for the bucket being
+        admitted :meth:`bucket_bytes` plus :meth:`pool_estimate`. A new
+        geometry first evicts idle buckets (no open stream), least
+        recently used first; if it still does not fit, ``open`` raises
+        RuntimeError with the computed numbers instead of running the card
+        out of memory. ``None`` disables the guard.
       mesh: not ported (ROADMAP queue 1 item 11).
       device: where to run; the card unless the caller asks for the CPU.
       capture: each bucket's :class:`VSRServer` ``capture``.
@@ -388,9 +391,10 @@ class MultiGeometryServer:
         = 51·h·w·itemsize a slot) plus one tick's LR input and HR output:
         the JAX package's formula, whose budget errors the tests hold the
         port to. A captured bucket also holds its tick's temporaries in the
-        graph's memory pool (:meth:`VSRServer.graph_pool_bytes`), which
-        this does not count; an eager tick's temporaries go back to
-        PyTorch's allocator from tick to tick."""
+        graph's memory pool (:meth:`VSRServer.graph_pool_bytes`), which the
+        budget adds (:attr:`footprint_bytes`, :meth:`pool_estimate`); an
+        eager tick's temporaries go back to PyTorch's allocator from tick
+        to tick."""
         hw = int(height) * int(width)
         item = self.config.torch_dtype.itemsize
         state = 51 * hw * item
@@ -398,10 +402,28 @@ class MultiGeometryServer:
         tick_io = 3 * hw * 1 + 48 * hw * out_item  # uint8 LR in, HR out
         return self.slots_per_geometry * (state + tick_io)
 
+    def pool_estimate(self, height: int, width: int) -> int:
+        """The graph pool a new (height, width) bucket is expected to hold
+        once its tick is captured: the largest resident bucket's measured
+        pool, scaled by slots x height x width (every bucket has
+        ``slots_per_geometry`` slots, so by the pixels). 0 while no resident
+        bucket has captured a tick (eager, on the CPU, or the first bucket:
+        it is admitted on :meth:`bucket_bytes`, and its pool counts from its
+        capture on)."""
+        pool, geo = max(((srv.graph_pool_bytes(), g) for g, srv in self._buckets.items()),
+                        default=(0, None))
+        if pool == 0:
+            return 0
+        return -(-pool * int(height) * int(width) // (geo[0] * geo[1]))
+
+    def _resident_bytes(self, geo: Tuple[int, int]) -> int:
+        return self.bucket_bytes(*geo) + self._buckets[geo].graph_pool_bytes()
+
     @property
     def footprint_bytes(self) -> int:
-        """Total estimated device bytes across the buckets."""
-        return sum(self.bucket_bytes(h, w) for h, w in self._buckets)
+        """Device bytes the buckets pin: :meth:`bucket_bytes` and the
+        captured graph pool of each."""
+        return sum(self._resident_bytes(geo) for geo in self._buckets)
 
     def _bucket(self, geo: Tuple[int, int]) -> VSRServer:
         with self._bucket_lock:
@@ -423,7 +445,7 @@ class MultiGeometryServer:
         if self.state_budget_mb is None:
             return
         budget = int(self.state_budget_mb * 2**20)
-        need = self.bucket_bytes(*geo)
+        need = self.bucket_bytes(*geo) + self.pool_estimate(*geo)
         if need > budget:
             raise RuntimeError(
                 f"geometry {geo} alone needs ~{need / 2**20:.1f} MB of "
@@ -438,7 +460,7 @@ class MultiGeometryServer:
             self._buckets.pop(g).release()  # its graph's pool; its tensors go with it
             self._last_use.pop(g, None)
         if self.footprint_bytes + need > budget:
-            busy = {g: f"{self.bucket_bytes(*g) / 2**20:.1f} MB"
+            busy = {g: f"{self._resident_bytes(g) / 2**20:.1f} MB"
                     for g in self._buckets}
             raise RuntimeError(
                 f"opening geometry {geo} (~{need / 2**20:.1f} MB) would put "

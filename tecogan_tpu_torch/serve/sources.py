@@ -13,9 +13,12 @@ the stream: the producer buffers the first six frames, emits frames 5..1
 reversed, then the sequence from frame 0, the order of
 ``data/inference.py:load_inference_frames``.
 
-PNG directories decode with the port's codec (``data/png.py``) on the
-worker thread. Video files are not read: the machine with the card has no
-OpenCV, and video I/O is ROADMAP queue 1 item 12.
+PNG directories decode in blocks of four frames through the native thread
+pool (``data/native_loader.py``) where it builds, as the JAX package's
+libpng pool does, else with the port's python codec (``data/png.py``);
+either way on the worker thread, and ``decode_s`` counts its seconds.
+Video files are not read: the machine with the card has no OpenCV, and
+video I/O is ROADMAP queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ PENDING = object()
 EOS = object()
 
 _WARMUP = 5  # reversed warm-up prefix length (reference dataloader.py:42-44)
-_DECODE_BLOCK = 4  # PNGs decoded at once (zlib and the unfilter release the GIL)
+_DECODE_BLOCK = 4  # PNGs decoded at once (the native pool, or zlib and the unfilter
+                   # releasing the GIL)
 
 
 class FrameSource:
@@ -193,11 +197,25 @@ class FrameSource:
             raise ValueError(f"no .png frames in {self.src}")
         if 0 < self._max_frames < len(paths):
             paths = paths[:self._max_frames]
-        with ThreadPoolExecutor(_DECODE_BLOCK) as pool:
+        from tecogan_tpu_torch.data.inference import _native_io
+
+        io = _native_io(num_threads=_DECODE_BLOCK)
+        pool = ThreadPoolExecutor(_DECODE_BLOCK) if io is None else None
+        try:
             for i in range(0, len(paths), _DECODE_BLOCK):
+                block = paths[i:i + _DECODE_BLOCK]
                 t0 = time.perf_counter()
-                frames = list(pool.map(read_rgb, paths[i:i + _DECODE_BLOCK]))
-                if not self._as_uint8:
-                    frames = [f.astype(np.float32) / 255.0 for f in frames]
+                if io is not None:
+                    frames = list(io.decode_frames_u8(block) if self._as_uint8
+                                  else io.decode_frames(block))
+                else:
+                    frames = list(pool.map(read_rgb, block))
+                    if not self._as_uint8:
+                        frames = [f.astype(np.float32) / 255.0 for f in frames]
                 self.decode_s += time.perf_counter() - t0
                 yield from frames
+        finally:
+            if io is not None:
+                io.close()
+            else:
+                pool.shutdown()

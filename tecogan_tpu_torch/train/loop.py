@@ -22,7 +22,9 @@ Not ported yet: the GIF sequence summaries (PIL, ROADMAP queue 1 item 10).
 Training runs on the one device it is given, with no fallback; on the card
 each step and each validation runs as a captured CUDA graph by default
 (``Trainer``'s ``capture``), and the loop reads device values on the host
-only at ``display_freq`` and ``summary_freq``.
+only at ``display_freq`` and ``summary_freq``. The train and validation
+loaders run the native C++ executor where it builds (``executor="auto"``,
+as the JAX loop's), else the python one.
 """
 
 from __future__ import annotations
@@ -173,10 +175,10 @@ def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
         print(f"Warm-started weights from {pre_trained_dir}")
 
     dataset = SceneDataset(config, validation=False)
-    loader = BatchLoader(dataset)
+    loader = BatchLoader(dataset, executor="auto")
     try:
         val_loader = BatchLoader(SceneDataset(config, validation=True),
-                                 seed=config.rand_seed + 1)
+                                 seed=config.rand_seed + 1, executor="auto")
     except FileNotFoundError:
         val_loader = None
     print(f"Dataset: {len(dataset.scenes)} scenes, {len(dataset)} windows, "

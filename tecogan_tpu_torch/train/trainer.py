@@ -645,11 +645,13 @@ class Trainer:
     def generate(self, state: TrainState, hr_seq: Batch):
         """Forward-only sequences in [0, 1] for summaries (reference
         Teco.py:498-503): LR inputs, HR targets, generated frames and the
-        warped previous outputs. Eager on every device: nothing on the
-        training loop's path calls it (ROADMAP queue 1 item 10)."""
+        warped previous outputs, of the batch's own T frames: as the JAX
+        package's ``_generate_impl``, no ping-pong extension. Eager on every
+        device: nothing on the training loop's path calls it (ROADMAP queue 1
+        item 10)."""
         if isinstance(hr_seq, np.ndarray):
             hr_seq = torch.from_numpy(np.ascontiguousarray(hr_seq))
-        r_inputs, r_targets = self._prepare(hr_seq.to(self.device))
+        r_inputs, r_targets = prepare_batch(hr_seq.to(self.device), self.config)
         _, flow_hr = flows_for_sequence(state.fnet, r_inputs)
         gen_outputs, warppre = unroll_generator(state.generator, r_inputs, flow_hr,
                                                 remat=False)

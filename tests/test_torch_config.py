@@ -32,3 +32,14 @@ def test_config_json_round_trip_and_validation():
         config.TecoConfig(compute_dtype="float16")
     with pytest.raises(ValueError):
         config.TecoConfig(crop_size=20)
+
+
+def test_top_level_exports_match_jax():
+    """``from tecogan_tpu_torch import TecoConfig, ...``: the JAX package's
+    top-level names, bound to the port's config module."""
+    import tecogan_tpu
+    import tecogan_tpu_torch
+
+    assert tecogan_tpu_torch.__all__ == tecogan_tpu.__all__
+    for name in tecogan_tpu_torch.__all__:
+        assert getattr(tecogan_tpu_torch, name) is getattr(config, name)

@@ -736,6 +736,9 @@ def test_eviction_frees_the_graph_pool(cuda_device):
     (tick,) = srv._buckets[(32, 48)]._programs.values()
     pool, held = tick.pool_id, tick.pool_bytes()
     assert held > 0
+    # The budget counts captured pools: one that fits the new bucket and
+    # its estimated pool, not both buckets.
+    srv.state_budget_mb = 1.5 * (srv.bucket_bytes(40, 48) + srv.pool_estimate(40, 48)) / 2**20
     srv.close("a")
     srv.open("b", 40, 48)  # evicts the idle 32x48 bucket
     assert list(srv.geometries) == [(40, 48)]
@@ -743,6 +746,34 @@ def test_eviction_frees_the_graph_pool(cuda_device):
     torch.cuda.empty_cache()
     assert not [s for s in torch.cuda.memory_snapshot()
                 if tuple(s["segment_pool_id"]) == pool]
+
+
+@pytest.mark.cuda
+def test_state_budget_counts_the_captured_pool(cuda_device):
+    """A budget below one bucket's captured graph pool, but over what the
+    JAX formula (``bucket_bytes``) counts for two buckets: a second
+    geometry is refused while the first bucket serves a stream, and evicts
+    it once it is idle."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.serve import MultiGeometryServer
+
+    cfg = TecoConfig(num_resblock=2, compute_dtype="bfloat16")
+    srv = MultiGeometryServer(cfg, *_serving_models(23, 2), slots_per_geometry=2,
+                              state_budget_mb=None, device=cuda_device)
+    g1, g2 = (32, 48), (24, 48)
+    srv.prewarm([g1])
+    pool = srv._buckets[g1].graph_pool_bytes()
+    formula = srv.bucket_bytes(*g1) + srv.bucket_bytes(*g2)
+    srv.state_budget_mb = 0.9 * pool / 2**20
+    assert formula < srv.state_budget_mb * 2**20 and srv.footprint_bytes > pool
+    assert srv.pool_estimate(*g2) == -(-pool * 3 // 4)
+    srv.open("a", *g1)
+    with pytest.raises(RuntimeError, match="every remaining bucket has open streams"):
+        srv.open("b", *g2)
+    assert list(srv.geometries) == [g1]
+    srv.close("a")
+    srv.open("b", *g2)  # evicts the idle g1 bucket
+    assert list(srv.geometries) == [g2]
 
 
 @pytest.mark.cuda

@@ -250,6 +250,41 @@ def test_bucket_bytes_and_budget_errors_match_jax(weights, dtype):
     assert kind == "raised" and "alone needs" in text
 
 
+def test_budget_counts_graph_pools(weights, monkeypatch):
+    """The state budget counts each resident bucket's captured graph pool
+    (stubbed here: on the CPU the ticks run eagerly and hold none) and, for
+    the bucket being admitted, the largest resident pool scaled by its
+    pixels. With pools the JAX formula alone would admit the second
+    geometry; counted, it is refused while the first bucket is busy and
+    evicts it once it is idle."""
+    _, cfg = _configs()
+    pools = {}
+    monkeypatch.setattr(VSRServer, "graph_pool_bytes",
+                        lambda self: pools.get((self.height, self.width), 0))
+    srv = MultiGeometryServer(cfg, *_models(weights), slots_per_geometry=1, output="float32",
+                              state_budget_mb=None, device="cpu")
+    g1, g2 = (H, W), (8, 16)  # g2 has half g1's pixels
+    per1, per2 = srv.bucket_bytes(*g1), srv.bucket_bytes(*g2)
+    pool = 40 * per1
+    srv.state_budget_mb = 0.75 * pool / 2**20  # below one pool, over the formula's sum
+    assert per1 + per2 < srv.state_budget_mb * 2**20
+    assert srv.pool_estimate(*g2) == 0  # no pool measured yet
+    srv.open("a", *g1)
+    pools[g1] = pool  # the first tick's capture
+    assert srv.footprint_bytes == per1 + pool
+    assert srv.pool_estimate(*g2) == pool // 2 and srv.pool_estimate(2 * H, W) == 2 * pool
+    with pytest.raises(RuntimeError, match="every remaining bucket has open streams") as info:
+        srv.open("b", *g2)
+    assert f"~{(per2 + pool // 2) / 2**20:.1f} MB" in str(info.value)
+    assert set(srv.geometries) == {g1}
+    srv.close("a")
+    srv.open("b", *g2)  # evicts the idle g1 bucket and its pool
+    assert set(srv.geometries) == {g2} and srv.footprint_bytes == per2
+    pools[g2] = pool  # g2 captured: g1's estimate is now twice that pool
+    with pytest.raises(RuntimeError, match="alone needs"):
+        srv.open("c", *g1)
+
+
 def test_lifecycle_errors(weights):
     """The exception types of tests/test_serve.py:test_lifecycle_errors,
     and the port's own refusals."""

@@ -88,8 +88,12 @@ def jax_ref():
     grads = _copy(jax.jit(jax.grad(joint, argnums=(0, 1)))(
         state.gen_params, state.fnet_params))
     generated = _copy(tr.generate(state, jnp.asarray(batch)))
+    # generate takes the batch's own frames with ping-pong on too.
+    generated_pingpong = _copy(JaxTrainer(JaxConfig(**TINY, pingpong=True)).generate(
+        state, jnp.asarray(batch)))
     new_state, metrics = tr.train_step(state, jnp.asarray(batch))
     return dict(init=init, grads=grads, batch=batch, generated=generated,
+                generated_pingpong=generated_pingpong,
                 metrics={k: float(v) for k, v in metrics.items()},
                 after=_copy((new_state.gen_params, new_state.fnet_params)))
 
@@ -131,13 +135,16 @@ def test_one_step_matches_jax(jax_ref):
                 assert diff.max() <= PARAM_ATOL, (layer, leaf, diff.max())
 
 
-def test_generate_matches_jax(jax_ref):
+@pytest.mark.parametrize("pingpong", [False, True])
+def test_generate_matches_jax(jax_ref, pingpong):
     """The summary sequences in [0, 1]: LR inputs, HR targets, generated
-    frames and the warped previous outputs."""
-    trainer, state = _port(jax_ref)
+    frames and the warped previous outputs; with ping-pong on as well, as
+    the JAX package's, of the batch's own 4 frames (no 2T-1 extension)."""
+    trainer, state = _port(jax_ref, pingpong=pingpong)
     got = trainer.generate(state, jax_ref["batch"])
     shapes = [(2, 4, 8, 8, 3), (2, 4, 32, 32, 3), (2, 4, 32, 32, 3), (2, 3, 32, 32, 3)]
-    for g, want, shape in zip(got, jax_ref["generated"], shapes):
+    want_all = jax_ref["generated_pingpong" if pingpong else "generated"]
+    for g, want, shape in zip(got, want_all, shapes):
         assert g.shape == want.shape == shape
         np.testing.assert_allclose(g.numpy(), want, rtol=0, atol=1e-5)
 
