@@ -7,6 +7,7 @@ channels-last views of NHWC tensors, so no layout copy is made.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -62,7 +63,11 @@ class SlimBatchNorm(nn.Module):
     with ``is_training=True``, Teco.py:38), eps 1e-3, a bias, no scale.
 
     The statistics are flax's: the variance is ``E[x^2] - E[x]^2`` clipped
-    at 0 (biased), in float32. The running statistics are a record only
+    at 0 (biased), in float32 whatever x's dtype (``BatchNorm``'s
+    ``force_float32_reductions``). As flax's, a bfloat16 x is normalised
+    and its float32 bias added in float32, and only the result is rounded
+    to x's dtype: in bfloat16, ``E[x^2] - E[x]^2`` would cancel to noise.
+    The running statistics are a record only
     (nothing reads them here) and update with decay 0.9 from that biased
     variance, and only when ``update_stats`` is passed: the trainer updates
     them in its discriminator step and not in the forwards that feed the
@@ -78,7 +83,8 @@ class SlimBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
-        """(B, C, H, W) -> (B, C, H, W)."""
+        """(B, C, H, W) -> (B, C, H, W) in x's dtype."""
+        dtype, x = x.dtype, x.float()
         mean = x.mean(dim=(0, 2, 3))
         var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
         if update_stats:
@@ -87,12 +93,21 @@ class SlimBatchNorm(nn.Module):
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
         scale = torch.rsqrt(var + self.eps)
-        return (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        out = (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        return out.to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def lrelu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
-    """LeakyReLU (reference lib/ops.py:84-85)."""
-    return F.leaky_relu(x, alpha)
+    """LeakyReLU (reference lib/ops.py:84-85). The slope is rounded to x's
+    dtype first, as the JAX package's ``alpha * x`` rounds a Python scalar:
+    in bfloat16 it is 0.2001953125."""
+    return F.leaky_relu(x, _in_dtype(alpha, x.dtype))
 
 
 def maxpool_2x2(x: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,7 @@ the same numbers.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -78,10 +78,11 @@ def extend_pingpong(seq: torch.Tensor) -> torch.Tensor:
     return torch.cat([seq, seq.flip(1)[:, 1:]], dim=1)
 
 
-def flows_for_sequence(fnet: FNet, r_inputs: torch.Tensor
+def flows_for_sequence(fnet: Callable[[torch.Tensor], torch.Tensor], r_inputs: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """FNet over all B*(T-1) adjacent pairs of (B, T, h, w, 3) LR frames in
-    one batch (reference Teco.py:102-115).
+    one batch (reference Teco.py:102-115). ``fnet``: the module, or the
+    trainer's cast of it (``train/trainer.py:cast_at_use``).
 
     Returns (B, T-1, h, w, 2) LR flows and (B, T-1, 4h, 4w, 2) HR flows.
     """
@@ -94,7 +95,7 @@ def flows_for_sequence(fnet: FNet, r_inputs: torch.Tensor
             flow_hr.reshape(b, t - 1, 4 * h, 4 * w, 2))
 
 
-def _generator_frame(generator: Generator, prev_out: torch.Tensor,
+def _generator_frame(generator: Callable, prev_out: torch.Tensor,
                      lr: torch.Tensor, flow: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One unrolled frame: warp the previous output (in [-1, 1], deprocessed
@@ -104,13 +105,16 @@ def _generator_frame(generator: Generator, prev_out: torch.Tensor,
     return generator(torch.cat([lr.to(packed.dtype), packed], dim=-1), lr), packed
 
 
-def unroll_generator(generator: Generator, r_inputs: torch.Tensor,
+def unroll_generator(generator: Callable, r_inputs: torch.Tensor,
                      flow_hr: torch.Tensor, remat: bool = True,
                      with_warppre: bool = True
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The recurrent generator over a sequence (reference Teco.py:125-164).
 
     Args:
+      generator: the :class:`Generator`, or the trainer's cast of it
+        (``train/trainer.py:cast_at_use``); a recompute calls the same
+        object, so it reads the same cast parameters.
       r_inputs: (B, T, h, w, 3) LR frames in [0, 1].
       flow_hr: (B, T-1, 4h, 4w, 2) HR flows from :func:`flows_for_sequence`.
       remat: recompute each frame's warp and generator in the backward pass

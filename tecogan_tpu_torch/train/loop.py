@@ -159,6 +159,9 @@ def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
             f.write(config.to_json())
 
     state = trainer.init_state(config.rand_seed)
+    print(f"Training {'TecoGAN' if config.gan else 'FRVSR'} on {trainer.device}: compute "
+          f"dtype {config.compute_dtype}, float32 master weights, "
+          f"{'captured CUDA graphs' if trainer.capture else 'eager steps'}")
     param_summary("generator", state.generator)
     param_summary("fnet", state.fnet)
     if config.gan:

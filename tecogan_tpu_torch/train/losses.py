@@ -107,11 +107,17 @@ def assemble_dst_inputs(r_inputs: torch.Tensor, r_targets: torch.Tensor,
     bilinear upsample of the LR triplet (kernel K1): 27 channels at (4h,
     4w). The pure Dt takes the 9-channel warped box as it is.
 
+    As the JAX package's, the inputs are assembled in the generator's dtype
+    (the targets and the LR triplets cast to it, so in bfloat16 training
+    the warps and K1 run in bfloat16), with the flows in float32.
+
     Returns:
       (real, fake): each (B * T//3, 4h, 4w, 27), or (B * T//3, crop, crop, 9)
       for the pure Dt.
     """
     b, t, hr_h, hr_w, c = r_targets.shape
+    dtype = gen_outputs.dtype
+    r_targets, r_inputs = r_targets.to(dtype), r_inputs.to(dtype)
     t_size = 3 * (t // 3)
     n_trip = t_size // 3
     t_batch = b * n_trip

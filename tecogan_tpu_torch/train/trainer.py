@@ -40,8 +40,19 @@ The parameters stay on the device in float32, and ``TrainState`` is updated
 in place (the JAX package returns a new state; PyTorch's optimizers own
 theirs): every tensor the step reads or writes keeps its storage, the step
 counts on the device too, and the host never waits on the device inside a
-step. bfloat16 training raises (ROADMAP queue 1 item 17): it needs float32
-master weights beside bfloat16 compute.
+step.
+
+``config.compute_dtype = "bfloat16"`` trains as the JAX package's models
+with ``dtype=bfloat16, param_dtype=float32`` do: the parameters, Adam
+moments, EMAs and the discriminator's running statistics stay float32,
+and each trained model runs at its parameters cast to bfloat16 at use
+(:func:`cast_at_use`), so the backward reaches the float32 leaves through
+the casts and the Adams are unchanged. Float32 stays where the JAX package
+keeps it: the discriminator's outputs before every log, the batch norm's
+statistics and normalisation, the losses against float32 targets, the
+ping-pong, VGG and layer reductions, and the warps' coordinates. The frozen
+VGG19 is cast to bfloat16 once, here, where the JAX package casts its
+weights at every call: the same values.
 
 On the card, each step runs as a captured CUDA graph by default (the JAX
 package's ``jax.jit(self._train_step_impl, donate_argnums=(0,))`` and
@@ -69,13 +80,14 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn as nn
 from torch.func import functional_call
 
 from tecogan_tpu_torch.config import TecoConfig
 from tecogan_tpu_torch.models.discriminator import Discriminator
 from tecogan_tpu_torch.models.fnet import FNet
 from tecogan_tpu_torch.models.generator import Generator
-from tecogan_tpu_torch.models.layers import glorot_init_
+from tecogan_tpu_torch.models.layers import SlimBatchNorm, glorot_init_
 from tecogan_tpu_torch.models.vgg19 import (
     DEFAULT_FEATURE_KEYS,
     VGG19Features,
@@ -122,6 +134,25 @@ def lr_schedule(config: TecoConfig) -> Callable[[int], float]:
             p = math.floor(p)
         return config.learning_rate * config.decay_rate ** p
     return schedule
+
+
+def cast_at_use(module: nn.Module, dtype: torch.dtype, detach: bool = False) -> Callable:
+    """``module`` as a function that computes in ``dtype`` from its float32
+    parameters, as flax's ``Module(dtype=dtype, param_dtype=float32)``: each
+    parameter is cast at use (``torch.func.functional_call``), so a
+    gradient flows back through the cast into the float32 leaf. A batch
+    norm's bias stays float32 (flax adds it in float32); the buffers are
+    the module's own. ``detach``: the parameters taken as constants. With
+    nothing to cast or detach, the module itself."""
+    if dtype == torch.float32 and not detach:
+        return module
+    keep = {f"{name}.bias" for name, m in module.named_modules()
+            if isinstance(m, SlimBatchNorm)}
+    params = {}
+    for name, p in module.named_parameters():
+        p = p.detach() if detach else p
+        params[name] = p if name in keep else p.to(dtype)
+    return lambda *args, **kwargs: functional_call(module, params, args, kwargs)
 
 
 def prepare_batch(hr_seq: torch.Tensor, config: TecoConfig
@@ -364,10 +395,6 @@ class Trainer:
 
     def __init__(self, config: TecoConfig, device: Union[str, torch.device],
                  vgg: Optional[VGG19Features] = None, capture: Optional[bool] = None):
-        if config.compute_dtype != "float32":
-            raise NotImplementedError(
-                "tecogan_tpu_torch trains in float32 only; bfloat16 training "
-                "needs float32 master weights (ROADMAP queue 1 item 17)")
         if config.vgg_scaling > 0 and vgg is None:
             raise ValueError("vgg_scaling > 0 requires VGG19 weights "
                              "(see tecogan_tpu_torch.models.vgg19.load_vgg19_npz)")
@@ -378,13 +405,14 @@ class Trainer:
                              "d_layerloss=False (reference Teco.py:265-292 defines "
                              "no layer features on this branch)")
         self.config = config
+        self.dtype = config.torch_dtype
         self.device = torch.device(device)
         self.capture = resolve_capture(capture, self.device)
         self.remat = resolve_remat(config)
         self.schedule = lr_schedule(config)
         self.vgg = None
         if config.vgg_scaling > 0:
-            self.vgg = vgg.to(self.device, torch.float32, memory_format=self._memory_format)
+            self.vgg = vgg.to(self.device, self.dtype, memory_format=self._memory_format)
         self._programs: Dict[Tuple, _Program] = {}
         self.capture_s = 0.0
         self.recaptures = 0
@@ -527,14 +555,15 @@ class Trainer:
         return sum(p.graph.pool_bytes() for p in self._programs.values()
                    if p.graph is not None)
 
-    @staticmethod
-    def _frozen_d(disc: Discriminator, x: torch.Tensor):
+    def _frozen_d(self, disc: Discriminator, x: torch.Tensor):
         """The discriminator at its current parameters taken as constants
-        (no gradient reaches them), statistics not updated."""
-        params = {k: v.detach() for k, v in disc.named_parameters()}
-        return functional_call(disc, params, (x,))
+        (no gradient reaches them), statistics not updated; its output in
+        float32 (``tecogan_tpu/train/trainer.py:310-313``: in bfloat16 the
+        logs' eps underflows)."""
+        d, layers = cast_at_use(disc, self.dtype, detach=True)(x)
+        return d.float(), layers
 
-    def _backward_flows(self, fnet: FNet, r_inputs: torch.Tensor) -> torch.Tensor:
+    def _backward_flows(self, fnet: Callable, r_inputs: torch.Tensor) -> torch.Tensor:
         """Without ping-pong, the triplets' backward flows: FNet on the
         (next, middle) pairs, HR (reference Teco.py:190-203). Detached where
         they are used, so computed without a graph."""
@@ -552,9 +581,10 @@ class Trainer:
         discriminator step's inputs and ``t_balance``
         (``tecogan_tpu/train/trainer.py:238-343``)."""
         cfg = self.config
-        flow_lr, flow_hr = flows_for_sequence(state.fnet, r_inputs)
+        fnet = cast_at_use(state.fnet, self.dtype)
+        flow_lr, flow_hr = flows_for_sequence(fnet, r_inputs)
         gen_outputs, _ = unroll_generator(
-            state.generator, r_inputs, flow_hr,
+            cast_at_use(state.generator, self.dtype), r_inputs, flow_hr,
             remat=self.remat and torch.is_grad_enabled(), with_warppre=False)
         b, t = gen_outputs.shape[:2]
         s_gen = gen_outputs.reshape(b * t, *gen_outputs.shape[2:])
@@ -579,7 +609,7 @@ class Trainer:
             metrics["PingPang"] = pp
         aux: Dict = {}
         if cfg.gan:
-            flow_back = None if cfg.pingpong else self._backward_flows(state.fnet, r_inputs)
+            flow_back = None if cfg.pingpong else self._backward_flows(fnet, r_inputs)
             real, fake = L.assemble_dst_inputs(r_inputs, r_targets, gen_outputs, flow_hr,
                                                cfg, flow_back)
             d_real, real_layers = self._frozen_d(state.discriminator, real)
@@ -611,10 +641,11 @@ class Trainer:
         whatever the gate (``tecogan_tpu/train/trainer.py:345-367,407-435``)."""
         cfg = self.config
         train_d = state.ema_tbalance < cfg.d_balance  # the EMA before this step
-        d_real, _ = state.discriminator(real.detach(), update_stats=True)
-        d_fake, _ = state.discriminator(fake.detach(), update_stats=True)
+        disc = cast_at_use(state.discriminator, self.dtype)
+        d_real, _ = disc(real.detach(), update_stats=True)
+        d_fake, _ = disc(fake.detach(), update_stats=True)
         state.d_opt.zero_grad()
-        d_loss(d_real, d_fake, cfg.eps).backward()
+        d_loss(d_real.float(), d_fake.float(), cfg.eps).backward()
         state.d_opt.step(train_d)
         state.counter_with_d += train_d.int()
         state.counter_wo_d += (~train_d).int()
@@ -652,9 +683,9 @@ class Trainer:
         if isinstance(hr_seq, np.ndarray):
             hr_seq = torch.from_numpy(np.ascontiguousarray(hr_seq))
         r_inputs, r_targets = prepare_batch(hr_seq.to(self.device), self.config)
-        _, flow_hr = flows_for_sequence(state.fnet, r_inputs)
-        gen_outputs, warppre = unroll_generator(state.generator, r_inputs, flow_hr,
-                                                remat=False)
+        _, flow_hr = flows_for_sequence(cast_at_use(state.fnet, self.dtype), r_inputs)
+        gen_outputs, warppre = unroll_generator(cast_at_use(state.generator, self.dtype),
+                                                r_inputs, flow_hr, remat=False)
         return r_inputs, deprocess(r_targets), deprocess(gen_outputs), deprocess(warppre)
 
 

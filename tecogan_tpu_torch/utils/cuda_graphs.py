@@ -27,8 +27,12 @@ that pool too.
 - captures under ``torch.cuda.graph(..., capture_error_mode="thread_local")``,
   so other threads keep using the card meanwhile (a serving bucket warmed
   in the background while another bucket ticks; writer threads waiting on
-  events), one capture at a time in the process. A capture that fails
-  raises, naming the line that broke it; nothing falls back to eager;
+  events), one capture at a time in the process. Python's garbage
+  collector runs just before and not during the capture: a collection
+  inside it would free dead programs' pinned buffers and events on the
+  capturing thread, whose allocator calls are not allowed there, and would
+  invalidate the capture. A capture that fails raises, naming the line
+  that broke it; nothing falls back to eager;
 - replays on the caller's current stream, and adds the kernel launches its
   capture counted (:class:`~tecogan_tpu_torch.kernels.LaunchRecord`, keyed
   by the capture's stream, so a backward's launches on autograd's device
@@ -44,6 +48,7 @@ device) after a capture leaves the graph reading freed memory.
 
 from __future__ import annotations
 
+import gc
 import os
 import threading
 import traceback
@@ -111,6 +116,9 @@ class CapturedProgram:
             torch.cuda.current_stream().wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             record = LaunchRecord(stream=side.cuda_stream)
+            collecting = gc.isenabled()
+            gc.collect()
+            gc.disable()
             try:
                 with record, torch.cuda.graph(graph, stream=side,
                                               capture_error_mode="thread_local"):
@@ -124,6 +132,8 @@ class CapturedProgram:
                 raise RuntimeError(f"capturing {name} failed at {_where(cause)}: "
                                    f"{type(cause).__name__}: {cause}") from cause
             finally:
+                if collecting:
+                    gc.enable()
                 record.add(-1)  # the capture queued these launches and ran none
             self._launches = record
             self._graph = graph

@@ -12,7 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import chain_oracle_bf16
+from chip_smoke import (
+    BF16_D_LOSS_RTOL,
+    BF16_ENTRIES,
+    chain_oracle_bf16,
+    entries_called,
+    loss_scale,
+    step_launch_want,
+)
 from tecogan_tpu_torch.config import FRVSR_PRESET
 from tecogan_tpu_torch.data.synthetic import synthetic_clip
 from tecogan_tpu_torch.kernels import (
@@ -475,13 +482,27 @@ def test_training_captured_matches_eager(cuda_device, mode):
     VGG19 random weights): every state tensor bit-equal, the metrics of
     every step too. Then K2 counts once a replay, and a rebound state
     tensor makes the next step capture again."""
+    _captured_matches_eager(cuda_device, mode, "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["frvsr", "tecogan"])
+def test_bf16_training_captured_matches_eager(cuda_device, mode):
+    """As test_training_captured_matches_eager, in bfloat16 (float32 master
+    weights): the bfloat16 warps' index_add backward is deterministic
+    under torch.use_deterministic_algorithms too, so bit-equal."""
+    _captured_matches_eager(cuda_device, mode, "bfloat16")
+
+
+def _captured_matches_eager(cuda_device, mode, dtype):
     from tecogan_tpu_torch.config import TECOGAN_PRESET
     from tecogan_tpu_torch.models.vgg19 import random_vgg19
     from tecogan_tpu_torch.train.trainer import named_state_tensors
     from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
 
     base = TECOGAN_PRESET if mode == "tecogan" else FRVSR_PRESET
-    cfg = base.replace(num_resblock=2, batch_size=1, rnn_n=3, crop_size=16)
+    cfg = base.replace(num_resblock=2, batch_size=1, rnn_n=3, crop_size=16,
+                       compute_dtype=dtype)
     tar = cfg.hr_load_size
     batches = [(synthetic_clip(3, tar, tar, seed=30 + i, content="natural")[None] * 255
                 ).astype(np.uint8) for i in range(4)]
@@ -519,6 +540,93 @@ def test_training_captured_matches_eager(cuda_device, mode):
     trainer.train_step(state, batches[1])
     assert trainer.recaptures == 1
     assert upsample4_bwd.launches == before + 3  # a warm-up and a replay more
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["frvsr", "tecogan"])
+def test_bf16_train_step_matches_cpu(cuda_device, mode):
+    """One bfloat16 step on the card (2 blocks, the real FNet; TecoGAN with
+    the merged Dst and VGG19 random weights, gate open), the captured step,
+    against the CPU's bfloat16 step, held against the CPU's own bfloat16
+    error (its float32 step), as chip_smoke.py's phases 7b and 10b: losses
+    within max(1e-3 of scale (2^-6 for those read from the discriminator,
+    see chip_smoke.BF16_D_LOSS_RTOL), 2x the CPU's own gap); per parameter
+    ||card - CPU|| / ||CPU|| within 2x the CPU's own error + 0.02, median
+    0.08. Only the bfloat16 kernel entries ran, each wrapper twice a
+    step's launches (the warm-up and one replay); the parameters and their
+    gradients are float32."""
+    from tecogan_tpu_torch.config import TECOGAN_PRESET
+    from tecogan_tpu_torch.models.vgg19 import random_vgg19
+
+    base = TECOGAN_PRESET if mode == "tecogan" else FRVSR_PRESET
+    cfg = base.replace(num_resblock=2, batch_size=1, rnn_n=3, crop_size=16,
+                       compute_dtype="bfloat16")
+    tar = cfg.hr_load_size
+    batch = (synthetic_clip(3, tar, tar, seed=18, content="natural")[None] * 255).astype(np.uint8)
+    kernels = {"resblock_chain": resblock_chain, "upsample4": upsample4,
+               "upsample4_bwd": upsample4_bwd}
+    runs = {}
+    for device, dtype in ((cuda_device, "bfloat16"), ("cpu", "bfloat16"), ("cpu", "float32")):
+        trainer = Trainer(cfg.replace(compute_dtype=dtype), device,
+                          vgg=random_vgg19(19) if cfg.gan else None)
+        state = trainer.init_state(20)
+        with torch.no_grad():  # flows mid-cell (see chip_smoke.py)
+            state.fnet.output_conv2.bias.copy_(torch.tensor([0.015625, -0.026]))
+            state.fnet.output_conv2.weight.mul_(0.1)
+        if cfg.gan:
+            state.ema_tbalance = torch.tensor(-100.0, device=device)
+        before = {k: w.launches for k, w in kernels.items()}
+        with entries_called() as entries:
+            _, metrics = trainer.train_step(state, batch)
+        launches = {k: w.launches - before[k] for k, w in kernels.items()}
+        if device != "cpu":
+            assert set(entries) == BF16_ENTRIES, entries
+            assert launches == {k: 2 * n for k, n in step_launch_want(cfg).items()}
+        params = [(f"{prefix}.{name}", p) for prefix, module in (
+            ("g", state.generator), ("f", state.fnet), ("d", state.discriminator))
+            if module is not None for name, p in module.named_parameters()]
+        assert all(p.dtype == p.grad.dtype == torch.float32 for _, p in params)
+        runs[device if device == "cpu" else "card", dtype] = (
+            {k: float(v) for k, v in metrics.items()},
+            {name: p.grad.detach().cpu() for name, p in params})
+    (losses, grads), (losses_c, grads_c), (losses_f, grads_f) = (
+        runs["card", "bfloat16"], runs["cpu", "bfloat16"], runs["cpu", "float32"])
+    for k, want in losses_c.items():
+        rtol = BF16_D_LOSS_RTOL if k.startswith(("t_", "D_layer")) else 1e-3
+        tol = max(rtol * loss_scale(k, losses_c), 2 * abs(want - losses_f[k]))
+        assert abs(losses[k] - want) <= tol, k
+    rels = []
+    for name, want in grads_c.items():
+        assert grads[name].abs().max() > 0, name
+        own = (grads_f[name] - want).norm() / want.norm()
+        rel = (grads[name] - want).norm() / want.norm()
+        assert rel <= 2 * own + 0.02, (name, float(rel), float(own))
+        rels.append(float(rel))
+    assert np.median(rels) <= 0.08
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,filt,alpha", [
+    ((36, 32, 32, 2), "bilinear", 4.0), ((4, 32, 32, 3), "bicubic", 1.0),
+    ((24, 32, 32, 9), "bilinear", 1.0)], ids=["flow", "skip", "triplets"])
+def test_upsample4_bf16_grad_matches_cpu(cuda_device, shape, filt, alpha):
+    """bfloat16 training's K1 shapes through autograd: the backward is K2's
+    bfloat16 entry on the card and its plain version on the CPU, which
+    round at the same points (after the H pass and at the end): within
+    1e-2 of the largest gradient entry, and the gradient stays bfloat16."""
+    rng = np.random.RandomState(15)
+    x = torch.from_numpy((rng.randn(*shape)).astype(np.float32)).bfloat16()
+    cot = torch.from_numpy(rng.randn(shape[0], 4 * shape[1], 4 * shape[2], shape[3])
+                           .astype(np.float32)).bfloat16()
+    grads = []
+    for device in (cuda_device, "cpu"):
+        xs = x.to(device).requires_grad_()
+        before = upsample4_bwd.launches
+        (g,) = torch.autograd.grad(upsample4(xs, filt, alpha), xs, cot.to(device))
+        assert g.dtype == torch.bfloat16
+        assert upsample4_bwd.launches == before + (device != "cpu")
+        grads.append(g.float().cpu())
+    assert (grads[0] - grads[1]).abs().max() <= 1e-2 * grads[1].abs().max()
 
 
 def _serving_models(seed, num_resblock):

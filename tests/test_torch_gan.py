@@ -458,14 +458,15 @@ def test_gan_step_variants_match_jax(kw):
 
 def test_constructor_guards():
     """As tests/test_train.py:173,316: VGG weights are required, the pure Dt
-    has no layer loss; bfloat16 training is not ported; the discriminator
-    must take the channels the configuration feeds it."""
+    has no layer loss; a compute dtype other than float32 and bfloat16 is
+    refused; the discriminator must take the channels the configuration
+    feeds it."""
     with pytest.raises(ValueError, match="VGG19 weights"):
         Trainer(TecoConfig(**{**TINY, "vgg_scaling": 0.2}), "cpu")
     with pytest.raises(ValueError, match="d_layerloss"):
         Trainer(TecoConfig(**{**TINY, "dt_mergeDs": False}), "cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        Trainer(TecoConfig(**{**TINY, "compute_dtype": "bfloat16"}), "cpu")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        Trainer(TecoConfig(**{**TINY, "compute_dtype": "float16"}), "cpu")
     trainer = Trainer(TecoConfig(**TINY), "cpu")
     gen_fnet = trainer.init_state(0)
     with pytest.raises(ValueError, match="9 channels"):

@@ -78,11 +78,11 @@ def test_cli_guards(scenes, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(_argv(scenes, out))  # --device defaults to cuda
-    # TecoGAN training is ported; bfloat16 training is not (item 17), and
-    # the VGG term needs weights, as in the JAX CLI.
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # A compute dtype other than float32 and bfloat16 is refused, and the
+    # VGG term needs weights, as in the JAX CLI.
+    with pytest.raises(ValueError, match="compute_dtype"):
         main(_argv(scenes, out, "--device", "cpu", "--ratio", "0.01",
-                   "--compute_dtype", "bfloat16"))
+                   "--compute_dtype", "float16"))
     with pytest.raises(SystemExit, match="--vgg_npz"):
         main(_argv(scenes, out, "--device", "cpu", "--vgg_scaling", "0.2"))
     # Inference, as the JAX CLI: no weight source exits; video input is
