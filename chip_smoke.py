@@ -855,6 +855,153 @@ def check_captured_equals_eager(dev, cfg, label: str, vgg=None, steps: int = 3) 
         f"device step{', D statistics, D Adam, gate EMA and counters' if cfg.gan else ''})")
 
 
+# Each training phase's summaries: generate's launches a replay, replay ms,
+# graph pool MiB and the seconds of each save's GIFs and events, by preset
+# and dtype (phases 8, 8c, 11, 11b), for the kernels line.
+GENERATE = {}
+
+
+def generate_launch_want(cfg):
+    """The kernel launches of one ``Trainer.generate``: the chain once a
+    block and frame of the batch's own ``rnn_n`` frames (no ping-pong), K1
+    for the flow (every pair in one launch) and each frame's bicubic skip,
+    no K2 (no backward)."""
+    return {"resblock_chain": cfg.num_resblock * cfg.rnn_n, "upsample4": cfg.rnn_n + 1,
+            "upsample4_bwd": 0}
+
+
+@contextlib.contextmanager
+def watched_summaries(kernels):
+    """While open, each ``Trainer.generate`` call is synchronised around and
+    its kernel launches counted (apart from the steps': the loop calls it
+    after a save, outside ``train_step``), and each ``SummaryLogger.gif``
+    (one GIF and its TensorBoard image) is timed. Yields the two lists it
+    fills: dict(trainer, launches, s) per generate call and (log dir, step,
+    tag, s) per GIF."""
+    from tecogan_tpu_torch.train import Trainer
+    from tecogan_tpu_torch.utils.summaries import SummaryLogger
+
+    calls, writes = [], []
+    generate, gif = Trainer.generate, SummaryLogger.gif
+
+    def counted(self, state, hr_seq):
+        torch.cuda.synchronize()
+        before = {name: k.launches for name, k in kernels.items()}
+        t0 = time.perf_counter()
+        out = generate(self, state, hr_seq)
+        torch.cuda.synchronize()
+        calls.append(dict(trainer=self, s=time.perf_counter() - t0,
+                          launches={name: k.launches - before[name]
+                                    for name, k in kernels.items()}))
+        return out
+
+    def timed(self, step, tag, sequence, **kw):
+        t0 = time.perf_counter()
+        gif(self, step, tag, sequence, **kw)
+        writes.append((self.log_dir, step, tag, time.perf_counter() - t0))
+
+    Trainer.generate, SummaryLogger.gif = counted, timed
+    try:
+        yield calls, writes
+    finally:
+        Trainer.generate, SummaryLogger.gif = generate, gif
+
+
+def check_summaries(label: str, cfg, saves: dict, calls, writes) -> dict:
+    """Every save of ``saves`` ({log dir: [steps]}) wrote the four tags'
+    GIFs, timed, and their TensorBoard images into an event file whose every
+    record's CRC checks; every ``generate`` call launched exactly
+    :func:`generate_launch_want`, twice that at a captured trainer's first
+    call (its warm-up and one replay). Returns the seconds of each save's
+    summary writes and the launches of one replay."""
+    from tecogan_tpu_torch.train.loop import SUMMARY_TAGS
+    from tecogan_tpu_torch.utils.tb_events import read_records
+
+    want = generate_launch_want(cfg)
+    seen = set()
+    for i, c in enumerate(calls):
+        first = c["trainer"] not in seen
+        seen.add(c["trainer"])
+        need = {k: n * (2 if first and c["trainer"].capture else 1) for k, n in want.items()}
+        if c["launches"] != need:
+            raise RuntimeError(f"{label} generate call {i + 1}: launches {c['launches']}, "
+                               f"want {need}")
+    if len(calls) != sum(len(v) for v in saves.values()):
+        raise RuntimeError(f"{label}: {len(calls)} generate calls for saves {saves}")
+    per_save = {}
+    for log_dir, step, tag, secs in writes:
+        per_save.setdefault((log_dir, step), []).append((tag, secs))
+    for log_dir, steps in saves.items():
+        events = [f for f in os.listdir(log_dir) if f.startswith("events.out.tfevents.")]
+        records = [r for f in events for r in read_records(os.path.join(log_dir, f))]
+        for step in steps:
+            tags = [t for t, _ in per_save.get((log_dir, step), [])]
+            if sorted(tags) != sorted(SUMMARY_TAGS):
+                raise RuntimeError(f"{label}: save {step} in {log_dir} wrote {tags}")
+            for tag in SUMMARY_TAGS:
+                path = os.path.join(log_dir, f"{tag}_0_step{step}.gif")
+                if not os.path.isfile(path) or open(path, "rb").read(6) != b"GIF89a":
+                    raise RuntimeError(f"{label}: no GIF {path}")
+                if not any(f"{tag}/0".encode() in r for r in records):
+                    raise RuntimeError(f"{label}: no {tag}/0 image in {events}")
+    secs = [sum(s for _, s in v) for v in per_save.values()]
+    replays = [c["launches"] for c in calls if c["launches"] == want]
+    log(f"{label} summaries: {len(calls)} generate calls (launches {want} a replay, twice "
+        f"that at a captured trainer's first call), {len(secs)} saves x 4 GIFs + TensorBoard "
+        f"images, every event record's CRC checked; GIFs and events "
+        f"{float(np.mean(secs)):.3f} s a save (max {max(secs):.3f})")
+    return dict(save_s=secs, launches=replays[0] if replays else want)
+
+
+def check_generate(dev, cfg, state, label: str, card: str, vgg=None) -> dict:
+    """``Trainer.generate`` on one batch, captured (the default) against
+    ``capture=False`` under ``torch.use_deterministic_algorithms`` and
+    cuDNN's deterministic algorithms: the four sequences bit-equal, from the
+    capturing call and from a replay; the replay's device time
+    (``utils.profiling.device_time``, CUDA events) and the generate
+    program's graph pool. Returns dict(ms, pool)."""
+    from tecogan_tpu_torch.kernels import resblock_chain, upsample4, upsample4_bwd
+    from tecogan_tpu_torch.train import Trainer
+    from tecogan_tpu_torch.utils.profiling import device_time
+
+    kernels = {"resblock_chain": resblock_chain, "upsample4": upsample4,
+               "upsample4_bwd": upsample4_bwd}
+    batch = torch.from_numpy(frvsr_batch(cfg, cfg.batch_size, 61)).to(dev)
+    flags = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        captured = Trainer(cfg, dev, vgg=vgg)
+        eager = Trainer(cfg, dev, vgg=vgg, capture=False)
+        first = [t.clone() for t in captured.generate(state, batch)]
+        before = {name: k.launches for name, k in kernels.items()}
+        replay = captured.generate(state, batch)
+        torch.cuda.synchronize()
+        launches = {name: k.launches - before[name] for name, k in kernels.items()}
+        want = eager.generate(state, batch)
+    finally:
+        torch.use_deterministic_algorithms(flags[0])
+        torch.backends.cudnn.deterministic = flags[1]
+    if launches != generate_launch_want(cfg):
+        raise RuntimeError(f"{label} generate replay: launches {launches}, want "
+                           f"{generate_launch_want(cfg)}")
+    for name, a, b, w in zip(("InputLR", "TargetHR", "GeneratedHR", "WarpPreGen"),
+                             first, replay, want):
+        if not (torch.equal(a, w) and torch.equal(b, w)):
+            raise RuntimeError(f"{label} generate {name}: captured vs eager differ by "
+                               f"{(b.double() - w.double()).abs().max().item():.3e}")
+    ms = device_time(captured.generate, state, batch, iters=10, warmup=2) * 1e3
+    prog = captured._program("generate", state, batch)
+    pool = prog.graph.pool_bytes() / 2**20
+    log(f"{label} generate ({cfg.num_resblock} blocks, batch {cfg.batch_size} x {cfg.rnn_n} "
+        f"frames, {cfg.compute_dtype}): captured == capture=False bit-equal (capture and "
+        f"replay, all four sequences) under torch.use_deterministic_algorithms; launches a "
+        f"replay {launches}; replay {ms:.3f} ms (CUDA events, utils.profiling.device_time, "
+        f"with the batch's device copy and the four clones); graph pool {pool:.1f} MiB; "
+        f"card: {card}")
+    return dict(ms=ms, pool=pool)
+
+
 def train_modes(cfg, kernels, runs, capturing, label):
     """``runs``: {mode: [calls of train()]}, captured (the default) then
     eager (``capture=False``), each step timed and its launches counted:
@@ -940,8 +1087,11 @@ def run_training(dev, card: str, tmp: str):
                          lambda: train(cfg, out_dir, dev, max_steps=RESUME_STEPS)],
             "eager": [lambda: train(cfg, os.path.join(tmp, "run_eager"), dev,
                                     max_steps=EAGER_STEPS, capture=False)]}
-    with contextlib.redirect_stdout(printed):
+    with contextlib.redirect_stdout(printed), watched_summaries(kernels) as (calls, writes):
         modes = train_modes(cfg, kernels, runs, (0, TRAIN_STEPS), "[train]")
+    summaries = check_summaries(
+        "[train]", cfg, {os.path.join(out_dir, "log"): [SAVE_FREQ, TRAIN_STEPS, RESUME_STEPS],
+                         os.path.join(tmp, "run_eager", "log"): [EAGER_STEPS]}, calls, writes)
     state = modes["captured"]["state"]
     for line in printed.getvalue().splitlines():
         if line.startswith(("step ", "Resumed", "Saved", "Dataset")):
@@ -966,7 +1116,8 @@ def run_training(dev, card: str, tmp: str):
             if torch.equal(p0, p1.detach().cpu()):
                 raise RuntimeError(f"[train] {prefix}.{name} did not move")
     launches = modes["captured"]["totals"]
-    log(f"[train] launches over {RESUME_STEPS} captured steps with validation {launches}; "
+    log(f"[train] launches over {RESUME_STEPS} captured steps with validation and the "
+        f"summaries' generate calls {launches}; "
         f"every step exactly {step_launch_want(cfg)} (the first of each train() call "
         f"twice that: its warm-up and one replay), eager too")
     log(f"[train] FRVSR_PRESET ({cfg.num_resblock} resblocks, batch "
@@ -977,6 +1128,8 @@ def run_training(dev, card: str, tmp: str):
     log_modes("[train]", cfg, modes, {"captured": (20, TRAIN_STEPS),
                                       "eager": (EAGER_STEPS - 10, EAGER_STEPS)}, card)
     check_captured_equals_eager(dev, cfg, "[train]")
+    GENERATE["FRVSR_PRESET float32"] = dict(summaries, **check_generate(
+        dev, cfg, state, "[train]", card))
     prof = profile_step(dev, cfg, state, {m: modes[m]["ms"] for m in modes}, "FRVSR_PRESET")
     summary = dict(ms=modes["captured"]["ms"], peak=modes["captured"]["peak"],
                    pool=modes["captured"]["pool"], profile=prof)
@@ -1770,8 +1923,12 @@ def run_tecogan_training(dev, card: str, tmp: str):
                                 pre_trained_dir=frvsr_ckpt, max_steps=GAN_EAGER_STEPS,
                                 capture=False)]}
     printed = io.StringIO()
-    with contextlib.redirect_stdout(printed):
+    with contextlib.redirect_stdout(printed), watched_summaries(kernels) as (calls, writes):
         modes = train_modes(cfg, kernels, runs, (0, GAN_STEPS), "[gan train]")
+    summaries = check_summaries(
+        "[gan train]", cfg, {os.path.join(out_dir, "log"): [GAN_STEPS, GAN_RESUME_STEPS],
+                             os.path.join(tmp, "tecogan_eager", "log"): [GAN_EAGER_STEPS]},
+        calls, writes)
     state = modes["captured"]["state"]
     text = printed.getvalue()
     for line in text.splitlines():
@@ -1816,6 +1973,8 @@ def run_tecogan_training(dev, card: str, tmp: str):
     log_modes("[gan train]", cfg, modes, {"captured": (10, GAN_STEPS),
                                           "eager": (GAN_EAGER_STEPS - 5, GAN_EAGER_STEPS)}, card)
     check_captured_equals_eager(dev, cfg, "[gan train]", vgg=vgg)
+    GENERATE["TECOGAN_PRESET float32"] = dict(summaries, **check_generate(
+        dev, cfg, state, "[gan train]", card, vgg=vgg()))
     prof = profile_step(dev, cfg, state, {m: modes[m]["ms"] for m in modes}, "TECOGAN_PRESET",
                         vgg=vgg())
     return step, dict(ms=modes["captured"]["ms"], peak=modes["captured"]["peak"],
@@ -2031,7 +2190,8 @@ def bf16_train(dev, cfg, out_dir: str, steps: int, steady, label: str, **train_k
     t0 = time.perf_counter()
     Trainer.train_step = step
     try:
-        with contextlib.redirect_stdout(printed), entries_called() as entries:
+        with contextlib.redirect_stdout(printed), entries_called() as entries, \
+                watched_summaries(kernels) as (calls, writes):
             state = train(cfg, out_dir, dev, max_steps=steps, test_while_train=False, **train_kw)
         torch.cuda.synchronize()
     finally:
@@ -2057,10 +2217,12 @@ def bf16_train(dev, cfg, out_dir: str, steps: int, steady, label: str, **train_k
             raise RuntimeError(f"{label}: state tensor {name} is {t.dtype}")
     if not all(math.isfinite(float(v)) for v in state.ema_losses.values()):
         raise RuntimeError(f"{label}: loss EMAs {state.ema_losses}")
+    summaries = check_summaries(label, cfg, {os.path.join(out_dir, "log"): [steps]}, calls,
+                                writes)
     a, b = steady
     return dict(state=state, ms=(starts[b] - starts[a]) / (b - a) * 1e3, peak=peak, pool=pool,
                 capture_s=capture_s, launches=launches[-1], text=text, wall=wall,
-                entries=entries)
+                entries=entries, summaries=summaries)
 
 
 def log_against_f32(label: str, name: str, bf16: dict, prof: dict, f32: dict) -> None:
@@ -2118,6 +2280,8 @@ def run_bf16_training(dev, card: str, tmp: str, f32: dict, f32_paced: dict):
         f"{sorted(r['entries'])} only; every parameter moved, the state float32; capture "
         f"{r['capture_s']:.3f} s; card: {card}")
     check_captured_equals_eager(dev, cfg, "[bf16 train]")
+    GENERATE["FRVSR_PRESET bfloat16"] = dict(r["summaries"], **check_generate(
+        dev, cfg, state, "[bf16 train]", card))
     prof = profile_step(dev, cfg, state, {"captured": r["ms"]}, "FRVSR_PRESET bfloat16")
     log(f"[bf16 train] paced idle share {max(0.0, 1 - prof['captured']['device_ms'] / r['ms']):.1%}"
         f" (float32: {max(0.0, 1 - f32_paced['device_ms'] / f32_paced['paced_ms']):.1%}, "
@@ -2161,6 +2325,8 @@ def run_bf16_tecogan_training(dev, card: str, tmp: str, f32: dict):
         f"{r['launches']} (the first twice that), library entries {sorted(r['entries'])} "
         f"only; gate: {counters[0]} steps with D, {counters[1]} without; the state float32; "
         f"capture {r['capture_s']:.3f} s; card: {card}")
+    GENERATE["TECOGAN_PRESET bfloat16"] = dict(r["summaries"], **check_generate(
+        dev, cfg, state, "[bf16 gan train]", card, vgg=random_vgg19(cfg.rand_seed)))
     prof = profile_step(dev, cfg, state, {"captured": r["ms"]}, "TECOGAN_PRESET bfloat16",
                         vgg=random_vgg19(cfg.rand_seed), modes=("captured",))
     log_against_f32("[bf16 gan train]", "TECOGAN_PRESET", r, prof, f32)
@@ -3048,6 +3214,115 @@ def check_budget(dev, card: str, models) -> None:
         f"once idle, the {geo1[0]}x{geo1[1]} bucket was evicted for it; card: {card}")
 
 
+# Phase 13: the run cases through their CLIs. Case 4 at FRVSR_PRESET's
+# widths, case 3 at TECOGAN_PRESET's (warm-started from case 4), case 1 at
+# the calendar geometry with 16 blocks; each a subprocess on the card.
+CASE_SCENES, CASE_FRAMES = 4, 14
+CASE4_STEPS, CASE4_SAVE, CASE3_STEPS, CASE_LR_FRAMES = 10, 5, 5, 12
+
+
+def run_cases(card: str, tmp: str) -> None:
+    """Phase 13: ``data.prepare --synthetic`` and ``cli.run`` cases 4, 3, 1,
+    2 and 0 as a user runs them, each a subprocess on the card with rc 0 and
+    its wall seconds: FRVSR_PRESET training (10 steps, saves at 5 and 10,
+    each with its four GIFs), TecoGAN_PRESET training warm-started from it
+    (the 10 -> 16-block partial restore), random-weight inference on a
+    12-frame 144x180 scene, its metrics (read back with
+    ``read_frameavg_csv``), and case 0's offline recipe."""
+    from tecogan_tpu_torch.cli.run import read_frameavg_csv
+    from tecogan_tpu_torch.data.png import write_png
+    from tecogan_tpu_torch.data.synthetic import synthetic_clip
+    from tecogan_tpu_torch.train.checkpoint import latest_step
+    from tecogan_tpu_torch.train.loop import SUMMARY_TAGS
+
+    root = os.path.join(tmp, "cases")
+    os.makedirs(root)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    walls = {}
+
+    def child(name, *argv):
+        log_path = os.path.join(root, f"{name.replace(' ', '_')}.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as out:
+            rc = subprocess.call([sys.executable, "-m", *argv], cwd=str(REPO), env=env,
+                                 stdout=out, stderr=subprocess.STDOUT,
+                                 stdin=subprocess.DEVNULL)
+        walls[name] = time.perf_counter() - t0
+        text = open(log_path).read()
+        if rc != 0:
+            raise RuntimeError(f"[cases] {name}: rc {rc}; its output ends:\n{text[-3000:]}")
+        log(f"[cases] {name}: rc 0 in {walls[name]:.1f} s wall; card: {card}")
+        return text
+
+    data = os.path.join(root, "TrainingDataPath")
+    child("data.prepare", "tecogan_tpu_torch.data.prepare", "--synthetic", str(CASE_SCENES),
+          "--duration", str(CASE_FRAMES), "--output_dir", data)
+    scenes = sorted(d for d in os.listdir(data) if d.startswith("scene_"))
+    if scenes != [f"scene_{2000 + i}" for i in range(CASE_SCENES)]:
+        raise RuntimeError(f"[cases] data.prepare wrote {scenes}")
+    train_flags = ["--max_frm", str(CASE_FRAMES - 1), "--str_dir", "2000",
+                   "--end_dir", str(2000 + CASE_SCENES - 2),
+                   "--end_dir_val", str(2000 + CASE_SCENES - 1), "--no_test_while_train"]
+    child("cli.run 4", "tecogan_tpu_torch.cli.run", "4", "--root", root,
+          "--max_iter", str(CASE4_STEPS), "--save_freq", str(CASE4_SAVE), *train_flags)
+    frvsr = os.path.join(root, "ex_FRVSRmm-dd-hh")
+    if latest_step(os.path.join(frvsr, "checkpoints")) != CASE4_STEPS:
+        raise RuntimeError(f"[cases] case 4 left no step-{CASE4_STEPS} checkpoint")
+    for step in range(CASE4_SAVE, CASE4_STEPS + 1, CASE4_SAVE):
+        for tag in SUMMARY_TAGS:
+            if not os.path.isfile(os.path.join(frvsr, "log", f"{tag}_0_step{step}.gif")):
+                raise RuntimeError(f"[cases] case 4: no {tag} GIF at step {step}")
+    text = child("cli.run 3", "tecogan_tpu_torch.cli.run", "3", "--root", root,
+                 "--allow_random_weights", "--max_iter", str(CASE3_STEPS),
+                 "--save_freq", str(CASE3_STEPS), *train_flags)
+    with open(os.path.join(root, "ex_TecoGANmm-dd-hh", "log", "logfile.txt")) as f:
+        teco_log = f.read()
+    for want in (f"case 3: FRVSR warm start <- {os.path.join(frvsr, 'checkpoints')}",):
+        if want not in text:
+            raise RuntimeError(f"[cases] case 3 printed no {want!r}")
+    for want in ("warm_start: partial generator restore", "Training TecoGAN on cuda"):
+        if want not in teco_log:
+            raise RuntimeError(f"[cases] case 3's log has no {want!r}")
+    with open(os.path.join(root, "ex_TecoGANmm-dd-hh", "config.json")) as f:
+        teco_cfg = json.load(f)
+    if (teco_cfg["num_resblock"], teco_cfg["pingpong"]) != (16, True):
+        raise RuntimeError(f"[cases] case 3 trained {teco_cfg['num_resblock']} blocks, "
+                           f"ping-pong {teco_cfg['pingpong']}")
+    line = next(ln for ln in teco_log.splitlines() if "partial generator restore" in ln)
+    log(f"[cases] case 3 | {line.strip()}")
+    if latest_step(os.path.join(root, "ex_TecoGANmm-dd-hh", "checkpoints")) != CASE3_STEPS:
+        raise RuntimeError("[cases] case 3 left no checkpoint")
+
+    # The calendar geometry: 12 HR frames of 576x720 and their 144x180 LR.
+    hr = (synthetic_clip(CASE_LR_FRAMES, 4 * LR_H, 4 * LR_W, seed=13, content="natural")
+          * 255).astype(np.uint8)
+    for sub, frames in (("HR", hr), ("LR", hr[:, ::4, ::4])):
+        d = os.path.join(root, sub, "calendar")
+        os.makedirs(d)
+        for i, frame in enumerate(frames):
+            write_png(os.path.join(d, f"col_high_{i:04d}.png"), np.ascontiguousarray(frame))
+    child("cli.run 1", "tecogan_tpu_torch.cli.run", "1", "--root", root)
+    outputs = sorted(os.listdir(os.path.join(root, "results", "calendar")))
+    if outputs != [f"output_{i:04d}.png" for i in range(CASE_LR_FRAMES)]:
+        raise RuntimeError(f"[cases] case 1 wrote {outputs[:3]}... ({len(outputs)})")
+    child("cli.run 2", "tecogan_tpu_torch.cli.run", "2", "--root", root)
+    avg = read_frameavg_csv(os.path.join(root, "results", "metric_log", "metrics.csv"))
+    if set(avg) != {"FrameAvg_PSNR", "FrameAvg_SSIM", "FrameAvg_tOF"} or \
+            not all(math.isfinite(v) for v in avg.values()):
+        raise RuntimeError(f"[cases] case 2's metrics.csv: {avg}")
+    text = child("cli.run 0", "tecogan_tpu_torch.cli.run", "0", "--root", root)
+    if "Network downloads disabled" not in text or "np.savez('model/TecoGAN.npz'" not in text:
+        raise RuntimeError(f"[cases] case 0 printed {text[-1000:]}")
+    log(f"[cases] data.prepare --synthetic {CASE_SCENES} (288x352, {CASE_FRAMES} frames), "
+        f"case 4 FRVSR_PRESET {CASE4_STEPS} steps (saves and GIFs at "
+        f"{list(range(CASE4_SAVE, CASE4_STEPS + 1, CASE4_SAVE))}), case 3 TECOGAN_PRESET "
+        f"{CASE3_STEPS} steps warm-started from case 4, case 1 on {CASE_LR_FRAMES} frames "
+        f"{LR_H}x{LR_W} -> {4 * LR_H}x{4 * LR_W} (16 blocks, random weights), case 2 "
+        f"{', '.join(f'{k} {v:.4f}' for k, v in sorted(avg.items()))} (random weights), case 0: "
+        f"all rc 0; wall s {', '.join(f'{k} {v:.1f}' for k, v in walls.items())}; card: {card}")
+
+
 def phase(name: str, fn, *args):
     """Run one phase; its seconds go to ``phase.seconds``."""
     t0 = time.perf_counter()
@@ -3124,6 +3399,7 @@ def main() -> None:
         phase("12c export", check_export, dev, tmp, serve_models)
         phase("12d cli.serve", run_serve_cli, dev, card, tmp)
         phase("12e state budget", check_budget, dev, card, serve_models)
+        phase("13 run cases", run_cases, card, tmp)
     log("[main] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase.seconds.items())
         + f"; in all {time.perf_counter() - START:.1f} s since the script started")
 
@@ -3216,6 +3492,9 @@ def main() -> None:
                 **{k: sum(r[k] for r in bf16_cases) for k in ("ms", "plain_ms", "bound_ms")},
                 "library_ms": None if None in bf16_libs else sum(bf16_libs),
                 "cases": [r["label"] for r in bf16_cases]}
+        if key in ("upsample4", "resblock_chain"):
+            # Per generate replay after each save (phases 8, 8c, 11, 11b).
+            entry["generate_launches"] = {k: g["launches"][key] for k, g in GENERATE.items()}
         if key == "resblock_chain":
             entry["also_replaces"] = ["tecogan_tpu/kernels/resblocks.py:305",
                                       "tecogan_tpu/kernels/resblocks.py:466"]

@@ -179,19 +179,25 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body)))
 
 
-def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
-    """Encode uint8 (H, W), (H, W, 3) or (H, W, 4) to a PNG file, every row
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """Encode uint8 (H, W), (H, W, 3) or (H, W, 4) as PNG bytes, every row
     with filter 0, deflated at zlib ``level``."""
     img = np.asarray(img)
     channels = 1 if img.ndim == 2 else img.shape[-1]
     if img.dtype != np.uint8 or img.ndim not in (2, 3) or channels not in _BY_CHANNELS:
-        raise ValueError(f"write_png takes uint8 gray, RGB or RGBA images, "
+        raise ValueError(f"encode_png takes uint8 gray, RGB or RGBA images, "
                          f"got {img.dtype} {img.shape}")
     h, w = img.shape[:2]
     raw = np.concatenate([np.zeros((h, 1), np.uint8),
                           np.ascontiguousarray(img).reshape(h, w * channels)], axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, _BY_CHANNELS[channels], 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
+    """Encode ``img`` (:func:`encode_png`) to a PNG file."""
+    data = encode_png(img, level)
     with open(path, "wb") as f:
-        f.write(SIGNATURE + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
-                + _chunk(b"IEND", b""))
+        f.write(data)

@@ -10,6 +10,9 @@
 
 - :func:`stencil_matrix`: the 4x upsample along one axis as a (4n, n)
   matrix; the plain version of its adjoint (``kernels/upsample4.py``) uses it.
+- :func:`resize_area`: OpenCV's ``INTER_AREA`` 0.5x of a uint8 frame, bit
+  for bit, on the host (the dataset preparation's scene cut, reference
+  lib/data/video.py:168-173).
 
 ``F.interpolate`` is not used: its half-pixel source grid differs from both.
 Each resize is separable: the H pass and then the W pass, each summed in
@@ -117,3 +120,38 @@ def upscale_bilinear(x: torch.Tensor, factor: int) -> torch.Tensor:
 def bicubic_four(x: torch.Tensor) -> torch.Tensor:
     """4x Catmull-Rom bicubic upscale of (B, H, W, C)."""
     return _separable_upsample(x, _catmull_rom_weights(), _BICUBIC_OFFSETS)
+
+
+def resize_area(frame: np.ndarray, scale: float = 0.5) -> np.ndarray:
+    """``cv2.resize(frame, None, fx=scale, fy=scale,
+    interpolation=cv2.INTER_AREA)`` of a uint8 (H, W) or (H, W, C) frame,
+    bit for bit; ``scale`` must be 0.5.
+
+    OpenCV sizes the output ``round(H/2) x round(W/2)``, half to even
+    (``saturate_cast<int>``), and keeps the scale 2 it was given, so odd
+    sizes also take its 2x2 fast path (``resizeAreaFast``): a full 2x2
+    block is ``(a + b + c + d + 2) >> 2``; a block cut by the right or
+    bottom edge (an odd width rounded up) is the float32 mean of the pixels
+    it has, rounded half to even; an odd size rounded down drops its last
+    row or column. Checked against OpenCV 5.0's ``cv2``."""
+    if scale != 0.5:
+        raise ValueError(f"resize_area supports scale 0.5 only, got {scale}")
+    frame = np.asarray(frame)
+    if frame.dtype != np.uint8 or frame.ndim not in (2, 3):
+        raise ValueError(f"resize_area takes uint8 (H, W[, C]) frames, got "
+                         f"{frame.dtype} {frame.shape}")
+    h, w = frame.shape[:2]
+    oh, ow = round(h * scale), round(w * scale)  # Python rounds half to even
+    if oh == 0 or ow == 0:
+        raise ValueError(f"resize_area: a {h}x{w} frame has no 0.5x size")
+    h, w = min(h, 2 * oh), min(w, 2 * ow)  # a size rounded down drops the last pixel
+    src = np.zeros((2 * oh, 2 * ow) + frame.shape[2:], np.int32)
+    src[:h, :w] = frame[:h, :w]
+    count = np.zeros((2 * oh, 2 * ow), np.int32)
+    count[:h, :w] = 1
+    total = src[0::2, 0::2] + src[0::2, 1::2] + src[1::2, 0::2] + src[1::2, 1::2]
+    n = count[0::2, 0::2] + count[0::2, 1::2] + count[1::2, 0::2] + count[1::2, 1::2]
+    if frame.ndim == 3:
+        n = n[..., None]
+    mean = np.rint(total.astype(np.float32) / n.astype(np.float32))
+    return np.where(n == 4, (total + 2) >> 2, mean).astype(np.uint8)

@@ -12,13 +12,21 @@ In reference order:
   held-out scene split (main.py:394-402); in TecoGAN mode also the gate's
   ``t_balance_EMA``, ``withD_counter`` and ``w_o_D_counter`` scalars
   (reference Teco.py:451-452,495-496);
+- after each save, the animated sequence summaries of the batch just
+  stepped (reference gif_summary of LR/HR/Generated/WarpPreGen,
+  Teco.py:498-503): ``Trainer.generate`` (a captured program on the card)
+  and one GIF per tag with its first frame as a TensorBoard image; the
+  scalars go to the TensorBoard event file and ``scalars.jsonl``;
 - after each save, test-while-train: a detached inference run of the
   port's CLI on the fresh checkpoint (main.py:151-174), over the first 10
   frames of ``<input_video_dir>/../LR/calendar`` when that folder exists;
 - Ctrl-C saves a final checkpoint (main.py:423-429); so does SIGTERM
   (preemption), after the step in flight.
 
-Not ported yet: the GIF sequence summaries (PIL, ROADMAP queue 1 item 10).
+Where the JAX loop lets any exception of the summaries pass with a print,
+here only a failed write of their files (``OSError``) does: a capture,
+replay or kernel launch that fails inside ``generate`` raises.
+
 Training runs on the one device it is given, with no fallback; on the card
 each step and each validation runs as a captured CUDA graph by default
 (``Trainer``'s ``capture``), and the loop reads device values on the host
@@ -129,6 +137,21 @@ class _PreemptionGuard:
         return False
 
 
+SUMMARY_TAGS = ("InputLR", "TargetHR", "GeneratedHR", "WarpPreGen")  # reference Teco.py:498-503
+
+
+def _write_sequence_summaries(trainer: Trainer, state: TrainState, batch,
+                              logger: SummaryLogger, step: int) -> None:
+    """One GIF per tag of ``Trainer.generate`` on ``batch`` (its first
+    sequence). The device's work raises; a failed file write is printed."""
+    sequences = [seq[:1].float().cpu().numpy() for seq in trainer.generate(state, batch)]
+    try:
+        for tag, seq in zip(SUMMARY_TAGS, sequences):
+            logger.gif(step, tag, seq, max_outputs=1)
+    except OSError as e:  # summaries must never kill training
+        print(f"gif summary failed: {e}")
+
+
 def _save_once(ckpt_dir: str, state: TrainState) -> None:
     """Save unless this step is on disk already (a save_freq save, or a
     resume with no step since)."""
@@ -147,7 +170,8 @@ def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
     returns the final state. ``vgg``: VGG19 weights for ``vgg_scaling >
     0``. ``pre_trained_dir``: a run's checkpoint dir or a TF npz to
     warm-start from. Checkpoints go to ``<output_dir>/checkpoints``, scalars
-    to ``<summary_dir>/scalars.jsonl`` (default ``<output_dir>/log``).
+    to ``<summary_dir>/scalars.jsonl`` and its TensorBoard event file, the
+    sequence GIFs to ``<summary_dir>`` (default ``<output_dir>/log``).
     ``capture``: as :class:`Trainer`'s (None captures on the card)."""
     trainer = Trainer(config, device, vgg=vgg, capture=capture)
     summary_dir = summary_dir or os.path.join(output_dir, "log")
@@ -197,7 +221,8 @@ def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
                     _save_once(ckpt_dir, state)
                     print(f"Preempted: saved final checkpoint at step {state.step}")
                     break
-                state, metrics = trainer.train_step(state, loader.next_batch())
+                batch = loader.next_batch()
+                state, metrics = trainer.train_step(state, batch)
                 frames_window += config.batch_size * config.unroll_frames
                 step = state.step
                 if step % config.display_freq == 0:
@@ -220,6 +245,7 @@ def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
                 if step % config.save_freq == 0 or step == total:
                     save_checkpoint(ckpt_dir, state)
                     print(f"Saved checkpoint at step {step}")
+                    _write_sequence_summaries(trainer, state, batch, logger, step)
                     if test_while_train:
                         _spawn_test_while_train(config, output_dir, ckpt_dir,
                                                 trainer.device)

@@ -67,6 +67,9 @@ update. A state tensor that has moved (rebound, or restored by
 ``load_state_dict``) since the capture makes the program capture again
 (``Trainer.recaptures``); nothing falls back to eager. On the CPU, and with
 ``capture=False``, the same body runs eagerly over the same buffers.
+:meth:`Trainer.generate`, the summaries' forward pass (the JAX package's
+jitted ``_generate_impl``), is a third kind of program, "generate", kept
+beside the step's: its own static batch and graph, no state touched.
 """
 
 from __future__ import annotations
@@ -299,9 +302,10 @@ def state_tensors(state: TrainState) -> List[torch.Tensor]:
 
 
 class _Program:
-    """One kind of step ("train" or "eval") over one state at one batch shape
-    and dtype: the static device batch, the host buffers its uploads go
-    through, and the step's body over them, captured on the card or eager.
+    """One kind of program ("train", "eval" or "generate") over one state at
+    one batch shape and dtype: the static device batch, the host buffers its
+    uploads go through, and the body over them, captured on the card or
+    eager.
 
     The body holds the trainer through a weak proxy, so a dropped trainer
     frees its graphs at once."""
@@ -319,7 +323,7 @@ class _Program:
             self.staging = [self.hr]  # the host writes the batch itself
         self.done: List[Optional[torch.cuda.Event]] = [None] * len(self.staging)
         self.uploads = 0
-        body = _train_body if kind == "train" else _eval_body
+        body = {"train": _train_body, "eval": _eval_body, "generate": _generate_body}[kind]
         self.body = functools.partial(body, weakref.proxy(trainer), state, self.hr)
         self.graph: Optional[CapturedProgram] = None
         self.addresses: Tuple[int, ...] = ()
@@ -370,14 +374,18 @@ class _Program:
         self.addresses = self._addresses(trainer)
         trainer.capture_s += time.perf_counter() - t0
 
-    def run(self, trainer: "Trainer", batch: Batch) -> torch.Tensor:
-        """One step on ``batch``: its metrics as one vector of its own."""
+    def run(self, trainer: "Trainer", batch: Batch):
+        """One call on ``batch``: a step's metrics as one vector, or
+        generate's four sequences, each a tensor of its own (a replay's
+        outputs are cloned out of the graph's static buffers, which the
+        next replay overwrites)."""
         self.upload(batch)
         if not trainer.capture:
             return self.body()
         if self.graph is None or self._addresses(trainer) != self.addresses:
             self._capture(trainer)
-        return self.graph().clone()
+        out = self.graph()
+        return tuple(t.clone() for t in out) if self.kind == "generate" else out.clone()
 
 
 class Trainer:
@@ -672,21 +680,17 @@ class Trainer:
         vec = self._program("eval", state, hr_seq).run(self, hr_seq)
         return dict(zip(self.metric_keys("eval"), vec.unbind()))
 
-    @torch.no_grad()
-    def generate(self, state: TrainState, hr_seq: Batch):
+    def generate(self, state: TrainState, hr_seq: Batch
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """Forward-only sequences in [0, 1] for summaries (reference
-        Teco.py:498-503): LR inputs, HR targets, generated frames and the
-        warped previous outputs, of the batch's own T frames: as the JAX
-        package's ``_generate_impl``, no ping-pong extension. Eager on every
-        device: nothing on the training loop's path calls it (ROADMAP queue 1
-        item 10)."""
-        if isinstance(hr_seq, np.ndarray):
-            hr_seq = torch.from_numpy(np.ascontiguousarray(hr_seq))
-        r_inputs, r_targets = prepare_batch(hr_seq.to(self.device), self.config)
-        _, flow_hr = flows_for_sequence(cast_at_use(state.fnet, self.dtype), r_inputs)
-        gen_outputs, warppre = unroll_generator(cast_at_use(state.generator, self.dtype),
-                                                r_inputs, flow_hr, remat=False)
-        return r_inputs, deprocess(r_targets), deprocess(gen_outputs), deprocess(warppre)
+        Teco.py:498-503; the JAX package's jitted ``_generate_impl``,
+        ``tecogan_tpu/train/trainer.py:462-479``): LR inputs, HR targets,
+        generated frames and the warped previous outputs, of the batch's own
+        T frames, no ping-pong extension. A "generate" program, captured on
+        the card (one per state, batch shape and dtype; its first call warms
+        up, captures and replays), eager on the CPU or with
+        ``capture=False``; each output is a tensor of its own."""
+        return self._program("generate", state, hr_seq).run(self, hr_seq)
 
 
 def _train_body(trainer: Trainer, state: TrainState, hr: torch.Tensor) -> torch.Tensor:
@@ -726,6 +730,18 @@ def _eval_body(trainer: Trainer, state: TrainState, hr: torch.Tensor) -> torch.T
     """The validation losses on the static batch ``hr``, as one vector."""
     metrics = trainer._forward_losses(state, *trainer._prepare(hr))[1]
     return torch.stack([metrics[k] for k in trainer.metric_keys("eval")])
+
+
+@torch.no_grad()
+def _generate_body(trainer: Trainer, state: TrainState, hr: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:meth:`Trainer.generate` on the static batch ``hr``: FNet over the
+    adjacent pairs, the recurrent unroll; the four sequences in [0, 1]."""
+    r_inputs, r_targets = prepare_batch(hr, trainer.config)
+    _, flow_hr = flows_for_sequence(cast_at_use(state.fnet, trainer.dtype), r_inputs)
+    gen_outputs, warppre = unroll_generator(cast_at_use(state.generator, trainer.dtype),
+                                            r_inputs, flow_hr, remat=False)
+    return r_inputs, deprocess(r_targets), deprocess(gen_outputs), deprocess(warppre)
 
 
 def d_loss(d_real: torch.Tensor, d_fake: torch.Tensor, eps: float) -> torch.Tensor:

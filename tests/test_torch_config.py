@@ -43,3 +43,17 @@ def test_top_level_exports_match_jax():
     assert tecogan_tpu_torch.__all__ == tecogan_tpu.__all__
     for name in tecogan_tpu_torch.__all__:
         assert getattr(tecogan_tpu_torch, name) is getattr(config, name)
+
+
+@pytest.mark.parametrize("package", ["data", "utils"])
+def test_package_exports_match_jax(package):
+    """``tecogan_tpu_torch.data`` and ``.utils`` export the JAX package's
+    names (``tecogan_tpu/data/__init__.py``, ``tecogan_tpu/utils/__init__.py``),
+    each bound to the port's own object."""
+    import importlib
+
+    ours = importlib.import_module(f"tecogan_tpu_torch.{package}")
+    theirs = importlib.import_module(f"tecogan_tpu.{package}")
+    assert ours.__all__ == theirs.__all__
+    for name in ours.__all__:
+        assert getattr(ours, name).__module__.startswith("tecogan_tpu_torch."), name

@@ -16,9 +16,12 @@ from chip_smoke import (
     BF16_D_LOSS_RTOL,
     BF16_ENTRIES,
     chain_oracle_bf16,
+    check_generate,
+    check_summaries,
     entries_called,
     loss_scale,
     step_launch_want,
+    watched_summaries,
 )
 from tecogan_tpu_torch.config import FRVSR_PRESET
 from tecogan_tpu_torch.data.synthetic import synthetic_clip
@@ -906,3 +909,47 @@ def test_capture_of_a_host_read_raises(cuda_device):
     assert CapturedProgram.captures == captures
     assert out.item() == 1.0  # the warm-up ran once; no eager run replaced the capture
     assert torch.equal((x * 2).cpu(), torch.full((4,), 2.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_generate_captured_matches_eager(cuda_device, dtype):
+    """The summaries' generate program, captured, against ``capture=False``
+    under deterministic algorithms: bit-equal, and exactly the chain N x T
+    and K1 T + 1 launches a replay (``chip_smoke.check_generate``)."""
+    cfg = FRVSR_PRESET.replace(num_resblock=3, rnn_n=4, batch_size=2, compute_dtype=dtype)
+    state = Trainer(cfg, cuda_device).init_state(0)
+    got = check_generate(cuda_device, cfg, state, "[test generate]", "test")
+    assert got["ms"] > 0 and got["pool"] > 0
+
+
+@pytest.mark.cuda
+def test_train_writes_four_gifs_on_the_card(cuda_device, tmp_path):
+    """train() on the card with a save: the four tags' GIFs and images of
+    each save, generate's launches (twice at its capture), every event
+    record's CRC (``chip_smoke.check_summaries``)."""
+    from tecogan_tpu_torch.data.synthetic import write_synthetic_scenes
+    from tecogan_tpu_torch.train.loop import train
+
+    scenes = str(tmp_path / "scenes")
+    write_synthetic_scenes(scenes, 2, 6, 60, 64, start_index=2000)
+    cfg = FRVSR_PRESET.replace(input_video_dir=scenes, num_resblock=2, crop_size=8,
+                               batch_size=2, rnn_n=4, max_frm=5, queue_thread=2,
+                               save_freq=2)
+    kernels = {"resblock_chain": resblock_chain, "upsample4": upsample4,
+               "upsample4_bwd": upsample4_bwd}
+    out = str(tmp_path / "run")
+    with watched_summaries(kernels) as (calls, writes):
+        train(cfg, out, cuda_device, max_steps=3, test_while_train=False)
+    check_summaries("[test train]", cfg, {str(tmp_path / "run" / "log"): [2, 3]}, calls, writes)
+    assert len(calls) == 2 and calls[0]["trainer"].capture
+
+
+@pytest.mark.cuda
+def test_device_time_on_the_card(cuda_device):
+    from tecogan_tpu_torch.utils.profiling import device_time, device_time_samples, sync
+
+    x = torch.randn(512, 512, device=cuda_device)
+    assert device_time(torch.matmul, x, x, iters=5, warmup=1) > 0
+    assert len(device_time_samples(torch.matmul, x, x, iters=2, passes=3)) == 3
+    assert sync(x) == pytest.approx(float(x.sum().cpu()))

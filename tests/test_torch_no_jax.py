@@ -1,6 +1,6 @@
 """The port and its smoke script import neither JAX, flax nor the JAX
-package, nor OpenCV, PIL, pandas or tensorboardX: they run on machines that
-have only PyTorch, numpy and scipy."""
+package, nor OpenCV, PIL, pandas, tensorboardX or tensorboard: they run on
+machines that have only PyTorch, numpy and scipy."""
 
 import ast
 from pathlib import Path
@@ -9,7 +9,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tecogan_tpu",
-             "cv2", "PIL", "pandas", "tensorboardX"}
+             "cv2", "PIL", "pandas", "tensorboardX", "tensorboard"}
 PACKAGE = REPO / "tecogan_tpu_torch"
 SOURCES = sorted(p for p in PACKAGE.rglob("*.py")
                  if "_build" not in p.relative_to(PACKAGE).parts)  # build output
