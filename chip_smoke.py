@@ -168,6 +168,26 @@ Phases, each raising on failure (so the exit code is non-zero):
    busy, and evicts it once idle. Phase 3 also times the chain N=16 at
    (4,144,180,64) and K1 at (4,144,180,2/3) in bfloat16, a serving tick's
    shapes.
+13. the run cases (``run_cases``): ``data.prepare --synthetic`` and
+   ``cli.run`` cases 4, 3, 1, 2 and 0 as subprocesses on the card;
+14. video-file I/O (``run_video``, no OpenCV): (a) the build of the port's
+   video library (``csrc/tecovideo*.cpp``, g++) and its seconds; (b) a
+   seeded 30-frame 144x180 clip written by the port's writer as .avi
+   (Motion JPEG), .mp4 and .mkv (MPEG-4 Part 2, the .mkv at 29.97 fps),
+   read back: count, shape, fps equal to the written, mean |error| within
+   the bound ``tests/test_torch_video_io.py`` holds (the JAX writer's on
+   the same clip + 0.5), encode and decode frames/s per file; (c)
+   ``cli.main --input_video clip.mp4`` at full width (16 blocks, the
+   default dtype) and the same CLI on a PNG directory of the port's decode
+   of the clip, under cuDNN's deterministic algorithms: bit-equal outputs,
+   the chain's and K1's launches counted for each and equal; then
+   ``--output_video out.mp4``, decoded and bit-equal to the port's writer
+   on the PNG route's frames, and the CLI's frames/s with video against
+   PNG I/O, timed in turns; (d) ``cli.serve`` on two video sources of two
+   geometries (.mp4 at 24 fps, .mkv at 29.97) with ``--output_videos``:
+   counts, shapes and each output's fps; (e) ``data.prepare.extract_scene``
+   from frame 5 (inside the MPEG-4 GOP) of the .avi and the .mp4: the PNGs
+   equal the decoded frames through ``resize_area``.
 
 Then one ``[yardstick]`` line per timed case of phase 3 with its wrapper's
 launches on the streaming, FRVSR and TecoGAN training paths (float32 and
@@ -3323,6 +3343,197 @@ def run_cases(card: str, tmp: str) -> None:
         f"all rc 0; wall s {', '.join(f'{k} {v:.1f}' for k, v in walls.items())}; card: {card}")
 
 
+# Video-file I/O (phase 14): the clip, its frame rates and the mean
+# |error| each written file may have against its source: the bound
+# tests/test_torch_video_io.py::test_chip_smoke_video_bound holds (the JAX
+# writer's error on the same clip, measured with OpenCV on the CPU, + 0.5).
+VIDEO_FRAMES, VIDEO_SEED = 30, 41
+VIDEO_FILES = (("avi", 24.0), ("mp4", 24.0), ("mkv", 29.97))
+VIDEO_ERR_BOUND = {"avi": 6.32, "mp4": 6.78, "mkv": 6.78}
+VIDEO_GEO2 = (120, 180)
+
+
+def video_clip(frames: int, h: int, w: int, seed: int) -> np.ndarray:
+    """A seeded procedural uint8 clip (the port's natural synthetic content)."""
+    from tecogan_tpu_torch.data.synthetic import synthetic_clip
+
+    return (synthetic_clip(frames, h, w, seed=seed, content="natural") * 255).astype(np.uint8)
+
+
+def run_video(dev, card: str, tmp: str) -> dict:
+    """Phase 14: the port's video I/O on the card's host and through the
+    CLIs; returns the launch counts of the ``--input_video`` CLI run."""
+    import io
+
+    from tecogan_tpu_torch.cli import main as cli_main
+    from tecogan_tpu_torch.cli import serve as cli_serve
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.data import video_native
+    from tecogan_tpu_torch.data.inference import read_frames
+    from tecogan_tpu_torch.data.png import read_png, write_png
+    from tecogan_tpu_torch.data.prepare import extract_scene
+    from tecogan_tpu_torch.data.video_io import VideoFrameWriter, read_video_frames
+    from tecogan_tpu_torch.kernels import resblock_chain, upsample4
+    from tecogan_tpu_torch.ops.resize import resize_area
+    from tecogan_tpu_torch.weights import params_to_npz, to_jax_params
+
+    root = os.path.join(tmp, "video")
+    os.makedirs(root)
+    # (a) The library, from the checkout's sources.
+    t0 = time.perf_counter()
+    lib_path = video_native.build_library()
+    video_native.load_library()
+    log(f"[video] libtecovideo built and loaded in {time.perf_counter() - t0:.1f} s -> "
+        f"{lib_path.relative_to(REPO)} (g++ {' '.join(video_native._CXXFLAGS)}, one process "
+        f"per source, linked {' '.join(video_native._LDFLAGS)})")
+
+    # (b) Write and read back each container.
+    clip = video_clip(VIDEO_FRAMES, LR_H, LR_W, VIDEO_SEED)
+    paths = {}
+    for ext, fps in VIDEO_FILES:
+        path = paths[ext] = os.path.join(root, f"clip.{ext}")
+        t0 = time.perf_counter()
+        w = VideoFrameWriter(path, fps=fps)
+        w.submit(clip[:13], 0)
+        w.submit(clip[13:], 13)
+        if w.close() != VIDEO_FRAMES:
+            raise RuntimeError(f"[video] {ext}: the writer wrote {w.count} frames")
+        enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, got_fps = read_video_frames(path)
+        dec = time.perf_counter() - t0
+        err = float(np.abs(back.astype(np.float64) - clip).mean())
+        codec = video_native.NativeVideoReader(path)
+        log(f"[video] {ext} ({codec.codec} in {codec.container}, {got_fps} fps, "
+            f"{os.path.getsize(path)} B): {back.shape[0]} frames {back.shape[1:]} read back, "
+            f"mean |error| {err:.3f} (bound {VIDEO_ERR_BOUND[ext]}); encode {enc:.3f} s "
+            f"({VIDEO_FRAMES / enc:.1f} frames/s), decode {dec:.3f} s "
+            f"({VIDEO_FRAMES / dec:.1f} frames/s) at {LR_H}x{LR_W} on the card's host; card: "
+            f"{card}")
+        codec.close()
+        if back.shape != clip.shape or got_fps != fps or not err <= VIDEO_ERR_BOUND[ext]:
+            raise RuntimeError(f"[video] {ext}: {back.shape} at {got_fps} fps, error {err}")
+
+    # (c) The inference CLI on the .mp4 and on a PNG directory of its decode.
+    decoded, _ = read_video_frames(paths["mp4"])
+    png_dir = os.path.join(root, "clip_png")
+    os.makedirs(png_dir)
+    for i, f in enumerate(decoded):
+        write_png(os.path.join(png_dir, f"{i:04d}.png"), f)
+    npz = os.path.join(root, "params.npz")
+    cfg = TecoConfig(num_resblock=NUM_RESBLOCK)
+    gen_tree, fnet_tree = to_jax_params(*build_models(6, cfg))
+    params_to_npz(npz, generator=gen_tree, fnet=fnet_tree)
+
+    def cli(name, *extra):
+        printed = io.StringIO()
+        upsample4.launches = 0
+        resblock_chain.launches = 0
+        with contextlib.redirect_stdout(printed):
+            t0 = time.perf_counter()
+            stats = cli_main.main(["--mode", "inference", "--output_dir",
+                                   os.path.join(root, name), "--params_npz", npz, *extra])
+            stats["wall"] = time.perf_counter() - t0
+        stats["launches"] = {"upsample4": upsample4.launches,
+                             "resblock_chain": resblock_chain.launches}
+        return stats
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        from_video = cli("from_video", "--input_video", paths["mp4"])
+        from_png = cli("from_png", "--input_dir_LR", png_dir)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    names = [f"output_{i:04d}.png" for i in range(VIDEO_FRAMES)]
+    got = read_frames([os.path.join(root, "from_video", n) for n in names])
+    want = read_frames([os.path.join(root, "from_png", n) for n in names])
+    if got.shape != (VIDEO_FRAMES, 4 * LR_H, 4 * LR_W, 3) or not np.array_equal(got, want):
+        raise RuntimeError(f"[video] --input_video and the PNG route differ: {got.shape}, "
+                           f"{int((got != want).sum())} values")
+    if got.min() == got.max():
+        raise RuntimeError("[video] the CLI's output is constant")
+    launches = from_video["launches"]
+    if launches != from_png["launches"] or not all(launches.values()):
+        raise RuntimeError(f"[video] launches {launches} (video) vs {from_png['launches']} "
+                           "(PNG)")
+    log(f"[video] cli.main --input_video clip.mp4 ({VIDEO_FRAMES} frames {LR_H}x{LR_W}, "
+        f"{NUM_RESBLOCK} blocks, {cfg.compute_dtype}, chunk {cfg.infer_chunk}) bit-equal to "
+        f"the PNG route on the port's decode: {VIDEO_FRAMES} HR frames "
+        f"{4 * LR_H}x{4 * LR_W}; launches {launches} in both (fps read {from_video['fps']})")
+    # --output_video, then the two I/O routes timed in turns.
+    runs = {"video": [], "png": []}
+    for i in range(2):
+        out = f"out{i}.mp4"
+        stats = cli(f"vout{i}", "--input_video", paths["mp4"], "--output_video", out)
+        runs["video"].append(stats)
+        runs["png"].append(cli(f"pout{i}", "--input_dir_LR", png_dir))
+    hr_video, hr_fps = read_video_frames(runs["video"][0]["dest"])
+    pngs = read_frames([os.path.join(root, "pout0", n) for n in names])
+    direct = os.path.join(root, "direct.mp4")
+    w = VideoFrameWriter(direct, fps=hr_fps)
+    w.submit(pngs, 0)
+    w.close()
+    direct_frames, _ = read_video_frames(direct)
+    if hr_fps != 24.0 or hr_video.shape != pngs.shape or not np.array_equal(hr_video,
+                                                                              direct_frames):
+        raise RuntimeError(f"[video] --output_video: {hr_video.shape} at {hr_fps} fps, not "
+                           "the writer's encoding of the PNG route's frames")
+    hr_err = float(np.abs(hr_video.astype(np.float64) - pngs).mean())
+    for kind in ("video", "png"):
+        walls = [r["wall"] for r in runs[kind]]
+        rates = [VIDEO_FRAMES / wl for wl in walls]
+        split = ", ".join(f"decode {r['decode_s']:.3f} s stream {r['stream_s']:.3f} s flush "
+                          f"{r['flush_s']:.3f} s encode {r['encode_s']:.3f} s"
+                          for r in runs[kind])
+        log(f"[video] CLI with {kind} I/O ({'clip.mp4 -> out.mp4' if kind == 'video' else 'PNG dir -> PNGs'}): "
+            f"{' / '.join(f'{x:.2f}' for x in rates)} frames/s wall ({split}); card: {card}")
+    log(f"[video] --output_video out.mp4: {hr_video.shape[0]} frames at {hr_fps} fps, "
+        f"bit-equal to the writer on the PNG route's frames, mean |error| {hr_err:.3f} "
+        f"against them")
+
+    # (d) cli.serve on two video sources of two geometries, --output_videos.
+    second = os.path.join(root, "street.mkv")
+    w = VideoFrameWriter(second, fps=29.97)
+    w.submit(video_clip(12, *VIDEO_GEO2, VIDEO_SEED + 1), 0)
+    w.close()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        t0 = time.perf_counter()
+        stats = cli_serve.main(["--input_dirs", f"{paths['mp4']},{second}", "--output_dir",
+                                os.path.join(root, "served"), "--params_npz", npz,
+                                "--output_videos", "--max_streams", "2"])
+        wall = time.perf_counter() - t0
+    want_written = {"clip": VIDEO_FRAMES, "street": 12}
+    if stats["written"] != want_written:
+        raise RuntimeError(f"[video] cli.serve wrote {stats['written']}")
+    for name, n, geo, fps in (("clip", VIDEO_FRAMES, (LR_H, LR_W), 24.0),
+                              ("street", 12, VIDEO_GEO2, 29.97)):
+        hr, hr_fps = read_video_frames(os.path.join(root, "served", f"{name}.mp4"))
+        if hr.shape != (n, 4 * geo[0], 4 * geo[1], 3) or hr_fps != fps:
+            raise RuntimeError(f"[video] cli.serve {name}.mp4: {hr.shape} at {hr_fps} fps")
+    log(f"[video] cli.serve on clip.mp4 ({LR_H}x{LR_W}, 24 fps) and street.mkv "
+        f"({VIDEO_GEO2[0]}x{VIDEO_GEO2[1]}, 29.97 fps) with --output_videos: wrote "
+        f"{stats['written']}, each .mp4 at its source's fps, in {wall:.2f} s wall "
+        f"(decode {stats['decode_s']:.3f} s, encode {stats['encode_s']:.3f} s); card: {card}")
+
+    # (e) extract_scene from frame 5 of the .avi and the .mp4.
+    for ext in ("avi", "mp4"):
+        frames, _ = read_video_frames(paths[ext])
+        out = os.path.join(root, f"scene_{ext}")
+        n = extract_scene(paths[ext], 5, out, duration=10)
+        two = extract_scene(paths[ext], 5, out + "_test", duration=10, test_only=True)
+        for i in range(n):
+            got = read_png(os.path.join(out, f"col_high_{i:04d}.png"))
+            if not np.array_equal(got, resize_area(frames[5 + i], 0.5)):
+                raise RuntimeError(f"[video] extract_scene {ext} frame {5 + i} differs")
+        if (n, two) != (10, 2):
+            raise RuntimeError(f"[video] extract_scene {ext} wrote {n} and {two} frames")
+    log(f"[video] extract_scene from frame 5 of clip.avi and clip.mp4: 10 PNGs of "
+        f"{LR_H // 2}x{LR_W // 2} each (2 with test_only), equal to the decoded frames "
+        "through resize_area")
+    return launches
+
+
 def phase(name: str, fn, *args):
     """Run one phase; its seconds go to ``phase.seconds``."""
     t0 = time.perf_counter()
@@ -3400,6 +3611,7 @@ def main() -> None:
         phase("12d cli.serve", run_serve_cli, dev, card, tmp)
         phase("12e state budget", check_budget, dev, card, serve_models)
         phase("13 run cases", run_cases, card, tmp)
+        video_launches = phase("14 video I/O", run_video, dev, card, tmp)
     log("[main] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase.seconds.items())
         + f"; in all {time.perf_counter() - START:.1f} s since the script started")
 
@@ -3493,6 +3705,8 @@ def main() -> None:
                 "library_ms": None if None in bf16_libs else sum(bf16_libs),
                 "cases": [r["label"] for r in bf16_cases]}
         if key in ("upsample4", "resblock_chain"):
+            # The inference CLI's --input_video run (phase 14), float32.
+            entry["video_cli_launches"] = video_launches.get(key, 0)
             # Per generate replay after each save (phases 8, 8c, 11, 11b).
             entry["generate_launches"] = {k: g["launches"][key] for k, g in GENERATE.items()}
         if key == "resblock_chain":

@@ -25,9 +25,12 @@ Weight sources for inference, in precedence order:
                  from a JAX model)
   --allow_random_weights   seeded random weights (smoke runs)
 
-Inference reads and writes PNG directories only: ``--input_video``,
-``--output_video``, ``--spatial_shards`` and ``--pipeline`` raise
-NotImplementedError (ROADMAP queue 1 items 12 and 11).
+Inference reads a PNG directory or, with ``--input_video``, a video file
+(Motion JPEG or MPEG-4 Part 2 in AVI, MP4 or MKV; ``data/video_io.py``),
+and writes PNGs or, with ``--output_video``, a video (``.avi`` Motion
+JPEG; ``.mp4``, ``.m4v``, ``.mkv`` MPEG-4 Part 2) at
+``--output_video_fps``, else the source's rate, else 24. ``--spatial_shards``
+and ``--pipeline`` raise NotImplementedError (ROADMAP queue 1 item 11).
 
 Deviations from the JAX CLI: ``--num_resblock`` and ``--rand_seed`` default
 to the preset's values (there they default to 16 and 1 and override the
@@ -68,9 +71,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input_dir_LR", default=None)
     p.add_argument("--input_dir_HR", default=None)
     p.add_argument("--input_video", default=None,
-                   help="video-file input (not ported: ROADMAP queue 1 item 12)")
+                   help="decode LR frames from a video file (Motion JPEG or "
+                        "MPEG-4 Part 2 in .avi/.mp4/.m4v/.mkv) instead of a PNG "
+                        "directory")
     p.add_argument("--output_video", default=None,
-                   help="video-file output (not ported: ROADMAP queue 1 item 12)")
+                   help="encode the HR output to this video file (.avi, .mp4, "
+                        ".m4v, .mkv; relative paths land under "
+                        "output_dir/output_pre) instead of per-frame PNGs")
+    p.add_argument("--output_video_fps", type=float, default=0.0,
+                   help="HR video frame rate (default: the source's, else 24)")
     p.add_argument("--output_pre", default="",
                    help="subfolder of output_dir for this scene")
     p.add_argument("--output_name", default="output")
@@ -209,50 +218,61 @@ def load_inference_params(args, config):
 
 
 def run_inference(args, config) -> dict:
-    """Streaming inference over a PNG directory (reference main.py:180-270):
-    decode (and blur, on the HR route) up front, stream the chunks through
-    :class:`StreamingSR` on the device (one captured CUDA graph per chunk on
-    the card, its capture inside the stream's seconds), encode the HR PNGs
-    on ``queue_thread`` threads while the next chunk computes. Returns the
-    wall seconds of each stage and the counts."""
+    """Streaming inference over a PNG directory or a video file (reference
+    main.py:180-270): decode (and blur, on the HR route) up front, stream
+    the chunks through :class:`StreamingSR` on the device (one captured
+    CUDA graph per chunk on the card, its capture inside the stream's
+    seconds), encode the HR PNGs on ``queue_thread`` threads, or the HR
+    video on one thread per core, while the next chunk computes. Returns
+    the wall seconds of each stage and the counts."""
     from tecogan_tpu_torch.data.inference import FrameWriter, load_inference_frames
     from tecogan_tpu_torch.recurrent import WARMUP_FRAMES, StreamingSR
 
-    if args.input_video or args.output_video:
-        raise NotImplementedError("--input_video / --output_video: video I/O "
-                                  "without OpenCV is ROADMAP queue 1 item 12")
     if args.spatial_shards > 1 or args.pipeline:
         raise NotImplementedError("--spatial_shards / --pipeline: multi-GPU "
                                   "inference is ROADMAP queue 1 item 11")
     device = resolve_device(args.device)
-    # The weights and the writer first: a missing weight source or a non-PNG
-    # --output_ext fails before any decode.
+    # The weights and the writer first: a missing weight source, a non-PNG
+    # --output_ext or an unknown video extension fails before any decode.
     gen, fnet, config = load_inference_params(args, config)
     out_dir = os.path.join(args.output_dir, args.output_pre)
-    writer = FrameWriter(out_dir, name=args.output_name, ext=args.output_ext,
-                         warmup=WARMUP_FRAMES, num_threads=config.queue_thread)
+    writer = video_path = None
+    if args.output_video:
+        from tecogan_tpu_torch.data.video_io import VideoFrameWriter, video_kind
+
+        video_path = args.output_video
+        if not os.path.isabs(video_path):
+            video_path = os.path.join(out_dir, video_path)
+        video_kind(video_path)
+    else:
+        writer = FrameWriter(out_dir, name=args.output_name, ext=args.output_ext,
+                             warmup=WARMUP_FRAMES, num_threads=config.queue_thread)
     try:
         t0 = time.perf_counter()
         data = load_inference_frames(
             input_dir_lr=args.input_dir_LR, input_dir_hr=args.input_dir_HR,
             max_frames=args.max_frames, as_uint8=True, device=device,
-            num_threads=config.queue_thread)
+            num_threads=config.queue_thread, input_video=args.input_video)
         decode = time.perf_counter() - t0
+        if video_path is not None:
+            fps = args.output_video_fps or data.fps or 24.0
+            writer = VideoFrameWriter(video_path, fps=fps, warmup=WARMUP_FRAMES)
         sr = StreamingSR(config, gen, fnet, output="uint8", device=device)
         _, secs = sr.run(data.inputs, warmup=WARMUP_FRAMES, on_chunk=writer.submit)
     finally:
         t0 = time.perf_counter()
-        written = writer.close()
+        written = writer.close() if writer is not None else 0
         flush = time.perf_counter() - t0
     n = data.inputs.shape[0]
+    dest = video_path or out_dir
     print(f"total time {secs:.2f}, frame number {n}")  # main.py:270 format
-    print(f"Wrote {written} frames to {out_dir}")
+    print(f"Wrote {written} frames to {dest}")
     print(f"io: read {decode:.3f} s, stream {secs:.3f} s (of which building the chunk's "
           f"program {sr.capture_s:.3f} s), writer flush {flush:.3f} s "
           f"({writer.num_threads} encode threads, {writer.encode_s:.3f} s encoding)")
     return {"decode_s": decode, "stream_s": secs, "capture_s": sr.capture_s, "flush_s": flush,
             "encode_s": writer.encode_s, "frames": n, "written": written,
-            "threads": writer.num_threads, "out_dir": out_dir}
+            "threads": writer.num_threads, "out_dir": out_dir, "dest": dest, "fps": data.fps}
 
 
 def run_train(args, config) -> None:

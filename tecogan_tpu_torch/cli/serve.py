@@ -10,8 +10,12 @@ server's ``fetch=False`` frames, so the downloads and the encoding overlap
 the next ticks. It can instead write the exported frame step
 (serve/export.py).
 
-Sources are LR PNG directories, of different geometries if need be; each
-stream writes ``<output_dir>/<basename>/<output_name>_%04d.png``.
+Sources are LR PNG directories or video files (Motion JPEG or MPEG-4
+Part 2 in AVI, MP4 or MKV), of different geometries if need be; each
+stream writes ``<output_dir>/<name>/<output_name>_%04d.png``, or with
+``--output_videos`` ``<output_dir>/<name>.mp4`` at the source's frame rate
+(24 for a PNG directory); ``<name>`` is the directory's basename or the
+file's without its extension.
 
     python -m tecogan_tpu_torch.cli.serve --device cuda \\
         --input_dirs LR/calendar,LR/walk --output_dir results \\
@@ -21,10 +25,8 @@ stream writes ``<output_dir>/<basename>/<output_name>_%04d.png``.
         --batch 4 --height 144 --width 180 --params_npz params.npz
 
 Flag names are the JAX CLI's. ``--device`` (default ``cuda``) names the one
-device to run on, with no fallback to the CPU. Video files and
-``--output_videos`` raise NotImplementedError (video I/O is ROADMAP queue
-1 item 12). The JAX CLI's persistent compilation cache is TPU tuning and
-has no counterpart.
+device to run on, with no fallback to the CPU. The JAX CLI's persistent
+compilation cache is TPU tuning and has no counterpart.
 """
 
 from __future__ import annotations
@@ -43,11 +45,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on, e.g. cuda, cuda:1, cpu")
     p.add_argument("--input_dirs", default=None,
-                   help="comma-separated LR PNG directories, one stream each")
+                   help="comma-separated LR PNG directories or video files, one "
+                        "stream each")
     p.add_argument("--output_dir", default=None)
     p.add_argument("--output_name", default="output")
     p.add_argument("--output_videos", action="store_true",
-                   help="not ported (video I/O, ROADMAP queue 1 item 12)")
+                   help="write each stream as <output_dir>/<name>.mp4 (source fps "
+                        "when known) instead of a PNG directory")
     p.add_argument("--max_streams", type=int, default=4,
                    help="slot-pool size PER GEOMETRY bucket: K distinct input "
                         "resolutions keep K*max_streams slots of state on the "
@@ -105,17 +109,19 @@ def run_export(args, config, device: torch.device) -> None:
 
 
 def run_serve(args, config, device: torch.device) -> dict:
-    """Serve every source to its PNG directory; returns the wall seconds of
-    each stage and the counts."""
+    """Serve every source to its PNG directory or video file; returns the
+    wall seconds of each stage and the counts."""
     from tecogan_tpu_torch.data.inference import FrameWriter
+    from tecogan_tpu_torch.data.video_io import VideoFrameWriter
     from tecogan_tpu_torch.recurrent import WARMUP_FRAMES
     from tecogan_tpu_torch.serve import EOS, PENDING, FrameSource, MultiGeometryServer
 
-    if args.output_videos:
-        raise NotImplementedError("--output_videos: video I/O without OpenCV is "
-                                  "ROADMAP queue 1 item 12")
+    def stream_name(src: str) -> str:
+        base = os.path.basename(os.path.normpath(src))
+        return os.path.splitext(base)[0] if os.path.isfile(src) else base
+
     dirs = [d for d in args.input_dirs.split(",") if d]
-    names = [os.path.basename(os.path.normpath(d)) for d in dirs]
+    names = [stream_name(d) for d in dirs]
     if len(set(names)) != len(names):
         raise SystemExit("input_dirs basenames must be unique "
                          "(they name the output subdirectories)")
@@ -174,9 +180,14 @@ def run_serve(args, config, device: torch.device) -> dict:
                     continue
                 pending.remove(name)
                 srv.open(name, h, w)
-                writers[name] = FrameWriter(os.path.join(args.output_dir, name),
-                                            name=args.output_name, warmup=warmup,
-                                            num_threads=2)
+                if args.output_videos:
+                    writers[name] = VideoFrameWriter(
+                        os.path.join(args.output_dir, f"{name}.mp4"), fps=src.fps or 24.0,
+                        warmup=warmup)
+                else:
+                    writers[name] = FrameWriter(os.path.join(args.output_dir, name),
+                                                name=args.output_name, warmup=warmup,
+                                                num_threads=2)
                 used = args.max_streams - srv.free_slots(h, w)
                 print(f"[serve] +{name} ({h}x{w} bucket {used}/{args.max_streams} slots)")
             # Collect whatever each stream has decoded; a lagging source

@@ -16,9 +16,10 @@ per-frame save loop main.py:253-270).
 
 Images are RGB, as ``cv2.imread(path, 3)[..., ::-1]`` gives them: a gray
 PNG is replicated into three channels and an alpha channel is dropped.
-Only PNG is read and written; the JAX package's video files
-(``data/video_io.py``) and its ``cv2.imwrite`` fallback for other
-extensions are not ported.
+``load_inference_frames(input_video=...)`` decodes a video file instead
+(``data/video_io.py``); frames are written as PNG here, or as a video by
+``data/video_io.py:VideoFrameWriter``. The JAX package's ``cv2.imwrite``
+fallback for other image extensions is not ported.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from tecogan_tpu_torch.recurrent.inference import prepend_warmup
 class InferenceData(NamedTuple):
     paths_lr: List[str]
     inputs: np.ndarray  # (T, h, w, 3) [0, 1] f32 or raw uint8, warm-up included
+    fps: float = 0.0  # source frame rate (video-file input only; 0 = unknown)
 
 
 def _native_io(num_threads: int = 8) -> Optional[native_loader.NativeFrameIO]:
@@ -92,6 +94,7 @@ def load_inference_frames(
     device: Union[str, torch.device] = "cuda",
     num_threads: int = 8,
     use_native: bool = True,
+    input_video: Optional[str] = None,
 ) -> InferenceData:
     """Load the LR input sequence: the PNGs of ``input_dir_lr`` or, when that
     is not given or missing, the HR PNGs of ``input_dir_hr`` blurred and
@@ -102,7 +105,23 @@ def load_inference_frames(
     device); ignored on the HR route, which is float by construction.
     ``use_native`` decodes through the native thread pool where it builds
     (the JAX package decodes only the LR route so; here the HR route's
-    frames go through it too, as uint8, before the same blur)."""
+    frames go through it too, as uint8, before the same blur).
+
+    ``input_video`` decodes a video file instead of a PNG directory
+    (``data/video_io.py``); the frames are the LR sequence, ``paths_lr``
+    names them ``<path>#<i>`` and ``fps`` is the container's rate. The same
+    reversed-[5..1] warm-up is prepended."""
+    if input_video:
+        from tecogan_tpu_torch.data.video_io import read_video_frames
+
+        frames, fps = read_video_frames(input_video, max_frames=max_frames,
+                                        as_uint8=as_uint8)
+        if frames.shape[0] < 6:
+            raise ValueError(f"warm-up needs >= 6 frames ({frames.shape[0]} in {input_video})")
+        paths = prepend_warmup([f"{input_video}#{i}" for i in range(frames.shape[0])])
+        frames = np.concatenate([frames[5:0:-1], frames], axis=0)
+        return InferenceData(paths_lr=paths, inputs=np.ascontiguousarray(frames), fps=fps)
+
     filedir, down_sp = input_dir_lr, False
     if filedir is None or not os.path.exists(filedir):
         if input_dir_hr is None or not os.path.exists(input_dir_hr):

@@ -11,10 +11,12 @@ Pipeline parity with reference dataPrepare.py:90-152:
 - write ``scene_%04d/col_high_%04d.png`` (dataPrepare.py:98-99),
 - TEST dry-run (2 frames/scene) and REMOVE (delete source videos) options.
 
-Cutting a scene needs a video decoder, which the port does not have yet
-(ROADMAP queue 1 item 12): :func:`extract_scene` raises before it writes
-anything. Its 0.5x ``INTER_AREA`` resize is ported
-(:func:`tecogan_tpu_torch.ops.resize.resize_area`, bit-equal to OpenCV's).
+:func:`extract_scene` cuts a scene with the port's own decoder
+(``data/video_io.py``: Motion JPEG and MPEG-4 Part 2 in AVI, MP4 or MKV;
+other codecs raise NotImplementedError), seeks to the start frame as
+``CAP_PROP_POS_FRAMES`` does, resizes 0.5x with
+:func:`tecogan_tpu_torch.ops.resize.resize_area` (bit-equal to OpenCV's
+``INTER_AREA``) and writes the PNGs with the port's codec.
 
 Offline path: ``--synthetic N`` materializes N procedural scenes in the same
 layout via :mod:`tecogan_tpu_torch.data.synthetic`, written with the port's
@@ -86,14 +88,33 @@ def extract_scene(video_path: str, start_frame: int, out_dir: str,
                   test_only: bool = False) -> int:
     """Cut one scene from a video file into ``out_dir`` as
     ``col_high_%04d.png`` at ``resize`` scale (INTER_AREA, reference
-    video.py:168-173). Not ported: decoding the video needs a decoder the
-    port does not have, so this raises NotImplementedError before it
-    creates ``out_dir``; the resize it would apply is
-    :func:`tecogan_tpu_torch.ops.resize.resize_area`."""
-    if not os.path.exists(video_path):
-        raise FileNotFoundError(video_path)
-    raise NotImplementedError(f"{video_path}: decoding a video without OpenCV is "
-                              "ROADMAP queue 1 item 12")
+    video.py:168-173; 0.5 or 1.0). Returns frames written. A file that
+    does not open raises FileNotFoundError, as the JAX package's does; one
+    in a codec the port does not decode raises NotImplementedError."""
+    from tecogan_tpu_torch.data.png import write_png
+    from tecogan_tpu_torch.data.video_io import VideoReader
+    from tecogan_tpu_torch.ops.resize import resize_area
+
+    if resize != 1.0 and resize != 0.5:
+        raise ValueError(f"resize {resize}: INTER_AREA is ported at 0.5 only")
+    try:
+        reader = VideoReader(video_path)
+    except ValueError as exc:  # not a container the port reads: cv2 fails to open
+        raise FileNotFoundError(f"{video_path}: {exc}") from exc
+    with reader:
+        os.makedirs(out_dir, exist_ok=True)
+        reader.seek(start_frame)
+        n = 2 if test_only else duration
+        written = 0
+        for i in range(n):
+            frame = reader.read()
+            if frame is None:
+                break
+            if resize != 1.0:
+                frame = resize_area(frame, resize)
+            write_png(os.path.join(out_dir, f"col_high_{i:04d}.png"), frame)
+            written += 1
+    return written
 
 
 def _downloader():

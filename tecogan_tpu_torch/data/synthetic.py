@@ -588,15 +588,17 @@ _SCENES = {"chess": CheckerPlane, "book": TexturedQuad, "cube": WireCube,
 
 def create_capture(source=None, height: int = 240, width: int = 320,
                    seed: int = 0):
-    """A procedural scene for the reference's create_capture contract
+    """A frame source for the reference's create_capture contract
     (lib/data/video.py:176-206): the strings 'chess'/'book'/'cube'/'patch'
     or a ``synth:class=...:noise=...:size=WxH`` spec return the
-    corresponding procedural scene.
-
-    Deviation from the JAX package: a path or a camera index (or None, the
-    default camera) raises NotImplementedError, where the JAX package opens
-    ``cv2.VideoCapture`` and falls back to :class:`CheckerPlane` when that
-    fails: the port has no video decoder yet (ROADMAP queue 1 item 12)."""
+    corresponding procedural scene; a video file returns a
+    :class:`tecogan_tpu_torch.data.video_io.VideoCapture`, whose ``read()``
+    gives ``(ok, BGR uint8)`` as ``cv2.VideoCapture`` does for the JAX
+    package. A path that does not exist, a camera index or None (the
+    default camera) falls back to :class:`CheckerPlane`, where the JAX
+    package's ``cv2.VideoCapture`` fails to open (the port has no camera
+    capture); a file in a codec the port does not decode raises
+    NotImplementedError (ROADMAP queue 1 item 12b)."""
     if isinstance(source, str) and source.startswith("synth:"):
         p = _parse_synth(source)
         cls = _SCENES.get(p.pop("class", "chess"), CheckerPlane)
@@ -605,8 +607,14 @@ def create_capture(source=None, height: int = 240, width: int = 320,
                    seed=p.pop("seed", seed), **p)
     if isinstance(source, str) and source.lower() in _SCENES:
         return _SCENES[source.lower()](height=height, width=width, seed=seed)
-    raise NotImplementedError(f"video source {source!r}: video I/O without "
-                              "OpenCV is ROADMAP queue 1 item 12")
+    if isinstance(source, str) and os.path.isfile(source):
+        from tecogan_tpu_torch.data.video_io import VideoCapture
+
+        try:
+            return VideoCapture(source)
+        except ValueError:  # not a container the port reads: cv2 fails to open
+            pass
+    return CheckerPlane(height=height, width=width, seed=seed)
 
 
 def procedural_clip(kind: str, num_frames: int, height: int, width: int,

@@ -17,8 +17,9 @@ PNG directories decode in blocks of four frames through the native thread
 pool (``data/native_loader.py``) where it builds, as the JAX package's
 libpng pool does, else with the port's python codec (``data/png.py``);
 either way on the worker thread, and ``decode_s`` counts its seconds.
-Video files are not read: the machine with the card has no OpenCV, and
-video I/O is ROADMAP queue 1 item 12.
+A video file (Motion JPEG or MPEG-4 Part 2 in AVI, MP4 or MKV) decodes
+through ``data/video_io.py:VideoReader`` on the same thread, and ``fps``
+is its container's rate once the first frame is out.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ class FrameSource:
     """Bounded-lookahead frame feeder for one serving stream.
 
     Args:
-      src: LR source, a PNG directory. ``frames`` (an iterable of (h, w, 3)
+      src: LR source, a PNG directory or a video file. ``frames`` (an iterable of (h, w, 3)
         arrays) substitutes for tests and live feeds.
       lookahead: producer queue depth; host memory per stream is
         O(lookahead) frames.
@@ -71,6 +72,7 @@ class FrameSource:
         self.src = src
         self.warmup = _WARMUP if warmup else 0
         self.shape: Optional[tuple] = None  # (h, w) after the first frame
+        self.fps = 0.0  # a video source's frame rate (0 = unknown, PNG dirs)
         self.decode_s = 0.0
         self._frames = frames
         self._max_frames = max_frames
@@ -189,9 +191,24 @@ class FrameSource:
 
     def _iter_src(self):
         if os.path.isfile(self.src):
-            raise NotImplementedError(
-                f"{self.src}: video-file sources are ROADMAP queue 1 item 12 (no "
-                "OpenCV on the GPU machine); pass a directory of PNG frames")
+            yield from self._iter_video()
+            return
+        yield from self._iter_png_dir()
+
+    def _iter_video(self):
+        from tecogan_tpu_torch.data.video_io import VideoReader
+
+        with VideoReader(self.src, block=_DECODE_BLOCK) as reader:
+            self.fps = reader.fps
+            while True:
+                t0 = time.perf_counter()
+                rgb = reader.read()
+                self.decode_s += time.perf_counter() - t0
+                if rgb is None:
+                    return
+                yield rgb if self._as_uint8 else rgb.astype(np.float32) / 255.0
+
+    def _iter_png_dir(self):
         paths = list_png_in_dir(self.src, prefix_skip="\x00")
         if not paths:
             raise ValueError(f"no .png frames in {self.src}")

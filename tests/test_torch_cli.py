@@ -333,8 +333,9 @@ def test_cli_inference_guards(tmp_path, monkeypatch):
         main(base)
     with pytest.raises(ValueError, match="only png"):
         main(base + ["--allow_random_weights", "--output_ext", "jpg"])
-    for extra, item in ((["--output_video", "x.mp4"], "item 12"),
-                        (["--spatial_shards", "2"], "item 11"), (["--pipeline"], "item 11")):
+    with pytest.raises(ValueError, match="extension"):  # before any decode
+        main(base + ["--allow_random_weights", "--output_video", "x.webm"])
+    for extra, item in ((["--spatial_shards", "2"], "item 11"), (["--pipeline"], "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             main(base + ["--allow_random_weights"] + extra)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

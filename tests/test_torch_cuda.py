@@ -953,3 +953,49 @@ def test_device_time_on_the_card(cuda_device):
     assert device_time(torch.matmul, x, x, iters=5, warmup=1) > 0
     assert len(device_time_samples(torch.matmul, x, x, iters=2, passes=3)) == 3
     assert sync(x) == pytest.approx(float(x.sum().cpu()))
+
+
+@pytest.mark.cuda
+def test_cli_input_video_matches_png_route(cuda_device, tmp_path):
+    """chip_smoke.py phase 14 (c) in small: ``cli.main --input_video`` on the
+    card equals the same CLI on a PNG directory of the port's decode of the
+    clip, bit for bit under cuDNN's deterministic algorithms, both through
+    the chain and K1 as often."""
+    import contextlib
+    import io
+
+    from chip_smoke import build_models, video_clip
+    from tecogan_tpu_torch.cli.main import main
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.data.inference import read_frames
+    from tecogan_tpu_torch.data.png import write_png
+    from tecogan_tpu_torch.data.video_io import VideoFrameWriter, read_video_frames
+    from tecogan_tpu_torch.weights import params_to_npz, to_jax_params
+
+    clip, png_dir = str(tmp_path / "clip.mp4"), tmp_path / "lr"
+    w = VideoFrameWriter(clip, fps=24.0)
+    w.submit(video_clip(12, 32, 40, seed=3), 0)
+    w.close()
+    png_dir.mkdir()
+    for i, f in enumerate(read_video_frames(clip)[0]):
+        write_png(str(png_dir / f"{i:04d}.png"), f)
+    npz = str(tmp_path / "params.npz")
+    gen_tree, fnet_tree = to_jax_params(*build_models(0, TecoConfig(num_resblock=2)))
+    params_to_npz(npz, generator=gen_tree, fnet=fnet_tree)
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, src in (("video", ["--input_video", clip]),
+                          ("png", ["--input_dir_LR", str(png_dir)])):
+            upsample4.launches = resblock_chain.launches = 0
+            with contextlib.redirect_stdout(io.StringIO()):
+                main(["--mode", "inference", "--output_dir", str(tmp_path / name),
+                      "--params_npz", npz, *src])
+            out = read_frames([str(tmp_path / name / f"output_{i:04d}.png") for i in range(12)])
+            runs[name] = out, (upsample4.launches, resblock_chain.launches)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (got, got_n), (want, want_n) = runs["video"], runs["png"]
+    assert got.shape == (12, 128, 160, 3) and got.std() > 1.0
+    np.testing.assert_array_equal(got, want)
+    assert got_n == want_n and min(got_n) > 0

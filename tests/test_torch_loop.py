@@ -85,12 +85,12 @@ def test_cli_guards(scenes, tmp_path, monkeypatch):
                    "--compute_dtype", "float16"))
     with pytest.raises(SystemExit, match="--vgg_npz"):
         main(_argv(scenes, out, "--device", "cpu", "--vgg_scaling", "0.2"))
-    # Inference, as the JAX CLI: no weight source exits; video input is
-    # not ported yet and names its ROADMAP item.
+    # Inference, as the JAX CLI: no weight source exits; a missing video
+    # input raises FileNotFoundError.
     with pytest.raises(SystemExit, match="inference needs --checkpoint"):
         main(["--mode", "inference", "--device", "cpu", "--input_dir_LR", scenes,
               "--output_dir", out])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(FileNotFoundError, match="clip.mp4"):
         main(["--mode", "inference", "--device", "cpu", "--input_video", "clip.mp4",
               "--output_dir", out, "--allow_random_weights"])
     assert latest_step(os.path.join(out, "checkpoints")) is None

@@ -71,12 +71,17 @@ def test_prepare_offline_skips_like_jax(tmp_path, capsys):
 
 
 def test_local_video_needs_a_decoder(tmp_path):
+    """A local file that is no video fails to open in both packages
+    (FileNotFoundError) before a scene directory is made; a missing one
+    too. Decoding real files: tests/test_torch_video_io.py."""
     videos = tmp_path / "videos"
     videos.mkdir()
     (videos / "121649159.mp4").write_bytes(b"\x00" * 64)
     out = tmp_path / "scenes"
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(FileNotFoundError):
         prepare.prepare(str(out), str(videos), download=False)
+    with pytest.raises(FileNotFoundError):
+        jax_prepare.prepare(str(tmp_path / "jax"), str(videos), download=False)
     assert not (out / "scene_2000").exists()
     with pytest.raises(FileNotFoundError):
         prepare.extract_scene(str(videos / "missing.mp4"), 0, str(out / "x"))

@@ -38,6 +38,7 @@ from tecogan_tpu_torch.cli import serve as cli_serve
 from tecogan_tpu_torch.config import TecoConfig
 from tecogan_tpu_torch.data.inference import load_inference_frames, read_rgb
 from tecogan_tpu_torch.data.png import write_png
+from tecogan_tpu_torch.data.video_io import read_video_frames
 from tecogan_tpu_torch.kernels import upsample4_plain
 from tecogan_tpu_torch.recurrent.step import RecurrentState, frame_step, init_state
 from tecogan_tpu_torch.serve import (
@@ -468,11 +469,16 @@ def test_frame_source_lagging_producer_and_deferred_error():
 
 
 def test_frame_source_video_file_raises(tmp_path):
+    """A file that is no video raises ValueError from geometry(), as the
+    JAX FrameSource's does (video sources: tests/test_torch_video_io.py)."""
     video = tmp_path / "clip.mp4"
     video.write_bytes(b"\x00" * 64)
     src = FrameSource(str(video))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="not an AVI, MP4 or Matroska"):
         src.geometry(timeout=30)
+    jax_src = JaxFrameSource(str(video))
+    with pytest.raises(ValueError):
+        jax_src.geometry(timeout=30)
     with pytest.raises(ValueError, match="exactly one"):
         FrameSource()
 
@@ -577,8 +583,8 @@ def test_cli_serve_matches_jax_cli(weights, rng, tmp_path, capsys, monkeypatch):
 
 
 def test_cli_serve_export_and_guards(tmp_path, rng, capsys):
-    """--export writes a loadable program; video output and a missing
-    weight source are refused."""
+    """--export writes a loadable program; --output_videos writes
+    <name>.mp4; a missing weight source is refused."""
     path = str(tmp_path / "step.pt2")
     cli_serve.main(["--device", "cpu", "--export", path, "--batch", "1", "--height", "8",
                     "--width", "12", "--num_resblock", "1", "--allow_random_weights"])
@@ -589,8 +595,11 @@ def test_cli_serve_export_and_guards(tmp_path, rng, capsys):
     d = str(tmp_path / "LR" / "s")
     _png_dir(d, 6, 8, 8, rng)
     base = ["--device", "cpu", "--input_dirs", d, "--output_dir", str(tmp_path / "o")]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cli_serve.main(base + ["--output_videos", "--allow_random_weights"])
+    stats = cli_serve.main(base + ["--output_videos", "--allow_random_weights",
+                                   "--num_resblock", "1"])
+    assert stats["written"] == {"s": 6}
+    hr, fps = read_video_frames(str(tmp_path / "o" / "s.mp4"))
+    assert hr.shape == (6, 32, 32, 3) and fps == 24.0
     with pytest.raises(SystemExit):
         cli_serve.main(base)  # no weight source
     with pytest.raises(SystemExit):
