@@ -187,13 +187,41 @@ Phases, each raising on failure (so the exit code is non-zero):
    geometries (.mp4 at 24 fps, .mkv at 29.97) with ``--output_videos``:
    counts, shapes and each output's fps; (e) ``data.prepare.extract_scene``
    from frame 5 (inside the MPEG-4 GOP) of the .avi and the .mp4: the PNGs
-   equal the decoded frames through ``resize_area``.
+   equal the decoded frames through ``resize_area``;
+15. H.264 and VP9 input on the card's NVDEC (``run_nvdec``), over the
+   test streams of ``tests/nvdec_streams.py`` (loaded by path): (a) the
+   NVDEC binding's build (``csrc/tecovideo_nvdec.cpp``, g++) and
+   ``cuvidGetDecoderCaps`` for H.264 and VP9 at 8-bit 4:2:0; every test
+   stream through the port's NVDEC reader, whose parser must report the
+   expected coded size, display area, range and matrix. Where NVDEC
+   refuses ``cuvidGetDecoderCaps`` with CUDA_ERROR_OUT_OF_MEMORY in a
+   container that withholds NVIDIA's ``video`` capability (the one
+   case ``NvdecUnavailable`` names), every reader must raise it, and (b),
+   (d)-(f) run with ``ModelNvdec`` (the streams' numpy model, which
+   decodes nothing) in NVDEC's place: NVDEC's decode is then NOT verified,
+   which the log and the kernels line (``nvdec_decode_verified``) say;
+   any other NVDEC failure fails the phase. (b) the hand-written H.264
+   streams (I_PCM, P with integer vectors and P_Skip, B-frames, 144x180
+   cropped, full-range BT.709) in MP4 and MKV through
+   ``read_video_frames`` bit-equal to their expected frames, and with
+   NVDEC the VP9 fixture's frames equal to their recorded SHA-256 and the
+   frames/s at 144x180 and 720x1280; (c) the NV12 kernel bit-equal to its
+   plain version (pitch > width, odd offsets, both ranges, BT.601 and
+   BT.709) and timed beside its bound; (d) ``cli.main --input_video`` on
+   a 30-frame 144x180 H.264 clip at full width, bit-equal to the PNG
+   route of the same decoded frames with the same chain and K1 launches
+   and one NV12 launch a frame, the two routes timed in turns; (e)
+   ``cli.serve --output_videos`` on an H.264 source and one of another
+   geometry (VP9 with NVDEC): counts, shapes and each output's fps; (f)
+   ``extract_scene`` from frame 5 of the B-frame stream: the exact frames
+   in display order.
 
 Then one ``[yardstick]`` line per timed case of phase 3 with its wrapper's
 launches on the streaming, FRVSR and TecoGAN training paths (float32 and
 bfloat16) and per serving bucket tick. The
 second-to-last line of stdout is a JSON object with one entry per kernel
-(K1, K2 and the bfloat16 chain with a ``bf16_training`` entry);
+(K1, K2 and the bfloat16 chain with a ``bf16_training`` entry; the NV12
+kernel, which replaces no TPU kernel, with its launches in phase 15 (d));
 the last is ``{"ok": true, "device": {...}}``. Imports no JAX.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3 and prints no
@@ -3534,6 +3562,328 @@ def run_video(dev, card: str, tmp: str) -> dict:
     return launches
 
 
+# H.264 and VP9 input on the card's NVDEC (phase 15): the 144x180 H.264
+# clip of the CLI run, the frames each decode rate is timed over, and the
+# NV12 kernel's timed surfaces (display size, coded size, pitch).
+NVDEC_CLI_FRAMES, NVDEC_RATE_FRAMES, NVDEC_720P_FRAMES = 30, 30, 8
+NV12_TIMED = (((144, 180), (144, 192), 256), ((720, 1280), (720, 1280), 1536))
+# The bytes a pixel of the NV12 conversion moves: 1.5 read, 3 written.
+NV12_BYTES_PER_PX = 4.5
+
+
+def nvdec_streams():
+    """``tests/nvdec_streams.py`` loaded by path (it imports numpy alone):
+    the hand-written H.264 streams, their muxers and numpy model, the VP9
+    fixture's record and ``ModelNvdec``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("nvdec_streams",
+                                                  REPO / "tests" / "nvdec_streams.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def model_in_place_of_nvdec(model):
+    """``model`` (``tests/nvdec_streams.py:ModelNvdec``) in place of the
+    NVDEC binding for the readers opened inside; taken only where NVDEC
+    refused with ``NvdecUnavailable``."""
+    from tecogan_tpu_torch.data import video_nvdec
+
+    saved = video_nvdec.load_library
+    video_nvdec.load_library = lambda: model
+    try:
+        yield
+    finally:
+        video_nvdec.load_library = saved
+
+
+def check_nvdec_format(dev, tn, h264: dict, paths: dict, refused: bool) -> list:
+    """Phase 15 (a): every H.264 stream (MP4 and MKV) and the VP9 fixture
+    through the port's NVDEC reader. NVDEC's parser must report each
+    sequence header's coded size and display area (H.264: the VUI's range
+    and matrix too, where it has them). Where NVDEC creates no decoder
+    (``refused``), the first decode must then raise ``NvdecUnavailable``;
+    with NVDEC it must decode every frame. Returns what it saw."""
+    from tecogan_tpu_torch.data.video_nvdec import NvdecUnavailable, NvdecVideoReader
+
+    vp9 = tn.vp9_expected()["shape"]
+    cases = [(f"{name}.{container}", path, h264[name]) for (name, container), path in
+             paths.items()] + [("VP9 fixture", str(tn.VP9_FIXTURE), None)]
+    seen = []
+    for label, path, st in cases:
+        reader = NvdecVideoReader(path, dev)
+        try:
+            try:
+                n = reader.decode(1 << 20).shape[0]
+            except NvdecUnavailable:
+                if not refused:
+                    raise
+                n = None
+            if refused and n is not None:
+                raise RuntimeError(f"[nvdec] {label} decoded where NVDEC refused a decoder")
+            if not refused and n != (st.count if st else vp9[0]):
+                raise RuntimeError(f"[nvdec] {label}: {n} frames decoded")
+            fmt = reader.stream_format()
+        finally:
+            reader.close()
+        if fmt is None:
+            raise RuntimeError(f"[nvdec] {label}: the parser reported no sequence header")
+        if st is None:
+            want = {"display": (0, 0, vp9[2], vp9[1])}
+        else:
+            want = {"coded": (16 * st.mbw, 16 * st.mbh), "display": (0, 0, st.w, st.h)}
+            if "full_range" in st.p:
+                want["matrix"], want["full_range"] = st.colour()
+        if any(fmt[k] != v for k, v in want.items()):
+            raise RuntimeError(f"[nvdec] {label}: the parser reports {fmt}, want {want}")
+        seen.append(f"{label} {fmt['display'][2]}x{fmt['display'][3]} in "
+                    f"{fmt['coded'][0]}x{fmt['coded'][1]} (range {int(fmt['full_range'])}, "
+                    f"matrix {fmt['matrix']})")
+    return seen
+
+
+def check_nv12_kernel(dev, card: str) -> dict:
+    """Phase 15 (c): the NV12 kernel against its plain version on random
+    surfaces (pitch > width, odd offsets, both ranges, BT.601 and BT.709),
+    then timed at the serving / CLI size and at 720p beside its bound."""
+    from tecogan_tpu_torch.kernels import nv12_to_rgb, nv12_to_rgb_plain, yuv_coefficients
+
+    gen = torch.Generator().manual_seed(15)
+    cases = (((41, 57), (48, 64), 80, (3, 5), 2, False), ((45, 67), (52, 72), 96, (1, 7), 1, True),
+             ((144, 180), (144, 192), 256, (0, 0), 2, False),
+             ((720, 1280), (720, 1280), 1536, (0, 0), 1, True),
+             ((100, 80), (112, 80), 128, (0, 0), 6, True))
+    err = 0
+    for (h, w), (ch, cw), pitch, (left, top), matrix, full in cases:
+        surface = torch.randint(0, 256, (ch + ch // 2, pitch), dtype=torch.uint8, generator=gen)
+        coeffs = yuv_coefficients(matrix, full)
+        want = nv12_to_rgb_plain(surface, ch, left, top, w, h, coeffs)
+        got = nv12_to_rgb(surface.to(dev), ch, left, top, w, h, coeffs)
+        torch.cuda.synchronize()
+        err = max(err, int((got.cpu().int() - want.int()).abs().max()))
+    if err:
+        raise RuntimeError(f"[nvdec] the NV12 kernel differs from its plain version by {err}")
+    timed = []
+    for (h, w), (ch, cw), pitch in NV12_TIMED:
+        surface = torch.randint(0, 256, (ch + ch // 2, pitch), dtype=torch.uint8,
+                                generator=gen).to(dev)
+        coeffs = yuv_coefficients()
+        (ms, lo, hi), (plain_ms, plo, phi) = time_fns(
+            [lambda: nv12_to_rgb(surface, ch, 0, 0, w, h, coeffs),
+             lambda: nv12_to_rgb_plain(surface, ch, 0, 0, w, h, coeffs)])
+        bound_ms = NV12_BYTES_PER_PX * h * w / HBM_BYTES_PER_S * 1e3
+        bound_by = "bytes"
+        text = (f"({NV12_BYTES_PER_PX * h * w / 1e6:.3f} MB / 3.35 TB/s; about 15 integer "
+                "operations a pixel)")
+        log(f"[nvdec] NV12 kernel {h}x{w} (coded {ch}x{cw}, pitch {pitch}): {ms:.4f} ms "
+            f"[{lo:.4f}-{hi:.4f}], plain {plain_ms:.4f} ms [{plo:.4f}-{phi:.4f}], library None "
+            f"(no PyTorch call converts NV12), bound {bound_ms:.5f} ms {text}, share of bound "
+            f"{bound_ms / ms:.1%}; card: {card}")
+        timed.append({"label": f"{h}x{w}", "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by})
+    log(f"[nvdec] NV12 kernel bit-equal to its plain version on {len(cases)} surfaces (pitch > "
+        "width, odd offsets, limited and full range, BT.601 and BT.709): max |error| 0")
+    return {"max_abs_err": float(err), "timed": timed}
+
+
+def run_nvdec(dev, card: str, tmp: str) -> dict:
+    """Phase 15: H.264 and VP9 input on the card's NVDEC through the port's
+    entry points; returns the launch counts of the ``--input_video`` CLI
+    run and the NV12 kernel's record."""
+    import io
+
+    from tecogan_tpu_torch.cli import main as cli_main
+    from tecogan_tpu_torch.cli import serve as cli_serve
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.data import video_nvdec
+    from tecogan_tpu_torch.data.inference import read_frames
+    from tecogan_tpu_torch.data.png import read_png, write_png
+    from tecogan_tpu_torch.data.prepare import extract_scene
+    from tecogan_tpu_torch.data.video_io import read_video_frames
+    from tecogan_tpu_torch.kernels import nv12_to_rgb, resblock_chain, upsample4
+    from tecogan_tpu_torch.ops.resize import resize_area
+    from tecogan_tpu_torch.weights import params_to_npz, to_jax_params
+
+    tn = nvdec_streams()
+    root = os.path.join(tmp, "nvdec")
+    os.makedirs(root)
+    # (a) The binding, from the checkout's source, and NVDEC's capabilities.
+    t0 = time.perf_counter()
+    lib = video_nvdec.load_library()
+    log(f"[nvdec] NVDEC binding built and loaded in {time.perf_counter() - t0:.1f} s -> "
+        f"{video_nvdec.library_path().relative_to(REPO)} (g++ "
+        f"{' '.join(video_nvdec._CXXFLAGS)}); CUDA driver {lib.tvn_driver_version()}")
+    refused = None  # NvdecUnavailable's message; any other failure raises
+    for codec in ("h264", "vp9"):
+        try:
+            caps = video_nvdec.decoder_caps(codec, dev)
+        except video_nvdec.NvdecUnavailable as exc:
+            refused = str(exc)
+            break
+        log(f"[nvdec] cuvidGetDecoderCaps {codec} 8-bit 4:2:0: {caps}")
+        if not caps["supported"]:
+            raise RuntimeError(f"[nvdec] this card's NVDEC does not decode {codec} 8-bit 4:2:0")
+    h264 = {name: tn.H264Stream(name) for name in tn.STREAMS}
+    clip = tn.H264Stream("crop", frames=NVDEC_CLI_FRAMES)
+    geo2 = tn.H264Stream("crop", h=VIDEO_GEO2[0], w=VIDEO_GEO2[1], frames=12)
+    paths = {(n, c): st.write(os.path.join(root, f"{n}.{c}")) for n, st in h264.items()
+             for c in ("mp4", "mkv")}
+    seen = check_nvdec_format(dev, tn, h264, paths, refused is not None)
+    log("[nvdec] NVDEC's parser through the port's reader reports the expected format of "
+        + "; ".join(seen) + (f"; then every reader raised NvdecUnavailable: {refused}"
+                             if refused else "; every frame decoded"))
+    stand_in = None
+    if refused:
+        stand_in = tn.ModelNvdec([*h264.values(), clip, geo2])
+        log("[nvdec] NVDEC DECODE NOT VERIFIED on this card: (b)-(f) below run the port's "
+            "demuxer, readers, CLIs and NV12 kernel over ModelNvdec in NVDEC's place, which "
+            "decodes nothing (it hands over the streams' numpy model); VP9 and NVDEC's rates "
+            "not measured")
+    mode = "stand-in" if stand_in else "NVDEC"
+    with model_in_place_of_nvdec(stand_in) if stand_in else contextlib.nullcontext():
+        # (b) Every stream, decoded bit-equal to the frames OpenCV gives.
+        for (name, container), path in paths.items():
+            got, fps = read_video_frames(path)
+            want = h264[name].expected_rgb()
+            if got.shape != want.shape or not np.array_equal(got, want) or fps != tn.FPS:
+                raise RuntimeError(f"[nvdec] {name}.{container}: {got.shape} at {fps} fps "
+                                   f"differs from the expected {want.shape}")
+        log(f"[nvdec] ({mode}) H.264 streams {', '.join(h264)} in MP4 and MKV: every frame "
+            "bit-equal to the model's (OpenCV's) frames"
+            + (" (the model's own pictures through the NV12 kernel: not a decode)"
+               if stand_in else ""))
+        if stand_in is None:  # NVDEC's own rates, and VP9, which has no model
+            rate = tn.H264Stream("crop", frames=NVDEC_RATE_FRAMES)
+            big = tn.H264Stream("crop", h=720, w=1280, frames=NVDEC_720P_FRAMES)
+            rates = {}
+            for codec, size, st, n in (("h264", f"{LR_H}x{LR_W}", rate, NVDEC_RATE_FRAMES),
+                                       ("h264", "720x1280", big, NVDEC_720P_FRAMES)):
+                path = st.write(os.path.join(root, f"rate_{size}.mp4"))
+                read_video_frames(path, max_frames=2)  # warm-up
+                t0 = time.perf_counter()
+                got, _ = read_video_frames(path)
+                rates[(codec, size)] = n / (time.perf_counter() - t0)
+                if got.shape[0] != n:
+                    raise RuntimeError(f"[nvdec] {size}: {got.shape[0]} frames of {n}")
+            want = tn.vp9_expected()
+            got, fps = read_video_frames(str(tn.VP9_FIXTURE))
+            if tn.frame_sha256(got) != want["frames"] or fps != want["fps"]:
+                raise RuntimeError("[nvdec] the VP9 fixture's frames differ from OpenCV's")
+            t0 = time.perf_counter()
+            read_video_frames(str(tn.VP9_FIXTURE))
+            rates[("vp9", f"{LR_H}x{LR_W}")] = got.shape[0] / (time.perf_counter() - t0)
+            log(f"[nvdec] VP9 fixture ({got.shape[0]} frames {LR_H}x{LR_W}, libvpx with "
+                "hidden alt-ref frames): every frame's SHA-256 equal to OpenCV's")
+            log(f"[nvdec] read_video_frames frames/s: "
+                + ", ".join(f"{c} {sz} {r:.1f}" for (c, sz), r in rates.items())
+                + f"; card: {card}")
+
+        # (d) The inference CLI on the H.264 clip and on PNGs of its decode.
+        decoded, _ = read_video_frames(clip.write(os.path.join(root, "clip.mp4")))
+        png_dir = os.path.join(root, "clip_png")
+        os.makedirs(png_dir)
+        for i, f in enumerate(decoded):
+            write_png(os.path.join(png_dir, f"{i:04d}.png"), f)
+        npz = os.path.join(root, "params.npz")
+        cfg = TecoConfig(num_resblock=NUM_RESBLOCK)
+        gen_tree, fnet_tree = to_jax_params(*build_models(6, cfg))
+        params_to_npz(npz, generator=gen_tree, fnet=fnet_tree)
+
+        def cli(name, *extra):
+            upsample4.launches = resblock_chain.launches = nv12_to_rgb.launches = 0
+            with contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                stats = cli_main.main(["--mode", "inference", "--output_dir",
+                                       os.path.join(root, name), "--params_npz", npz, *extra])
+                stats["wall"] = time.perf_counter() - t0
+            stats["launches"] = {"upsample4": upsample4.launches,
+                                 "resblock_chain": resblock_chain.launches,
+                                 "nv12_rgb": nv12_to_rgb.launches}
+            return stats
+
+        video_in = os.path.join(root, "clip.mp4")
+        torch.backends.cudnn.deterministic = True
+        try:
+            from_video = cli("from_video", "--input_video", video_in)
+            from_png = cli("from_png", "--input_dir_LR", png_dir)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        names = [f"output_{i:04d}.png" for i in range(NVDEC_CLI_FRAMES)]
+        got = read_frames([os.path.join(root, "from_video", n) for n in names])
+        want = read_frames([os.path.join(root, "from_png", n) for n in names])
+        if got.shape != (NVDEC_CLI_FRAMES, 4 * LR_H, 4 * LR_W, 3) or not np.array_equal(got,
+                                                                                      want):
+            raise RuntimeError(f"[nvdec] --input_video and the PNG route differ: {got.shape}")
+        launches = from_video["launches"]
+        video_path_launches = {k: v for k, v in launches.items() if k != "nv12_rgb"}
+        png_launches = {k: v for k, v in from_png["launches"].items() if k != "nv12_rgb"}
+        if video_path_launches != png_launches or not all(video_path_launches.values()) \
+                or launches["nv12_rgb"] != NVDEC_CLI_FRAMES or from_png["launches"]["nv12_rgb"]:
+            raise RuntimeError(f"[nvdec] launches {launches} (H.264) vs {from_png['launches']} "
+                               "(PNG)")
+        runs = {"h264": [], "png": []}
+        for kind in ("h264", "png", "png", "h264"):
+            runs[kind].append(cli(f"timed_{kind}_{len(runs[kind])}",
+                                  *(("--input_video", video_in) if kind == "h264"
+                                    else ("--input_dir_LR", png_dir))))
+        log(f"[nvdec] ({mode}) cli.main --input_video clip.mp4 (H.264, {NVDEC_CLI_FRAMES} frames "
+            f"{LR_H}x{LR_W}, {NUM_RESBLOCK} blocks, {cfg.compute_dtype}) bit-equal to the PNG "
+            f"route on the same decoded frames under cuDNN's deterministic algorithms; "
+            f"launches {launches} (PNG route: {from_png['launches']}); frames/s wall in turns: "
+            + ", ".join(f"{k} {' / '.join(f'{NVDEC_CLI_FRAMES / r['wall']:.2f}' for r in v)} "
+                        f"(decode {' / '.join(f'{r['decode_s']:.3f}' for r in v)} s)"
+                        for k, v in runs.items()) + f"; card: {card}")
+
+        # (e) cli.serve on two geometries: H.264 at 120x180 beside the VP9
+        # fixture at 144x180 (the stand-in: beside H.264 at 144x180).
+        street = geo2.write(os.path.join(root, "street.mkv"))
+        sources = ([clip.write(os.path.join(root, "serve_clip.mp4")), street] if stand_in
+                   else [street, str(tn.VP9_FIXTURE)])
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            stats = cli_serve.main(["--input_dirs", ",".join(sources), "--output_dir",
+                                    os.path.join(root, "served"), "--params_npz", npz,
+                                    "--output_videos", "--max_streams", "2"])
+            wall = time.perf_counter() - t0
+        served = {}
+        for src in sources:
+            frames, fps = read_video_frames(src)
+            name = Path(src).stem
+            hr, hr_fps = read_video_frames(os.path.join(root, "served", f"{name}.mp4"))
+            served[name] = (frames.shape, fps)
+            if hr.shape != (frames.shape[0], 4 * frames.shape[1], 4 * frames.shape[2], 3) \
+                    or hr_fps != fps:
+                raise RuntimeError(f"[nvdec] cli.serve {name}: {hr.shape} at {hr_fps} fps from "
+                                   f"{frames.shape} at {fps}")
+        if stats["written"] != {k: v[0][0] for k, v in served.items()}:
+            raise RuntimeError(f"[nvdec] cli.serve wrote {stats['written']}")
+        log(f"[nvdec] ({mode}) cli.serve --output_videos on "
+            + ", ".join(f"{n} ({s[1]}x{s[2]}, {s[0]} frames, {f} fps)"
+                        for n, (s, f) in served.items())
+            + f": wrote {stats['written']}, each .mp4 4x at its source's fps, in {wall:.2f} s "
+            f"wall (decode {stats['decode_s']:.3f} s); card: {card}")
+
+        # (f) extract_scene from inside a GOP with B-frames: the exact frames.
+        b_frames = h264["b_main"].expected_rgb()
+        for container in ("mp4", "mkv"):
+            out = os.path.join(root, f"scene_{container}")
+            n = extract_scene(paths[("b_main", container)], 5, out, duration=10)
+            for i in range(n):
+                if not np.array_equal(read_png(os.path.join(out, f"col_high_{i:04d}.png")),
+                                      resize_area(b_frames[5 + i], 0.5)):
+                    raise RuntimeError(f"[nvdec] extract_scene b_main.{container} frame "
+                                       f"{5 + i} differs")
+            if n != 10:
+                raise RuntimeError(f"[nvdec] extract_scene b_main.{container} wrote {n}")
+        log(f"[nvdec] ({mode}) extract_scene from frame 5 of b_main.mp4 and .mkv (decode order "
+            "0 3 1 2 6 4 5 8 7 | 9 ...: B-frames, key frames 0 and 9): frames 5-14, the exact "
+            "ones in display order")
+    kernel = check_nv12_kernel(dev, card)
+    return {"launches": launches, "nv12": kernel, "mode": mode, "refused": refused}
+
+
 def phase(name: str, fn, *args):
     """Run one phase; its seconds go to ``phase.seconds``."""
     t0 = time.perf_counter()
@@ -3612,6 +3962,7 @@ def main() -> None:
         phase("12e state budget", check_budget, dev, card, serve_models)
         phase("13 run cases", run_cases, card, tmp)
         video_launches = phase("14 video I/O", run_video, dev, card, tmp)
+        nvdec = phase("15 H.264 and VP9 input", run_nvdec, dev, card, tmp)
     log("[main] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase.seconds.items())
         + f"; in all {time.perf_counter() - START:.1f} s since the script started")
 
@@ -3713,6 +4064,25 @@ def main() -> None:
             entry["also_replaces"] = ["tecogan_tpu/kernels/resblocks.py:305",
                                       "tecogan_tpu/kernels/resblocks.py:466"]
         kernels.append(entry)
+    # The NV12 kernel (phase 15): its launches in the --input_video CLI run
+    # of the H.264 clip, its times at the clip's 144x180 surface.
+    nv12_case = nvdec["nv12"]["timed"][0]
+    kernels.append({
+        "name": "nv12_rgb", "route": "cuda", "source": "tecogan_tpu_torch/csrc/nv12_rgb.cu",
+        "replaces": "tecogan_tpu/data/video_io.py:61",
+        "replaces_note": "no TPU kernel: cv2.VideoCapture.read's host conversion (swscale), "
+                         "for the frames the card's NVDEC decodes",
+        "launches": nvdec["launches"]["nv12_rgb"],
+        "max_abs_err": nvdec["nv12"]["max_abs_err"], "ms": nv12_case["ms"],
+        "plain_ms": nv12_case["plain_ms"], "bound_ms": nv12_case["bound_ms"],
+        "bound_by": nv12_case["bound_by"], "library_ms": None,
+        "library_note": "no PyTorch call converts NV12 to RGB",
+        "path": f"video input ({nvdec['mode']})", "dtype": "uint8",
+        "nvdec_decode_verified": nvdec["refused"] is None,
+        "decoder": ("NVDEC" if nvdec["refused"] is None else
+                    "tests/nvdec_streams.py:ModelNvdec (decodes nothing) in place of NVDEC, "
+                    "which refused: " + nvdec["refused"]),
+        "cases": nvdec["nv12"]["timed"]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

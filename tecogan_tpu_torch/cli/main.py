@@ -26,7 +26,10 @@ Weight sources for inference, in precedence order:
   --allow_random_weights   seeded random weights (smoke runs)
 
 Inference reads a PNG directory or, with ``--input_video``, a video file
-(Motion JPEG or MPEG-4 Part 2 in AVI, MP4 or MKV; ``data/video_io.py``),
+(Motion JPEG or MPEG-4 Part 2 in AVI, MP4 or MKV, decoded on the host;
+H.264 or VP9, routed to ``--device``'s NVDEC, so ``--device cpu`` refuses
+them, and NVDEC's decode is unverified (ROADMAP item 12b);
+``data/video_io.py``),
 and writes PNGs or, with ``--output_video``, a video (``.avi`` Motion
 JPEG; ``.mp4``, ``.m4v``, ``.mkv`` MPEG-4 Part 2) at
 ``--output_video_fps``, else the source's rate, else 24. ``--spatial_shards``

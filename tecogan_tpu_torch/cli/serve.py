@@ -129,7 +129,7 @@ def run_serve(args, config, device: torch.device) -> dict:
     # The weights first: a missing weight source fails before any decode.
     gen, fnet, config = load_inference_params(args, config)
     sources = {name: FrameSource(d, lookahead=args.lookahead, warmup=not args.no_warmup,
-                                 max_frames=args.max_frames)
+                                 max_frames=args.max_frames, device=device)
                for d, name in zip(dirs, names)}
     srv = MultiGeometryServer(config, gen, fnet, slots_per_geometry=args.max_streams,
                               output="uint8", device=device,

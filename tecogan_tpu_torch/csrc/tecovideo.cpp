@@ -4,8 +4,9 @@
 // per container, giving each packet's file offset, size and key flag) and
 // written (AVI with MJPEG; MP4 and MKV with MPEG-4 Part 2, MKV also MJPEG).
 // Codecs: tecovideo_jpeg.cpp and tecovideo_mpeg4.cpp. Codecs the library
-// cannot decode (H.264, HEVC, AV1, ...) are named by the demuxer and refused
-// at decode.
+// cannot decode are named by the demuxer and refused at decode; of those,
+// H.264 and VP9 packets go to the card's NVDEC (data/video_nvdec.py), H.264
+// rewritten to Annex B by tv_annexb_packet.
 //
 // Build: g++ -O3 -fPIC -std=c++17 -shared -pthread tecovideo*.cpp (no other
 // library). The C ABI below is bound by data/video_native.py; each call
@@ -153,6 +154,7 @@ struct Packet {
     int64_t offset;
     uint32_t size;
     bool key;
+    int64_t pts = 0;  // presentation time in the track's units (AVI: the index)
 };
 
 struct Track {
@@ -175,6 +177,7 @@ std::string codec_from_fourcc(const std::string& cc) {
     if (u == "H264" || u == "X264" || u == "AVC1" || u == "DAVC") return "h264";
     if (u == "HEVC" || u == "H265" || u == "HVC1" || u == "HEV1") return "hevc";
     if (u == "AV01") return "av1";
+    if (u == "VP90") return "vp9";
     std::string printable;
     for (char c : cc) printable += (c >= 32 && c < 127) ? c : '?';
     return "fourcc " + printable;
@@ -282,7 +285,8 @@ Track demux_avi(File& f) {
             if (!size) continue;
             int64_t data = base + off + 8;
             if (data + size > f.size()) throw DecodeError("AVI: idx1 points past the end of the file");
-            t.packets.push_back({data, size, (le32(e + 4) & 0x10) != 0});
+            t.packets.push_back({data, size, (le32(e + 4) & 0x10) != 0,
+                                 int64_t(t.packets.size())});
         }
         have_keys = true;
     }
@@ -298,7 +302,8 @@ Track demux_avi(File& f) {
                     if (fourcc(ck + 8) == "rec ") scan(p + 12, std::min(end, p + 8 + size));
                 } else if (ours(ck) && size > 0) {
                     if (p + 8 + size > f.size()) throw DecodeError("AVI: truncated chunk");
-                    t.packets.push_back({p + 8, uint32_t(size), true});
+                    t.packets.push_back({p + 8, uint32_t(size), true,
+                                         int64_t(t.packets.size())});
                 }
                 p += 8 + size + (size & 1);
             }
@@ -358,6 +363,20 @@ bool read_descriptor(const std::vector<uint8_t>& b, size_t& p, int& tag, size_t&
     return p + len <= b.size();
 }
 
+// The payload of the sample entry's child box `type` (esds, avcC, vpcC): the
+// children follow the visual sample entry's 78 bytes. Empty if absent.
+std::vector<uint8_t> entry_child(const std::vector<uint8_t>& stsd, size_t esz, const char* type) {
+    size_t p = 16 + 78, end = 8 + esz;
+    while (p + 8 <= end) {
+        size_t bs = be32(stsd.data() + p);
+        if (bs < 8 || p + bs > end) break;
+        if (fourcc(stsd.data() + p + 4) == type)
+            return {stsd.begin() + long(p + 8), stsd.begin() + long(p + bs)};
+        p += bs;
+    }
+    return {};
+}
+
 Track demux_mp4(File& f) {
     Track t;
     t.container = "mp4";
@@ -400,49 +419,46 @@ Track demux_mp4(File& f) {
         t.height = be16(e + 26);
         if (entry == "mp4v") {
             t.codec = "mpeg4";
-            // esds among the entry's child boxes.
-            size_t p = 16 + 78, end = 8 + esz;
-            while (p + 8 <= end) {
-                size_t bs = be32(stsd.data() + p);
-                if (bs < 8 || p + bs > end) break;
-                if (fourcc(stsd.data() + p + 4) == "esds") {
-                    std::vector<uint8_t> es(stsd.begin() + long(p + 12), stsd.begin() + long(p + bs));
-                    size_t q = 0;
-                    int tag;
-                    size_t len;
-                    while (read_descriptor(es, q, tag, len)) {
-                        if (tag == 3) {  // ES_Descriptor
-                            if (q + 3 > es.size()) break;
-                            uint8_t flags = es[q + 2];
-                            q += 3;
-                            if (flags & 0x80) q += 2;
-                            if ((flags & 0x40) && q < es.size()) q += 1 + es[q];
-                            if (flags & 0x20) q += 2;
-                        } else if (tag == 4) {  // DecoderConfigDescriptor
-                            if (q + 13 > es.size()) break;
-                            uint8_t oti = es[q];
-                            if (oti == 0x6C || oti == 0x6D) t.codec = "mjpeg";
-                            else if (oti == 0x21) t.codec = "h264";
-                            else if (oti != 0x20) {
-                                char name[32];
-                                std::snprintf(name, sizeof name, "object type 0x%02x", oti);
-                                t.codec = name;
-                            }
-                            q += 13;
-                        } else if (tag == 5) {  // DecoderSpecificInfo
-                            t.extradata.assign(es.begin() + long(q), es.begin() + long(q + len));
-                            q += len;
-                        } else {
-                            q += len;
-                        }
+            std::vector<uint8_t> es = entry_child(stsd, esz, "esds");
+            // The full box's version and flags, then the descriptors.
+            es.erase(es.begin(), es.begin() + long(std::min<size_t>(4, es.size())));
+            size_t q = 0;
+            int tag;
+            size_t len;
+            while (read_descriptor(es, q, tag, len)) {
+                if (tag == 3) {  // ES_Descriptor
+                    if (q + 3 > es.size()) break;
+                    uint8_t flags = es[q + 2];
+                    q += 3;
+                    if (flags & 0x80) q += 2;
+                    if ((flags & 0x40) && q < es.size()) q += 1 + es[q];
+                    if (flags & 0x20) q += 2;
+                } else if (tag == 4) {  // DecoderConfigDescriptor
+                    if (q + 13 > es.size()) break;
+                    uint8_t oti = es[q];
+                    if (oti == 0x6C || oti == 0x6D) t.codec = "mjpeg";
+                    else if (oti == 0x21) t.codec = "h264";
+                    else if (oti != 0x20) {
+                        char name[32];
+                        std::snprintf(name, sizeof name, "object type 0x%02x", oti);
+                        t.codec = name;
                     }
+                    q += 13;
+                } else if (tag == 5) {  // DecoderSpecificInfo
+                    t.extradata.assign(es.begin() + long(q), es.begin() + long(q + len));
+                    q += len;
+                } else {
+                    q += len;
                 }
-                p += bs;
             }
         } else if (entry == "jpeg" || entry == "mjpa" || entry == "mjpb") {
             t.codec = "mjpeg";
         } else if (entry == "avc1" || entry == "avc3") {
             t.codec = "h264";
+            t.extradata = entry_child(stsd, esz, "avcC");
+        } else if (entry == "vp09") {
+            t.codec = "vp9";
+            t.extradata = entry_child(stsd, esz, "vpcC");
         } else if (entry == "hvc1" || entry == "hev1") {
             t.codec = "hevc";
         } else if (entry == "av01") {
@@ -493,11 +509,27 @@ Track demux_mp4(File& f) {
             }
         }
         int64_t duration = 0, frames = 0;
-        if (stts.size() >= 8) {
+        if (stts.size() >= 8) {  // decode times; presentation = decode + ctts
             uint32_t n = be32(stts.data() + 4);
+            size_t s = 0;
             for (uint32_t i = 0; i < n && 8 + 8 * i + 8 <= stts.size(); i++) {
-                frames += be32(stts.data() + 8 + 8 * i);
-                duration += int64_t(be32(stts.data() + 8 + 8 * i)) * be32(stts.data() + 12 + 8 * i);
+                uint32_t run = be32(stts.data() + 8 + 8 * i);
+                uint32_t delta = be32(stts.data() + 12 + 8 * i);
+                for (uint32_t k = 0; k < run && s < t.packets.size(); k++, s++)
+                    t.packets[s].pts = duration + int64_t(k) * delta;
+                frames += run;
+                duration += int64_t(run) * delta;
+            }
+        }
+        auto ctts = payload("ctts");
+        if (ctts.size() >= 8) {
+            bool signed_offsets = ctts[0] == 1;
+            uint32_t n = be32(ctts.data() + 4);
+            size_t s = 0;
+            for (uint32_t i = 0; i < n && 8 + 8 * i + 8 <= ctts.size(); i++) {
+                uint32_t run = be32(ctts.data() + 8 + 8 * i), off = be32(ctts.data() + 12 + 8 * i);
+                for (uint32_t k = 0; k < run && s < t.packets.size(); k++, s++)
+                    t.packets[s].pts += signed_offsets ? int64_t(int32_t(off)) : int64_t(off);
             }
         }
         if (duration > 0 && frames > 0) t.fps = reduced_rate(timescale * frames, duration, kIntMax);
@@ -725,13 +757,14 @@ Track demux_mkv(File& f) {
     else if (c == "V_MPEG4/ISO/AVC") t.codec = "h264";
     else if (c == "V_MPEGH/ISO/HEVC") t.codec = "hevc";
     else if (c == "V_AV1") t.codec = "av1";
+    else if (c == "V_VP9") t.codec = "vp9";
     else if (c == "V_MS/VFW/FOURCC" && video->priv.size() >= 40) {
         t.codec = codec_from_fourcc(fourcc(video->priv.data() + 16));
         t.extradata.assign(video->priv.begin() + 40, video->priv.end());
     } else t.codec = c.empty() ? "unknown" : c;
     if (t.extradata.empty() && c != "V_MS/VFW/FOURCC") t.extradata = video->priv;
     for (const Block& b : blocks)
-        if (b.track == video->number) t.packets.push_back({b.off, b.size, b.key});
+        if (b.track == video->number) t.packets.push_back({b.off, b.size, b.key, b.time});
     if (video->duration) {
         t.fps = reduced_rate(1000000000, int64_t(video->duration), 30000);
     } else if (blocks.size() > 1) {
@@ -1385,6 +1418,72 @@ int tv_packet(void* h, int64_t i, int64_t* offset, int* size, int* key) {
     *size = int(p.size);
     *key = p.key;
     return 0;
+}
+
+// Presentation times of the n first packets, in decode order, in the
+// track's units (MP4: decode time + ctts; MKV: block timecodes; AVI: index).
+int tv_packet_pts(void* h, int64_t* pts, int64_t n) {
+    Reader* r = static_cast<Reader*>(h);
+    n = std::min<int64_t>(n, int64_t(r->track.packets.size()));
+    for (int64_t i = 0; i < n; i++) pts[i] = r->track.packets[size_t(i)].pts;
+    return int(n);
+}
+
+// H.264 packet i in Annex B, the form NVDEC's parser takes. With an avcC
+// extradata (MP4 avc1/avc3, MKV V_MPEG4/ISO/AVC) each NAL unit's length
+// prefix (lengthSizeMinusOne + 1 bytes) becomes a start code, and
+// with_headers puts the avcC's SPS and PPS first (before the first packet
+// and after every seek); a stream stored in Annex B (AVI) is copied as it
+// is, after the same headers if any. Returns the size written.
+int tv_annexb_packet(void* h, int64_t i, int with_headers, uint8_t* buf, int cap) {
+    return guarded([&] {
+        Reader* r = static_cast<Reader*>(h);
+        if (i < 0 || i >= int64_t(r->track.packets.size()))
+            return fail(1, "packet index out of range");
+        const Packet& p = r->track.packets[size_t(i)];
+        const std::vector<uint8_t>& ex = r->track.extradata;
+        std::vector<uint8_t> in = r->file->bytes(p.offset, p.size), out;
+        static const uint8_t kStart[4] = {0, 0, 0, 1};
+        auto put = [&](const uint8_t* nal, size_t n) {
+            out.insert(out.end(), kStart, kStart + 4);
+            out.insert(out.end(), nal, nal + n);
+        };
+        const bool avcc = ex.size() >= 7 && ex[0] == 1;
+        if (avcc && with_headers) {  // numSPS x (u16 size, SPS), numPPS x (u16 size, PPS)
+            size_t q = 5;
+            for (int list = 0; list < 2; list++) {
+                if (q >= ex.size()) throw DecodeError("H.264: short avcC");
+                int count = list == 0 ? (ex[q] & 0x1F) : ex[q];
+                q++;
+                for (int k = 0; k < count; k++) {
+                    if (q + 2 > ex.size()) throw DecodeError("H.264: short avcC");
+                    size_t n = be16(ex.data() + q);
+                    if (q + 2 + n > ex.size()) throw DecodeError("H.264: short avcC");
+                    put(ex.data() + q + 2, n);
+                    q += 2 + n;
+                }
+            }
+        }
+        if (avcc) {
+            const int len_size = (ex[4] & 3) + 1;
+            size_t q = 0;
+            while (q < in.size()) {
+                if (q + size_t(len_size) > in.size())
+                    throw DecodeError("H.264: truncated NAL length");
+                size_t n = 0;
+                for (int k = 0; k < len_size; k++) n = (n << 8) | in[q + size_t(k)];
+                q += size_t(len_size);
+                if (q + n > in.size()) throw DecodeError("H.264: a NAL unit runs past its packet");
+                put(in.data() + q, n);
+                q += n;
+            }
+        } else {
+            out.insert(out.end(), in.begin(), in.end());
+        }
+        if (out.size() > size_t(cap)) return fail(1, "packet buffer too small");
+        std::memcpy(buf, out.data(), out.size());
+        return int(out.size());
+    });
 }
 
 int tv_read_packet(void* h, int64_t i, uint8_t* buf, int cap) {

@@ -108,14 +108,15 @@ def load_inference_frames(
     frames go through it too, as uint8, before the same blur).
 
     ``input_video`` decodes a video file instead of a PNG directory
-    (``data/video_io.py``); the frames are the LR sequence, ``paths_lr``
-    names them ``<path>#<i>`` and ``fps`` is the container's rate. The same
+    (``data/video_io.py``; H.264 and VP9 on ``device``'s NVDEC); the frames
+    are the LR sequence, ``paths_lr`` names them ``<path>#<i>`` and ``fps``
+    is the container's rate. The same
     reversed-[5..1] warm-up is prepended."""
     if input_video:
         from tecogan_tpu_torch.data.video_io import read_video_frames
 
         frames, fps = read_video_frames(input_video, max_frames=max_frames,
-                                        as_uint8=as_uint8)
+                                        as_uint8=as_uint8, device=device)
         if frames.shape[0] < 6:
             raise ValueError(f"warm-up needs >= 6 frames ({frames.shape[0]} in {input_video})")
         paths = prepend_warmup([f"{input_video}#{i}" for i in range(frames.shape[0])])

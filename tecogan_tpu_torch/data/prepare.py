@@ -12,9 +12,13 @@ Pipeline parity with reference dataPrepare.py:90-152:
 - TEST dry-run (2 frames/scene) and REMOVE (delete source videos) options.
 
 :func:`extract_scene` cuts a scene with the port's own decoder
-(``data/video_io.py``: Motion JPEG and MPEG-4 Part 2 in AVI, MP4 or MKV;
-other codecs raise NotImplementedError), seeks to the start frame as
-``CAP_PROP_POS_FRAMES`` does, resizes 0.5x with
+(``data/video_io.py``: Motion JPEG and MPEG-4 Part 2 in AVI, MP4 or MKV on
+the host; H.264 and VP9, what Vimeo serves, on the card's NVDEC
+(unverified: ROADMAP item 12b), so
+``extract_scene`` and :func:`prepare` take ``device``, the card unless the
+caller asks for the CPU, where those raise; HEVC, AV1 and other codecs
+raise NotImplementedError), seeks to the start frame as
+``CAP_PROP_POS_FRAMES`` does (on the exact frame with B-frames), resizes 0.5x with
 :func:`tecogan_tpu_torch.ops.resize.resize_area` (bit-equal to OpenCV's
 ``INTER_AREA``) and writes the PNGs with the port's codec.
 
@@ -85,12 +89,13 @@ VIDEO_DATA_DICT: Dict[str, List[int]] = {
 
 def extract_scene(video_path: str, start_frame: int, out_dir: str,
                   duration: int = 120, resize: float = 0.5,
-                  test_only: bool = False) -> int:
+                  test_only: bool = False, device=None) -> int:
     """Cut one scene from a video file into ``out_dir`` as
     ``col_high_%04d.png`` at ``resize`` scale (INTER_AREA, reference
     video.py:168-173; 0.5 or 1.0). Returns frames written. A file that
     does not open raises FileNotFoundError, as the JAX package's does; one
-    in a codec the port does not decode raises NotImplementedError."""
+    in a codec the port does not decode raises NotImplementedError.
+    ``device`` is where H.264 and VP9 decode (None: the card)."""
     from tecogan_tpu_torch.data.png import write_png
     from tecogan_tpu_torch.data.video_io import VideoReader
     from tecogan_tpu_torch.ops.resize import resize_area
@@ -98,7 +103,7 @@ def extract_scene(video_path: str, start_frame: int, out_dir: str,
     if resize != 1.0 and resize != 0.5:
         raise ValueError(f"resize {resize}: INTER_AREA is ported at 0.5 only")
     try:
-        reader = VideoReader(video_path)
+        reader = VideoReader(video_path, device=device)
     except ValueError as exc:  # not a container the port reads: cv2 fails to open
         raise FileNotFoundError(f"{video_path}: {exc}") from exc
     with reader:
@@ -153,8 +158,9 @@ def download_video(vid: str, video_dir: str) -> Optional[str]:
 def prepare(output_dir: str, video_dir: str, duration: int = 120,
             resize: float = 0.5, start_id: int = 2000,
             test_only: bool = False, remove: bool = False,
-            download: bool = True) -> int:
-    """Full preparation run; returns the number of scenes written."""
+            download: bool = True, device=None) -> int:
+    """Full preparation run; returns the number of scenes written. ``device``
+    is where H.264 and VP9 sources decode (None: the card)."""
     scene_idx = start_id
     for vid, starts in VIDEO_DATA_DICT.items():
         path = None
@@ -171,7 +177,7 @@ def prepare(output_dir: str, video_dir: str, duration: int = 120,
         for start in starts:
             out = os.path.join(output_dir, f"scene_{scene_idx:04d}")
             n = extract_scene(path, start, out, duration=duration,
-                              resize=resize, test_only=test_only)
+                              resize=resize, test_only=test_only, device=device)
             print(f"scene_{scene_idx:04d}: {n} frames from {vid}@{start}")
             scene_idx += 1
         if remove:

@@ -587,7 +587,7 @@ _SCENES = {"chess": CheckerPlane, "book": TexturedQuad, "cube": WireCube,
 
 
 def create_capture(source=None, height: int = 240, width: int = 320,
-                   seed: int = 0):
+                   seed: int = 0, device=None):
     """A frame source for the reference's create_capture contract
     (lib/data/video.py:176-206): the strings 'chess'/'book'/'cube'/'patch'
     or a ``synth:class=...:noise=...:size=WxH`` spec return the
@@ -598,7 +598,9 @@ def create_capture(source=None, height: int = 240, width: int = 320,
     default camera) falls back to :class:`CheckerPlane`, where the JAX
     package's ``cv2.VideoCapture`` fails to open (the port has no camera
     capture); a file in a codec the port does not decode raises
-    NotImplementedError (ROADMAP queue 1 item 12b)."""
+    NotImplementedError. ``device`` is where an H.264 or VP9 file decodes
+    (None: the card's NVDEC; ``"cpu"`` raises NotImplementedError for
+    them, ROADMAP item 12b)."""
     if isinstance(source, str) and source.startswith("synth:"):
         p = _parse_synth(source)
         cls = _SCENES.get(p.pop("class", "chess"), CheckerPlane)
@@ -611,7 +613,7 @@ def create_capture(source=None, height: int = 240, width: int = 320,
         from tecogan_tpu_torch.data.video_io import VideoCapture
 
         try:
-            return VideoCapture(source)
+            return VideoCapture(source, device=device)
         except ValueError:  # not a container the port reads: cv2 fails to open
             pass
     return CheckerPlane(height=height, width=width, seed=seed)

@@ -11,12 +11,23 @@ without OpenCV: the port's own library, ``csrc/tecovideo*.cpp``, through
   the ``submit(frames, start_index)`` contract of
   ``data/inference.py:FrameWriter``.
 
-What is read: Motion JPEG and MPEG-4 Part 2 (the ``mp4v`` and ``XVID``
-streams that the JAX package's writer produces) in AVI, MP4/M4V and MKV,
-decoded to the frames ``cv2.VideoCapture`` returns for them (bit-equal on
-files that OpenCV writes; see ``tests/test_torch_video_io.py``). A file in
-another codec (H.264, HEVC, AV1, ...) raises NotImplementedError: those
-are decoded on the card's NVDEC in ROADMAP queue 1 item 12b.
+What is read, as the frames ``cv2.VideoCapture`` returns for it:
+- Motion JPEG and MPEG-4 Part 2 (the ``mp4v`` and ``XVID`` streams that the
+  JAX package's writer produces) in AVI, MP4/M4V and MKV, decoded on the
+  host by the port's library (bit-equal on files that OpenCV writes; see
+  ``tests/test_torch_video_io.py``);
+- H.264 (Baseline, Main, High; MP4/M4V, MKV, AVI) and VP9 (profile 0;
+  WebM/MKV, MP4), routed to the card's NVDEC and converted there by the
+  NV12 kernel (``data/video_nvdec.py``; ``tests/test_torch_nvdec.py``).
+  NVDEC's decode is unverified: the only card the port is checked on
+  creates no NVDEC decoder (its container withholds NVIDIA's
+  ``video`` capability), so these files raise ``NvdecUnavailable`` there
+  (ROADMAP item 12b). The readers take ``device``: None is the card;
+  ``"cpu"``, or no card, makes these two codecs raise NotImplementedError
+  (there is no software decoder for them), and a driver without
+  ``libnvcuvid`` raises OSError.
+HEVC and AV1 raise NotImplementedError naming ROADMAP item 12c; other
+codecs raise NotImplementedError too.
 
 What is written, by extension as the JAX writer picks its fourcc: ``.avi``
 Motion JPEG (4:2:0, quality :data:`JPEG_QUALITY`); ``.mp4``, ``.m4v`` and
@@ -53,8 +64,11 @@ _KIND_BY_EXT = {
 JPEG_QUALITY = 95
 #: Quantiser of the MPEG-4 writer (H.263 quantisation, 1-31).
 MPEG4_QSCALE = 3
-#: Codecs this module decodes.
-DECODED_CODECS = ("mjpeg", "mpeg4")
+#: Codecs this module decodes: on the host, and on the card's NVDEC.
+HOST_CODECS = ("mjpeg", "mpeg4")
+NVDEC_CODECS = ("h264", "vp9")
+#: Codecs that wait for a test stream in the repository (ROADMAP item 12c).
+LATER_CODECS = ("hevc", "av1")
 
 
 def video_kind(path: str) -> int:
@@ -83,30 +97,57 @@ def fps_rational(fps: float, max_num: int = 65535) -> Tuple[int, int]:
     return r.numerator, r.denominator
 
 
-def _open(path: str) -> video_native.NativeVideoReader:
+def _nvdec_device(device) -> str:
+    """The card ``device`` names for NVDEC, or why there is none."""
+    import torch
+
+    if device is not None and torch.device(device).type != "cuda":
+        return f"device {device} was asked for"
+    if not torch.cuda.is_available():
+        return "no CUDA device is available"
+    return ""
+
+
+def _open(path: str, device=None):
     if not os.path.exists(path):
         raise FileNotFoundError(f"video not found: {path}")
     reader = video_native.NativeVideoReader(path)
-    if reader.codec not in DECODED_CODECS:
-        reader.close()
+    codec, where = reader.codec, f"{path}: {reader.codec} video ({reader.container})"
+    if codec in HOST_CODECS:
+        return reader
+    if codec in NVDEC_CODECS:
+        why = _nvdec_device(device)
+        if why:
+            reader.close()
+            raise NotImplementedError(
+                f"{where} decodes on the card's NVDEC only (ROADMAP item 12b), and {why}; "
+                "the port has no software decoder for H.264 or VP9")
+        from tecogan_tpu_torch.data.video_nvdec import NvdecVideoReader
+
+        return NvdecVideoReader(path, device=device, demuxed=reader)
+    reader.close()
+    if codec in LATER_CODECS:
         raise NotImplementedError(
-            f"{path}: {reader.codec} video ({reader.container}) is not decoded by the port "
-            "yet; H.264, HEVC and AV1 go to the card's NVDEC in ROADMAP queue 1 item 12b "
-            "(this module reads Motion JPEG and MPEG-4 Part 2)")
-    return reader
+            f"{where} is not decoded by the port yet: HEVC and AV1 wait for ROADMAP item 12c, "
+            "a test stream of each in the repository (item 12b decodes H.264 and VP9 on the "
+            "card's NVDEC)")
+    raise NotImplementedError(
+        f"{where} is not decoded by the port: it reads Motion JPEG and MPEG-4 Part 2 on the "
+        "host, H.264 and VP9 on the card's NVDEC (ROADMAP item 12b)")
 
 
 class VideoReader:
     """Frames of a video file in order, ``block`` decoded at a time.
 
     ``fps`` is the container's rate (0.0 when it states none), as
-    ``cv2.CAP_PROP_FPS`` reads it. Missing files raise FileNotFoundError,
-    unknown containers ValueError, codecs not decoded here
-    NotImplementedError."""
+    ``cv2.CAP_PROP_FPS`` reads it. ``device`` is where H.264 and VP9 decode
+    (None: the card; see the module's docstring). Missing files raise
+    FileNotFoundError, unknown containers ValueError, codecs not decoded
+    here NotImplementedError."""
 
-    def __init__(self, path: str, block: int = 8):
+    def __init__(self, path: str, block: int = 8, device=None):
         self.path = path
-        self._r = _open(path)
+        self._r = _open(path, device)
         self.fps = self._r.fps
         self._block = max(1, block)
         self._buf: List[np.ndarray] = []
@@ -127,8 +168,10 @@ class VideoReader:
             yield frame
 
     def seek(self, frame_index: int) -> None:
-        """The next :meth:`read` returns frame ``frame_index`` (MPEG-4 decodes
-        from the nearest earlier key frame, as ``CAP_PROP_POS_FRAMES`` does)."""
+        """The next :meth:`read` returns frame ``frame_index`` (MPEG-4, H.264
+        and VP9 decode from the nearest earlier key frame, as
+        ``CAP_PROP_POS_FRAMES`` does; with B-frames the frame is the exact
+        one in display order)."""
         self._buf = []
         self._r.seek(frame_index)
 
@@ -147,8 +190,8 @@ class VideoCapture:
     callers use: ``read() -> (ok, BGR uint8)``, ``isOpened()``,
     ``release()``, over a :class:`VideoReader`."""
 
-    def __init__(self, path: str):
-        self._reader = VideoReader(path)
+    def __init__(self, path: str, device=None):
+        self._reader = VideoReader(path, device=device)
         self.fps = self._reader.fps
 
     def isOpened(self) -> bool:  # noqa: N802 (OpenCV's name)
@@ -166,12 +209,13 @@ class VideoCapture:
             self._reader = None
 
 
-def read_video_frames(path: str, max_frames: int = -1,
-                      as_uint8: bool = True) -> Tuple[np.ndarray, float]:
+def read_video_frames(path: str, max_frames: int = -1, as_uint8: bool = True,
+                      device=None) -> Tuple[np.ndarray, float]:
     """Decode ``path`` to ``(frames, fps)``: (T, h, w, 3) RGB, uint8 (or
     float32 in [0, 1] when ``as_uint8=False``), and the container's rate
-    (0.0 if it states none). ``max_frames <= 0`` means every frame."""
-    with VideoReader(path, block=16) as reader:
+    (0.0 if it states none). ``max_frames <= 0`` means every frame;
+    ``device`` is where H.264 and VP9 decode (None: the card)."""
+    with VideoReader(path, block=16, device=device) as reader:
         frames: List[np.ndarray] = []
         for frame in reader:
             frames.append(frame)

@@ -63,14 +63,20 @@ def _compiler() -> str:
     return os.environ.get("CXX") or "g++"
 
 
+def shared_library_path(stem: str, sources, cxxflags, ldflags, compiler: str) -> Path:
+    """``_build/<stem>-<hash>/lib<stem>.so``, the hash taken over the
+    compiler, the flags and the sources (and headers) under ``csrc/``."""
+    h = hashlib.sha256(" ".join((compiler, *cxxflags, *ldflags)).encode())
+    for name in sources:
+        h.update(name.encode() + b"\0" + (_CSRC / name).read_bytes())
+    return _PKG / "_build" / f"{stem}-{h.hexdigest()[:16]}" / f"lib{stem}.so"
+
+
 def library_path(compiler: Optional[str] = None) -> Path:
     """Where the library built by ``compiler`` (default ``$CXX`` or g++)
     from the current sources goes."""
-    compiler = compiler or _compiler()
-    h = hashlib.sha256(" ".join((compiler, *_CXXFLAGS, *_LDFLAGS)).encode())
-    for name in _SOURCES + _HEADERS:
-        h.update(name.encode() + b"\0" + (_CSRC / name).read_bytes())
-    return _PKG / "_build" / f"tecovideo-{h.hexdigest()[:16]}" / "libtecovideo.so"
+    return shared_library_path("tecovideo", _SOURCES + _HEADERS, _CXXFLAGS, _LDFLAGS,
+                               compiler or _compiler())
 
 
 def _run(cmd) -> None:
@@ -87,7 +93,13 @@ def build_library(compiler: Optional[str] = None) -> Path:
     """Compile the sources unless this compiler, these flags and these
     sources were built before; returns the library's path."""
     compiler = compiler or _compiler()
-    path = library_path(compiler)
+    return build_shared(library_path(compiler), _SOURCES, _CXXFLAGS, _LDFLAGS, compiler)
+
+
+def build_shared(path: Path, sources, cxxflags, ldflags, compiler: str,
+                 libs=()) -> Path:
+    """Compile ``sources`` (under ``csrc/``), one process each, and link them
+    with ``libs`` into ``path``, unless it exists."""
     if path.exists():
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -97,12 +109,13 @@ def build_library(compiler: Optional[str] = None) -> Path:
             work = path.with_name(f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
             work.mkdir()
             try:
-                objs = [work / f"{Path(src).stem}.o" for src in _SOURCES]
-                cmds = [[compiler, *_CXXFLAGS, "-c", str(_CSRC / src), "-o", str(obj)]
-                        for src, obj in zip(_SOURCES, objs)]
+                objs = [work / f"{Path(src).stem}.o" for src in sources]
+                cmds = [[compiler, *cxxflags, "-c", str(_CSRC / src), "-o", str(obj)]
+                        for src, obj in zip(sources, objs)]
                 with ThreadPoolExecutor(len(cmds)) as pool:  # one process per source
                     list(pool.map(_run, cmds))
-                _run([compiler, *_LDFLAGS, "-o", str(work / path.name), *map(str, objs)])
+                _run([compiler, *ldflags, "-o", str(work / path.name), *map(str, objs),
+                      *libs])
                 os.replace(work / path.name, path)  # atomic: a reader never sees half a file
             finally:
                 shutil.rmtree(work, ignore_errors=True)
@@ -122,6 +135,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tv_extradata": (c_int, [c_void, c_char, c_int]),
         "tv_packet": (c_int, [c_void, c_i64, i64_p, i_p, i_p]),
         "tv_read_packet": (c_int, [c_void, c_i64, c_char, c_int]),
+        "tv_packet_pts": (c_int, [c_void, i64_p, c_i64]),
+        "tv_annexb_packet": (c_int, [c_void, c_i64, c_int, c_char, c_int]),
         "tv_decode": (c_int, [c_void, c_int, c_void]),
         "tv_seek": (c_int, [c_void, c_i64]),
         "tv_writer_open": (c_void, [c_char, c_int, c_int, c_int, c_int, c_int, c_int, c_int]),
@@ -160,9 +175,12 @@ class NativeVideoReader:
     """One demuxed video track of a file and its decoder.
 
     ``codec`` is ``"mjpeg"``, ``"mpeg4"`` or the name of a codec this
-    library does not decode (``"h264"``, ``"hevc"``, ``"av1"``, ...);
-    :meth:`decode` raises ``NotImplementedError`` on those. ``fps`` is the
-    container's rate as ``cv2.CAP_PROP_FPS`` reports it.
+    library does not decode (``"h264"``, ``"vp9"``, ``"hevc"``, ``"av1"``,
+    ...); :meth:`decode` raises ``NotImplementedError`` on those. H.264 and
+    VP9 go to the card's NVDEC (``data/video_nvdec.py``), which reads
+    the packets through :meth:`packet`, :meth:`annexb_packet` and
+    :meth:`packet_pts`. ``fps`` is the container's rate as
+    ``cv2.CAP_PROP_FPS`` reports it.
     """
 
     def __init__(self, path: str):
@@ -198,6 +216,25 @@ class NativeVideoReader:
         size = self.packet_info(i)[1]
         buf = ctypes.create_string_buffer(max(1, size))
         n = self._lib.tv_read_packet(self._h, i, buf, size)
+        if n < 0:
+            _raise(self._lib, self.path)
+        return buf.raw[:n]
+
+    def packet_pts(self) -> np.ndarray:
+        """Every packet's presentation time in decode order, in the track's
+        units (MP4: decode time + ``ctts``; MKV: block timecodes; AVI: the
+        packet's index)."""
+        pts = np.zeros(self.packet_count, np.int64)
+        self._lib.tv_packet_pts(self._h, pts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                                self.packet_count)
+        return pts
+
+    def annexb_packet(self, i: int, with_headers: bool) -> bytes:
+        """H.264 packet ``i`` in Annex B (start codes), after the avcC's SPS
+        and PPS when ``with_headers``."""
+        cap = 4 * self.packet_info(i)[1] + 2 * self._extra_size + 64
+        buf = ctypes.create_string_buffer(cap)
+        n = self._lib.tv_annexb_packet(self._h, i, int(with_headers), buf, cap)
         if n < 0:
             _raise(self._lib, self.path)
         return buf.raw[:n]

@@ -9,10 +9,13 @@ counters count the kernels that ran, captured or not). ``upsample4`` and
 ``resblock_chain`` are
 differentiable (``torch.autograd.Function``s) on both devices. Importing
 this package registers the launches as operators,
-``torch.ops.tecogan_torch.{upsample4,upsample4_bwd,resblock_chain}``
-(``ops.py``), which an exported program calls.
+``torch.ops.tecogan_torch.{upsample4,upsample4_bwd,resblock_chain,nv12_rgb}``
+(``ops.py``), which an exported program calls. ``nv12_to_rgb`` converts the
+frames that the card's NVDEC decodes (``data/video_nvdec.py``); it replaces
+no TPU kernel.
 """
 
+from tecogan_tpu_torch.kernels.nv12 import nv12_to_rgb, nv12_to_rgb_plain, yuv_coefficients
 from tecogan_tpu_torch.kernels.ops import LaunchRecord
 from tecogan_tpu_torch.kernels.resblocks import (
     resblock_chain,
@@ -30,6 +33,8 @@ from tecogan_tpu_torch.kernels.upsample4 import (
 __all__ = [
     "LaunchRecord",
     "bicubic_four",
+    "nv12_to_rgb",
+    "nv12_to_rgb_plain",
     "resblock_chain",
     "resblock_chain_plain",
     "upsample4",
@@ -37,4 +42,5 @@ __all__ = [
     "upsample4_bwd_plain",
     "upsample4_plain",
     "upscale_bilinear4",
+    "yuv_coefficients",
 ]

@@ -54,6 +54,9 @@ _SIGNATURES = {
     # (int* cluster_size, int* clusters): the float32 chain kernel's cluster
     # size and its clusters that can be resident on the card at once
     "tt_resblock_chain_f32_clusters": (_P, _P),
+    # (surface, pitch, luma_rows, left, top, width, height, y_coeff, y_offset,
+    # v2r, u2b, u2g, v2g, out, stream): NV12 -> RGB24 of the display area
+    "tt_nv12_rgb": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 

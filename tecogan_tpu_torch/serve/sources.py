@@ -17,8 +17,10 @@ PNG directories decode in blocks of four frames through the native thread
 pool (``data/native_loader.py``) where it builds, as the JAX package's
 libpng pool does, else with the port's python codec (``data/png.py``);
 either way on the worker thread, and ``decode_s`` counts its seconds.
-A video file (Motion JPEG or MPEG-4 Part 2 in AVI, MP4 or MKV) decodes
-through ``data/video_io.py:VideoReader`` on the same thread, and ``fps``
+A video file decodes through ``data/video_io.py:VideoReader`` on the same
+thread, one decoder per source (Motion JPEG and MPEG-4 Part 2 on the host;
+H.264 and VP9 on ``device``'s NVDEC, unverified (ROADMAP item 12b), the
+card unless the caller asks for the CPU, where they raise), and ``fps``
 is its container's rate once the first frame is out.
 """
 
@@ -66,7 +68,7 @@ class FrameSource:
     def __init__(self, src: Optional[str] = None, lookahead: int = 16,
                  warmup: bool = True, max_frames: int = -1,
                  as_uint8: bool = True,
-                 frames: Optional[Iterable[np.ndarray]] = None):
+                 frames: Optional[Iterable[np.ndarray]] = None, device=None):
         if (src is None) == (frames is None):
             raise ValueError("pass exactly one of src / frames")
         self.src = src
@@ -77,6 +79,7 @@ class FrameSource:
         self._frames = frames
         self._max_frames = max_frames
         self._as_uint8 = as_uint8
+        self._device = device
         self._q: "queue.Queue" = queue.Queue(maxsize=max(2, lookahead))
         self._err: Optional[BaseException] = None
         self._head: Optional[list] = [] if self.warmup else None
@@ -198,7 +201,7 @@ class FrameSource:
     def _iter_video(self):
         from tecogan_tpu_torch.data.video_io import VideoReader
 
-        with VideoReader(self.src, block=_DECODE_BLOCK) as reader:
+        with VideoReader(self.src, block=_DECODE_BLOCK, device=self._device) as reader:
             self.fps = reader.fps
             while True:
                 t0 = time.perf_counter()

@@ -999,3 +999,179 @@ def test_cli_input_video_matches_png_route(cuda_device, tmp_path):
     assert got.shape == (12, 128, 160, 3) and got.std() > 1.0
     np.testing.assert_array_equal(got, want)
     assert got_n == want_n and min(got_n) > 0
+
+
+# ---------------------------------------------------------------- NVDEC
+# The test streams (tests/nvdec_streams.py, numpy only), imported from this
+# directory.
+def _nvdec_streams():
+    import nvdec_streams
+
+    return nvdec_streams
+
+
+@pytest.fixture
+def nvdec(cuda_device):
+    """The streams module, where this card's NVDEC creates decoders. A
+    container that withholds NVIDIA's ``video`` capability
+    (``NvdecUnavailable``, that refusal alone) skips the test: NVDEC cannot
+    decode there. Any other failure of the query fails it."""
+    from tecogan_tpu_torch.data import video_nvdec
+
+    try:
+        video_nvdec.decoder_caps("h264", cuda_device)
+    except video_nvdec.NvdecUnavailable as exc:
+        pytest.skip(f"NVDEC creates no decoder on this card: {exc}")
+    return _nvdec_streams()
+
+
+@pytest.fixture
+def model_decoder(cuda_device, monkeypatch):
+    """The streams module, with ``ModelNvdec`` (the streams' numpy model,
+    which decodes nothing) in place of the NVDEC binding: the port's
+    demuxer, reader and NV12 kernel on the card, whatever NVDEC does."""
+    from tecogan_tpu_torch.data import video_nvdec
+
+    tn = _nvdec_streams()
+    model = tn.ModelNvdec([tn.H264Stream(n) for n in tn.STREAMS])
+    monkeypatch.setattr(video_nvdec, "load_library", lambda: model)
+    return tn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(4))
+def test_nv12_kernel_matches_plain(cuda_device, case):
+    """The NV12 kernel against its plain version, bit for bit: pitch above
+    the width, odd crop offsets, limited and full range, BT.601 and
+    BT.709; one launch each."""
+    from tecogan_tpu_torch.kernels import nv12_to_rgb, nv12_to_rgb_plain, yuv_coefficients
+
+    (h, w), (ch, pitch), (left, top), matrix, full = (
+        ((41, 57), (48, 80), (3, 5), 2, False), ((45, 67), (52, 96), (1, 7), 1, True),
+        ((144, 180), (144, 256), (0, 0), 2, False),
+        ((720, 1280), (720, 1536), (0, 0), 1, True))[case]
+    surface = torch.randint(0, 256, (ch + ch // 2, pitch), dtype=torch.uint8,
+                            generator=torch.Generator().manual_seed(case))
+    coeffs = yuv_coefficients(matrix, full)
+    before = nv12_to_rgb.launches
+    got = nv12_to_rgb(surface.to(cuda_device), ch, left, top, w, h, coeffs)
+    assert nv12_to_rgb.launches == before + 1
+    assert torch.equal(got.cpu(), nv12_to_rgb_plain(surface, ch, left, top, w, h, coeffs))
+
+
+def _streams_bit_equal(tn, tmp_path, container):
+    from tecogan_tpu_torch.data.video_io import read_video_frames
+    from tecogan_tpu_torch.kernels import nv12_to_rgb
+
+    for name in tn.STREAMS:
+        st = tn.H264Stream(name)
+        before = nv12_to_rgb.launches
+        frames, fps = read_video_frames(st.write(tmp_path / f"{name}.{container}"))
+        assert fps == tn.FPS and nv12_to_rgb.launches == before + st.count
+        np.testing.assert_array_equal(frames, st.expected_rgb())
+
+
+def _seek_b_frames(tn, tmp_path, container):
+    from tecogan_tpu_torch.data.video_io import VideoReader
+
+    st = tn.H264Stream("b_main")
+    want = st.expected_rgb()
+    path = st.write(tmp_path / f"b.{container}")
+    for start in (5, 7, 9, 13, 40):
+        with VideoReader(path, block=4) as reader:
+            reader.seek(start)
+            rest = list(reader)
+        assert len(rest) == max(0, len(want) - start)
+        if rest:
+            np.testing.assert_array_equal(np.stack(rest), want[start:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("container", ["mp4", "mkv"])
+def test_nvdec_streams_bit_equal(nvdec, tmp_path, container):
+    """Every hand-written H.264 stream decodes on the card's NVDEC to the
+    frames OpenCV gives (the model's, which the CPU tests hold to OpenCV),
+    one NV12 launch a frame."""
+    _streams_bit_equal(nvdec, tmp_path, container)
+
+
+@pytest.mark.cuda
+def test_nvdec_vp9_fixture(nvdec):
+    """The VP9 fixture decodes on NVDEC to the frames OpenCV gives (their
+    SHA-256 recorded beside it)."""
+    from tecogan_tpu_torch.data.video_io import read_video_frames
+
+    want = nvdec.vp9_expected()
+    frames, fps = read_video_frames(str(nvdec.VP9_FIXTURE))
+    assert (fps, list(frames.shape)) == (want["fps"], want["shape"])
+    assert nvdec.frame_sha256(frames) == want["frames"]
+
+
+@pytest.mark.cuda
+def test_nvdec_two_readers_on_two_threads(nvdec, tmp_path):
+    """Two NVDEC readers, one per thread (as two serving sources),
+    interleaved."""
+    import threading
+
+    from tecogan_tpu_torch.data.video_io import VideoReader
+
+    streams = [nvdec.H264Stream("b_main"), nvdec.H264Stream("crop")]
+    paths = [st.write(tmp_path / f"{i}.mp4") for i, st in enumerate(streams)]
+    results, errors = [None, None], []
+
+    def read(i):
+        try:
+            with VideoReader(paths[i], block=2) as reader:
+                results[i] = np.stack(list(reader))
+        except BaseException as exc:  # raised below in the test's thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=read, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for got, st in zip(results, streams):
+        np.testing.assert_array_equal(got, st.expected_rgb())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("container", ["mp4", "mkv"])
+def test_nvdec_seek_b_frames(nvdec, tmp_path, container):
+    """``seek`` on NVDEC's decode of the B-frame stream lands on the exact
+    frame in display order, inside a GOP, on the second key frame and past
+    the end."""
+    _seek_b_frames(nvdec, tmp_path, container)
+
+
+@pytest.mark.cuda
+def test_nvdec_parser_reports_each_stream_format(cuda_device, tmp_path):
+    """Every H.264 stream in MP4 and MKV and the VP9 fixture through the
+    port's NVDEC reader: NVDEC's parser reports the expected coded size,
+    display area, range and matrix; then the reader decodes every frame,
+    or, where the card's container withholds NVIDIA's ``video``
+    capability, raises ``NvdecUnavailable`` (chip_smoke.py phase 15 (a))."""
+    from chip_smoke import check_nvdec_format
+    from tecogan_tpu_torch.data import video_nvdec
+
+    tn = _nvdec_streams()
+    try:
+        video_nvdec.decoder_caps("h264", cuda_device)
+        refused = False
+    except video_nvdec.NvdecUnavailable:
+        refused = True
+    h264 = {name: tn.H264Stream(name) for name in tn.STREAMS}
+    paths = {(n, c): st.write(tmp_path / f"{n}.{c}") for n, st in h264.items()
+             for c in ("mp4", "mkv")}
+    assert len(check_nvdec_format(cuda_device, tn, h264, paths, refused)) == 11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("container", ["mp4", "mkv"])
+def test_reader_and_nv12_kernel_over_the_model_decoder(model_decoder, tmp_path, container):
+    """The port's demuxer, reader and NV12 kernel on the card over the
+    streams' model in NVDEC's place (no decode): every stream's frames, one
+    NV12 launch a frame, and ``seek`` on the B-frame stream."""
+    _streams_bit_equal(model_decoder, tmp_path, container)
+    _seek_b_frames(model_decoder, tmp_path, container)
