@@ -214,7 +214,18 @@ Phases, each raising on failure (so the exit code is non-zero):
    ``cli.serve --output_videos`` on an H.264 source and one of another
    geometry (VP9 with NVDEC): counts, shapes and each output's fps; (f)
    ``extract_scene`` from frame 5 of the B-frame stream: the exact frames
-   in display order.
+   in display order;
+16. the JAX package's orbax checkpoints without JAX (``run_orbax``): (a)
+   the committed JAX-written fixture ``tests/data/jax_orbax_small`` (OCDBT
+   store, zstd, inline and indirect values) read by the port, every leaf
+   equal to its SHA-256, and the zstd decoder's MB/s on its chunks; (b) a
+   TECOGAN_PRESET TrainState (16 blocks, 64 channels, full FNet, float32)
+   after 3 captured steps through ``save_jax_checkpoint`` and
+   ``restore_checkpoint`` into a fresh state, bit-equal, with the write
+   and read seconds and MB/s; (c) ``cli.main --checkpoint`` on that
+   directory and on the port's ``state.pt`` of the same weights over
+   phase 9's PNG dir (bfloat16, cuDNN deterministic): byte-equal PNGs,
+   K1's and the chain's launches counted (``orbax_cli_launches``).
 
 Then one ``[yardstick]`` line per timed case of phase 3 with its wrapper's
 launches on the streaming, FRVSR and TecoGAN training paths (float32 and
@@ -3884,6 +3895,187 @@ def run_nvdec(dev, card: str, tmp: str) -> dict:
     return {"launches": launches, "nv12": kernel, "mode": mode, "refused": refused}
 
 
+ORBAX_FIXTURE = REPO / "tests" / "data" / "jax_orbax_small"
+ORBAX_SHA256 = REPO / "tests" / "data" / "jax_orbax_small.sha256.json"
+ORBAX_STEPS = 3  # captured TecoGAN steps before the full-width checkpoint
+
+
+def _flat_leaves(tree, path=()):
+    """(path tuple, numpy leaf) of a read checkpoint tree; None dropped,
+    bfloat16 tensors as their uint16 bits."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _flat_leaves(v, path + (str(k),))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _flat_leaves(v, path + (str(i),))]
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        tree = (tree.view(torch.uint16) if tree.dtype == torch.bfloat16 else tree).numpy()
+    return [(path, np.ascontiguousarray(tree))]
+
+
+def _dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(root)
+               for f in files)
+
+
+def run_orbax(dev, card: str, tmp: str) -> dict:
+    """Phase 16: the JAX package's orbax checkpoints without JAX. (a) The
+    committed JAX-written fixture (OCDBT, zstd nodes and chunks, inline and
+    indirect values, the ``ocdbt.process_0`` sub-store) read by the port:
+    every leaf equal to its recorded SHA-256, and the zstd decoder's rate
+    on its chunks. (b) A TECOGAN_PRESET TrainState (16 blocks, 64
+    channels, full FNet, float32) after a few captured steps, written by
+    ``save_jax_checkpoint`` and restored into a fresh state bit-equal,
+    timed. (c) ``cli.main --checkpoint`` on that directory and on the
+    port's ``state.pt`` of the same weights, over phase 9's PNG dir,
+    bfloat16: byte-equal PNGs; K1 and the chain counted in the first run.
+    Returns the launches."""
+    import hashlib
+    import io
+    import shutil
+
+    from tecogan_tpu_torch.cli import main as cli_main
+    from tecogan_tpu_torch.config import TECOGAN_PRESET
+    from tecogan_tpu_torch.data.inference import read_frames
+    from tecogan_tpu_torch.kernels import resblock_chain, upsample4
+    from tecogan_tpu_torch.models.vgg19 import random_vgg19
+    from tecogan_tpu_torch.train import Trainer
+    from tecogan_tpu_torch.train.checkpoint import (
+        restore_checkpoint, save_checkpoint, save_jax_checkpoint)
+    from tecogan_tpu_torch.train.orbax_io import OcdbtReader, read_jax_checkpoint
+    from tecogan_tpu_torch.utils import zstd
+    from tecogan_tpu_torch.weights import train_state_to_jax
+
+    # (a) The fixture, against its recorded hashes.
+    want = json.loads(ORBAX_SHA256.read_text())
+    step_dir = ORBAX_FIXTURE / str(want["step"])
+    t0 = time.perf_counter()
+    zstd.load_library()  # g++ builds csrc/tecozstd.cpp on first use
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    leaves = _flat_leaves(read_jax_checkpoint(str(step_dir)))
+    read_s = time.perf_counter() - t0
+    got = {"/".join(p): hashlib.sha256(a.tobytes()).hexdigest() for p, a in leaves}
+    if got != {k: v["sha256"] for k, v in want["leaves"].items()}:
+        bad = sorted(k for k in set(got) | set(want["leaves"])
+                     if got.get(k) != want["leaves"].get(k, {}).get("sha256"))
+        raise RuntimeError(f"[orbax] fixture leaves differ from their SHA-256: {bad}")
+    reader = OcdbtReader(str(step_dir / "default"))
+    frames = [v for v in (reader.read(k) for k in reader.keys() if not k.endswith(".zarray"))
+              if v[:4] == b"\x28\xb5\x2f\xfd"]
+    out_bytes = sum(len(zstd.decompress(f)) for f in frames)
+    reps = 200
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for f in frames:
+            zstd.decompress(f)
+    zstd_s = (time.perf_counter() - t0) / reps
+    log(f"[orbax] (a) fixture {step_dir.relative_to(REPO)} (JAX-written OCDBT store, "
+        f"{_dir_bytes(str(step_dir))} B on disk, {len(reader.keys())} keys of which "
+        f"{sum(not isinstance(v, bytes) for v in reader._values.values())} indirect): "
+        f"{len(leaves)} leaves equal to their SHA-256, read in {read_s * 1e3:.1f} ms (the "
+        f"decoder's build before it {build_s:.2f} s); zstd "
+        f"decode of its {len(frames)} compressed chunks ({sum(map(len, frames))} B -> "
+        f"{out_bytes} B): {zstd_s * 1e3:.3f} ms, {out_bytes / zstd_s / 1e6:.1f} MB/s of "
+        f"output (host); card: {card}")
+
+    # (b) A full-width TecoGAN state after captured steps, round trip.
+    cfg = TECOGAN_PRESET.replace(batch_size=1, rnn_n=3)
+    trainer = Trainer(cfg, dev, vgg=random_vgg19(cfg.rand_seed))
+    state = trainer.init_state(cfg.rand_seed)
+    rng = np.random.RandomState(16)
+    for _ in range(ORBAX_STEPS):
+        batch = (rng.rand(1, cfg.rnn_n, cfg.hr_load_size, cfg.hr_load_size, 3)
+                 * 255).astype(np.uint8)
+        state, _ = trainer.train_step(state, batch)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    if trainer.capture != (dev.type == "cuda") or state.step != ORBAX_STEPS:
+        raise RuntimeError(f"[orbax] the steps were not captured ({trainer.capture}) or "
+                           f"reached step {state.step}")
+    before = train_state_to_jax(state)
+    adam = before["gen_opt"][0]
+    if int(adam["count"]) != ORBAX_STEPS or not all(
+            np.abs(v).max() > 0 for v in adam["mu"][f"resblock_{cfg.num_resblock}_conv_2"].values()):
+        raise RuntimeError("[orbax] the Adam moments or count are still fresh")
+    jax_dir, port_dir = os.path.join(tmp, "orbax_jax"), os.path.join(tmp, "orbax_port")
+    t0 = time.perf_counter()
+    save_jax_checkpoint(jax_dir, state)
+    write_s = time.perf_counter() - t0
+    size = _dir_bytes(jax_dir)
+    fresh = Trainer(cfg, dev, vgg=random_vgg19(cfg.rand_seed)).init_state(cfg.rand_seed + 1)
+    t0 = time.perf_counter()
+    restore_checkpoint(jax_dir, fresh)
+    sync()
+    restore_s = time.perf_counter() - t0
+    after = _flat_leaves(train_state_to_jax(fresh))
+    flat_before = dict(_flat_leaves(before))
+    if {p for p, _ in after} != set(flat_before) or not all(
+            a.dtype == flat_before[p].dtype and np.array_equal(a, flat_before[p])
+            for p, a in after) or int(fresh.device_step) != ORBAX_STEPS:
+        raise RuntimeError("[orbax] the full-width round trip is not bit-equal")
+    n_elems = sum(a.size for a in flat_before.values())
+    log(f"[orbax] (b) TECOGAN_PRESET TrainState ({cfg.num_resblock} blocks, "
+        f"{cfg.gen_channels} channels, full FNet, float32; {len(flat_before)} leaves, "
+        f"{n_elems} elements) after {ORBAX_STEPS} captured steps: save_jax_checkpoint "
+        f"{write_s:.3f} s ({size / write_s / 1e6:.1f} MB/s, {size} B, plain zarr layout), "
+        f"restore_checkpoint into a fresh state on the card {restore_s:.3f} s "
+        f"({size / restore_s / 1e6:.1f} MB/s); every leaf bit-equal, Adam moments and "
+        f"counts, D's statistics, EMAs and gate counters included; card: {card}")
+    save_checkpoint(port_dir, state)
+    del trainer, state, fresh
+    torch.cuda.empty_cache()
+
+    # (c) The inference CLI from either layout, byte-equal, counted.
+    hr_dir = os.path.join(tmp, "cli_hr")
+    argv = ["--mode", "inference", "--input_dir_HR", hr_dir, "--device", str(dev),
+            "--compute_dtype", "bfloat16", "--infer_chunk", str(CHUNK)]
+    outs, prints = [], []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i, ckpt in enumerate((jax_dir, port_dir)):
+            out = os.path.join(tmp, f"orbax_cli{i}")
+            printed = io.StringIO()
+            if i == 0:
+                upsample4.launches = 0
+                resblock_chain.launches = 0
+            with contextlib.redirect_stdout(printed):
+                t0 = time.perf_counter()
+                stats = cli_main.main(argv + ["--output_dir", out, "--checkpoint", ckpt])
+                wall = time.perf_counter() - t0
+            if i == 0:
+                launches = {"upsample4": upsample4.launches,
+                            "resblock_chain": resblock_chain.launches}
+            names = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+            outs.append(read_frames([os.path.join(out, n) for n in names]))
+            prints.append(printed.getvalue())
+            log(f"[orbax] (c) cli.main --checkpoint {os.path.basename(ckpt)} "
+                f"({'JAX layout' if i == 0 else 'state.pt'}): {stats['written']} HR PNGs "
+                f"{outs[-1].shape[1:3]}, stream {stats['stream_s']:.3f} s, {wall:.3f} s wall")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if outs[0].shape != (CLI_FRAMES, 4 * LR_H, 4 * LR_W, 3) or not np.array_equal(*outs):
+        raise RuntimeError(f"[orbax] the CLI's PNGs from the two layouts differ "
+                           f"({outs[0].shape}, {outs[1].shape})")
+    if outs[0].min() == outs[0].max():
+        raise RuntimeError("[orbax] the CLI's output is constant")
+    for text in prints:
+        if f"Loaded checkpoint step {ORBAX_STEPS} from" not in text:
+            raise RuntimeError(f"[orbax] the CLI did not load step {ORBAX_STEPS}")
+    ran = FRAMES + CHUNK
+    need = {"upsample4": ran + ran // CHUNK, "resblock_chain": cfg.num_resblock * ran}
+    if launches != need:
+        raise RuntimeError(f"[orbax] the CLI launched {launches}, want {need}")
+    log(f"[orbax] (c) {CLI_FRAMES} PNGs byte-equal between the JAX-layout and the state.pt "
+        f"checkpoints (cuDNN deterministic); launches in the JAX-layout run {launches} "
+        f"(the run's {FRAMES} frames and the capture's warm-up chunk of {CHUNK}), bfloat16 "
+        f"chain and K1 (flow and skip); card: {card}")
+    for d in (jax_dir, port_dir, os.path.join(tmp, "orbax_cli0"), os.path.join(tmp, "orbax_cli1")):
+        shutil.rmtree(d, ignore_errors=True)
+    return {"launches": launches}
+
+
 def phase(name: str, fn, *args):
     """Run one phase; its seconds go to ``phase.seconds``."""
     t0 = time.perf_counter()
@@ -3963,6 +4155,7 @@ def main() -> None:
         phase("13 run cases", run_cases, card, tmp)
         video_launches = phase("14 video I/O", run_video, dev, card, tmp)
         nvdec = phase("15 H.264 and VP9 input", run_nvdec, dev, card, tmp)
+        orbax = phase("16 orbax checkpoints", run_orbax, dev, card, tmp)
     log("[main] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase.seconds.items())
         + f"; in all {time.perf_counter() - START:.1f} s since the script started")
 
@@ -4058,6 +4251,8 @@ def main() -> None:
         if key in ("upsample4", "resblock_chain"):
             # The inference CLI's --input_video run (phase 14), float32.
             entry["video_cli_launches"] = video_launches.get(key, 0)
+            # The inference CLI from a JAX-layout checkpoint (phase 16 (c)).
+            entry["orbax_cli_launches"] = orbax["launches"].get(key, 0)
             # Per generate replay after each save (phases 8, 8c, 11, 11b).
             entry["generate_launches"] = {k: g["launches"][key] for k, g in GENERATE.items()}
         if key == "resblock_chain":

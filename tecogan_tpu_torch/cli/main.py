@@ -17,7 +17,8 @@ names) or ``--allow_random_weights`` (seeded random VGG19 weights, for
 smoke runs), as the JAX CLI does.
 
 Weight sources for inference, in precedence order:
-  --checkpoint   a checkpoint dir of the port's trainer (train/checkpoint.py)
+  --checkpoint   a checkpoint dir of the port's trainer or of the JAX
+                 package's (orbax; read without JAX, train/checkpoint.py)
   --tf_npz       a TF TecoGAN/FRVSR checkpoint dumped to npz
                  (weights.convert_tf_npz)
   --params_npz   the npz interchange of both packages (weights.params_to_npz;
@@ -61,12 +62,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_dir", required=True)
     p.add_argument("--summary_dir", default=None)
     p.add_argument("--checkpoint", default=None,
-                   help="checkpoint dir of the port's trainer (inference)")
+                   help="checkpoint dir of the port's trainer or of the JAX "
+                        "package's orbax checkpoints (inference)")
     p.add_argument("--tf_npz", default=None)
     p.add_argument("--params_npz", default=None)
     p.add_argument("--pre_trained_dir", default=None,
                    help="warm-start weights from a previous run's checkpoints "
-                        "or a TF checkpoint dumped to npz")
+                        "(the port's or the JAX package's orbax ones) or a TF "
+                        "checkpoint dumped to npz")
     p.add_argument("--allow_random_weights", action="store_true",
                    help="smoke mode without trained weights (random G/F for "
                         "inference, random VGG19 for training)")

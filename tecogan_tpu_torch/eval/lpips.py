@@ -76,25 +76,25 @@ class LPIPS(nn.Module):
 
     def features(self, x: torch.Tensor) -> List[torch.Tensor]:
         """The five post-ReLU AlexNet feature maps of NCHW ``x``, already
-        shift/scale-normalised."""
+        shift/scale-normalised (float32 convolutions: TF32 off)."""
         feats = []
-        for i, conv in enumerate(self.convs):
-            x = F.relu(conv(x))
-            feats.append(x)
-            if i in _POOL_AFTER:
-                x = F.max_pool2d(x, 3, stride=2)
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            for i, conv in enumerate(self.convs):
+                x = F.relu(conv(x))
+                feats.append(x)
+                if i in _POOL_AFTER:
+                    x = F.max_pool2d(x, 3, stride=2)
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
         return feats
 
     @torch.no_grad()
     def forward(self, img0, img1) -> torch.Tensor:
         x0, x1 = ((torch.as_tensor(im).to(self.device, torch.float32).permute(0, 3, 1, 2)
                    - self.shift) / self.scale for im in (img0, img1))
-        saved = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            f0, f1 = self.features(x0), self.features(x1)
-        finally:
-            torch.backends.cudnn.allow_tf32 = saved
+        f0, f1 = self.features(x0), self.features(x1)
         val = 0.0
         for i, (a, b) in enumerate(zip(f0, f1)):
             diff = (_unit_normalize(a) - _unit_normalize(b)) ** 2
@@ -107,6 +107,30 @@ class LPIPS(nn.Module):
         """uint8-range RGB (H, W, 3) -> (1, H, W, 3) in [-1, 1]
         (LPIPSmodels/util.py:142-146)."""
         return (img_uint8_rgb.astype(np.float32) / (255.0 / 2.0) - 1.0)[None]
+
+
+def _device_of(x) -> torch.device:
+    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+
+
+@torch.no_grad()
+def alexnet_features(params: Dict, x) -> List[torch.Tensor]:
+    """The five post-ReLU AlexNet feature maps (NHWC) of (B, H, W, 3) ``x``,
+    already shift/scale-normalised, on ``x``'s device (the CPU for numpy):
+    :class:`LPIPS`'s layers over the JAX layout's ``params``, the
+    counterpart of ``tecogan_tpu/eval/lpips.py:72``."""
+    device = _device_of(x)
+    lpips = LPIPS(params, [np.zeros(c, np.float32) for c, *_ in _ALEX_CONVS], device)
+    x = torch.as_tensor(x).to(device, torch.float32).permute(0, 3, 1, 2)
+    return [f.permute(0, 2, 3, 1) for f in lpips.features(x)]
+
+
+def lpips_distance(alex_params: Dict, lin_weights: List[np.ndarray], img0, img1
+                   ) -> torch.Tensor:
+    """(B,) LPIPS distances of (B, H, W, 3) RGB in [-1, 1] on ``img0``'s
+    device (the CPU for numpy): an :class:`LPIPS` module over the weights,
+    the counterpart of ``tecogan_tpu/eval/lpips.py:95``."""
+    return LPIPS(alex_params, lin_weights, _device_of(img0))(img0, img1)
 
 
 def _unit_normalize(f: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:

@@ -27,6 +27,15 @@ def _gaussian_taps(sigma: float) -> np.ndarray:
     return taps
 
 
+def gaussian_kernel_2d(size: int, sigma: float) -> np.ndarray:
+    """The normalised (size, size) Gaussian kernel, float64 (scipy's
+    gaussian window; reference lib/ops.py:339-345)."""
+    n = np.arange(size, dtype=np.float64) - (size - 1) / 2.0
+    g1 = np.exp(-0.5 * (n / sigma) ** 2)
+    g2 = np.outer(g1, g1)
+    return g2 / g2.sum()
+
+
 @functools.lru_cache(maxsize=None)
 def _device_taps(sigma: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """The taps on ``device``, uploaded once: a captured training step

@@ -117,6 +117,11 @@ def upscale_bilinear(x: torch.Tensor, factor: int) -> torch.Tensor:
                                _BILINEAR_OFFSETS)
 
 
+def upscale_four(x: torch.Tensor) -> torch.Tensor:
+    """4x bilinear upscale (reference lib/ops.py:126-163)."""
+    return upscale_bilinear(x, 4)
+
+
 def bicubic_four(x: torch.Tensor) -> torch.Tensor:
     """4x Catmull-Rom bicubic upscale of (B, H, W, C)."""
     return _separable_upsample(x, _catmull_rom_weights(), _BICUBIC_OFFSETS)

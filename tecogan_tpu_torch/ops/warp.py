@@ -101,6 +101,11 @@ def dense_image_warp(
     return out
 
 
+# The JAX package's direct 4-gather oracle (``tecogan_tpu/ops/warp.py:671``)
+# is what the port's warp is: the same corners, clamps and lerp.
+dense_image_warp_reference = dense_image_warp
+
+
 def warp_space_to_depth(
     image: torch.Tensor,
     flow: torch.Tensor,

@@ -15,12 +15,21 @@ main.py:307-352).
   discriminator leaves the fresh one;
 - the last ``keep`` (50) checkpoints are kept (reference main.py:307).
 
-Layout: ``<ckpt_dir>/<step>/state.pt``, one ``torch.save`` of a dict of
-tensors and plain values (read back with ``weights_only=True``), written to
-a temporary directory and renamed into place. The JAX package's orbax
-checkpoints are not read; weights cross between the packages through
-``weights.params_to_npz`` / ``read_params_npz``. :func:`load_models`
-reads a checkpoint's generator and FNet for the inference CLI.
+Two layouts of a step directory ``<ckpt_dir>/<step>/``, read by every
+entry point (:func:`latest_step` takes the newest step of either):
+
+- the port's: ``<step>/state.pt``, one ``torch.save`` of a dict of tensors
+  and plain values (read back with ``weights_only=True``), written by
+  :func:`save_checkpoint` (the trainer and the loop) to a temporary
+  directory and renamed into place;
+- the JAX package's: an orbax checkpoint, ``<step>/default/_METADATA`` and
+  its arrays (OCDBT store or one zarr directory a leaf), read through
+  ``train/orbax_io.py`` (no JAX, orbax or tensorstore) and mapped by
+  ``weights.train_state_from_jax``; :func:`save_jax_checkpoint` writes
+  one, which the JAX package's ``restore_checkpoint`` reads.
+
+:func:`load_models` reads a checkpoint's generator and FNet for the
+inference CLI.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn as nn
 
+from tecogan_tpu_torch.train import orbax_io
 from tecogan_tpu_torch.train.trainer import TrainState
 
 _GAN_FIELDS = ("ema_tbalance", "counter_with_d", "counter_wo_d")
@@ -42,23 +52,31 @@ _GROWN_CONV_1 = re.compile(r"resblocks\.\d+\.conv_1\.")
 
 
 def _steps(ckpt_dir: str) -> List[int]:
+    """The steps under ``ckpt_dir`` in either layout."""
     if not os.path.isdir(ckpt_dir):
         return []
     return sorted(int(d) for d in os.listdir(ckpt_dir)
-                  if d.isdigit() and os.path.isfile(os.path.join(ckpt_dir, d, _STATE_FILE)))
+                  if d.isdigit() and (os.path.isfile(os.path.join(ckpt_dir, d, _STATE_FILE))
+                                      or orbax_io.is_jax_step(os.path.join(ckpt_dir, d))))
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
-    """The newest checkpoint's step under ``ckpt_dir``, or None."""
+    """The newest checkpoint's step under ``ckpt_dir`` (either layout), or
+    None."""
     steps = _steps(ckpt_dir)
     return steps[-1] if steps else None
 
 
-def _path(ckpt_dir: str, step: Optional[int]) -> str:
+def _step_dir(ckpt_dir: str, step: Optional[int]) -> str:
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"No checkpoint under {ckpt_dir}")
-    return os.path.join(ckpt_dir, str(step), _STATE_FILE)
+    return os.path.join(ckpt_dir, str(step))
+
+
+def _prune(ckpt_dir: str, keep: int) -> None:
+    for old in _steps(ckpt_dir)[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, str(old)))
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, keep: int = 50) -> str:
@@ -83,13 +101,40 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, keep: int = 50) -> str:
         payload.update({k: getattr(state, k) for k in _GAN_FIELDS})
     torch.save(payload, os.path.join(tmp, _STATE_FILE))
     os.replace(tmp, final)
-    for old in _steps(ckpt_dir)[:-keep]:
-        shutil.rmtree(os.path.join(ckpt_dir, str(old)))
+    _prune(ckpt_dir, keep)
     return final
 
 
-def _load(ckpt_dir: str, step: Optional[int]) -> Dict:
-    return torch.load(_path(ckpt_dir, step), map_location="cpu", weights_only=True)
+def save_jax_checkpoint(ckpt_dir: str, state: TrainState, keep: int = 50) -> str:
+    """Save ``state`` at its step in the JAX package's orbax layout
+    (``orbax_io.write_jax_checkpoint`` of ``weights.train_state_to_jax``),
+    which its ``restore_checkpoint`` reads and every entry point here
+    too; drop all but the newest ``keep`` steps of either layout."""
+    from tecogan_tpu_torch.weights import train_state_to_jax
+
+    final = orbax_io.write_jax_checkpoint(ckpt_dir, state.step, train_state_to_jax(state),
+                                          keep=keep)
+    _prune(ckpt_dir, keep)
+    return final
+
+
+def _load(step_dir: str) -> Dict:
+    """A step in the port's layout, or a JAX one as the port's state dicts
+    of the models (``generator``, ``fnet``, ``discriminator`` or None)
+    with its ``step``."""
+    if not orbax_io.is_jax_step(step_dir):
+        return torch.load(os.path.join(step_dir, _STATE_FILE), map_location="cpu",
+                          weights_only=True)
+    from tecogan_tpu_torch import weights
+
+    tree = orbax_io.read_jax_checkpoint(step_dir)
+    gen, fnet = weights.from_jax_params(tree["gen_params"], tree["fnet_params"])
+    payload = {"step": int(tree["step"]), "generator": gen.state_dict(),
+               "fnet": fnet.state_dict(), "discriminator": None}
+    if tree.get("d_params") is not None:
+        payload["discriminator"] = weights.discriminator_from_jax(
+            tree["d_params"], tree["d_batch_stats"]).state_dict()
+    return payload
 
 
 @torch.no_grad()
@@ -125,10 +170,15 @@ def _load_adam_(opt: torch.optim.Adam, saved: Dict) -> None:
 def restore_checkpoint(ckpt_dir: str, state: TrainState,
                        step: Optional[int] = None) -> TrainState:
     """Full resume into ``state`` (modules and optimizers built as for the
-    saved run) from ``step`` or the newest checkpoint; returns it. Every
-    tensor is restored in place, so the trainer's captured steps over
-    ``state`` go on replaying over it."""
-    payload = _load(ckpt_dir, step)
+    saved run) from ``step`` or the newest checkpoint, of either layout;
+    returns it. Every tensor is restored in place, so the trainer's
+    captured steps over ``state`` go on replaying over it."""
+    step_dir = _step_dir(ckpt_dir, step)
+    if orbax_io.is_jax_step(step_dir):
+        from tecogan_tpu_torch.weights import train_state_from_jax
+
+        return train_state_from_jax(orbax_io.read_jax_checkpoint(step_dir), state)
+    payload = _load(step_dir)
     state.generator.load_state_dict(payload["generator"])
     state.fnet.load_state_dict(payload["fnet"])
     _load_adam_(state.gen_opt, payload["gen_opt"])
@@ -146,12 +196,13 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState,
 
 
 def load_models(ckpt_dir: str, config):
-    """The generator and FNet of the newest checkpoint, for inference: ``(step,
-    generator, fnet)`` as float32 CPU modules. Depth and widths are the
-    checkpoint's (read from its shapes), the flow's velocity ``config``'s."""
+    """The generator and FNet of the newest checkpoint (either layout), for
+    inference: ``(step, generator, fnet)`` as float32 CPU modules. Depth
+    and widths are the checkpoint's (read from its shapes), the flow's
+    velocity ``config``'s."""
     from tecogan_tpu_torch.models import FNet, Generator
 
-    payload = _load(ckpt_dir, None)
+    payload = _load(_step_dir(ckpt_dir, None))
     gen_sd, fnet_sd = payload["generator"], payload["fnet"]
     depth = sum(1 for k in gen_sd if re.fullmatch(r"resblocks\.\d+\.conv_1\.weight", k))
     if depth == 0:
@@ -252,11 +303,11 @@ def warm_start(state: TrainState, ckpt_dir: str, step: Optional[int] = None,
     ``checkpoint.py:151-212``). A model of another depth takes
     :func:`merge_partial_restore` with zero fill; the discriminator, with
     its running statistics, is taken when ``include_discriminator`` and
-    the checkpoint has one. ``ckpt_dir`` may also be a TF checkpoint dumped
-    to ``.npz`` (:func:`warm_start_tf_npz`)."""
+    the checkpoint has one. ``ckpt_dir`` holds steps of either layout, or
+    is a TF checkpoint dumped to ``.npz`` (:func:`warm_start_tf_npz`)."""
     if os.path.isfile(ckpt_dir) and ckpt_dir.endswith(".npz"):
         return warm_start_tf_npz(state, ckpt_dir, include_discriminator)
-    payload = _load(ckpt_dir, step)
+    payload = _load(_step_dir(ckpt_dir, step))
     return _warm_start_modules(state, payload, ckpt_dir, include_discriminator)
 
 

@@ -5,7 +5,9 @@ In reference order:
 
 - config dump into the output and summary dirs (main.py:274-277);
 - restore: full resume from this run's checkpoints, else a warm start of
-  the weights from ``pre_trained_dir`` (main.py:312-324,345-352);
+  the weights from ``pre_trained_dir`` (main.py:312-324,345-352); either
+  may be the port's or the JAX package's orbax checkpoints (a JAX run
+  resumed here goes on saving the port's ``state.pt`` beside its steps);
 - the step loop with display / summary / save frequencies
   (main.py:377-421), printing ``image/sec*frames`` like the reference
   (main.py:404-411); validation losses every ``summary_freq`` on the
@@ -168,8 +170,8 @@ def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
           capture: Optional[bool] = None) -> TrainState:
     """Train on ``device`` to ``config.max_iter`` (or ``max_steps``) steps;
     returns the final state. ``vgg``: VGG19 weights for ``vgg_scaling >
-    0``. ``pre_trained_dir``: a run's checkpoint dir or a TF npz to
-    warm-start from. Checkpoints go to ``<output_dir>/checkpoints``, scalars
+    0``. ``pre_trained_dir``: a run's checkpoint dir (the port's or the
+    JAX package's) or a TF npz to warm-start from. Checkpoints go to ``<output_dir>/checkpoints``, scalars
     to ``<summary_dir>/scalars.jsonl`` and its TensorBoard event file, the
     sequence GIFs to ``<summary_dir>`` (default ``<output_dir>/log``).
     ``capture``: as :class:`Trainer`'s (None captures on the card)."""

@@ -1175,3 +1175,49 @@ def test_reader_and_nv12_kernel_over_the_model_decoder(model_decoder, tmp_path, 
     NV12 launch a frame, and ``seek`` on the B-frame stream."""
     _streams_bit_equal(model_decoder, tmp_path, container)
     _seek_b_frames(model_decoder, tmp_path, container)
+
+
+@pytest.mark.cuda
+def test_orbax_fixture_reads_without_jax(cuda_device):
+    """The committed JAX-written orbax fixture (OCDBT store, zstd) read by
+    the port alone, on the card's machine: every leaf equal to its recorded
+    SHA-256 (chip_smoke.py phase 16 (a))."""
+    import hashlib
+    import json
+
+    from chip_smoke import ORBAX_FIXTURE, ORBAX_SHA256, _flat_leaves
+    from tecogan_tpu_torch.train.orbax_io import read_jax_checkpoint
+
+    want = json.loads(ORBAX_SHA256.read_text())
+    leaves = _flat_leaves(read_jax_checkpoint(str(ORBAX_FIXTURE / str(want["step"]))))
+    got = {"/".join(p): hashlib.sha256(a.tobytes()).hexdigest() for p, a in leaves}
+    assert got == {k: v["sha256"] for k, v in want["leaves"].items()}
+
+
+@pytest.mark.cuda
+def test_load_models_from_a_jax_layout_checkpoint_streams_like_cpu(cuda_device, tmp_path):
+    """``save_jax_checkpoint`` of a 2-block FRVSR state, then ``load_models``:
+    the card's streaming output equals the CPU path's at phase 5's
+    tolerance, and the kernels ran."""
+    from chip_smoke import PATH_TOL, rel_err
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.recurrent import StreamingSR
+    from tecogan_tpu_torch.train.checkpoint import load_models, save_jax_checkpoint
+
+    cfg = FRVSR_PRESET.replace(num_resblock=2, compute_dtype="float32", infer_chunk=4)
+    state = Trainer(cfg, "cpu").init_state(3)
+    state.step = 5
+    save_jax_checkpoint(str(tmp_path / "ckpt"), state)
+    frames = np.random.RandomState(4).rand(6, 32, 48, 3).astype(np.float32)
+    outs = []
+    before = (upsample4.launches, resblock_chain.launches)
+    for device in (cuda_device, torch.device("cpu")):
+        step, gen, fnet = load_models(str(tmp_path / "ckpt"), cfg)
+        assert step == 5 and len(gen.resblocks) == 2
+        out, _ = StreamingSR(TecoConfig(num_resblock=2, compute_dtype="float32",
+                                        infer_chunk=4), gen, fnet, output="float32",
+                             device=device).run(frames)
+        outs.append(torch.from_numpy(out))
+    assert upsample4.launches > before[0] and resblock_chain.launches > before[1]
+    assert outs[0].shape == (6, 128, 192, 3)
+    assert rel_err(*outs)[1] <= PATH_TOL

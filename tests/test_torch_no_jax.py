@@ -1,5 +1,6 @@
 """The port and its smoke script import neither JAX, flax nor the JAX
-package, nor OpenCV, PIL, pandas, tensorboardX or tensorboard: they run on
+package, nor OpenCV, PIL, pandas, tensorboardX or tensorboard, nor the
+checkpoint libraries tensorstore, zstandard, zarr or numcodecs: they run on
 machines that have only PyTorch, numpy and scipy."""
 
 import ast
@@ -9,7 +10,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tecogan_tpu",
-             "cv2", "PIL", "pandas", "tensorboardX", "tensorboard"}
+             "cv2", "PIL", "pandas", "tensorboardX", "tensorboard",
+             "tensorstore", "zstandard", "zarr", "numcodecs"}
 PACKAGE = REPO / "tecogan_tpu_torch"
 SOURCES = sorted(p for p in PACKAGE.rglob("*.py")
                  if "_build" not in p.relative_to(PACKAGE).parts)  # build output
