@@ -4076,6 +4076,448 @@ def run_orbax(dev, card: str, tmp: str) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------- phase 17
+# Parallelism on one card (tecogan_tpu_torch/parallel): the mesh names
+# cuda:0 twice, so every sharded path runs at its real shard shapes with the
+# real kernels and halo logic; two shards or two stages on one card say
+# nothing about scaling, so the times are printed as the cost of the
+# sharding. Peer copies and NCCL at world size > 1 need two cards.
+PAR_FRAMES, PAR_CHUNK, PAR_SHARDS, PAR_SLOTS = 8, 4, 2, 4
+# Phase 17 (c): the two ranks' step against one process on their
+# concatenated batch (losses, gradients, D's statistics), phase 7's
+# tolerance, relative to each tensor's scale.
+PAR_STEP_TOL = STEP_GRAD_TOL
+# Launches a run, step or tick on each parallel path, by kernel, for the
+# kernels line.
+PARALLEL = {}
+
+
+def _launch_counts():
+    from tecogan_tpu_torch.kernels import resblock_chain, upsample4, upsample4_bwd
+
+    return {"resblock_chain": resblock_chain.launches, "upsample4": upsample4.launches,
+            "upsample4_bwd": upsample4_bwd.launches}
+
+
+def _zero_counts() -> None:
+    from tecogan_tpu_torch.kernels import resblock_chain, upsample4, upsample4_bwd
+
+    resblock_chain.launches = upsample4.launches = upsample4_bwd.launches = 0
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms`` and cuDNN's deterministic
+    algorithms, TF32 off, restored after."""
+    flags = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(flags[0])
+        torch.backends.cudnn.deterministic = flags[1]
+        torch.backends.cudnn.allow_tf32 = flags[2]
+
+
+PAR_RUNS = 2  # timed runs after a warm-up run
+
+
+def _timed_run(sr, frames, runs: int = PAR_RUNS):
+    """A warm-up run, then ``runs`` timed runs: (output, wall seconds of
+    each, launches of the last)."""
+    sr.run(frames)
+    secs = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        _zero_counts()
+        out, s = sr.run(frames)
+        torch.cuda.synchronize()
+        secs.append(s)
+    return out, secs, _launch_counts()
+
+
+def quantize(x: torch.Tensor) -> torch.Tensor:
+    """HR frames in [0, 1] to uint8, as the port quantises them."""
+    return (x.float() * 255.0).clamp_(0.0, 255.0).to(torch.uint8)
+
+
+def spatial_teacher_forced(dev, cfg, models, frames: np.ndarray, devices) -> int:
+    """Each frame's sharded frame step (FNet, the flow upsample, the warp
+    and the generator over row shards, ``ShardedStep.frame_step``) from the
+    unsharded run's state, against the unsharded frame step: the largest
+    uint8 difference over the frames. Unlike two free-running streams,
+    whose states drift apart once cuDNN rounds one convolution otherwise
+    at the shards' shapes, every frame is held on its own."""
+    from tecogan_tpu_torch.parallel.spatial import ShardedState, ShardedStep, gather_rows
+    from tecogan_tpu_torch.recurrent.inference import place_models
+    from tecogan_tpu_torch.recurrent.step import frame_step, init_state
+
+    gen, fnet = place_models(*models, dev, cfg.torch_dtype)
+    step = ShardedStep(gen, fnet, devices, max_displacement=4.0 * cfg.flow_max_velocity)
+    h, w = frames.shape[1:3]
+    state, worst = init_state(1, h, w, cfg.torch_dtype, dev), 0
+    with torch.inference_mode():
+        for frame in frames:
+            lr = (torch.from_numpy(frame[None]).to(dev).float() / 255.0).to(cfg.torch_dtype)
+            sharded = ShardedState(step.split(state.prev_lr), step.split(state.prev_hr, 4))
+            _, hr_s = step.frame_step(sharded, step.split(lr))
+            state, hr = frame_step(gen, fnet, state, lr)
+            diff = quantize(gather_rows(hr_s, dev)).int() - quantize(hr).int()
+            worst = max(worst, int(diff.abs().max()))
+    return worst
+
+
+def run_spatial(dev, card: str) -> None:
+    """Phase 17 (a): ``StreamingSR`` on a 2-shard mesh ``[cuda:0, cuda:0]``
+    at LR 144x180, full width, against the unsharded run; the halo warp
+    bit-equal to the unsharded warp at the path's HR shape."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.ops.warp import warp_space_to_depth, warp_space_to_depth_halo
+    from tecogan_tpu_torch.parallel import make_mesh
+    from tecogan_tpu_torch.parallel.spatial import shard_rows
+    from tecogan_tpu_torch.recurrent import StreamingSR
+
+    mesh = make_mesh({"space": PAR_SHARDS}, [dev] * PAR_SHARDS)
+    gen = torch.Generator().manual_seed(171)
+    image = torch.rand((1, 4 * LR_H, 4 * LR_W, 3), generator=gen)
+    flow = (torch.rand((1, 4 * LR_H, 4 * LR_W, 2), generator=gen) * 2 - 1) * 96.0
+    for dtype in (torch.float32, torch.bfloat16):
+        img, fl = image.to(dev, dtype), flow.to(dev, dtype)
+        want = warp_space_to_depth(img, fl, 4)
+        got = warp_space_to_depth_halo(img, fl, mesh, "space", 4, max_displacement=96.0)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"[par] the {dtype} halo warp differs from the unsharded warp")
+    log(f"[par] (a) halo warp, {PAR_SHARDS} shards of {4 * LR_H // PAR_SHARDS} HR rows on "
+        f"{dev} twice, halo 97 rows, |flow| <= 96: float32 and bfloat16 bit-equal to the "
+        f"unsharded warp at {4 * LR_H}x{4 * LR_W}")
+    frames = (np.random.RandomState(172).rand(PAR_FRAMES, LR_H, LR_W, 3) * 255).astype(np.uint8)
+    chunks = -(-PAR_FRAMES // PAR_CHUNK)
+    for dtype, output in (("float32", "float32"), ("bfloat16", "uint8")):
+        cfg = TecoConfig(num_resblock=NUM_RESBLOCK, compute_dtype=dtype, infer_chunk=PAR_CHUNK)
+        runs = {}
+        with deterministic():
+            for name, m in (("unsharded", None), ("sharded", mesh)):
+                sr = StreamingSR(cfg, *build_models(173, cfg), output=output, device=dev,
+                                 capture=False, spatial_mesh=m)
+                out, secs, launches = _timed_run(sr, frames)
+                runs[name] = dict(out=out, secs=secs, launches=launches, sr=sr)
+            forced = spatial_teacher_forced(dev, cfg, build_models(173, cfg), frames,
+                                            [dev] * PAR_SHARDS)
+        a, b = runs["sharded"]["out"], runs["unsharded"]["out"]
+        if a.shape != (PAR_FRAMES, 4 * LR_H, 4 * LR_W, 3) or a.shape != b.shape:
+            raise RuntimeError(f"[par] (a) {dtype}: shapes {a.shape} {b.shape}")
+        if output == "uint8":
+            # bfloat16: cuDNN may round a convolution otherwise at the
+            # shards' shapes (FNet over a chunk's 4 pairs), and random
+            # weights carry that through the recurrence, so the free-running
+            # streams are printed; the first frame (zero state) and every
+            # frame's step on its own (``forced``) are held to 1 level.
+            diff = np.abs(a.astype(np.int16) - b)
+            first = int(diff[0].max())
+            ok = first <= 1 and forced <= 1
+            what = (f"free-running uint8 max |diff| {int(diff.max())} level(s) on "
+                    f"{(diff != 0).mean():.2e} of the values (printed, not held), the first "
+                    f"frame {first}, each frame's sharded step from the unsharded state "
+                    f"{forced}, tol 1 level")
+        else:
+            err, rel = rel_err(torch.from_numpy(a), torch.from_numpy(b))
+            ok = rel <= PATH_TOL and forced <= 1
+            what = (f"float max_abs_err={err:.3e} rel={rel:.3e} tol={PATH_TOL:.0e}; each "
+                    f"frame's sharded step from the unsharded state within {forced} uint8 "
+                    f"level(s), tol 1")
+        step = runs["sharded"]["sr"].step
+        need = {"resblock_chain": NUM_RESBLOCK * PAR_SHARDS * PAR_FRAMES,
+                "upsample4": PAR_SHARDS * (PAR_FRAMES + chunks), "upsample4_bwd": 0}
+        got = runs["sharded"]["launches"]
+        log(f"[par] (a) spatial streaming {dtype} -> {output}, {PAR_FRAMES} frames "
+            f"{LR_H}x{LR_W} -> {4 * LR_H}x{4 * LR_W}, {NUM_RESBLOCK} resblocks, chunk "
+            f"{PAR_CHUNK}, {PAR_SHARDS} shards of {shard_rows(LR_H, PAR_SHARDS)} LR rows on {dev} "
+            f"twice, eager, halo depth k={step.chain_blocks} blocks a chain call "
+            f"({2 * step.chain_blocks}-row halo), halo warps {step.halo_warps}, gathered "
+            f"warps {step.gather_warps} in {1 + PAR_RUNS} runs: sharded vs unsharded {what}; launches a run sharded "
+            f"{got} (a frame: chain {got['resblock_chain'] / PAR_FRAMES:g}, K1 "
+            f"{got['upsample4'] / PAR_FRAMES:g}), unsharded {runs['unsharded']['launches']}; "
+            f"wall s a run sharded {', '.join(f'{s:.4f}' for s in runs['sharded']['secs'])}, "
+            f"unsharded {', '.join(f'{s:.4f}' for s in runs['unsharded']['secs'])} (one card: "
+            f"the cost of the sharding, no scaling claimed); card: {card}")
+        if not ok:
+            raise RuntimeError(f"[par] (a) {dtype}: sharded differs from unsharded: {what}")
+        if got != need or step.halo_warps != (1 + PAR_RUNS) * PAR_FRAMES or step.gather_warps:
+            raise RuntimeError(f"[par] (a) {dtype}: launches {got}, want {need}; halo warps "
+                               f"{step.halo_warps}, gathered {step.gather_warps}")
+        PARALLEL[f"spatial_{dtype}_run"] = got
+
+
+def run_pipeline(dev, card: str) -> None:
+    """Phase 17 (b): ``PipelinedStreamingSR`` with both stages on
+    ``cuda:0`` (two streams) against ``StreamingSR(capture=False)``."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.parallel import PipelinedStreamingSR
+    from tecogan_tpu_torch.recurrent import StreamingSR
+
+    cfg = TecoConfig(num_resblock=NUM_RESBLOCK, compute_dtype="bfloat16", infer_chunk=PAR_CHUNK)
+    frames = (np.random.RandomState(174).rand(PAR_FRAMES, LR_H, LR_W, 3) * 255).astype(np.uint8)
+    with deterministic():
+        ref = StreamingSR(cfg, *build_models(175, cfg), output="uint8", device=dev, capture=False)
+        want, ref_secs, ref_launches = _timed_run(ref, frames)
+        pipe = PipelinedStreamingSR(cfg, *build_models(175, cfg), output="uint8",
+                                    flow_device=dev, recurrent_device=dev)
+        got, secs, launches = _timed_run(pipe, frames)
+    same = np.array_equal(got, want)
+    log(f"[par] (b) pipeline, flow and recurrent stages on {dev} (two streams), bfloat16 -> "
+        f"uint8, {PAR_FRAMES} frames {LR_H}x{LR_W}, chunk {PAR_CHUNK}, cuDNN deterministic: "
+        f"{'bit-equal to' if same else 'DIFFERS from'} StreamingSR(capture=False); launches a "
+        f"run {launches} (StreamingSR {ref_launches}); wall s a run pipeline "
+        f"{', '.join(f'{s:.4f}' for s in secs)}, StreamingSR eager "
+        f"{', '.join(f'{s:.4f}' for s in ref_secs)} (one card); card: {card}")
+    if not same or launches != ref_launches:
+        raise RuntimeError("[par] (b) the pipeline differs from StreamingSR")
+    PARALLEL["pipeline_run"] = launches
+
+
+def _dp_configs():
+    """Phase 17 (c)'s steps: FRVSR (phase 7's) and TecoGAN (phase 10's
+    widths) at a global batch of 2, with random VGG19 weights."""
+    from tecogan_tpu_torch.config import FRVSR_PRESET, TECOGAN_PRESET
+
+    return {"frvsr": FRVSR_PRESET.replace(batch_size=2, rnn_n=4),
+            "tecogan": TECOGAN_PRESET.replace(batch_size=2, rnn_n=3)}
+
+
+def _dp_step(trainer, state, batch):
+    """One timed step: (metrics, seconds, launches)."""
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    _, metrics = trainer.train_step(state, batch)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    torch.cuda.synchronize()
+    return metrics, time.perf_counter() - t0, _launch_counts()
+
+
+def _dp_state(trainer, state):
+    """Gradients and D's running statistics after a step, on the host."""
+    out = {}
+    for prefix in ("generator", "fnet", "discriminator"):
+        module = getattr(state, prefix)
+        if module is None:
+            continue
+        for name, p in module.named_parameters():
+            out[f"grad.{prefix}.{name}"] = p.grad.detach().float().cpu()
+        if prefix == "discriminator":
+            for name, b in module.named_buffers():
+                out[f"stats.{name}"] = b.detach().float().cpu()
+    return out
+
+
+def dp_worker(port: str, rank: str, out_path: str) -> None:
+    """One rank of phase 17 (c)'s world size 2 over gloo (``chip_smoke.py
+    --dp-worker PORT RANK OUT``): each preset's first step, eager, on this
+    rank's half of the global batch; its metrics, gradients, D statistics,
+    seconds and launches saved to OUT."""
+    sys.path.insert(0, str(REPO))
+    from tecogan_tpu_torch.models.vgg19 import random_vgg19
+    from tecogan_tpu_torch.parallel import DataParallelTrainer, init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f"localhost:{port}", 2, int(rank), backend="gloo")
+    dev = torch.device("cuda", 0)
+    results = {}
+    for preset, cfg in _dp_configs().items():
+        trainer = DataParallelTrainer(cfg, dev, vgg=random_vgg19(7) if cfg.gan else None,
+                                      capture=False)
+        state = trainer.init_state(12)
+        fix_flows_mid_cell(state)
+        batch = trainer.put_batch(frvsr_batch(cfg, cfg.batch_size, 176))
+        metrics, secs, launches = _dp_step(trainer, state, batch)
+        results[preset] = dict(metrics=metrics, secs=secs, launches=launches,
+                               tensors=_dp_state(trainer, state))
+    torch.save(results, out_path)
+    torch.distributed.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_data_parallel(dev, card: str, tmp: str) -> None:
+    """Phase 17 (c): ``DataParallelTrainer`` at world size 1 over NCCL,
+    captured, bit-equal to the plain ``Trainer`` (FRVSR and TecoGAN, two
+    steps, every state tensor); then world size 2 over gloo in two
+    processes on this card, eager, against one process on the
+    concatenated batch."""
+    import torch.distributed as dist
+
+    from tecogan_tpu_torch.models.vgg19 import random_vgg19
+    from tecogan_tpu_torch.parallel import DataParallelTrainer, init_distributed
+    from tecogan_tpu_torch.train import Trainer
+    from tecogan_tpu_torch.train.trainer import named_state_tensors
+
+    configs = _dp_configs()
+    if init_distributed(f"localhost:{_free_port()}", 1, 0, backend="nccl") != 1:
+        raise RuntimeError("[par] (c) the NCCL group is not of size 1")
+    try:
+        for preset, cfg in configs.items():
+            batches = [frvsr_batch(cfg, cfg.batch_size, 177 + i) for i in range(2)]
+            finals, log_steps = {}, {}
+            with deterministic():
+                for name, cls in (("Trainer", Trainer), ("DataParallelTrainer", DataParallelTrainer)):
+                    trainer = cls(cfg, dev, vgg=random_vgg19(7) if cfg.gan else None)
+                    state = trainer.init_state(12)
+                    fix_flows_mid_cell(state)
+                    steps = [_dp_step(trainer, state, b) for b in batches]
+                    finals[name] = ([s[0] for s in steps],
+                                    [(n, t.detach().clone()) for n, t in named_state_tensors(state)])
+                    log_steps[name] = (trainer.capture, steps)
+                    del trainer, state
+            (m_a, s_a), (m_b, s_b) = finals["Trainer"], finals["DataParallelTrainer"]
+            differ = [n for (n, a), (_, b) in zip(s_a, s_b) if not torch.equal(a, b)]
+            captured, steps = log_steps["DataParallelTrainer"]
+            log(f"[par] (c) {preset} DataParallelTrainer at world size 1 over NCCL "
+                f"({'captured' if captured else 'eager'}), {cfg.num_resblock} resblocks, batch "
+                f"{cfg.batch_size}, {cfg.rnn_n} frames, crop {cfg.crop_size}, 2 steps vs the plain "
+                f"Trainer under deterministic algorithms: metrics "
+                f"{'bit-equal' if m_a == m_b else 'DIFFER'}, {len(s_a) - len(differ)} of "
+                f"{len(s_a)} state tensors bit-equal; step s (first: warm-up, capture, replay) "
+                f"{', '.join(f'{s[1]:.4f}' for s in steps)} (Trainer "
+                f"{', '.join(f'{s[1]:.4f}' for s in log_steps['Trainer'][1])}); launches a "
+                f"step {steps[1][2]} (first {steps[0][2]}); card: {card}")
+            if m_a != m_b or differ or not captured:
+                raise RuntimeError(f"[par] (c) {preset} world size 1: metrics equal "
+                                   f"{m_a == m_b}, differing state {differ[:5]}, captured "
+                                   f"{captured}")
+            PARALLEL[f"dp_{preset}_world1_step"] = steps[1][2]
+    finally:
+        dist.destroy_process_group()
+
+    port = str(_free_port())
+    paths = [os.path.join(tmp, f"dp_rank{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--dp-worker", port,
+                               str(r), paths[r]], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    for r, p in enumerate(procs):
+        out, _ = p.communicate(timeout=300)
+        if p.returncode != 0:
+            raise RuntimeError(f"[par] (c) gloo rank {r} failed (rc {p.returncode}):\n{out[-3000:]}")
+    ranks = [torch.load(path) for path in paths]
+    with deterministic():
+        for preset, cfg in configs.items():
+            trainer = Trainer(cfg, dev, vgg=random_vgg19(7) if cfg.gan else None, capture=False)
+            state = trainer.init_state(12)
+            fix_flows_mid_cell(state)
+            metrics, secs, launches = _dp_step(trainer, state,
+                                               frvsr_batch(cfg, cfg.batch_size, 176))
+            want = _dp_state(trainer, state)
+            got = ranks[0][preset]
+            if got["metrics"] != ranks[1][preset]["metrics"]:
+                raise RuntimeError(f"[par] (c) {preset}: the ranks' metrics differ")
+            worst, worst_name = 0.0, ""
+            for k, v in want.items():
+                scale = max(v.abs().max().item(), 1e-30)
+                rel = (got["tensors"][k] - v).abs().max().item() / scale
+                if rel > worst:
+                    worst, worst_name = rel, k
+            loss_worst = max(
+                abs(got["metrics"][k] - v) / max(abs(metrics["t_adversarial_loss"]
+                                                     if k == "t_balance" else v), 1e-30)
+                for k, v in metrics.items() if k != "learning_rate")
+            rank_launches = [r[preset]["launches"] for r in ranks]
+            log(f"[par] (c) {preset} world size 2 over gloo, two processes on {dev}, eager, "
+                f"batch {cfg.batch_size // 2} a rank, against one process on the batch of "
+                f"{cfg.batch_size}: the ranks' metrics identical; losses worst rel "
+                f"{loss_worst:.3e}, gradients and D statistics worst rel {worst:.3e} "
+                f"({worst_name}), tol {PAR_STEP_TOL:.0e}; step s rank 0 "
+                f"{got['secs']:.4f}, rank 1 {ranks[1][preset]['secs']:.4f}, one process "
+                f"{secs:.4f}; launches a step a rank {rank_launches[0]}, one process "
+                f"{launches}; card: {card}")
+            if worst > PAR_STEP_TOL or loss_worst > PAR_STEP_TOL:
+                raise RuntimeError(f"[par] (c) {preset}: world size 2 differs from one process")
+            if rank_launches[0] != launches or rank_launches[1] != launches:
+                raise RuntimeError(f"[par] (c) {preset}: launches {rank_launches} vs {launches}")
+            PARALLEL[f"dp_{preset}_world2_step_per_rank"] = rank_launches[0]
+
+
+def run_slot_pool(dev, card: str) -> None:
+    """Phase 17 (d): ``VSRServer`` with a 2-device mesh ``[cuda:0,
+    cuda:0]`` and 4 slots, captured: every tick bit-equal to two unsharded
+    2-slot pools serving the same streams (each device's batch), and its
+    first tick (the zero state) to the unsharded 4-slot pool's. Later
+    ticks of the 4-slot pool drift from the 2-slot ones by cuDNN's choice
+    of algorithm by batch size (FNet's bfloat16 flows of a batch of 4 and
+    2 differ by one ulp, which random weights amplify through the
+    recurrence): printed, not held."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.parallel import make_mesh
+    from tecogan_tpu_torch.serve import VSRServer
+
+    cfg = TecoConfig(num_resblock=NUM_RESBLOCK, compute_dtype="bfloat16")
+    mesh = make_mesh({cfg.dp_axis: 2}, [dev, dev])
+    rng = np.random.RandomState(178)
+    clips = {f"s{k}": (rng.rand(PAR_FRAMES, LR_H, LR_W, 3) * 255).astype(np.uint8)
+             for k in range(PAR_SLOTS)}
+    halves = [list(clips)[:PAR_SLOTS // 2], list(clips)[PAR_SLOTS // 2:]]
+    outs, secs, launches = {}, {}, {}
+    with deterministic():
+        for name, m, groups in (("4-slot", None, [list(clips)]), ("mesh", mesh, [list(clips)]),
+                                ("2-slot", None, halves)):
+            servers = []
+            for group in groups:
+                srv = VSRServer(cfg, *build_models(179, cfg), LR_H, LR_W,
+                                max_streams=len(group), mesh=m, device=dev)
+                for sid in group:
+                    srv.open(sid)
+                srv.prewarm()
+                servers.append((srv, group))
+            ticks = []
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            for t in range(PAR_FRAMES):
+                tick = {}
+                for srv, group in servers:
+                    tick.update(srv.step({sid: clips[sid][t] for sid in group}))
+                ticks.append(tick)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            launches[name] = {k: v / PAR_FRAMES for k, v in _launch_counts().items()}
+            outs[name] = ticks
+
+    def diff(a, b):
+        return [int(np.abs(x[sid].astype(np.int16) - y[sid]).max()) for x, y in zip(a, b)
+                for sid in clips]
+
+    per_device, wide = diff(outs["mesh"], outs["2-slot"]), diff(outs["mesh"], outs["4-slot"])
+    first = wide[:PAR_SLOTS]
+    log(f"[par] (d) VSRServer, {PAR_SLOTS} slots over a 2-device mesh on {dev} twice (2 slots "
+        f"a device, each with its weights, state and captured tick), bfloat16, {LR_H}x{LR_W}, "
+        f"{PAR_FRAMES} ticks of {PAR_SLOTS} streams, cuDNN deterministic: every tick "
+        f"{'bit-equal to' if not any(per_device) else 'DIFFERS from'} two unsharded 2-slot "
+        f"pools on the same streams; against the unsharded 4-slot pool the first tick max "
+        f"|diff| {max(first)} level(s), the later ticks {max(wide[PAR_SLOTS:])} (cuDNN's "
+        f"algorithms by batch size; random weights); launches a tick {launches['mesh']} "
+        f"(4-slot {launches['4-slot']}); wall s {PAR_FRAMES} ticks mesh {secs['mesh']:.4f}, "
+        f"4-slot {secs['4-slot']:.4f}, two 2-slot pools {secs['2-slot']:.4f} (one card); "
+        f"card: {card}")
+    if any(per_device) or max(first) > 1:
+        raise RuntimeError(f"[par] (d) the meshed pool differs: per device {max(per_device)}, "
+                           f"first tick against 4 slots {max(first)} levels")
+    want = {k: 2 * v for k, v in launches["4-slot"].items()}
+    if launches["mesh"] != want or launches["2-slot"] != want:
+        raise RuntimeError(f"[par] (d) launches a tick {launches['mesh']} and "
+                           f"{launches['2-slot']}, want {want}")
+    PARALLEL["slot_pool_tick"] = launches["mesh"]
+
+
 def phase(name: str, fn, *args):
     """Run one phase; its seconds go to ``phase.seconds``."""
     t0 = time.perf_counter()
@@ -4089,6 +4531,8 @@ START = time.perf_counter()
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--dp-worker"]:  # one rank of phase 17 (c)
+        return dp_worker(*sys.argv[2:5])
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
@@ -4156,6 +4600,10 @@ def main() -> None:
         video_launches = phase("14 video I/O", run_video, dev, card, tmp)
         nvdec = phase("15 H.264 and VP9 input", run_nvdec, dev, card, tmp)
         orbax = phase("16 orbax checkpoints", run_orbax, dev, card, tmp)
+        phase("17a spatial streaming", run_spatial, dev, card)
+        phase("17b pipeline", run_pipeline, dev, card)
+        phase("17c data parallel", run_data_parallel, dev, card, tmp)
+        phase("17d slot pool", run_slot_pool, dev, card)
     log("[main] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase.seconds.items())
         + f"; in all {time.perf_counter() - START:.1f} s since the script started")
 
@@ -4255,6 +4703,10 @@ def main() -> None:
             entry["orbax_cli_launches"] = orbax["launches"].get(key, 0)
             # Per generate replay after each save (phases 8, 8c, 11, 11b).
             entry["generate_launches"] = {k: g["launches"][key] for k, g in GENERATE.items()}
+        # Phase 17: launches of this kernel's wrapper a run (spatial, 2
+        # shards; pipeline), a step (data parallel, a rank) or a tick (the
+        # 2-device slot pool) on the parallel paths.
+        entry["parallel_launches"] = {p: n[key] for p, n in PARALLEL.items()}
         if key == "resblock_chain":
             entry["also_replaces"] = ["tecogan_tpu/kernels/resblocks.py:305",
                                       "tecogan_tpu/kernels/resblocks.py:466"]

@@ -33,8 +33,18 @@ them, and NVDEC's decode is unverified (ROADMAP item 12b);
 ``data/video_io.py``),
 and writes PNGs or, with ``--output_video``, a video (``.avi`` Motion
 JPEG; ``.mp4``, ``.m4v``, ``.mkv`` MPEG-4 Part 2) at
-``--output_video_fps``, else the source's rate, else 24. ``--spatial_shards``
-and ``--pipeline`` raise NotImplementedError (ROADMAP queue 1 item 11).
+``--output_video_fps``, else the source's rate, else 24.
+
+Parallelism (``parallel/``): ``--spatial_shards N`` splits each frame's rows
+over N devices (``make_mesh({sp_axis: N})`` over the visible CUDA devices,
+or the CPU standing for N with ``--device cpu``); ``--pipeline`` runs FNet
+and the flow upsample on one device and the recurrent generator on the
+next (both on the CPU with ``--device cpu``); the two are mutually
+exclusive. Training is data parallel under ``torchrun --nproc_per_node N
+-m tecogan_tpu_torch.cli.main --mode train ...``: each process
+joins the group from torchrun's ``MASTER_ADDR``, ``MASTER_PORT``,
+``WORLD_SIZE`` and ``RANK`` and trains on ``cuda:LOCAL_RANK`` (``--device
+cpu``: gloo on the CPU); ``--no_mesh`` trains each process alone.
 
 Deviations from the JAX CLI: ``--num_resblock`` and ``--rand_seed`` default
 to the preset's values (there they default to 16 and 1 and override the
@@ -93,9 +103,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_frames", type=int, default=-1)
     p.add_argument("--infer_chunk", type=int, default=None)
     p.add_argument("--spatial_shards", type=int, default=1,
-                   help="not ported (multi-GPU, ROADMAP queue 1 item 11)")
+                   help="shard frame height over N devices at inference "
+                        "(parallel/spatial.py)")
     p.add_argument("--pipeline", action="store_true",
-                   help="not ported (multi-GPU, ROADMAP queue 1 item 11)")
+                   help="pipeline the flow stage onto a second device "
+                        "(parallel/pipeline.py; needs >= 2 devices)")
+    p.add_argument("--no_mesh", action="store_true",
+                   help="train on this process's device alone, without data "
+                        "parallelism over a torchrun process group")
     # model / train
     p.add_argument("--vgg_npz", default=None,
                    help="VGG19 weights for the perceptual loss (an npz keyed "
@@ -232,12 +247,24 @@ def run_inference(args, config) -> dict:
     video on one thread per core, while the next chunk computes. Returns
     the wall seconds of each stage and the counts."""
     from tecogan_tpu_torch.data.inference import FrameWriter, load_inference_frames
+    from tecogan_tpu_torch.parallel import PipelinedStreamingSR, make_mesh
     from tecogan_tpu_torch.recurrent import WARMUP_FRAMES, StreamingSR
 
-    if args.spatial_shards > 1 or args.pipeline:
-        raise NotImplementedError("--spatial_shards / --pipeline: multi-GPU "
-                                  "inference is ROADMAP queue 1 item 11")
+    if args.pipeline and args.spatial_shards > 1:
+        # Before the (potentially minutes-long) sequence decode.
+        raise SystemExit(
+            "--pipeline and --spatial_shards are mutually exclusive "
+            "parallelism strategies; pass exactly one"
+        )
     device = resolve_device(args.device)
+    # The CPU stands for as many devices as a mesh asks for; on the card a
+    # mesh takes the visible CUDA devices and raises with too few.
+    mesh_devices = "cpu" if device.type == "cpu" else None
+    spatial_mesh = stages = None
+    if args.spatial_shards > 1:
+        spatial_mesh = make_mesh({config.sp_axis: args.spatial_shards}, mesh_devices)
+    if args.pipeline:
+        stages = make_mesh({"stage": 2}, mesh_devices).axis_devices("stage")
     # The weights and the writer first: a missing weight source, a non-PNG
     # --output_ext or an unknown video extension fails before any decode.
     gen, fnet, config = load_inference_params(args, config)
@@ -263,8 +290,14 @@ def run_inference(args, config) -> dict:
         if video_path is not None:
             fps = args.output_video_fps or data.fps or 24.0
             writer = VideoFrameWriter(video_path, fps=fps, warmup=WARMUP_FRAMES)
-        sr = StreamingSR(config, gen, fnet, output="uint8", device=device)
+        if stages is not None:
+            sr = PipelinedStreamingSR(config, gen, fnet, output="uint8",
+                                      flow_device=stages[0], recurrent_device=stages[1])
+        else:
+            sr = StreamingSR(config, gen, fnet, output="uint8", device=device,
+                             spatial_mesh=spatial_mesh)
         _, secs = sr.run(data.inputs, warmup=WARMUP_FRAMES, on_chunk=writer.submit)
+        capture_s = getattr(sr, "capture_s", 0.0)  # the pipeline runs eagerly
     finally:
         t0 = time.perf_counter()
         written = writer.close() if writer is not None else 0
@@ -274,9 +307,9 @@ def run_inference(args, config) -> dict:
     print(f"total time {secs:.2f}, frame number {n}")  # main.py:270 format
     print(f"Wrote {written} frames to {dest}")
     print(f"io: read {decode:.3f} s, stream {secs:.3f} s (of which building the chunk's "
-          f"program {sr.capture_s:.3f} s), writer flush {flush:.3f} s "
+          f"program {capture_s:.3f} s), writer flush {flush:.3f} s "
           f"({writer.num_threads} encode threads, {writer.encode_s:.3f} s encoding)")
-    return {"decode_s": decode, "stream_s": secs, "capture_s": sr.capture_s, "flush_s": flush,
+    return {"decode_s": decode, "stream_s": secs, "capture_s": capture_s, "flush_s": flush,
             "encode_s": writer.encode_s, "frames": n, "written": written,
             "threads": writer.num_threads, "out_dir": out_dir, "dest": dest, "fps": data.fps}
 
@@ -298,9 +331,20 @@ def run_train(args, config) -> None:
         else:
             raise SystemExit("--vgg_npz (or --allow_random_weights) required "
                              "when vgg_scaling > 0")
-    train(config, output_dir=args.output_dir, device=resolve_device(args.device),
+    device = args.device
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not args.no_mesh:
+        from tecogan_tpu_torch.parallel import init_distributed
+
+        if torch.device(device).type == "cuda":
+            device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+        device = resolve_device(device)
+        init_distributed(f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}", world,
+                         int(os.environ["RANK"]),
+                         backend="nccl" if device.type == "cuda" else "gloo")
+    train(config, output_dir=args.output_dir, device=resolve_device(device),
           summary_dir=args.summary_dir, vgg=vgg, pre_trained_dir=args.pre_trained_dir,
-          test_while_train=not args.no_test_while_train)
+          test_while_train=not args.no_test_while_train, use_mesh=not args.no_mesh)
 
 
 def main(argv=None):

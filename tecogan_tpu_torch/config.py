@@ -4,8 +4,9 @@ Counterpart of ``tecogan_tpu/config.py``: the same model, data, loss,
 optimisation and runtime fields with the same defaults, and the same three
 presets (reference runGan.py cases 1/3/4). The TPU tuning knobs of the JAX
 package (the ``inline_flow`` / ``fold_input_s2d`` / ``train_fold_s2d`` /
-``pallas_flow_upsample`` / ``fused_trunk`` mode strings and the mesh axis
-names) have no counterpart here: on CUDA the port's kernels are always on.
+``pallas_flow_upsample`` / ``fused_trunk`` mode strings) have no
+counterpart here: on CUDA the port's kernels are always on. The mesh axis
+names are kept (``parallel/``).
 """
 
 from __future__ import annotations
@@ -88,6 +89,10 @@ class TecoConfig:
     remat_generator: Any = "auto"    # per-frame activation checkpointing in
     #   the training unroll: True | False | "auto"
     infer_chunk: int = 16            # frames per chunk at inference
+
+    # --- parallelism (parallel/; the reference is single-GPU) ---
+    dp_axis: str = "data"            # data-parallel mesh axis name
+    sp_axis: str = "space"           # spatial-sharding mesh axis name
 
     # --- misc ---
     rand_seed: int = 1

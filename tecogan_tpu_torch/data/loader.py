@@ -247,15 +247,23 @@ class BatchLoader:
         num_threads: Optional[int] = None,
         prefetch: Optional[int] = None,
         executor: str = "python",
+        shard_id: int = 0,
+        num_shards: int = 1,
     ):
         """``executor``: ``"python"``, ``"native"`` (raises where the C++
         library cannot be built or loaded) or ``"auto"`` (falls back to
         python then, printing the cause); :attr:`executor_used` says which
-        runs. The JAX loader's per-host sharding (``shard_id``/
-        ``num_shards``) waits for multi-GPU training (ROADMAP queue 1 item
-        11); this is its single-shard case, batch for batch."""
+        runs. ``shard_id``/``num_shards``: data-parallel sharding, one shard
+        per process (``parallel/dp.py``): shard ``i`` samples the stride
+        ``indices[i::num_shards]`` of the example index space with its own
+        stream ``RandomState(seed + i)``, as the JAX loader does, and
+        produces that process's piece of the global batch."""
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} is not in [0, {num_shards})")
         cfg = dataset.config
         self.dataset = dataset
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self.batch_size = batch_size or cfg.batch_size
         self.seed = cfg.rand_seed if seed is None else seed
         self.num_threads = num_threads or max(1, cfg.queue_thread)
@@ -291,17 +299,18 @@ class BatchLoader:
 
     # --------------------------------------------------------------- iter
     def _producer(self):
-        rng = np.random.RandomState(self.seed)
+        rng = np.random.RandomState(self.seed + self.shard_id)
         pool = ThreadPoolExecutor(max_workers=self.num_threads)
-        n = len(self.dataset)
-        perm = rng.permutation(n)
+        indices = np.arange(len(self.dataset))[self.shard_id::self.num_shards]
+        n = len(indices)
+        perm = indices[rng.permutation(n)]
         cursor = 0
         try:
             while not self._stop.is_set():
                 idxs = []
                 for _ in range(self.batch_size):
                     if cursor >= n:
-                        perm = rng.permutation(n)
+                        perm = indices[rng.permutation(n)]
                         cursor = 0
                     idxs.append(int(perm[cursor]))
                     cursor += 1

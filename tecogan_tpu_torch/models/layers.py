@@ -11,6 +11,8 @@ import functools
 import math
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -73,11 +75,18 @@ class SlimBatchNorm(nn.Module):
     them in its discriminator step and not in the forwards that feed the
     generator's losses. ``nn.BatchNorm2d`` differs in all three: its
     momentum is the complement (0.1), it folds in the unbiased variance,
-    and train mode always updates."""
+    and train mode always updates.
+
+    With :attr:`sync` set (``parallel/dp.py``) the batch is the global one
+    of the default process group: ``E[x]`` and ``E[x^2]`` are averaged over
+    its ranks (equal local batches) in one all-reduce through which the
+    gradient flows, as GSPMD reduces the JAX package's statistics over the
+    sharded batch."""
 
     def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-3):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.sync = False  # statistics over the process group
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
@@ -86,7 +95,11 @@ class SlimBatchNorm(nn.Module):
         """(B, C, H, W) -> (B, C, H, W) in x's dtype."""
         dtype, x = x.dtype, x.float()
         mean = x.mean(dim=(0, 2, 3))
-        var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        square = (x * x).mean(dim=(0, 2, 3))
+        if self.sync:
+            stats = dist_nn.all_reduce(torch.cat([mean, square]))
+            mean, square = (stats / dist.get_world_size()).chunk(2)
+        var = (square - mean * mean).clamp_min(0.0)
         if update_stats:
             m = self.momentum
             with torch.no_grad():

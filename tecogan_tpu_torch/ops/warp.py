@@ -12,11 +12,17 @@ gather of the four corners with the JAX package's own lerp, so the two
 agree to rounding. The JAX blocking, per-image map and chunking thresholds
 are v5e gather tuning and are not carried over. :func:`dense_image_warp_box`
 warps a window of the grid (the discriminator's crop box).
+
+:func:`warp_space_to_depth_halo` is the fused warp + space-to-depth of an
+H-sharded frame (``parallel/spatial.py``): each shard receives one band of
+``int(max_displacement) + 1`` rows from each neighbour and gathers locally,
+with its corners clamped on the global grid, so its output is bit-equal to
+the unsharded warp's.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple, Union
 
 import torch
 
@@ -71,7 +77,15 @@ def dense_image_warp_box(
             0 <= y0 <= h - bh and 0 <= x0 <= w - bw):
         raise ValueError(f"flow {tuple(flow.shape)} at {origin} is not a window of "
                          f"image {tuple(image.shape)}")
-    iy, ix, ay, ax = _corner_coords(h, w, flow, image.dtype, origin)
+    return _gather_lerp(image, *_corner_coords(h, w, flow, image.dtype, origin))
+
+
+def _gather_lerp(image: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+                 ay: torch.Tensor, ax: torch.Tensor) -> torch.Tensor:
+    """Bilinear blend of the four corners at ``(iy, ix)`` .. ``(iy + 1,
+    ix + 1)`` of (B, H, W, C) ``image`` with fractions ``ay``, ``ax``."""
+    b, h, w, c = image.shape
+    bh, bw = iy.shape[1], iy.shape[2]
     flat = image.reshape(b * h * w, c)
     frame = torch.arange(b, device=image.device).view(b, 1, 1) * (h * w)
     base = (frame + iy * w + ix).reshape(-1)
@@ -116,3 +130,101 @@ def warp_space_to_depth(
     """``space_to_depth(scale * dense_image_warp(image, flow) + shift)``:
     (B, H, W, C) -> (B, H/block, W/block, block*block*C)."""
     return space_to_depth(dense_image_warp(image, flow, scale, shift), block)
+
+
+#: The flow bound of the streaming path: FNet's tanh-bounded 24 LR pixels,
+#: 96 HR pixels (reference frvsr.py:39-40).
+DEFAULT_MAX_DISPLACEMENT = 96.0
+
+
+def warp_space_to_depth_halo_shards(
+    images: Sequence[torch.Tensor],
+    flows: Sequence[torch.Tensor],
+    block: int = 4,
+    scale: float = 1.0,
+    shift: float = 0.0,
+    max_displacement: float = DEFAULT_MAX_DISPLACEMENT,
+) -> List[torch.Tensor]:
+    """:func:`warp_space_to_depth` of an H-sharded frame, shard by shard:
+    ``images[i]`` (B, h_i, W, C) and ``flows[i]`` (B, h_i, W, 2) are rows
+    ``[r_i, r_i + h_i)`` of the frame, on shard i's device, in order.
+
+    Each shard is extended by ``halo = int(max_displacement) + 1`` rows of
+    each neighbour (copied to its device); at the frame's top and bottom
+    there is nothing to receive. Corners are clamped on the global grid to
+    ``[0, H-2]`` before they are made local, which is TF's edge clamp
+    (reference dense_image_warp, Teco.py:119-122), so the output is
+    bit-equal to the unsharded warp's wherever ``|flow| <= max_displacement``
+    (a larger flow reads the nearest row of the band instead). Every shard
+    must be taller than the halo and a multiple of ``block`` rows.
+
+    Returns:
+      per shard (B, h_i/block, W/block, block*block*C), on its device.
+    """
+    halo = int(max_displacement) + 1
+    heights = [x.shape[1] for x in images]
+    h, n = sum(heights), len(images)
+    for hs in heights:
+        if hs <= halo:
+            raise ValueError(
+                f"shard height {hs} must exceed halo {halo}; use fewer shards "
+                f"(<= {h // (halo + 1)}) for {h}-row frames")
+        if hs % block:
+            raise ValueError(f"shard height {hs} is not a multiple of {block}")
+    outs, r0 = [], 0
+    for i, (image, flow) in enumerate(zip(images, flows)):
+        parts = [image]
+        e0 = r0  # the frame row of the extended shard's first row
+        if i > 0:
+            parts.insert(0, images[i - 1][:, -halo:].to(image.device))
+            e0 -= halo
+        if i < n - 1:
+            parts.append(images[i + 1][:, :halo].to(image.device))
+        ext = torch.cat(parts, dim=1) if len(parts) > 1 else image
+        w = image.shape[2]
+        iy, ix, ay, ax = _corner_coords(h, w, flow, image.dtype, (r0, 0))
+        iy = (iy - e0).clamp_(0, ext.shape[1] - 2)
+        out = _gather_lerp(ext, iy, ix, ay, ax)
+        if scale != 1.0 or shift != 0.0:
+            out = out * scale + shift
+        outs.append(space_to_depth(out, block))
+        r0 += image.shape[1]
+    return outs
+
+
+def warp_space_to_depth_halo(
+    image: Union[torch.Tensor, Sequence[torch.Tensor]],
+    flow: Union[torch.Tensor, Sequence[torch.Tensor]],
+    mesh,
+    axis: str,
+    block: int = 4,
+    scale: float = 1.0,
+    shift: float = 0.0,
+    max_displacement: float = DEFAULT_MAX_DISPLACEMENT,
+) -> Union[torch.Tensor, List[torch.Tensor]]:
+    """H-sharded fused warp + space-to-depth with a halo exchange
+    (counterpart of ``tecogan_tpu/ops/warp.py:323``).
+
+    ``image`` (B, H, W, C) and ``flow`` (B, H, W, 2) are split into equal
+    row shards over the devices of ``mesh``'s ``axis``; H must divide into
+    that many multiples of ``block`` and a shard must be taller than the
+    halo, as in the JAX package. The shards run
+    :func:`warp_space_to_depth_halo_shards` and the result, (B, H/block,
+    W/block, block*block*C), is gathered on ``image``'s device. Lists of
+    shards are taken as they are and given back as a list. The JAX
+    version's row and column blocking is v5e gather tuning and is not
+    ported.
+    """
+    if not torch.is_tensor(image):
+        return warp_space_to_depth_halo_shards(image, flow, block, scale, shift,
+                                               max_displacement)
+    devices = mesh.axis_devices(axis)
+    n, h = len(devices), image.shape[1]
+    if h % (n * block) != 0:
+        raise ValueError(f"H={h} must divide into {n} shards of {block}-multiples")
+    hs = h // n
+    outs = warp_space_to_depth_halo_shards(
+        [image[:, i * hs:(i + 1) * hs].to(d) for i, d in enumerate(devices)],
+        [flow[:, i * hs:(i + 1) * hs].to(d) for i, d in enumerate(devices)],
+        block, scale, shift, max_displacement)
+    return torch.cat([o.to(image.device) for o in outs], dim=1)

@@ -15,7 +15,9 @@ host buffers used in turn into a static LR buffer, the graph replays over
 it and the static state, which it updates in place, and its output is
 copied to pinned host memory without blocking and read only after the next
 chunk has been queued, so the copies and the host's work overlap the
-device's. On the CPU the same chunk body runs eagerly.
+device's. On the CPU the same chunk body runs eagerly. With a spatial mesh
+the chunk's frames and state are split by rows over the mesh's devices
+(``parallel/spatial.py``), eagerly.
 
 Warm-up protocol: the first 5 outputs belong to reversed frames [5..1]
 prepended by :func:`prepend_warmup` and are dropped (reference
@@ -61,51 +63,101 @@ def prepend_warmup(frames: List) -> List:
     return list(frames[5:0:-1]) + list(frames)
 
 
+def chunk_pairs(prev_lr: torch.Tensor, lr_chunk: torch.Tensor, dtype: torch.dtype
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A chunk's (T, B, h, w, 3) LR frames in ``dtype`` (uint8 divided by
+    255 on the device) and its T*B (previous, current) pairs for FNet,
+    the first frame's previous being ``prev_lr`` (B, h, w, 3)."""
+    if lr_chunk.dtype == torch.uint8:
+        lr_chunk = lr_chunk.float() / 255.0
+    lr_chunk = lr_chunk.to(dtype)
+    t, b, h, w, c = lr_chunk.shape
+    prev = torch.cat([prev_lr[None], lr_chunk[:-1]], dim=0)
+    return lr_chunk, torch.cat([prev, lr_chunk], dim=-1).reshape(t * b, h, w, 2 * c)
+
+
+def as_output(hr: torch.Tensor, output: str) -> torch.Tensor:
+    """HR frames in [0, 1] as float32, or as uint8 quantised on the device
+    (reference ops.py:520-523)."""
+    if output == "uint8":
+        return (hr.float() * 255.0).clamp_(0.0, 255.0).to(torch.uint8)
+    return hr.float()
+
+
 @torch.inference_mode()
 def run_chunk(generator: Generator, fnet: FNet, dtype: torch.dtype, output: str,
               state: RecurrentState, lr_chunk: torch.Tensor) -> torch.Tensor:
     """One chunk: (T, B, h, w, 3) LR frames on the device -> (T, B, 4h, 4w,
     3) HR frames (float32 or uint8, per ``output``). The new state is written
     into ``state``'s tensors in place (the JAX package's donated state)."""
-    if lr_chunk.dtype == torch.uint8:
-        lr_chunk = lr_chunk.float() / 255.0
-    lr_chunk = lr_chunk.to(dtype)
-    t, b, h, w, c = lr_chunk.shape
-    prev = torch.cat([state.prev_lr[None], lr_chunk[:-1]], dim=0)
-    pairs = torch.cat([prev, lr_chunk], dim=-1).reshape(t * b, h, w, 2 * c)
+    lr_chunk, pairs = chunk_pairs(state.prev_lr, lr_chunk, dtype)
+    t, b, h, w, _ = lr_chunk.shape
     flow = upscale_flow(fnet(pairs), h, w).reshape(t, b, 4 * h, 4 * w, 2)
     outs, st = [], state
     for i in range(t):
         st, hr = generator_step(generator, st, lr_chunk[i], flow[i])
-        if output == "uint8":
-            outs.append((hr.float() * 255.0).clamp_(0.0, 255.0).to(torch.uint8))
-        else:
-            outs.append(hr.float())
+        outs.append(as_output(hr, output))
     for dst, new in zip(state, st):
         dst.copy_(new)
     return torch.stack(outs)
 
 
+@torch.inference_mode()
+def run_chunk_sharded(step: "ShardedStep", dtype: torch.dtype, output: str,
+                      states: List[RecurrentState], lr_chunks: List[torch.Tensor]
+                      ) -> List[torch.Tensor]:
+    """:func:`run_chunk` over row shards (``parallel/spatial.py``): shard
+    i's (T, B, h_i, w, 3) LR rows and state in, its (T, B, 4h_i, 4w, 3) HR
+    rows out; the new state is written into ``states`` in place."""
+    from tecogan_tpu_torch.parallel.spatial import ShardedState
+
+    lrs, pairs = zip(*(chunk_pairs(s.prev_lr, lr, dtype) for s, lr in zip(states, lr_chunks)))
+    t, b, _, w, _ = lrs[0].shape
+    h = sum(lr.shape[2] for lr in lrs)
+    flows = [f.reshape(t, b, f.shape[1], f.shape[2], 2)
+             for f in step.flows(list(pairs), h, w)]
+    st = ShardedState([s.prev_lr for s in states], [s.prev_hr for s in states])
+    outs: List[List[torch.Tensor]] = [[] for _ in states]
+    for i in range(t):
+        st, hr = step.generator_step(st, [lr[i] for lr in lrs], [f[i] for f in flows])
+        for k, x in enumerate(hr):
+            outs[k].append(as_output(x, output))
+    for state, new_lr, new_hr in zip(states, st.prev_lr, st.prev_hr):
+        state.prev_lr.copy_(new_lr)
+        state.prev_hr.copy_(new_hr)
+    return [torch.stack(o) for o in outs]
+
+
 class _Chunk:
     """One chunk shape's program: the static device buffers (the LR chunk
-    and the recurrent state), the host buffers its uploads go through, and
-    :func:`run_chunk` over them, captured on the card (the graph's pool holds
-    its temporaries and its HR output) or eager."""
+    and the recurrent state, one of each per row shard on a spatial mesh),
+    the host buffers its uploads go through, and :func:`run_chunk` over
+    them, captured on the card (the graph's pool holds its temporaries and
+    its HR output) or eager; on a spatial mesh :func:`run_chunk_sharded`,
+    eager."""
 
     def __init__(self, sr: "StreamingSR", chunk: int, batch: int, h: int, w: int,
                  frame_dtype: torch.dtype):
-        device = sr.device
-        self.lr = torch.zeros((chunk, batch, h, w, 3), dtype=frame_dtype, device=device)
-        self.state = init_state(batch, h, w, sr.dtype, device)
-        if device.type == "cuda":
-            # Two pinned buffers used in turn: the host fills one while the
-            # device may still be reading the other's last upload.
-            self.staging = [torch.zeros(self.lr.shape, dtype=frame_dtype, pin_memory=True)
-                            for _ in range(2)]
+        if sr.step is None:
+            self.rows, devices = [h], [sr.device]
         else:
-            self.staging = [self.lr]  # the host writes the input itself
+            self.rows, devices = sr.step.rows(h), sr.step.devices
+        self.lrs = [torch.zeros((chunk, batch, r, w, 3), dtype=frame_dtype, device=d)
+                    for r, d in zip(self.rows, devices)]
+        self.states = [init_state(batch, r, w, sr.dtype, d) for r, d in zip(self.rows, devices)]
+        self.lr, self.state = self.lrs[0], self.states[0]
+        # On the card two pinned buffers a shard, used in turn: the host
+        # fills one while the device may still be reading the other's last
+        # upload. On the CPU the host writes the input itself.
+        self.staging = [[torch.zeros(lr.shape, dtype=frame_dtype, pin_memory=True)
+                         for lr in self.lrs] for _ in range(2)] if sr.device.type == "cuda" \
+            else [self.lrs]
         self.done: List[Optional[torch.cuda.Event]] = [None] * len(self.staging)
         self.uploads = 0
+        if sr.step is not None:
+            self.run = functools.partial(run_chunk_sharded, sr.step, sr.dtype, sr.output,
+                                         self.states, self.lrs)
+            return
         body = functools.partial(run_chunk, sr.generator, sr.fnet, sr.dtype, sr.output,
                                  self.state, self.lr)
         if sr.capture:
@@ -115,18 +167,24 @@ class _Chunk:
             self.run = body
 
     def upload(self, piece: np.ndarray) -> None:
-        """Put (n <= chunk, B, h, w, 3) frames into the LR buffer, padded by
+        """Put (n <= chunk, B, h, w, 3) frames into the LR buffers, padded by
         repeating the last frame (the extra outputs are discarded)."""
         i = self.uploads % len(self.staging)
         if self.done[i] is not None:
-            self.done[i].synchronize()  # the device has read its last upload
-        host = self.staging[i].numpy()
-        host[:len(piece)] = piece
-        host[len(piece):] = piece[-1]
-        if self.staging[i] is not self.lr:
-            self.lr.copy_(self.staging[i], non_blocking=True)
-            self.done[i] = torch.cuda.Event()
-            self.done[i].record()
+            for event in self.done[i]:
+                event.synchronize()  # the device has read its last upload
+        r0, done = 0, []
+        for host, lr, rows in zip(self.staging[i], self.lrs, self.rows):
+            view = host.numpy()
+            view[:len(piece)] = piece[:, :, r0:r0 + rows]
+            view[len(piece):] = piece[-1, :, r0:r0 + rows]
+            r0 += rows
+            if host is not lr:
+                with torch.cuda.device(lr.device):
+                    lr.copy_(host, non_blocking=True)
+                    done.append(torch.cuda.Event())
+                    done[-1].record()
+        self.done[i] = done or None
         self.uploads += 1
 
 
@@ -143,6 +201,13 @@ class StreamingSR:
         graph on the card (``utils/cuda_graphs.py``; the JAX package's jitted
         chunk with its donated state) and eagerly on the CPU; False runs
         eagerly on the card too; True on the CPU raises.
+      spatial_mesh: a :class:`~tecogan_tpu_torch.parallel.Mesh` with a
+        ``config.sp_axis`` axis: frames, recurrent state and every
+        activation are split by rows over its devices, each layer behind a
+        halo exchange (``parallel/spatial.py``; the kernels run on every
+        shard), and the chunk runs eagerly from the first of them:
+        capturing a sharded chunk is ROADMAP item 11b, so ``capture=True``
+        with a mesh raises. ``device`` is then the first shard's.
 
     Each chunk shape (chunk length, batch, h, w, LR dtype) gets its static
     buffers and its program on first use, kept for later runs; a new shape
@@ -152,16 +217,30 @@ class StreamingSR:
 
     def __init__(self, config: TecoConfig, generator: Generator, fnet: FNet,
                  output: str = "float32", device="cuda",
-                 capture: Optional[bool] = None):
+                 capture: Optional[bool] = None, spatial_mesh=None):
         if output not in ("float32", "uint8"):
             raise ValueError(f"output must be float32|uint8, got {output}")
         self.config = config
         self.output = output
         self.dtype = config.torch_dtype
+        self.spatial_mesh = spatial_mesh
+        if spatial_mesh is not None:
+            if capture:
+                raise ValueError("capture=True with a spatial mesh: capturing H-sharded "
+                                 "chunks is ROADMAP item 11b; pass capture=None or False")
+            capture = False
+            device = spatial_mesh.axis_devices(config.sp_axis)[0]
         self.device = torch.device(device)
         self.capture = resolve_capture(capture, self.device)
         self.generator, self.fnet = place_models(generator, fnet, self.device,
                                                  self.dtype)
+        self.step = None
+        if spatial_mesh is not None:
+            from tecogan_tpu_torch.parallel.spatial import ShardedStep
+
+            self.step = ShardedStep(self.generator, self.fnet,
+                                    spatial_mesh.axis_devices(config.sp_axis),
+                                    max_displacement=4.0 * config.flow_max_velocity)
         self._chunks: Dict[Tuple, _Chunk] = {}
         self.capture_s = 0.0
 
@@ -182,24 +261,27 @@ class StreamingSR:
         on_cuda = self.device.type == "cuda"
         t0 = time.perf_counter()
         prog = self._chunk(chunk, frames)
-        for t in prog.state:  # the zero state (reference main.py:197-199)
-            t.zero_()
+        for state in prog.states:  # the zero state (reference main.py:197-199)
+            for t in state:
+                t.zero_()
         pending = None
         for s in range(0, frames.shape[0], chunk):
             piece = frames[s:s + chunk]
             prog.upload(piece)
             hr = prog.run()
-            host, done = hr[:len(piece)], None
+            hosts, done = [x[:len(piece)] for x in (hr if isinstance(hr, list) else [hr])], []
             if on_cuda:  # the next chunk's run overwrites hr: copy it first
-                host = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-                host.copy_(hr[:len(piece)], non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
+                for k, x in enumerate(hosts):
+                    hosts[k] = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                    with torch.cuda.device(x.device):
+                        hosts[k].copy_(x, non_blocking=True)
+                        done.append(torch.cuda.Event())
+                        done[-1].record()
             if pending is not None:
-                deliver(*_fetch(*pending))
-            pending = (host, done, s)
+                deliver(*fetch_chunk(*pending))
+            pending = (hosts, done, s)
         if pending is not None:
-            deliver(*_fetch(*pending))
+            deliver(*fetch_chunk(*pending))
         return time.perf_counter() - t0
 
     # ------------------------------------------------------------- public
@@ -251,9 +333,11 @@ class StreamingSR:
         return hrs[:, warmup:], elapsed
 
 
-def _fetch(host: torch.Tensor, done, start: int) -> Tuple[np.ndarray, int]:
-    """A pending chunk's outputs as numpy, after its copy (``done``, a CUDA
-    event, or None on the CPU) has landed."""
-    if done is not None:
-        done.synchronize()
-    return host.numpy(), start
+def fetch_chunk(hosts: List[torch.Tensor], done: List, start: int) -> Tuple[np.ndarray, int]:
+    """A pending chunk's outputs as numpy (the row shards joined), after
+    its copies (``done``, CUDA events; none on the CPU) have landed."""
+    for event in done:
+        event.synchronize()
+    if len(hosts) == 1:
+        return hosts[0].numpy(), start
+    return np.concatenate([h.numpy() for h in hosts], axis=2), start

@@ -144,7 +144,13 @@ class VSRServer:
       max_streams: slot-pool size, the served batch.
       output: "uint8" (quantised on the device, the PNG byte format) or
         "float32".
-      mesh: not ported (a slot pool across GPUs is ROADMAP queue 1 item 11).
+      mesh: a :class:`~tecogan_tpu_torch.parallel.Mesh` with a
+        ``config.dp_axis`` axis: the slot pool is split on that axis
+        (``batch_sharding``), ``max_streams / n`` slots a device, each
+        device with its own copy of the weights (``replicated``), its
+        state, its masks and its (captured) tick; a tick queues every
+        device's before it reads any output. Streams take the first
+        device's slots first. ``device`` is then the first device.
       device: where to run; the card unless the caller asks for the CPU.
       capture: None (the default) runs the tick as a captured CUDA graph on
         the card, captured by :meth:`prewarm` or the first tick of each LR
@@ -156,13 +162,14 @@ class VSRServer:
                  height: int, width: int, max_streams: int = 4,
                  output: str = "uint8", mesh=None, device="cuda",
                  capture: Optional[bool] = None):
-        if mesh is not None:
-            raise NotImplementedError("a slot pool sharded across GPUs (mesh=) is "
-                                      "ROADMAP queue 1 item 11")
         self.config = config
         self.height, self.width = height, width
         self.max_streams = max_streams
         self.output = output
+        self._pools: Optional[List["VSRServer"]] = None
+        if mesh is not None:
+            self._shard_pool(generator, fnet, mesh, capture)
+            return
         self.device = torch.device(device)
         self.capture = resolve_capture(capture, self.device)
         self.dtype = config.torch_dtype
@@ -182,6 +189,32 @@ class VSRServer:
         # Serializes ticks: a background prewarm
         # (MultiGeometryServer.prewarm(background=True)) may race a tick.
         self._dispatch_lock = threading.Lock()
+
+    def _shard_pool(self, generator: Generator, fnet: FNet, mesh, capture) -> None:
+        """The pool split over ``mesh``'s ``dp_axis``: one single-device
+        :class:`VSRServer` of ``max_streams / n`` slots per device."""
+        from tecogan_tpu_torch.parallel.mesh import batch_sharding, replicated
+        from tecogan_tpu_torch.parallel.spatial import replicate
+
+        axis = self.config.dp_axis
+        slots = batch_sharding(mesh, axis)
+        devices = slots.devices
+        if self.max_streams % len(devices):
+            raise ValueError(f"max_streams={self.max_streams} must divide evenly across the "
+                             f"{len(devices)}-device '{axis}' axis")
+        bounds = slots.bounds(self.max_streams)
+        self.device = devices[0]
+        self.dtype = self.config.torch_dtype
+        place_models(generator, fnet, self.device, self.dtype)
+        every = replicated(mesh).devices  # a copy of the weights on each
+        copies = dict(zip(every, zip(replicate(generator, every), replicate(fnet, every))))
+        self._pools = [VSRServer(self.config, *copies[d], self.height, self.width,
+                                 max_streams=b - a, output=self.output, device=d,
+                                 capture=capture)
+                       for d, (a, b) in zip(devices, bounds)]
+        self.capture = self._pools[0].capture
+        self.generator, self.fnet = generator, fnet
+        self._slot_of: Dict[object, int] = {}
 
     def _lr_batch(self, dtype: torch.dtype) -> torch.Tensor:
         if dtype not in self._lr:
@@ -215,6 +248,10 @@ class VSRServer:
         use) and settles cuDNN's choices for this geometry, so no stream's
         tick pays for them. Every slot's state stays bit for bit (``active``
         all False), so it is safe at any point in the server's life."""
+        if self._pools is not None:
+            for pool in self._pools:
+                pool.prewarm(frame_dtype)
+            return
         on_cuda = self.device.type == "cuda"
         # A background thread starts on CUDA device 0: name the server's.
         with self._dispatch_lock, (torch.cuda.device(self.device) if on_cuda
@@ -228,12 +265,18 @@ class VSRServer:
     def graph_pool_bytes(self) -> int:
         """Device bytes held by the captured ticks' memory pools (their
         temporaries and output batches); 0 when the ticks run eagerly."""
+        if self._pools is not None:  # every device's pools
+            return sum(pool.graph_pool_bytes() for pool in self._pools)
         ticks = list(self._programs.values())  # one read: a prewarm may add one meanwhile
         return sum(t.pool_bytes() for t in ticks if isinstance(t, CapturedProgram))
 
     def release(self) -> None:
         """Free the captured ticks' graphs and memory pools (a bucket that a
         :class:`MultiGeometryServer` evicts); a later tick captures anew."""
+        if self._pools is not None:
+            for pool in self._pools:
+                pool.release()
+            return
         with self._dispatch_lock:
             for tick in self._programs.values():
                 if isinstance(tick, CapturedProgram):
@@ -246,6 +289,14 @@ class VSRServer:
         (admission control is the caller's policy: queue or shed)."""
         if stream_id in self._slot_of:
             raise ValueError(f"stream {stream_id!r} already open")
+        if self._pools is not None:
+            first = 0
+            for pool in self._pools:
+                if len(pool.open_streams) < pool.max_streams:
+                    slot = self._slot_of[stream_id] = first + pool.open(stream_id)
+                    return slot
+                first += pool.max_streams
+            raise RuntimeError(f"no free slots (max_streams={self.max_streams})")
         if not self._free:
             raise RuntimeError(f"no free slots (max_streams={self.max_streams})")
         slot = self._free.pop()
@@ -255,6 +306,10 @@ class VSRServer:
 
     def close(self, stream_id) -> None:
         """Detach a stream and free its slot (its state is reset on reuse)."""
+        if self._pools is not None:
+            self._pool_of(stream_id).close(stream_id)
+            self._slot_of.pop(stream_id)
+            return
         slot = self._slot_of.pop(stream_id)
         self._fresh.pop(stream_id, None)
         self._free.append(slot)
@@ -262,6 +317,12 @@ class VSRServer:
     @property
     def open_streams(self):
         return tuple(self._slot_of)
+
+    def _pool_of(self, stream_id) -> "VSRServer":
+        for pool in self._pools:
+            if stream_id in pool._slot_of:
+                return pool
+        raise KeyError(f"streams not open: [{stream_id!r}]")
 
     # ------------------------------------------------------------- serving
     def step(self, frames: Mapping[object, np.ndarray], fetch: bool = True
@@ -287,6 +348,12 @@ class VSRServer:
         missing = [s for s in ids if s not in self._slot_of]
         if missing:
             raise KeyError(f"streams not open: {missing}")
+        if self._pools is not None:
+            # Queue every device's tick before reading any output.
+            parts = [pool.step({sid: frames[sid] for sid in ids if sid in pool._slot_of},
+                               fetch=False) for pool in self._pools]
+            out = {sid: hr for part in parts for sid, hr in part.items()}
+            return {sid: np.asarray(h) for sid, h in out.items()} if fetch else out
         first = np.asarray(frames[ids[0]])
         if first.dtype not in _FRAME_DTYPES:
             raise ValueError(
@@ -359,8 +426,12 @@ class MultiGeometryServer:
         recently used first; if it still does not fit, ``open`` raises
         RuntimeError with the computed numbers instead of running the card
         out of memory. ``None`` disables the guard.
-      mesh: not ported (ROADMAP queue 1 item 11).
-      device: where to run; the card unless the caller asks for the CPU.
+      mesh: each bucket's :class:`VSRServer` ``mesh`` (its slots split on
+        the ``dp_axis``); the budget is then per device, as in the JAX
+        package: :meth:`bucket_bytes` divided by the axis size, and every
+        device's graph pools summed and divided likewise.
+      device: where to run; the card unless the caller asks for the CPU
+        (with a mesh, the mesh's first device).
       capture: each bucket's :class:`VSRServer` ``capture``.
     """
 
@@ -368,10 +439,12 @@ class MultiGeometryServer:
                  slots_per_geometry: int = 4, output: str = "uint8",
                  mesh=None, state_budget_mb: Optional[float] = 2048.0,
                  device="cuda", capture: Optional[bool] = None):
-        if mesh is not None:
-            raise NotImplementedError("a slot pool sharded across GPUs (mesh=) is "
-                                      "ROADMAP queue 1 item 11")
         self.config = config
+        self.mesh = mesh
+        self._devices = 1
+        if mesh is not None:
+            devices = mesh.axis_devices(config.dp_axis)
+            self._devices, device = len(devices), devices[0]
         self.device = torch.device(device)
         self.capture = resolve_capture(capture, self.device)
         self.generator, self.fnet = place_models(generator, fnet, self.device,
@@ -394,13 +467,18 @@ class MultiGeometryServer:
         graph's memory pool (:meth:`VSRServer.graph_pool_bytes`), which the
         budget adds (:attr:`footprint_bytes`, :meth:`pool_estimate`); an
         eager tick's temporaries go back to PyTorch's allocator from tick
-        to tick."""
+        to tick. With a mesh, each device's share: divided by the
+        ``dp_axis`` size."""
         hw = int(height) * int(width)
         item = self.config.torch_dtype.itemsize
         state = 51 * hw * item
         out_item = 1 if self.output == "uint8" else 4
         tick_io = 3 * hw * 1 + 48 * hw * out_item  # uint8 LR in, HR out
-        return self.slots_per_geometry * (state + tick_io)
+        return self.slots_per_geometry * (state + tick_io) // self._devices
+
+    def _pool_share(self, srv: VSRServer) -> int:
+        """A bucket's captured graph pools (every device's), per device."""
+        return srv.graph_pool_bytes() // self._devices
 
     def pool_estimate(self, height: int, width: int) -> int:
         """The graph pool a new (height, width) bucket is expected to hold
@@ -410,14 +488,14 @@ class MultiGeometryServer:
         bucket has captured a tick (eager, on the CPU, or the first bucket:
         it is admitted on :meth:`bucket_bytes`, and its pool counts from its
         capture on)."""
-        pool, geo = max(((srv.graph_pool_bytes(), g) for g, srv in self._buckets.items()),
+        pool, geo = max(((self._pool_share(srv), g) for g, srv in self._buckets.items()),
                         default=(0, None))
         if pool == 0:
             return 0
         return -(-pool * int(height) * int(width) // (geo[0] * geo[1]))
 
     def _resident_bytes(self, geo: Tuple[int, int]) -> int:
-        return self.bucket_bytes(*geo) + self._buckets[geo].graph_pool_bytes()
+        return self.bucket_bytes(*geo) + self._pool_share(self._buckets[geo])
 
     @property
     def footprint_bytes(self) -> int:
@@ -433,7 +511,7 @@ class MultiGeometryServer:
                 srv = self._buckets[geo] = VSRServer(
                     self.config, self.generator, self.fnet, geo[0], geo[1],
                     max_streams=self.slots_per_geometry, output=self.output,
-                    device=self.device, capture=self.capture)
+                    mesh=self.mesh, device=self.device, capture=self.capture)
             self._use_clock += 1
             self._last_use[geo] = self._use_clock
         return srv

@@ -32,7 +32,19 @@ replay or kernel launch that fails inside ``generate`` raises.
 Training runs on the one device it is given, with no fallback; on the card
 each step and each validation runs as a captured CUDA graph by default
 (``Trainer``'s ``capture``), and the loop reads device values on the host
-only at ``display_freq`` and ``summary_freq``. The train and validation
+only at ``display_freq`` and ``summary_freq``.
+
+Data parallelism (:func:`build_trainer`): in a process group of world size
+> 1 (``torchrun --nproc_per_node N -m tecogan_tpu_torch.cli.main --mode
+train ...``, one process per GPU) each rank trains a
+``DataParallelTrainer`` on its piece of the global ``batch_size``, its
+loaders reading the disjoint stride ``shard_id=rank, num_shards=world_size``
+of the example index space. The JAX loop instead runs one process over
+every local device of a mesh (a deviation of the port). The state is the
+same on every rank, so rank 0 alone writes the config dumps, checkpoints,
+summaries and GIFs and starts test-while-train, where every JAX process
+takes part in its collective orbax save; every rank runs the validation
+step, which averages over the group. The train and validation
 loaders run the native C++ executor where it builds (``executor="auto"``,
 as the JAX loop's), else the python one.
 """
@@ -47,6 +59,7 @@ import time
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from tecogan_tpu_torch.config import TecoConfig
@@ -161,28 +174,47 @@ def _save_once(ckpt_dir: str, state: TrainState) -> None:
         save_checkpoint(ckpt_dir, state)
 
 
+def build_trainer(config: TecoConfig, device: Union[str, torch.device],
+                  vgg: Optional[nn.Module] = None, capture: Optional[bool] = None,
+                  use_mesh: bool = True) -> Trainer:
+    """A ``Trainer`` on ``device``, or, with ``use_mesh`` in a process group
+    of world size > 1, a ``DataParallelTrainer`` over it (the JAX package's
+    ``build_trainer`` takes every local device of one process)."""
+    if use_mesh and dist.is_initialized() and dist.get_world_size() > 1:
+        from tecogan_tpu_torch.parallel import DataParallelTrainer
+
+        return DataParallelTrainer(config, device, vgg=vgg, capture=capture)
+    return Trainer(config, device, vgg=vgg, capture=capture)
+
+
 def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
           summary_dir: Optional[str] = None,
           vgg: Optional[nn.Module] = None,
           pre_trained_dir: Optional[str] = None,
           max_steps: Optional[int] = None,
           test_while_train: bool = True,
-          capture: Optional[bool] = None) -> TrainState:
+          capture: Optional[bool] = None,
+          use_mesh: bool = True) -> TrainState:
     """Train on ``device`` to ``config.max_iter`` (or ``max_steps``) steps;
     returns the final state. ``vgg``: VGG19 weights for ``vgg_scaling >
     0``. ``pre_trained_dir``: a run's checkpoint dir (the port's or the
     JAX package's) or a TF npz to warm-start from. Checkpoints go to ``<output_dir>/checkpoints``, scalars
     to ``<summary_dir>/scalars.jsonl`` and its TensorBoard event file, the
     sequence GIFs to ``<summary_dir>`` (default ``<output_dir>/log``).
-    ``capture``: as :class:`Trainer`'s (None captures on the card)."""
-    trainer = Trainer(config, device, vgg=vgg, capture=capture)
+    ``capture``: as :class:`Trainer`'s (None captures on the card).
+    ``use_mesh``: data parallelism over the process group, if one of world
+    size > 1 is up (:func:`build_trainer`)."""
+    trainer = build_trainer(config, device, vgg=vgg, capture=capture, use_mesh=use_mesh)
+    rank, world = getattr(trainer, "rank", 0), getattr(trainer, "world_size", 1)
+    writes = rank == 0  # the state is the same on every rank
     summary_dir = summary_dir or os.path.join(output_dir, "log")
     ckpt_dir = os.path.join(output_dir, "checkpoints")
-    os.makedirs(output_dir, exist_ok=True)
-    os.makedirs(summary_dir, exist_ok=True)
-    for d in (summary_dir, output_dir):
-        with open(os.path.join(d, "config.json"), "w") as f:
-            f.write(config.to_json())
+    if writes:
+        os.makedirs(output_dir, exist_ok=True)
+        os.makedirs(summary_dir, exist_ok=True)
+        for d in (summary_dir, output_dir):
+            with open(os.path.join(d, "config.json"), "w") as f:
+                f.write(config.to_json())
 
     state = trainer.init_state(config.rand_seed)
     print(f"Training {'TecoGAN' if config.gan else 'FRVSR'} on {trainer.device}: compute "
@@ -202,26 +234,34 @@ def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
     elif pre_trained_dir:
         state = warm_start(state, pre_trained_dir)
         print(f"Warm-started weights from {pre_trained_dir}")
+    if world > 1:
+        state = trainer.broadcast_state(state)
+        print(f"Data parallel: rank {rank} of {world}, {config.batch_size // world} of "
+              f"the global batch of {config.batch_size} a rank")
 
+    # Each rank loads its piece of the global batch from a disjoint stride
+    # of the example index space (the JAX loop's per-host sharding).
+    shard_kw = dict(batch_size=config.batch_size // world, shard_id=rank, num_shards=world)
     dataset = SceneDataset(config, validation=False)
-    loader = BatchLoader(dataset, executor="auto")
+    loader = BatchLoader(dataset, executor="auto", **shard_kw)
     try:
         val_loader = BatchLoader(SceneDataset(config, validation=True),
-                                 seed=config.rand_seed + 1, executor="auto")
+                                 seed=config.rand_seed + 1, executor="auto", **shard_kw)
     except FileNotFoundError:
         val_loader = None
     print(f"Dataset: {len(dataset.scenes)} scenes, {len(dataset)} windows, "
           f"steps/epoch {len(dataset) // config.batch_size}")
 
-    logger = SummaryLogger(summary_dir)
+    logger = SummaryLogger(summary_dir) if writes else None
     total = max_steps if max_steps is not None else config.max_iter
     t_window, frames_window = time.perf_counter(), 0
     try:
         with _PreemptionGuard() as preempt, loader:
             for _ in range(state.step, total):
                 if preempt.fired:
-                    _save_once(ckpt_dir, state)
-                    print(f"Preempted: saved final checkpoint at step {state.step}")
+                    if writes:
+                        _save_once(ckpt_dir, state)
+                        print(f"Preempted: saved final checkpoint at step {state.step}")
                     break
                 batch = loader.next_batch()
                 state, metrics = trainer.train_step(state, batch)
@@ -235,16 +275,19 @@ def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
                     msg = ", ".join(f"{k} {v:.4f}" for k, v in sorted(m.items()))
                     print(f"step {step}: image/sec*frames {ips:.1f} | {msg}")
                 if step % config.summary_freq == 0:
-                    logger.scalars(step, state.ema_losses)
-                    logger.scalars(step, {"learning_rate": metrics["learning_rate"]})
-                    if config.gan:
-                        logger.scalars(step, {"t_balance_EMA": state.ema_tbalance,
-                                              "withD_counter": state.counter_with_d,
-                                              "w_o_D_counter": state.counter_wo_d})
-                    if val_loader is not None:
-                        logger.scalars(step, trainer.eval_step(state, val_loader.next_batch()),
-                                       prefix="val_")
-                if step % config.save_freq == 0 or step == total:
+                    # Every rank validates: the step averages over the group.
+                    val = (trainer.eval_step(state, val_loader.next_batch())
+                           if val_loader is not None else None)
+                    if writes:
+                        logger.scalars(step, state.ema_losses)
+                        logger.scalars(step, {"learning_rate": metrics["learning_rate"]})
+                        if config.gan:
+                            logger.scalars(step, {"t_balance_EMA": state.ema_tbalance,
+                                                  "withD_counter": state.counter_with_d,
+                                                  "w_o_D_counter": state.counter_wo_d})
+                        if val is not None:
+                            logger.scalars(step, val, prefix="val_")
+                if writes and (step % config.save_freq == 0 or step == total):
                     save_checkpoint(ckpt_dir, state)
                     print(f"Saved checkpoint at step {step}")
                     _write_sequence_summaries(trainer, state, batch, logger, step)
@@ -252,11 +295,13 @@ def train(config: TecoConfig, output_dir: str, device: Union[str, torch.device],
                         _spawn_test_while_train(config, output_dir, ckpt_dir,
                                                 trainer.device)
     except KeyboardInterrupt:
-        _save_once(ckpt_dir, state)
-        print(f"KeyboardInterrupt: saved final checkpoint at step {state.step}")
+        if writes:
+            _save_once(ckpt_dir, state)
+            print(f"KeyboardInterrupt: saved final checkpoint at step {state.step}")
     finally:
         if val_loader is not None:
             val_loader.stop()
-        logger.close()
+        if logger is not None:
+            logger.close()
         _reap_test_while_train(final=True)
     return state

@@ -654,9 +654,20 @@ class Trainer:
         d_fake, _ = disc(fake.detach(), update_stats=True)
         state.d_opt.zero_grad()
         d_loss(d_real.float(), d_fake.float(), cfg.eps).backward()
+        self._reduce_grads(state.discriminator)
         state.d_opt.step(train_d)
         state.counter_with_d += train_d.int()
         state.counter_wo_d += (~train_d).int()
+
+    def _reduce_grads(self, *modules: nn.Module) -> None:
+        """The gradients of ``modules`` made those of the global batch:
+        nothing on one device (``parallel/dp.py`` averages them over its
+        process group)."""
+
+    def _reduce_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The step's metrics made those of the global batch: themselves on
+        one device (``parallel/dp.py`` averages them over its group)."""
+        return metrics
 
     def train_step(self, state: TrainState, hr_seq: Batch
                    ) -> Tuple[TrainState, Dict[str, Union[torch.Tensor, float]]]:
@@ -706,6 +717,7 @@ def _train_body(trainer: Trainer, state: TrainState, hr: torch.Tensor) -> torch.
     state.gen_opt.zero_grad(set_to_none=True)
     state.fnet_opt.zero_grad(set_to_none=True)
     joint.backward()
+    trainer._reduce_grads(state.generator, state.fnet)
     lr = trainer.lr_at(state.device_step)
     for opt in (state.gen_opt, state.fnet_opt):
         for group in opt.param_groups:
@@ -715,6 +727,7 @@ def _train_body(trainer: Trainer, state: TrainState, hr: torch.Tensor) -> torch.
     if cfg.gan:
         trainer._d_step(state, aux["real"], aux["fake"])
         metrics["t_balance"] = aux["t_balance"].detach()
+    metrics = trainer._reduce_metrics(metrics)
     d = cfg.loss_ema_decay
     with torch.no_grad():
         if cfg.gan:
@@ -728,7 +741,7 @@ def _train_body(trainer: Trainer, state: TrainState, hr: torch.Tensor) -> torch.
 @torch.no_grad()
 def _eval_body(trainer: Trainer, state: TrainState, hr: torch.Tensor) -> torch.Tensor:
     """The validation losses on the static batch ``hr``, as one vector."""
-    metrics = trainer._forward_losses(state, *trainer._prepare(hr))[1]
+    metrics = trainer._reduce_metrics(trainer._forward_losses(state, *trainer._prepare(hr))[1])
     return torch.stack([metrics[k] for k in trainer.metric_keys("eval")])
 
 

@@ -335,9 +335,12 @@ def test_cli_inference_guards(tmp_path, monkeypatch):
         main(base + ["--allow_random_weights", "--output_ext", "jpg"])
     with pytest.raises(ValueError, match="extension"):  # before any decode
         main(base + ["--allow_random_weights", "--output_video", "x.webm"])
-    for extra, item in ((["--spatial_shards", "2"], "item 11"), (["--pipeline"], "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            main(base + ["--allow_random_weights"] + extra)
+    # The parallel flags: 8-row frames give no 2 shards of FNet's 8 rows,
+    # and the two strategies are exclusive (before any decode).
+    with pytest.raises(ValueError, match="at most 1 shards"):
+        main(base + ["--allow_random_weights", "--spatial_shards", "2"])
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        main(base + ["--allow_random_weights", "--spatial_shards", "2", "--pipeline"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(base[:2] + base[4:] + ["--allow_random_weights"])  # --device cuda

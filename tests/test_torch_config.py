@@ -11,11 +11,10 @@ import torch
 from tecogan_tpu import config as jax_config
 from tecogan_tpu_torch import config
 
-# Fields the JAX package has and the port leaves out: TPU tuning modes, mesh
-# axis names, and the parameter dtype (the port keeps float32 parameters).
+# Fields the JAX package has and the port leaves out: TPU tuning modes and
+# the parameter dtype (the port keeps float32 parameters).
 JAX_ONLY = {"inline_flow", "fold_input_s2d", "train_fold_s2d",
-            "pallas_flow_upsample", "fused_trunk", "dp_axis", "sp_axis",
-            "param_dtype"}
+            "pallas_flow_upsample", "fused_trunk", "param_dtype"}
 
 
 @pytest.mark.parametrize("name", ["FRVSR_PRESET", "TECOGAN_PRESET", "MINI_PRESET"])
@@ -48,10 +47,10 @@ def test_top_level_exports_match_jax():
         assert getattr(tecogan_tpu_torch, name) is getattr(config, name)
 
 
-@pytest.mark.parametrize("package", ["data", "utils", "ops", "eval", "models"])
+@pytest.mark.parametrize("package", ["data", "utils", "ops", "eval", "models", "parallel"])
 def test_package_exports_match_jax(package):
-    """``tecogan_tpu_torch.data``, ``.utils``, ``.ops``, ``.eval`` and
-    ``.models`` export the JAX package's names (its ``__init__.py`` files),
+    """``tecogan_tpu_torch.data``, ``.utils``, ``.ops``, ``.eval``,
+    ``.models`` and ``.parallel`` export the JAX package's names (its ``__init__.py`` files),
     each bound to the port's own object. The ``kernels`` subpackage keeps
     its own names: the JAX package's are TPU tuning."""
     import importlib

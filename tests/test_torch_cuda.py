@@ -1221,3 +1221,155 @@ def test_load_models_from_a_jax_layout_checkpoint_streams_like_cpu(cuda_device, 
     assert upsample4.launches > before[0] and resblock_chain.launches > before[1]
     assert outs[0].shape == (6, 128, 192, 3)
     assert rel_err(*outs)[1] <= PATH_TOL
+
+
+# ---------------------------------------------- parallel paths on one card
+# chip_smoke.py phase 17 at a small size: the mesh names the card twice.
+def _par_models(seed, cfg):
+    from chip_smoke import build_models
+
+    return build_models(seed, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"], ids=["f32", "bf16"])
+def test_spatial_streaming_on_one_card_matches_unsharded(cuda_device, dtype):
+    """``StreamingSR`` on a 2-shard mesh ``[cuda, cuda]``, 2 blocks, LR 64x48
+    (shards of 32 rows: the halo warp), against the unsharded run: float32
+    at phase 5's tolerance; in bfloat16 the first frame and each frame's
+    sharded step from the unsharded state within one uint8 level (chip_smoke
+    phase 17 (a)); the chain and K1 launch on every shard."""
+    from chip_smoke import PATH_TOL, deterministic, rel_err, spatial_teacher_forced
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.parallel import make_mesh
+    from tecogan_tpu_torch.recurrent import StreamingSR
+
+    cfg = TecoConfig(num_resblock=2, compute_dtype=dtype, infer_chunk=3)
+    output = "float32" if dtype == "float32" else "uint8"
+    frames = (np.random.RandomState(1).rand(7, 64, 48, 3) * 255).astype(np.uint8)
+    mesh = make_mesh({"space": 2}, [cuda_device, cuda_device])
+    outs = []
+    with deterministic():
+        for m in (None, mesh):
+            before = (upsample4.launches, resblock_chain.launches)
+            sr = StreamingSR(cfg, *_par_models(2, cfg), output=output, device=cuda_device,
+                             capture=False, spatial_mesh=m)
+            outs.append(sr.run(frames)[0])
+            shards = 1 if m is None else 2
+            # 3 chunks of 3: the last padded to 9 frames; K1: a flow a chunk
+            # and a skip a frame, per shard.
+            assert (upsample4.launches - before[0], resblock_chain.launches - before[1]) == (
+                shards * (9 + 3), shards * 2 * 9)
+        forced = spatial_teacher_forced(torch.device("cuda", 0), cfg, _par_models(2, cfg),
+                                        frames, mesh.axis_devices("space"))
+    assert sr.step.halo_warps == 9 and sr.step.gather_warps == 0
+    assert forced <= 1
+    if output == "uint8":
+        assert np.abs(outs[1][0].astype(np.int16) - outs[0][0]).max() <= 1
+    else:
+        assert rel_err(torch.from_numpy(outs[1]), torch.from_numpy(outs[0]))[1] <= PATH_TOL
+
+
+@pytest.mark.cuda
+def test_halo_warp_on_one_card_is_bit_equal(cuda_device):
+    from tecogan_tpu_torch.ops.warp import warp_space_to_depth, warp_space_to_depth_halo
+    from tecogan_tpu_torch.parallel import make_mesh
+
+    rng = np.random.RandomState(2)
+    image = torch.from_numpy(rng.rand(2, 256, 64, 3).astype(np.float32)).to(cuda_device)
+    flow = torch.from_numpy((rng.rand(2, 256, 64, 2) * 2 - 1).astype(np.float32) * 24).to(
+        cuda_device)
+    mesh = make_mesh({"space": 4}, [cuda_device] * 4)
+    got = warp_space_to_depth_halo(image, flow, mesh, "space", 4, max_displacement=24.0)
+    assert torch.equal(got, warp_space_to_depth(image, flow, 4))
+
+
+@pytest.mark.cuda
+def test_pipeline_on_one_card_equals_streaming(cuda_device):
+    """Both stages on the card (two streams): bit-equal to
+    ``StreamingSR(capture=False)`` under cuDNN's deterministic algorithms."""
+    from chip_smoke import deterministic
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.parallel import PipelinedStreamingSR
+    from tecogan_tpu_torch.recurrent import StreamingSR
+
+    cfg = TecoConfig(num_resblock=2, compute_dtype="bfloat16", infer_chunk=3)
+    frames = (np.random.RandomState(3).rand(7, 32, 48, 3) * 255).astype(np.uint8)
+    with deterministic():
+        want, _ = StreamingSR(cfg, *_par_models(3, cfg), output="uint8", device=cuda_device,
+                              capture=False).run(frames)
+        got, _ = PipelinedStreamingSR(cfg, *_par_models(3, cfg), output="uint8",
+                                      flow_device=cuda_device,
+                                      recurrent_device=cuda_device).run(frames)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_data_parallel_world_size_one_matches_trainer(cuda_device):
+    """A captured ``DataParallelTrainer`` step at world size 1 over NCCL:
+    every state tensor bit-equal to the plain ``Trainer``'s."""
+    import socket
+
+    import torch.distributed as dist
+
+    from chip_smoke import deterministic, frvsr_batch
+    from tecogan_tpu_torch.parallel import DataParallelTrainer, init_distributed
+    from tecogan_tpu_torch.train.trainer import named_state_tensors
+
+    cfg = FRVSR_PRESET.replace(num_resblock=2, batch_size=2, rnn_n=3)
+    batch = frvsr_batch(cfg, 2, 5)
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    init_distributed(f"localhost:{port}", 1, 0, backend="nccl")
+    try:
+        finals = []
+        with deterministic():
+            for cls in (Trainer, DataParallelTrainer):
+                trainer = cls(cfg, cuda_device)
+                state = trainer.init_state(1)
+                for _ in range(2):
+                    trainer.train_step(state, batch)
+                assert trainer.capture
+                finals.append([t.detach().clone() for _, t in named_state_tensors(state)])
+    finally:
+        dist.destroy_process_group()
+    assert all(torch.equal(a, b) for a, b in zip(*finals))
+
+
+@pytest.mark.cuda
+def test_slot_pool_mesh_on_one_card(cuda_device):
+    """A 4-slot ``VSRServer`` over a 2-device mesh ``[cuda, cuda]``,
+    captured: every tick bit-equal to two unsharded 2-slot pools on the
+    same streams, and the first within one level of the 4-slot pool."""
+    from chip_smoke import deterministic
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.parallel import make_mesh
+    from tecogan_tpu_torch.serve import VSRServer
+
+    cfg = TecoConfig(num_resblock=2, compute_dtype="bfloat16")
+    frames = (np.random.RandomState(4).rand(3, 4, 32, 48, 3) * 255).astype(np.uint8)
+    outs = []
+    with deterministic():
+        for m, groups in ((make_mesh({cfg.dp_axis: 2}, [cuda_device, cuda_device]),
+                           [[0, 1, 2, 3]]), (None, [[0, 1], [2, 3]]), (None, [[0, 1, 2, 3]])):
+            servers = []
+            for group in groups:
+                srv = VSRServer(cfg, *_par_models(4, cfg), 32, 48, max_streams=len(group),
+                                mesh=m, device=cuda_device)
+                for k in group:
+                    srv.open(k)
+                servers.append((srv, group))
+            ticks = []
+            for f in frames:
+                tick = {}
+                for srv, group in servers:
+                    tick.update(srv.step({k: f[k] for k in group}))
+                ticks.append(tick)
+            outs.append(ticks)
+    for a, b in zip(outs[0], outs[1]):
+        for k in range(4):
+            np.testing.assert_array_equal(a[k], b[k])
+    for k in range(4):
+        assert np.abs(outs[0][0][k].astype(np.int16) - outs[2][0][k]).max() <= 1

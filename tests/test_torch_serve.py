@@ -307,10 +307,16 @@ def test_lifecycle_errors(weights):
     srv.open("b")  # slot freed
     assert srv.open_streams == ("b",)
     assert srv.step({}) == {}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        VSRServer(cfg, *_models(weights), H, W, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        MultiGeometryServer(cfg, *_models(weights), mesh=object(), device="cpu")
+    # A slot pool over a mesh: the slots divide over its data axis, which
+    # it must have.
+    from tecogan_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="divide evenly"):
+        VSRServer(cfg, *_models(weights), H, W, max_streams=3,
+                  mesh=make_mesh({"data": 2}, "cpu"), device="cpu")
+    with pytest.raises(ValueError, match="no 'data'"):
+        MultiGeometryServer(cfg, *_models(weights), mesh=make_mesh({"space": 2}, "cpu"),
+                            device="cpu")
 
     multi = MultiGeometryServer(cfg, *_models(weights), slots_per_geometry=1,
                                 output="float32", device="cpu")
