@@ -1653,6 +1653,7 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
     from tecogan_tpu_torch.eval import LPIPS, evaluate_folders, random_alexnet_params
     from tecogan_tpu_torch.kernels import resblock_chain, upsample4
     from tecogan_tpu_torch.ops import list_png_in_dir
+    from tecogan_tpu_torch.parallel import make_mesh
     from tecogan_tpu_torch.recurrent import StreamingSR
     from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
     from tecogan_tpu_torch.weights import (
@@ -1679,8 +1680,9 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
     # float ulp can flip a uint8 level. Run 2, into another directory, keeps
     # PyTorch's default flags, as a user's run does, and shows the spread of
     # the wall time.
-    def cli(out_dir, *extra, codec="native"):
-        """One CLI run with the native or the python PNG codec; ``stats``
+    def cli(out_dir, *extra, codec="native", mesh_devices=None):
+        """One CLI run with the native or the python PNG codec (and the
+        parallel flags' devices, as a library caller places them); ``stats``
         gains the frames the native library decoded and encoded in it."""
         printed = io.StringIO()
         counts = codec_counts()
@@ -1688,7 +1690,8 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
                 python_codec() if codec == "python" else contextlib.nullcontext()):
             t0 = time.perf_counter()
             stats = cli_main.main(["--mode", "inference", "--input_dir_HR", hr_dir,
-                                   "--output_dir", out_dir, "--device", "cuda", *extra])
+                                   "--output_dir", out_dir, "--device", "cuda", *extra],
+                                  mesh_devices=mesh_devices)
             wall = time.perf_counter() - t0
         stats.update(codec=codec, native=tuple(n - c for n, c in zip(codec_counts(), counts)))
         return stats, wall, printed.getvalue()
@@ -1709,6 +1712,30 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
         sr = StreamingSR(cfg, *from_jax_params(trees["generator"], trees["fnet"]),
                          output="uint8", device=dev)
         direct, _ = sr.run(data.inputs, warmup=WARMUP)
+        # The parallel flags on one card (main's mesh_devices puts both
+        # shards or both stages there), captured by default: --spatial_shards
+        # 2 against the eager sharded StreamingSR.run, --pipeline against
+        # run 1, and at the CLI's default dtype (float32 frames in float32:
+        # stage F's frames are its input buffer) against the plain CLI there.
+        card_dev = f"cuda:{torch.cuda.current_device()}"
+        argv32 = ["--params_npz", npz, "--infer_chunk", str(CHUNK)]
+        par = {}
+        for k, (name, flags, args) in enumerate((
+                ("--spatial_shards 2", ["--spatial_shards", "2"], argv),
+                ("--pipeline", ["--pipeline"], argv),
+                ("plain float32", [], argv32),
+                ("--pipeline float32", ["--pipeline"], argv32))):
+            _zero_counts()
+            before = CapturedProgram.captures
+            stats, wall, printed = cli(os.path.join(tmp, f"cli_par{k}"), *args, *flags,
+                                       mesh_devices=[card_dev] * 2 if flags else None)
+            par[name] = dict(stats=stats, wall=wall, launches=_launch_counts(),
+                             captures=CapturedProgram.captures - before,
+                             io=[ln for ln in printed.splitlines() if ln.startswith("io:")])
+        sharded = StreamingSR(cfg, *from_jax_params(trees["generator"], trees["fnet"]),
+                              output="uint8", device=dev, capture=False,
+                              spatial_mesh=make_mesh({"space": 2}, [card_dev] * 2))
+        direct_sharded, _ = sharded.run(data.inputs, warmup=WARMUP)
     finally:
         torch.backends.cudnn.deterministic = False
     # Runs 2-5 keep the default flags, the PNG codecs in turns (phase 9b
@@ -1763,6 +1790,45 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
     for line in runs[0][2].splitlines():
         if line.startswith(("total time", "Wrote", "io:")):
             log(f"[cli] | {line}")
+    # The parallel flags: each run's PNGs against its reference, its
+    # launches (2 shards: twice the plain run's; the pipeline: the plain
+    # run's), its captures (1 a chunk shape sharded or plain, 2 pipelined)
+    # and the program seconds inside the stream.
+    got32 = read_frames([os.path.join(par["plain float32"]["stats"]["out_dir"], n)
+                         for n in names])
+    if got32.shape != got.shape or got32.min() == got32.max():
+        raise RuntimeError(f"[cli] plain float32 run: frames of {got32.shape}, "
+                           f"{got32.min()}-{got32.max()}")
+    for name, ref, shards, want_captures in (
+            ("--spatial_shards 2", direct_sharded, 2, 1), ("--pipeline", got, 1, 2),
+            ("plain float32", got32, 1, 1), ("--pipeline float32", got32, 1, 2)):
+        rec = par[name]
+        stats = rec["stats"]
+        out = read_frames([os.path.join(stats["out_dir"], n) for n in names])
+        same = out.shape == ref.shape and np.array_equal(out, ref)
+        want = {"upsample4": shards * need["upsample4"],
+                "resblock_chain": shards * need["resblock_chain"], "upsample4_bwd": 0}
+        against = ("the eager sharded StreamingSR.run" if shards > 1 else
+                   "the plain float32 CLI" if name.endswith("float32") else
+                   "run 1 (the plain CLI)")
+        placed = f"on [{card_dev}, {card_dev}]" if name.startswith("--") else "on the card"
+        log(f"[cli] {name} {placed} (cuDNN deterministic, native codec): "
+            f"{stats['written']} PNGs "
+            f"{'byte-equal to' if same else 'DIFFERING from'} {against}; "
+            f"route {stats['route']}; launches {rec['launches']} (want {want}), "
+            f"{rec['captures']} capture(s) (want {want_captures}); stream "
+            f"{stats['stream_s']:.3f} s, program {stats['capture_s']:.3f} s, decode + blur "
+            f"{stats['decode_s']:.3f} s, writer flush {stats['flush_s']:.3f} s; end to end "
+            f"{rec['wall']:.3f} s wall; card: {card}")
+        for line in rec["io"]:
+            log(f"[cli] {name} | {line}")
+        if (not same or rec["launches"] != want or rec["captures"] != want_captures
+                or not stats["capture_s"] > 0 or not stats["route"].startswith(
+                    "stage F captured" if name.startswith("--pipeline") else "captured")):
+            raise RuntimeError(f"[cli] {name}: byte-equal {same}, launches {rec['launches']} "
+                               f"(want {want}), captures {rec['captures']} (want "
+                               f"{want_captures}), program {stats['capture_s']} s, route "
+                               f"{stats['route']!r}")
 
     # (d) The checkpoint route: phase 8's 10-block checkpoint, float32.
     stats, wall, printed = cli(os.path.join(tmp, "cli_ckpt"), "--checkpoint", ckpt_dir,
@@ -4122,21 +4188,57 @@ def deterministic():
         torch.backends.cudnn.allow_tf32 = flags[2]
 
 
-PAR_RUNS = 2  # timed runs after a warm-up run
+PAR_RUNS = 4  # timed runs after a warm-up run
 
 
-def _timed_run(sr, frames, runs: int = PAR_RUNS):
-    """A warm-up run, then ``runs`` timed runs: (output, wall seconds of
-    each, launches of the last)."""
-    sr.run(frames)
-    secs = []
-    for _ in range(runs):
-        torch.cuda.synchronize()
-        _zero_counts()
-        out, s = sr.run(frames)
-        torch.cuda.synchronize()
-        secs.append(s)
-    return out, secs, _launch_counts()
+def _timed_turns(srs: dict, frames, runs: int = PAR_RUNS):
+    """A warm-up run of each engine in ``srs`` (a captured one captures
+    there), then ``runs`` timed rounds, each engine once a round, in turns
+    (the order reversed every other round): per engine its output, the
+    wall seconds of each timed run, the launches of its last, and the
+    graphs it captured."""
+    from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
+
+    rec = {}
+    for name, sr in srs.items():
+        captures = CapturedProgram.captures
+        sr.run(frames)
+        rec[name] = dict(sr=sr, secs=[], captures=CapturedProgram.captures - captures)
+    captures = CapturedProgram.captures
+    for r in range(runs):
+        for name in (list(srs) if r % 2 == 0 else list(srs)[::-1]):
+            torch.cuda.synchronize()
+            _zero_counts()
+            out, secs = srs[name].run(frames)
+            torch.cuda.synchronize()
+            rec[name].update(out=out, launches=_launch_counts())
+            rec[name]["secs"].append(secs)
+    if CapturedProgram.captures != captures:
+        raise RuntimeError("[par] a timed run captured a graph: the chunk shape's program "
+                           "was not kept")
+    return rec
+
+
+def _pool_mib(sr) -> float:
+    """MiB of a captured engine's graph pools (``StreamingSR``: a program a
+    chunk shape; the pipeline: two), 0 eager."""
+    if not sr.capture:
+        return 0.0
+    if hasattr(sr, "_chunks"):
+        return sum(c.run.pool_bytes() for c in sr._chunks.values()) / 2**20
+    return sum(sum(st.pool_bytes()) for st in sr._stages.values()) / 2**20
+
+
+def _largest_segment_mib(sr) -> float:
+    """MiB of the largest segment in a captured ``StreamingSR``'s graph
+    pools: one allocation's worth, as a convolution's workspace."""
+    pools = {c.run.pool_id for c in sr._chunks.values()}
+    return max((seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                if tuple(seg["segment_pool_id"]) in pools), default=0) / 2**20
+
+
+def _secs(rec) -> str:
+    return ", ".join(f"{s:.4f}" for s in rec["secs"])
 
 
 def quantize(x: torch.Tensor) -> torch.Tensor:
@@ -4172,8 +4274,10 @@ def spatial_teacher_forced(dev, cfg, models, frames: np.ndarray, devices) -> int
 
 def run_spatial(dev, card: str) -> None:
     """Phase 17 (a): ``StreamingSR`` on a 2-shard mesh ``[cuda:0, cuda:0]``
-    at LR 144x180, full width, against the unsharded run; the halo warp
-    bit-equal to the unsharded warp at the path's HR shape."""
+    at LR 144x180, full width, captured (one graph a chunk shape) and
+    eager in turns, against each other (bit-equal, the same launches) and
+    the unsharded run; the halo warp bit-equal to the unsharded warp at the
+    path's HR shape."""
     from tecogan_tpu_torch.config import TecoConfig
     from tecogan_tpu_torch.ops.warp import warp_space_to_depth, warp_space_to_depth_halo
     from tecogan_tpu_torch.parallel import make_mesh
@@ -4197,13 +4301,14 @@ def run_spatial(dev, card: str) -> None:
     chunks = -(-PAR_FRAMES // PAR_CHUNK)
     for dtype, output in (("float32", "float32"), ("bfloat16", "uint8")):
         cfg = TecoConfig(num_resblock=NUM_RESBLOCK, compute_dtype=dtype, infer_chunk=PAR_CHUNK)
-        runs = {}
         with deterministic():
-            for name, m in (("unsharded", None), ("sharded", mesh)):
-                sr = StreamingSR(cfg, *build_models(173, cfg), output=output, device=dev,
-                                 capture=False, spatial_mesh=m)
-                out, secs, launches = _timed_run(sr, frames)
-                runs[name] = dict(out=out, secs=secs, launches=launches, sr=sr)
+            srs = {name: StreamingSR(cfg, *build_models(173, cfg), output=output, device=dev,
+                                     capture=capture, spatial_mesh=m)
+                   for name, capture, m in (("unsharded", False, None),
+                                            ("sharded", False, mesh),
+                                            ("captured sharded", None, mesh),
+                                            ("captured unsharded", None, None))}
+            runs = _timed_turns(srs, frames)
             forced = spatial_teacher_forced(dev, cfg, build_models(173, cfg), frames,
                                             [dev] * PAR_SHARDS)
         a, b = runs["sharded"]["out"], runs["unsharded"]["out"]
@@ -4228,54 +4333,110 @@ def run_spatial(dev, card: str) -> None:
             what = (f"float max_abs_err={err:.3e} rel={rel:.3e} tol={PATH_TOL:.0e}; each "
                     f"frame's sharded step from the unsharded state within {forced} uint8 "
                     f"level(s), tol 1")
-        step = runs["sharded"]["sr"].step
+        cap = runs["captured sharded"]
+        same = np.array_equal(cap["out"], a)
+        step, cap_step = runs["sharded"]["sr"].step, cap["sr"].step
         need = {"resblock_chain": NUM_RESBLOCK * PAR_SHARDS * PAR_FRAMES,
                 "upsample4": PAR_SHARDS * (PAR_FRAMES + chunks), "upsample4_bwd": 0}
         got = runs["sharded"]["launches"]
+        pool = _pool_mib(cap["sr"])
         log(f"[par] (a) spatial streaming {dtype} -> {output}, {PAR_FRAMES} frames "
             f"{LR_H}x{LR_W} -> {4 * LR_H}x{4 * LR_W}, {NUM_RESBLOCK} resblocks, chunk "
             f"{PAR_CHUNK}, {PAR_SHARDS} shards of {shard_rows(LR_H, PAR_SHARDS)} LR rows on {dev} "
-            f"twice, eager, halo depth k={step.chain_blocks} blocks a chain call "
+            f"twice, halo depth k={step.chain_blocks} blocks a chain call "
             f"({2 * step.chain_blocks}-row halo), halo warps {step.halo_warps}, gathered "
-            f"warps {step.gather_warps} in {1 + PAR_RUNS} runs: sharded vs unsharded {what}; launches a run sharded "
-            f"{got} (a frame: chain {got['resblock_chain'] / PAR_FRAMES:g}, K1 "
-            f"{got['upsample4'] / PAR_FRAMES:g}), unsharded {runs['unsharded']['launches']}; "
-            f"wall s a run sharded {', '.join(f'{s:.4f}' for s in runs['sharded']['secs'])}, "
-            f"unsharded {', '.join(f'{s:.4f}' for s in runs['unsharded']['secs'])} (one card: "
-            f"the cost of the sharding, no scaling claimed); card: {card}")
+            f"warps {step.gather_warps} in {1 + PAR_RUNS} eager runs: sharded vs unsharded "
+            f"{what}; launches a run sharded {got} (a frame: chain "
+            f"{got['resblock_chain'] / PAR_FRAMES:g}, K1 {got['upsample4'] / PAR_FRAMES:g}), "
+            f"unsharded {runs['unsharded']['launches']}; card: {card}")
+        log(f"[par] (a) spatial streaming {dtype}, captured sharded ({cap['sr'].route}; "
+            f"{cap['captures']} capture(s) in {1 + PAR_RUNS} runs, capture_s "
+            f"{cap['sr'].capture_s:.4f}, graph pool {pool:.1f} MiB, its largest segment "
+            f"{_largest_segment_mib(cap['sr']):.1f}; the captured unsharded run's "
+            f"{_pool_mib(runs['captured unsharded']['sr']):.1f}, largest "
+            f"{_largest_segment_mib(runs['captured unsharded']['sr']):.1f}): "
+            f"{'bit-equal to' if same else 'DIFFERS from'} the eager sharded run, launches a "
+            f"run {cap['launches']}; wall s a run in turns, captured sharded {_secs(cap)}, "
+            f"eager sharded {_secs(runs['sharded'])}, captured unsharded "
+            f"{_secs(runs['captured unsharded'])}, eager unsharded {_secs(runs['unsharded'])} "
+            f"(one card: the cost of the sharding, no scaling claimed); card: {card}")
         if not ok:
             raise RuntimeError(f"[par] (a) {dtype}: sharded differs from unsharded: {what}")
         if got != need or step.halo_warps != (1 + PAR_RUNS) * PAR_FRAMES or step.gather_warps:
             raise RuntimeError(f"[par] (a) {dtype}: launches {got}, want {need}; halo warps "
                                f"{step.halo_warps}, gathered {step.gather_warps}")
+        # The captured engine traces the warp twice (the capture's warm-up and
+        # the capture) for its one chunk shape; a replay adds no trace.
+        if (not same or cap["launches"] != need or cap["captures"] != 1 or not pool > 0
+                or cap_step.halo_warps != 2 * PAR_CHUNK or cap_step.gather_warps
+                or not cap["sr"].route.startswith("captured")):
+            raise RuntimeError(f"[par] (a) {dtype}: captured sharded: bit-equal {same}, "
+                               f"launches {cap['launches']} (want {need}), captures "
+                               f"{cap['captures']} (want 1), pool {pool} MiB, halo warps "
+                               f"{cap_step.halo_warps} (want {2 * PAR_CHUNK}), route "
+                               f"{cap['sr'].route!r}")
         PARALLEL[f"spatial_{dtype}_run"] = got
+        PARALLEL[f"spatial_{dtype}_captured_run"] = cap["launches"]
 
 
 def run_pipeline(dev, card: str) -> None:
     """Phase 17 (b): ``PipelinedStreamingSR`` with both stages on
-    ``cuda:0`` (two streams) against ``StreamingSR(capture=False)``."""
+    ``cuda:0`` (two streams), each stage a captured graph, against a
+    captured ``StreamingSR``, and both eager, in turns: bfloat16 from uint8
+    frames, and float32 from float32 frames in chunks of 2 (stage F's
+    frames are then its input buffer, which the next chunk's upload
+    overwrites once stage R has copied them in)."""
     from tecogan_tpu_torch.config import TecoConfig
     from tecogan_tpu_torch.parallel import PipelinedStreamingSR
     from tecogan_tpu_torch.recurrent import StreamingSR
 
-    cfg = TecoConfig(num_resblock=NUM_RESBLOCK, compute_dtype="bfloat16", infer_chunk=PAR_CHUNK)
-    frames = (np.random.RandomState(174).rand(PAR_FRAMES, LR_H, LR_W, 3) * 255).astype(np.uint8)
-    with deterministic():
-        ref = StreamingSR(cfg, *build_models(175, cfg), output="uint8", device=dev, capture=False)
-        want, ref_secs, ref_launches = _timed_run(ref, frames)
-        pipe = PipelinedStreamingSR(cfg, *build_models(175, cfg), output="uint8",
-                                    flow_device=dev, recurrent_device=dev)
-        got, secs, launches = _timed_run(pipe, frames)
-    same = np.array_equal(got, want)
-    log(f"[par] (b) pipeline, flow and recurrent stages on {dev} (two streams), bfloat16 -> "
-        f"uint8, {PAR_FRAMES} frames {LR_H}x{LR_W}, chunk {PAR_CHUNK}, cuDNN deterministic: "
-        f"{'bit-equal to' if same else 'DIFFERS from'} StreamingSR(capture=False); launches a "
-        f"run {launches} (StreamingSR {ref_launches}); wall s a run pipeline "
-        f"{', '.join(f'{s:.4f}' for s in secs)}, StreamingSR eager "
-        f"{', '.join(f'{s:.4f}' for s in ref_secs)} (one card); card: {card}")
-    if not same or launches != ref_launches:
-        raise RuntimeError("[par] (b) the pipeline differs from StreamingSR")
-    PARALLEL["pipeline_run"] = launches
+    rng = np.random.RandomState(174)
+    for dtype, chunk, frames, output in (
+            ("bfloat16", PAR_CHUNK,
+             (rng.rand(PAR_FRAMES, LR_H, LR_W, 3) * 255).astype(np.uint8), "uint8"),
+            ("float32", PAR_CHUNK // 2,
+             rng.rand(PAR_FRAMES, LR_H, LR_W, 3).astype(np.float32), "float32")):
+        cfg = TecoConfig(num_resblock=NUM_RESBLOCK, compute_dtype=dtype, infer_chunk=chunk)
+        with deterministic():
+            srs = {"captured pipeline": PipelinedStreamingSR(
+                       cfg, *build_models(175, cfg), output=output, flow_device=dev,
+                       recurrent_device=dev),
+                   "captured StreamingSR": StreamingSR(cfg, *build_models(175, cfg),
+                                                       output=output, device=dev),
+                   "eager pipeline": PipelinedStreamingSR(
+                       cfg, *build_models(175, cfg), output=output, flow_device=dev,
+                       recurrent_device=dev, capture=False),
+                   "eager StreamingSR": StreamingSR(cfg, *build_models(175, cfg),
+                                                    output=output, device=dev, capture=False)}
+            runs = _timed_turns(srs, frames)
+        want = runs["captured StreamingSR"]
+        chunks = -(-PAR_FRAMES // chunk)
+        need = {"resblock_chain": NUM_RESBLOCK * PAR_FRAMES, "upsample4": PAR_FRAMES + chunks,
+                "upsample4_bwd": 0}
+        cap = runs["captured pipeline"]
+        (stages,) = cap["sr"]._stages.values()
+        pools = [b / 2**20 for b in stages.pool_bytes()]
+        same = {name: np.array_equal(r["out"], want["out"]) for name, r in runs.items()}
+        log(f"[par] (b) pipeline, flow and recurrent stages on {dev} (two streams), {dtype} "
+            f"from {frames.dtype} frames -> {output}, {PAR_FRAMES} frames {LR_H}x{LR_W}, chunk "
+            f"{chunk}, cuDNN deterministic, in turns: bit-equal to the captured StreamingSR: "
+            + ", ".join(f"{name} {ok}" for name, ok in same.items())
+            + "; launches a run " + ", ".join(f"{name} {r['launches']}"
+                                             for name, r in runs.items())
+            + f"; captured pipeline ({cap['sr'].route}): {cap['captures']} captures for its "
+            f"chunk shape, capture_s {cap['sr'].capture_s:.4f}, graph pools stage F "
+            f"{pools[0]:.1f} MiB, stage R {pools[1]:.1f} MiB (StreamingSR's "
+            f"{_pool_mib(want['sr']):.1f}); wall s a run "
+            + ", ".join(f"{name} {_secs(r)}" for name, r in runs.items())
+            + f" (one card); card: {card}")
+        if (not all(same.values()) or any(r["launches"] != need for r in runs.values())
+                or cap["captures"] != 2 or not all(p > 0 for p in pools)):
+            raise RuntimeError(f"[par] (b) {dtype}: the pipeline differs from StreamingSR: "
+                               f"bit-equal {same}, launches want {need}, captures "
+                               f"{cap['captures']} (want 2), pools {pools}")
+        suffix = "" if dtype == "bfloat16" else "_f32"
+        PARALLEL[f"pipeline{suffix}_run"] = runs["eager pipeline"]["launches"]
+        PARALLEL[f"pipeline{suffix}_captured_run"] = cap["launches"]
 
 
 def _dp_configs():

@@ -36,11 +36,16 @@ JPEG; ``.mp4``, ``.m4v``, ``.mkv`` MPEG-4 Part 2) at
 ``--output_video_fps``, else the source's rate, else 24.
 
 Parallelism (``parallel/``): ``--spatial_shards N`` splits each frame's rows
-over N devices (``make_mesh({sp_axis: N})`` over the visible CUDA devices,
-or the CPU standing for N with ``--device cpu``); ``--pipeline`` runs FNet
-and the flow upsample on one device and the recurrent generator on the
-next (both on the CPU with ``--device cpu``); the two are mutually
-exclusive. Training is data parallel under ``torchrun --nproc_per_node N
+over N devices; ``--pipeline`` runs FNet and the flow upsample on one
+device and the recurrent generator on the next; the two are mutually
+exclusive. On the card they take the visible CUDA devices, the first N
+or the first two (too few raises), whatever ``--device`` names; with
+``--device cpu`` the CPU stands for them. A library caller may place them
+itself (:func:`main`'s ``mesh_devices``, e.g. every shard on one card). On
+the card both run as captured CUDA graphs: the sharded chunk as one graph
+where every shard sits on one device (across cards eagerly, ROADMAP item
+11c), each stage as one graph on its device; the timing line names the
+route. Training is data parallel under ``torchrun --nproc_per_node N
 -m tecogan_tpu_torch.cli.main --mode train ...``: each process
 joins the group from torchrun's ``MASTER_ADDR``, ``MASTER_PORT``,
 ``WORLD_SIZE`` and ``RANK`` and trains on ``cuda:LOCAL_RANK`` (``--device
@@ -104,10 +109,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--infer_chunk", type=int, default=None)
     p.add_argument("--spatial_shards", type=int, default=1,
                    help="shard frame height over N devices at inference "
-                        "(parallel/spatial.py)")
+                        "(parallel/spatial.py): the first N visible CUDA "
+                        "devices, or the CPU standing for them with --device cpu")
     p.add_argument("--pipeline", action="store_true",
                    help="pipeline the flow stage onto a second device "
-                        "(parallel/pipeline.py; needs >= 2 devices)")
+                        "(parallel/pipeline.py): the first two visible CUDA "
+                        "devices, or the CPU standing for both with --device cpu")
     p.add_argument("--no_mesh", action="store_true",
                    help="train on this process's device alone, without data "
                         "parallelism over a torchrun process group")
@@ -238,14 +245,15 @@ def load_inference_params(args, config):
     )
 
 
-def run_inference(args, config) -> dict:
+def run_inference(args, config, mesh_devices=None) -> dict:
     """Streaming inference over a PNG directory or a video file (reference
     main.py:180-270): decode (and blur, on the HR route) up front, stream
     the chunks through :class:`StreamingSR` on the device (one captured
     CUDA graph per chunk on the card, its capture inside the stream's
     seconds), encode the HR PNGs on ``queue_thread`` threads, or the HR
     video on one thread per core, while the next chunk computes. Returns
-    the wall seconds of each stage and the counts."""
+    the wall seconds of each stage and the counts. ``mesh_devices``: as
+    :func:`main`'s."""
     from tecogan_tpu_torch.data.inference import FrameWriter, load_inference_frames
     from tecogan_tpu_torch.parallel import PipelinedStreamingSR, make_mesh
     from tecogan_tpu_torch.recurrent import WARMUP_FRAMES, StreamingSR
@@ -257,9 +265,10 @@ def run_inference(args, config) -> dict:
             "parallelism strategies; pass exactly one"
         )
     device = resolve_device(args.device)
-    # The CPU stands for as many devices as a mesh asks for; on the card a
-    # mesh takes the visible CUDA devices and raises with too few.
-    mesh_devices = "cpu" if device.type == "cpu" else None
+    if mesh_devices is None:
+        # The CPU stands for as many devices as a mesh asks for; on the card
+        # a mesh takes the visible CUDA devices and raises with too few.
+        mesh_devices = "cpu" if device.type == "cpu" else None
     spatial_mesh = stages = None
     if args.spatial_shards > 1:
         spatial_mesh = make_mesh({config.sp_axis: args.spatial_shards}, mesh_devices)
@@ -297,7 +306,6 @@ def run_inference(args, config) -> dict:
             sr = StreamingSR(config, gen, fnet, output="uint8", device=device,
                              spatial_mesh=spatial_mesh)
         _, secs = sr.run(data.inputs, warmup=WARMUP_FRAMES, on_chunk=writer.submit)
-        capture_s = getattr(sr, "capture_s", 0.0)  # the pipeline runs eagerly
     finally:
         t0 = time.perf_counter()
         written = writer.close() if writer is not None else 0
@@ -306,12 +314,13 @@ def run_inference(args, config) -> dict:
     dest = video_path or out_dir
     print(f"total time {secs:.2f}, frame number {n}")  # main.py:270 format
     print(f"Wrote {written} frames to {dest}")
-    print(f"io: read {decode:.3f} s, stream {secs:.3f} s (of which building the chunk's "
-          f"program {capture_s:.3f} s), writer flush {flush:.3f} s "
+    print(f"io: read {decode:.3f} s, stream {secs:.3f} s ({sr.route}; of which building the "
+          f"chunk's program {sr.capture_s:.3f} s), writer flush {flush:.3f} s "
           f"({writer.num_threads} encode threads, {writer.encode_s:.3f} s encoding)")
-    return {"decode_s": decode, "stream_s": secs, "capture_s": capture_s, "flush_s": flush,
-            "encode_s": writer.encode_s, "frames": n, "written": written,
-            "threads": writer.num_threads, "out_dir": out_dir, "dest": dest, "fps": data.fps}
+    return {"decode_s": decode, "stream_s": secs, "capture_s": sr.capture_s,
+            "route": sr.route, "flush_s": flush, "encode_s": writer.encode_s, "frames": n,
+            "written": written, "threads": writer.num_threads, "out_dir": out_dir,
+            "dest": dest, "fps": data.fps}
 
 
 def run_train(args, config) -> None:
@@ -347,8 +356,13 @@ def run_train(args, config) -> None:
           test_while_train=not args.no_test_while_train, use_mesh=not args.no_mesh)
 
 
-def main(argv=None):
-    """Run the CLI; inference returns :func:`run_inference`'s dict."""
+def main(argv=None, mesh_devices=None):
+    """Run the CLI; inference returns :func:`run_inference`'s dict.
+
+    ``mesh_devices``, for a library caller (the CLI has no flag for it):
+    the devices, as ``make_mesh`` takes them, of the ``--spatial_shards``
+    mesh or the ``--pipeline``'s two stages, in place of the visible CUDA
+    devices; a device may repeat (``[cuda:0] * 2``: both on one card)."""
     args = build_parser().parse_args(argv)
     config = config_from_args(args)
     # Seed everything seedable (reference main.py:15-19,109-113).
@@ -368,7 +382,7 @@ def main(argv=None):
             print(f"\t{k}: {v}")
         print("End of configuration")
         if args.mode == "inference":
-            return run_inference(args, config)
+            return run_inference(args, config, mesh_devices)
         run_train(args, config)
     finally:
         tee.uninstall()

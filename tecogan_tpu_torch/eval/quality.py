@@ -17,15 +17,8 @@ from typing import Tuple
 import numpy as np
 from scipy.ndimage import uniform_filter
 
-# BT.601 full -> studio swing RGB -> YCbCr (reference metrics.py:39-44).
-_T = np.array(
-    [
-        [0.256788235294118, 0.504129411764706, 0.097905882352941],
-        [-0.148223529411765, -0.290992156862745, 0.439215686274510],
-        [0.439215686274510, -0.367788235294118, -0.071427450980392],
-    ]
-)
-_O = np.array([16.0, 128.0, 128.0])
+from tecogan_tpu_torch.ops.image import YCBCR_BT601 as _T
+from tecogan_tpu_torch.ops.image import YCBCR_BT601_OFFSET as _O
 
 
 def rgb2ycbcr(img: np.ndarray, max_val: float = 255.0) -> np.ndarray:

@@ -123,6 +123,25 @@ def lrelu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, _in_dtype(alpha, x.dtype))
 
 
+def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Parametric ReLU with a learned per-channel ``alpha`` over the last
+    (channel) axis (reference lib/ops.py prelu_tf; unused on the TecoGAN
+    path, as in the reference)."""
+    return x.clamp_min(0.0) + alpha * x.clamp_max(0.0)
+
+
+def pixel_shuffler(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """Sub-pixel upscale of NHWC ``x``: (B, H, W, C * scale^2) -> (B, H *
+    scale, W * scale, C) (reference lib/ops.py pixelShuffler/phaseShift;
+    unused on the main path). Output channel k is input channels
+    [k * scale^2, (k + 1) * scale^2), the reference's split-then-phaseShift
+    order, each laid out row-major over the scale x scale phases."""
+    b, h, w, c = x.shape
+    co = c // (scale * scale)
+    x = x[..., :co * scale * scale].reshape(b, h, w, co, scale, scale)
+    return x.permute(0, 1, 4, 2, 5, 3).reshape(b, h * scale, w * scale, co)
+
+
 def maxpool_2x2(x: torch.Tensor) -> torch.Tensor:
     """2x2 stride-2 max pool, flooring odd sizes like TF's VALID
     (reference lib/ops.py:92-93)."""

@@ -26,7 +26,12 @@ layer's input:
   its rows from it, as the JAX package falls back to its unsharded warp:
   the same result.
 
-So the chain kernel and K1 run on every shard. A frame of h LR rows over n
+So the chain kernel and K1 run on every shard. Where every shard sits on
+one device, ``StreamingSR`` captures the whole sharded chunk (exchanges,
+crops, kernels and all) as one CUDA graph, the counterpart of the JAX
+package's ``jax.jit`` over the sharded chunk; across devices the exchange
+would make the graph span cards, which :func:`sharded_capture` leaves to
+ROADMAP item 11c. A frame of h LR rows over n
 shards gives the first n-1 shards ``8 * (h // (8n))`` rows each and the last
 the rest, so any height of at least 8n rows runs; FNet's symmetric bottom
 pad (``models/fnet.py:pad_flow_to``) is the last shard's. A layer whose
@@ -37,7 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
-from typing import Callable, List, NamedTuple, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,12 +55,13 @@ from tecogan_tpu_torch.models.layers import lrelu, maxpool_2x2
 from tecogan_tpu_torch.ops.image import deprocess, preprocess
 from tecogan_tpu_torch.ops.resize import upscale_bilinear
 from tecogan_tpu_torch.ops.space_to_depth import space_to_depth
-from tecogan_tpu_torch.parallel.mesh import canonical_device
 from tecogan_tpu_torch.ops.warp import (
     DEFAULT_MAX_DISPLACEMENT,
     dense_image_warp_box,
     warp_space_to_depth_halo_shards,
 )
+from tecogan_tpu_torch.parallel.mesh import canonical_device
+from tecogan_tpu_torch.utils.cuda_graphs import capture_route, resolve_capture
 
 #: Residual blocks per chain-kernel call between two halo exchanges (the
 #: halo depth k): a 2k = 8-row halo, the height of the chain kernel's pixel
@@ -78,6 +84,29 @@ def shard_rows(h: int, n: int) -> List[int]:
                          f"(FNet's pools need shard boundaries on multiples of 8); "
                          f"use at most {max(h // 8, 1)} shards")
     return [base] * (n - 1) + [h - base * (n - 1)]
+
+
+def sharded_capture(capture: Optional[bool], devices: Sequence[torch.device]
+                    ) -> Tuple[bool, str]:
+    """The ``capture=`` argument of ``StreamingSR`` on a spatial mesh whose
+    shards sit on ``devices``: whether its chunk runs as one captured CUDA
+    graph, and the route with its reason. Every shard on one device: as
+    :func:`resolve_capture` (None captures on the card, True on the CPU
+    raises). Shards on distinct devices: the halo exchanges would make one
+    graph span cards (ROADMAP item 11c), so None runs eagerly and True
+    raises. Decided from the devices alone, before anything runs."""
+    distinct = list(dict.fromkeys(devices))
+    names = ", ".join(str(d) for d in devices)
+    if len(distinct) > 1:
+        if capture:
+            raise ValueError(f"capture=True with row shards on distinct devices ({names}): "
+                             "capturing a chunk across cards is ROADMAP item 11c; pass "
+                             "capture=None or False")
+        return False, (f"eager: {len(devices)} row shards on {len(distinct)} distinct "
+                       f"devices ({names}), and capturing a chunk across cards is ROADMAP "
+                       "item 11c")
+    captured = resolve_capture(capture, distinct[0])
+    return captured, f"{capture_route(captured, distinct[0])}, {len(devices)} row shards"
 
 
 def on_device(device: torch.device):

@@ -17,7 +17,10 @@ copied to pinned host memory without blocking and read only after the next
 chunk has been queued, so the copies and the host's work overlap the
 device's. On the CPU the same chunk body runs eagerly. With a spatial mesh
 the chunk's frames and state are split by rows over the mesh's devices
-(``parallel/spatial.py``), eagerly.
+(``parallel/spatial.py``); with every shard on one device the sharded
+chunk is one captured graph too (the JAX package's ``jax.jit`` of the
+sharded chunk, ``tecogan_tpu/parallel/spatial.py:63``), across devices it
+runs eagerly (ROADMAP item 11c).
 
 Warm-up protocol: the first 5 outputs belong to reversed frames [5..1]
 prepended by :func:`prepend_warmup` and are dropped (reference
@@ -42,7 +45,11 @@ from tecogan_tpu_torch.recurrent.step import (
     init_state,
     upscale_flow,
 )
-from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram, resolve_capture
+from tecogan_tpu_torch.utils.cuda_graphs import (
+    CapturedProgram,
+    capture_route,
+    resolve_capture,
+)
 
 WARMUP_FRAMES = 5  # reference dataloader.py:42-44
 
@@ -84,22 +91,40 @@ def as_output(hr: torch.Tensor, output: str) -> torch.Tensor:
     return hr.float()
 
 
+def chunk_flows(fnet: FNet, dtype: torch.dtype, prev_lr: torch.Tensor,
+                lr_chunk: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A chunk's frame-parallel prologue: FNet over its T*B (previous,
+    current) pairs and K1's x4 flow upsample -> the (T, B, h, w, 3) frames
+    in ``dtype`` and their (T, B, 4h, 4w, 2) HR flows."""
+    lr_chunk, pairs = chunk_pairs(prev_lr, lr_chunk, dtype)
+    t, b, h, w, _ = lr_chunk.shape
+    return lr_chunk, upscale_flow(fnet(pairs), h, w).reshape(t, b, 4 * h, 4 * w, 2)
+
+
+@torch.inference_mode()
+def run_frames(generator: Generator, output: str, state: RecurrentState,
+               lr_chunk: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """A chunk's recurrence: the per-frame warp + generator over the
+    frames and flows of :func:`chunk_flows` -> (T, B, 4h, 4w, 3) HR frames
+    (float32 or uint8, per ``output``); the new state is written into
+    ``state``'s tensors in place (the JAX package's donated state)."""
+    outs, st = [], state
+    for i in range(lr_chunk.shape[0]):
+        st, hr = generator_step(generator, st, lr_chunk[i], flow[i])
+        outs.append(as_output(hr, output))
+    for dst, new in zip(state, st):
+        dst.copy_(new)
+    return torch.stack(outs)
+
+
 @torch.inference_mode()
 def run_chunk(generator: Generator, fnet: FNet, dtype: torch.dtype, output: str,
               state: RecurrentState, lr_chunk: torch.Tensor) -> torch.Tensor:
     """One chunk: (T, B, h, w, 3) LR frames on the device -> (T, B, 4h, 4w,
     3) HR frames (float32 or uint8, per ``output``). The new state is written
     into ``state``'s tensors in place (the JAX package's donated state)."""
-    lr_chunk, pairs = chunk_pairs(state.prev_lr, lr_chunk, dtype)
-    t, b, h, w, _ = lr_chunk.shape
-    flow = upscale_flow(fnet(pairs), h, w).reshape(t, b, 4 * h, 4 * w, 2)
-    outs, st = [], state
-    for i in range(t):
-        st, hr = generator_step(generator, st, lr_chunk[i], flow[i])
-        outs.append(as_output(hr, output))
-    for dst, new in zip(state, st):
-        dst.copy_(new)
-    return torch.stack(outs)
+    lr_chunk, flow = chunk_flows(fnet, dtype, state.prev_lr, lr_chunk)
+    return run_frames(generator, output, state, lr_chunk, flow)
 
 
 @torch.inference_mode()
@@ -128,53 +153,32 @@ def run_chunk_sharded(step: "ShardedStep", dtype: torch.dtype, output: str,
     return [torch.stack(o) for o in outs]
 
 
-class _Chunk:
-    """One chunk shape's program: the static device buffers (the LR chunk
-    and the recurrent state, one of each per row shard on a spatial mesh),
-    the host buffers its uploads go through, and :func:`run_chunk` over
-    them, captured on the card (the graph's pool holds its temporaries and
-    its HR output) or eager; on a spatial mesh :func:`run_chunk_sharded`,
-    eager."""
+class Staging:
+    """The host side of a chunk shape's uploads into its static LR buffers
+    (one a row shard), for ``StreamingSR`` and the pipeline
+    (``parallel/pipeline.py``): on the card two pinned buffers a device
+    buffer, used in turn, so the host fills one while the device may still
+    be reading the other's last upload; on the CPU the host writes the
+    device buffers themselves."""
 
-    def __init__(self, sr: "StreamingSR", chunk: int, batch: int, h: int, w: int,
-                 frame_dtype: torch.dtype):
-        if sr.step is None:
-            self.rows, devices = [h], [sr.device]
-        else:
-            self.rows, devices = sr.step.rows(h), sr.step.devices
-        self.lrs = [torch.zeros((chunk, batch, r, w, 3), dtype=frame_dtype, device=d)
-                    for r, d in zip(self.rows, devices)]
-        self.states = [init_state(batch, r, w, sr.dtype, d) for r, d in zip(self.rows, devices)]
-        self.lr, self.state = self.lrs[0], self.states[0]
-        # On the card two pinned buffers a shard, used in turn: the host
-        # fills one while the device may still be reading the other's last
-        # upload. On the CPU the host writes the input itself.
-        self.staging = [[torch.zeros(lr.shape, dtype=frame_dtype, pin_memory=True)
-                         for lr in self.lrs] for _ in range(2)] if sr.device.type == "cuda" \
-            else [self.lrs]
-        self.done: List[Optional[torch.cuda.Event]] = [None] * len(self.staging)
+    def __init__(self, lrs: List[torch.Tensor]):
+        self.lrs = lrs
+        self.buffers = ([[torch.zeros(lr.shape, dtype=lr.dtype, pin_memory=True)
+                          for lr in lrs] for _ in range(2)]
+                        if lrs[0].device.type == "cuda" else [lrs])
+        self.read: List[List[torch.cuda.Event]] = [[] for _ in self.buffers]
         self.uploads = 0
-        if sr.step is not None:
-            self.run = functools.partial(run_chunk_sharded, sr.step, sr.dtype, sr.output,
-                                         self.states, self.lrs)
-            return
-        body = functools.partial(run_chunk, sr.generator, sr.fnet, sr.dtype, sr.output,
-                                 self.state, self.lr)
-        if sr.capture:
-            self.run = CapturedProgram(body, (self.lr, *self.state),
-                                       name=f"StreamingSR chunk {tuple(self.lr.shape)}")
-        else:
-            self.run = body
 
     def upload(self, piece: np.ndarray) -> None:
-        """Put (n <= chunk, B, h, w, 3) frames into the LR buffers, padded by
+        """Put (n <= chunk, B, h, w, 3) frames, split by rows over the LR
+        buffers, into them on each device's current stream, padded by
         repeating the last frame (the extra outputs are discarded)."""
-        i = self.uploads % len(self.staging)
-        if self.done[i] is not None:
-            for event in self.done[i]:
-                event.synchronize()  # the device has read its last upload
-        r0, done = 0, []
-        for host, lr, rows in zip(self.staging[i], self.lrs, self.rows):
+        i = self.uploads % len(self.buffers)
+        for event in self.read[i]:
+            event.synchronize()  # the device has read its last upload
+        r0, read = 0, []
+        for host, lr in zip(self.buffers[i], self.lrs):
+            rows = lr.shape[2]
             view = host.numpy()
             view[:len(piece)] = piece[:, :, r0:r0 + rows]
             view[len(piece):] = piece[-1, :, r0:r0 + rows]
@@ -182,10 +186,60 @@ class _Chunk:
             if host is not lr:
                 with torch.cuda.device(lr.device):
                     lr.copy_(host, non_blocking=True)
-                    done.append(torch.cuda.Event())
-                    done[-1].record()
-        self.done[i] = done or None
+                    read.append(torch.cuda.Event())
+                    read[-1].record()
+        self.read[i] = read
         self.uploads += 1
+
+
+def copy_out(hrs: List[torch.Tensor], n: int) -> Tuple[List[torch.Tensor], List]:
+    """A chunk's first ``n`` outputs (one tensor a row shard) on their way
+    to the host, for :func:`fetch_chunk`: on the card copied into fresh
+    pinned memory on each device's current stream without blocking, an
+    event each (the next chunk's run overwrites a graph's output); on the
+    CPU as they are."""
+    hosts, done = [x[:n] for x in hrs], []
+    for k, x in enumerate(hosts):
+        if x.device.type == "cuda":
+            hosts[k] = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            with torch.cuda.device(x.device):
+                hosts[k].copy_(x, non_blocking=True)
+                done.append(torch.cuda.Event())
+                done[-1].record()
+    return hosts, done
+
+
+class _Chunk:
+    """One chunk shape's program: the static device buffers (the LR chunk
+    and the recurrent state, one of each per row shard on a spatial mesh),
+    their :class:`Staging`, and :func:`run_chunk` (on a spatial mesh
+    :func:`run_chunk_sharded`) over them, captured on the card (the graph's
+    pool holds its temporaries and its HR output) or eager."""
+
+    def __init__(self, sr: "StreamingSR", chunk: int, batch: int, h: int, w: int,
+                 frame_dtype: torch.dtype):
+        if sr.step is None:
+            rows, devices = [h], [sr.device]
+        else:
+            rows, devices = sr.step.rows(h), sr.step.devices
+        self.lrs = [torch.zeros((chunk, batch, r, w, 3), dtype=frame_dtype, device=d)
+                    for r, d in zip(rows, devices)]
+        self.states = [init_state(batch, r, w, sr.dtype, d) for r, d in zip(rows, devices)]
+        self.lr, self.state = self.lrs[0], self.states[0]
+        self.staging = Staging(self.lrs)
+        if sr.step is None:
+            body = functools.partial(run_chunk, sr.generator, sr.fnet, sr.dtype, sr.output,
+                                     self.state, self.lr)
+        else:
+            body = functools.partial(run_chunk_sharded, sr.step, sr.dtype, sr.output,
+                                     self.states, self.lrs)
+        if sr.capture:  # the shards, if any, all on one device (sharded_capture)
+            self.run = CapturedProgram(
+                body, (*self.lrs, *(t for state in self.states for t in state)),
+                name=f"StreamingSR chunk {tuple(self.lr.shape)} in {len(self.lrs)} row "
+                     f"shard(s)")
+        else:
+            self.run = body
 
 
 class StreamingSR:
@@ -205,9 +259,14 @@ class StreamingSR:
         ``config.sp_axis`` axis: frames, recurrent state and every
         activation are split by rows over its devices, each layer behind a
         halo exchange (``parallel/spatial.py``; the kernels run on every
-        shard), and the chunk runs eagerly from the first of them:
-        capturing a sharded chunk is ROADMAP item 11b, so ``capture=True``
-        with a mesh raises. ``device`` is then the first shard's.
+        shard). With every shard on one device (``[cuda:0, cuda:0]``)
+        ``capture`` acts as above, the whole sharded chunk one graph; with
+        shards on distinct devices None runs it eagerly and True raises:
+        a graph across cards is ROADMAP item 11c
+        (``parallel/spatial.py:sharded_capture``). ``device`` is then the
+        first shard's.
+
+    :attr:`route` says which route runs and why, before anything runs.
 
     Each chunk shape (chunk length, batch, h, w, LR dtype) gets its static
     buffers and its program on first use, kept for later runs; a new shape
@@ -224,22 +283,22 @@ class StreamingSR:
         self.output = output
         self.dtype = config.torch_dtype
         self.spatial_mesh = spatial_mesh
-        if spatial_mesh is not None:
-            if capture:
-                raise ValueError("capture=True with a spatial mesh: capturing H-sharded "
-                                 "chunks is ROADMAP item 11b; pass capture=None or False")
-            capture = False
-            device = spatial_mesh.axis_devices(config.sp_axis)[0]
-        self.device = torch.device(device)
-        self.capture = resolve_capture(capture, self.device)
+        self.step = None
+        if spatial_mesh is None:
+            self.device = torch.device(device)
+            self.capture = resolve_capture(capture, self.device)
+            self.route = capture_route(self.capture, self.device)
+        else:
+            from tecogan_tpu_torch.parallel.mesh import canonical_device
+            from tecogan_tpu_torch.parallel.spatial import ShardedStep, sharded_capture
+
+            devices = [canonical_device(d) for d in spatial_mesh.axis_devices(config.sp_axis)]
+            self.capture, self.route = sharded_capture(capture, devices)
+            self.device = devices[0]
         self.generator, self.fnet = place_models(generator, fnet, self.device,
                                                  self.dtype)
-        self.step = None
         if spatial_mesh is not None:
-            from tecogan_tpu_torch.parallel.spatial import ShardedStep
-
-            self.step = ShardedStep(self.generator, self.fnet,
-                                    spatial_mesh.axis_devices(config.sp_axis),
+            self.step = ShardedStep(self.generator, self.fnet, devices,
                                     max_displacement=4.0 * config.flow_max_velocity)
         self._chunks: Dict[Tuple, _Chunk] = {}
         self.capture_s = 0.0
@@ -258,7 +317,6 @@ class StreamingSR:
                 deliver: Callable[[np.ndarray, int], None]) -> float:
         """Run (T, B, h, w, 3) frames; ``deliver(hr, start)`` gets each
         chunk's (n, B, 4h, 4w, 3) outputs in order. Returns wall seconds."""
-        on_cuda = self.device.type == "cuda"
         t0 = time.perf_counter()
         prog = self._chunk(chunk, frames)
         for state in prog.states:  # the zero state (reference main.py:197-199)
@@ -267,16 +325,9 @@ class StreamingSR:
         pending = None
         for s in range(0, frames.shape[0], chunk):
             piece = frames[s:s + chunk]
-            prog.upload(piece)
+            prog.staging.upload(piece)
             hr = prog.run()
-            hosts, done = [x[:len(piece)] for x in (hr if isinstance(hr, list) else [hr])], []
-            if on_cuda:  # the next chunk's run overwrites hr: copy it first
-                for k, x in enumerate(hosts):
-                    hosts[k] = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-                    with torch.cuda.device(x.device):
-                        hosts[k].copy_(x, non_blocking=True)
-                        done.append(torch.cuda.Event())
-                        done[-1].record()
+            hosts, done = copy_out(hr if isinstance(hr, list) else [hr], len(piece))
             if pending is not None:
                 deliver(*fetch_chunk(*pending))
             pending = (hosts, done, s)

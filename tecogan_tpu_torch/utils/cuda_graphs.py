@@ -75,6 +75,16 @@ def resolve_capture(capture: Optional[bool], device: torch.device) -> bool:
     return bool(capture)
 
 
+def capture_route(captured: bool, device: torch.device) -> str:
+    """What :func:`resolve_capture` decided for ``device``, and why, as the
+    entry points print it."""
+    if captured:
+        return f"captured CUDA graphs on {device}"
+    if device.type == "cuda":
+        return f"eager on {device} (capture=False)"
+    return f"eager on {device} (CUDA graphs exist only on the card)"
+
+
 def _where(exc: BaseException) -> str:
     """The innermost line of ``exc``'s traceback outside PyTorch."""
     frames = [f for f in traceback.extract_tb(exc.__traceback__)

@@ -1305,6 +1305,98 @@ def test_pipeline_on_one_card_equals_streaming(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"], ids=["f32", "bf16"])
+def test_spatial_streaming_captured_matches_eager_sharded(cuda_device, dtype):
+    """A 2-shard ``StreamingSR`` on ``[cuda:0, cuda:0]`` captured (the
+    default) against ``capture=False`` under cuDNN's deterministic
+    algorithms, 2 blocks, LR 64x48, chunks of 3 with a short last one:
+    bit-equal over two runs, the same launches a run, one capture for the
+    chunk shape (none eager), and the route printed for each."""
+    from chip_smoke import deterministic
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.parallel import make_mesh
+    from tecogan_tpu_torch.recurrent import StreamingSR
+    from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
+
+    cfg = TecoConfig(num_resblock=2, compute_dtype=dtype, infer_chunk=3)
+    output = "float32" if dtype == "float32" else "uint8"
+    frames = (np.random.RandomState(4).rand(7, 64, 48, 3) * 255).astype(np.uint8)
+    card = torch.device("cuda", 0)
+    mesh = make_mesh({"space": 2}, [card, card])
+    outs, counts = [], []
+    with deterministic():
+        for capture in (None, False):
+            sr = StreamingSR(cfg, *_par_models(4, cfg), output=output, device=cuda_device,
+                             capture=capture, spatial_mesh=mesh)
+            assert sr.capture is (capture is None)
+            assert sr.route.startswith("captured" if capture is None else "eager")
+            captures = CapturedProgram.captures
+            first, _ = sr.run(frames)
+            before = (upsample4.launches, resblock_chain.launches)
+            again, _ = sr.run(frames)
+            counts.append((upsample4.launches - before[0], resblock_chain.launches - before[1]))
+            np.testing.assert_array_equal(first, again)
+            outs.append(again)
+            assert CapturedProgram.captures - captures == (capture is None)
+    # 3 chunks of 3 a run, per shard: K1 a flow a chunk and a skip a frame.
+    assert counts[0] == counts[1] == (2 * (3 + 9), 2 * 2 * 9)
+    assert outs[0].shape == (7, 256, 192, 3)
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,chunk", [("bfloat16", 3), ("float32", 2)],
+                         ids=["bf16-uint8", "f32-f32"])
+def test_pipeline_captured_equals_captured_streaming(cuda_device, dtype, chunk):
+    """Both stages on the card, each a captured graph (two captures for the
+    chunk shape, none on a second run), and both eager: bit-equal to a
+    captured ``StreamingSR`` under cuDNN's deterministic algorithms, with
+    its launches, over 7 frames in 3 or 4 chunks. bfloat16 reads uint8
+    frames; float32 reads float32 frames, so stage F's frames are its own
+    input buffer, which the next chunk's upload overwrites."""
+    from chip_smoke import deterministic
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.parallel import PipelinedStreamingSR
+    from tecogan_tpu_torch.recurrent import StreamingSR
+    from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
+
+    cfg = TecoConfig(num_resblock=2, compute_dtype=dtype, infer_chunk=chunk)
+    frames = np.random.RandomState(5).rand(7, 32, 48, 3)
+    if dtype == "bfloat16":
+        frames, output = (frames * 255).astype(np.uint8), "uint8"
+    else:
+        frames, output = frames.astype(np.float32), "float32"
+    outs, counts = [], []
+    with deterministic():
+        for make in (
+                lambda: StreamingSR(cfg, *_par_models(5, cfg), output=output,
+                                    device=cuda_device),
+                lambda: PipelinedStreamingSR(cfg, *_par_models(5, cfg), output=output,
+                                             flow_device=cuda_device,
+                                             recurrent_device=cuda_device),
+                lambda: PipelinedStreamingSR(cfg, *_par_models(5, cfg), output=output,
+                                             flow_device=cuda_device,
+                                             recurrent_device=cuda_device, capture=False)):
+            sr = make()
+            captures = CapturedProgram.captures
+            sr.run(frames)
+            made = CapturedProgram.captures - captures
+            before = (upsample4.launches, resblock_chain.launches)
+            out, _ = sr.run(frames)
+            counts.append((upsample4.launches - before[0], resblock_chain.launches - before[1]))
+            assert CapturedProgram.captures - captures == made
+            outs.append((out, made, sr.capture_s))
+    assert outs[0][0].shape == (7, 128, 192, 3)
+    for out, _, _ in outs[1:]:
+        np.testing.assert_array_equal(out, outs[0][0])
+    assert [m for _, m, _ in outs] == [1, 2, 0] and all(s > 0 for _, _, s in outs[:2])
+    # The last chunk is padded to the chunk length: K1 a flow a chunk and a
+    # skip a frame run, 2 chain calls a frame run.
+    ran = -(-7 // chunk) * chunk
+    assert counts == [(ran // chunk + ran, 2 * ran)] * 3
+
+
+@pytest.mark.cuda
 def test_data_parallel_world_size_one_matches_trainer(cuda_device):
     """A captured ``DataParallelTrainer`` step at world size 1 over NCCL:
     every state tensor bit-equal to the plain ``Trainer``'s."""

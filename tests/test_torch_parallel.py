@@ -6,6 +6,7 @@ processes (``tests/torch_dp_worker.py``) and the slot pool across devices.
 Sizes: 2 residual blocks, 8-px LR crops, LR 16x16 serving frames.
 """
 
+import glob
 import json
 import os
 import socket
@@ -198,11 +199,15 @@ def two_ranks(tmp_path_factory, scenes):
                       for line in stdout.splitlines() if line.startswith("RESULT")})
 
     # The training CLI as torchrun launches it: 3 FRVSR steps on 2 ranks.
-    out = str(tmp / "run")
+    # Each rank's output goes to a file of its own (``--redirects 3``): two
+    # ranks writing block-buffered stdout into one pipe can interleave in
+    # the middle of a line once a flush exceeds the pipe's atomic write.
+    out, logs = str(tmp / "run"), str(tmp / "torchrun_logs")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     launch = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
-         "--master_port", str(_free_port()), "-m", "tecogan_tpu_torch.cli.main",
+         "--master_port", str(_free_port()), "--log-dir", logs, "--redirects", "3",
+         "-m", "tecogan_tpu_torch.cli.main",
          "--mode", "train", "--device", "cpu", "--preset", "frvsr", "--num_resblock", "2",
          "--crop_size", "8", "--batch_size", "2", "--rnn_n", "4", "--max_iter", "3",
          "--input_video_dir", scenes, "--str_dir", "2000", "--end_dir", "2001",
@@ -210,8 +215,15 @@ def two_ranks(tmp_path_factory, scenes):
          "--display_freq", "1", "--summary_freq", "3", "--save_freq", "3",
          "--no_test_while_train", "--output_dir", out],
         capture_output=True, text=True, cwd=str(tmp), env=env, timeout=300)
-    assert launch.returncode == 0, f"{launch.stdout[-3000:]}\n{launch.stderr[-3000:]}"
-    return dict(ranks=ranks, init=init, out=out, launch=launch.stdout,
+    printed = {}
+    for name in ("stdout", "stderr"):
+        files = [glob.glob(os.path.join(logs, "*", "attempt_*", str(r), f"{name}.log"))
+                 for r in (0, 1)]
+        printed[name] = [open(f[0]).read() if len(f) == 1 else "" for f in files]
+    assert launch.returncode == 0, (f"{launch.stderr[-3000:]}\n" + "\n".join(
+        f"rank {r}: {printed['stdout'][r][-2000:]}\n{printed['stderr'][r][-2000:]}"
+        for r in (0, 1)))
+    return dict(ranks=ranks, init=init, out=out, launch="".join(printed["stdout"]),
                 jax={k: float(v) for k, v in jmetrics.items()})
 
 
@@ -251,7 +263,8 @@ def test_two_process_step_matches_one_process(two_ranks, preset):
 def test_torchrun_training_cli(two_ranks):
     """``torchrun --nproc_per_node 2 -m tecogan_tpu_torch.cli.main --mode
     train --device cpu``: both ranks reach step 3 with the same losses,
-    each on 1 row of the global batch of 2; rank 0 alone writes the
+    each on 1 row of the global batch of 2 (the two ranks' outputs read
+    from their own log files, one after the other); rank 0 alone writes the
     config, the checkpoint and the summaries."""
     out = two_ranks["launch"]
     assert out.count("Data parallel: rank") == 2

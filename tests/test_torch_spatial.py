@@ -185,8 +185,10 @@ def test_streaming_sr_spatial_mesh_matches_jax(weights, output):
 
 
 def test_spatial_geometry_errors(weights):
-    """Shards thinner than FNet's 8 rows and a capture asked for on a mesh
-    raise; the halo depth is the documented one."""
+    """Shards thinner than FNet's 8 rows raise, and so does a capture asked
+    for on a mesh the card cannot capture: on the CPU (no CUDA graphs) and
+    across distinct cards (ROADMAP item 11c, refused before the models
+    move); the halo depth is the documented one."""
     _, _, gp, fp = weights
     gen, fnet = from_jax_params(gp, fp)
     assert shard_rows(40, 2) == [16, 24] and shard_rows(144, 2) == [72, 72]
@@ -197,6 +199,9 @@ def test_spatial_geometry_errors(weights):
     with pytest.raises(ValueError, match="8 rows"):
         run(init_state(1, 24, 16, torch.float32, "cpu"), torch.zeros((1, 1, 24, 16, 3)))
     cfg = TecoConfig(num_resblock=RESBLOCKS, gen_channels=CHANNELS)
-    with pytest.raises(ValueError, match="ROADMAP item 11b"):
+    with pytest.raises(ValueError, match="needs a CUDA device"):
         StreamingSR(cfg, gen, fnet, device="cpu", capture=True,
                     spatial_mesh=make_mesh({cfg.sp_axis: 2}, "cpu"))
+    with pytest.raises(ValueError, match="ROADMAP item 11c"):
+        StreamingSR(cfg, gen, fnet, capture=True,
+                    spatial_mesh=make_mesh({cfg.sp_axis: 2}, ["cuda:0", "cuda:1"]))
