@@ -35,6 +35,7 @@ import os
 import queue
 import struct
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -47,6 +48,7 @@ from tecogan_tpu_torch.data.native_loader import (
     unavailable_detail,
 )
 from tecogan_tpu_torch.data.png import read_png
+from tecogan_tpu_torch.utils.profiling import span
 
 
 def png_dims(path: str) -> Tuple[int, int]:
@@ -292,7 +294,9 @@ class BatchLoader:
             # The python executor's analog of the C++ frame cache, shared
             # across the decode pool; batches stay bit-identical.
             dataset.frame_cache = _FrameLRU(cfg.loader_cache_mb)
-        self._queue: "queue.Queue[np.ndarray]" = queue.Queue(maxsize=self.prefetch)
+        # Each batch with its production milliseconds (plan and decode).
+        self._queue: "queue.Queue[Tuple[np.ndarray, float]]" = queue.Queue(
+            maxsize=self.prefetch)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._producer_exc: Optional[BaseException] = None
@@ -307,6 +311,7 @@ class BatchLoader:
         cursor = 0
         try:
             while not self._stop.is_set():
+                t0 = time.perf_counter_ns()
                 idxs = []
                 for _ in range(self.batch_size):
                     if cursor >= n:
@@ -328,9 +333,10 @@ class BatchLoader:
                         for i, s in zip(idxs, seeds)
                     ]
                     batch = np.stack([f.result() for f in futures])
+                made = (batch, (time.perf_counter_ns() - t0) / 1e6)
                 while not self._stop.is_set():
                     try:
-                        self._queue.put(batch, timeout=0.5)
+                        self._queue.put(made, timeout=0.5)
                         break
                     except queue.Full:
                         continue
@@ -349,20 +355,27 @@ class BatchLoader:
 
     def next_batch(self) -> np.ndarray:
         """(B, rnn_n, tar, tar, 3) — float32 in [0, 1], or raw uint8 when
-        ``config.train_upload_uint8`` (the train step normalizes on device)."""
+        ``config.train_upload_uint8`` (the train step normalizes on device).
+        Its span ``loader.wait`` records the queue's depth on entry and the
+        batch's production milliseconds (``produce_ms``): the producer
+        thread is not profiled, so it stamps every batch."""
         if self._thread is None:
             self.start()
-        while True:
-            try:
-                return self._queue.get(timeout=0.5)
-            except queue.Empty:
-                if self._producer_exc is not None:
-                    raise RuntimeError(
-                        "data producer thread died"
-                    ) from self._producer_exc
-                if self._thread is not None and not self._thread.is_alive():
-                    raise RuntimeError("data producer thread exited "
-                                       "without an exception")
+        with span("loader.wait", depth=self._queue.qsize()) as waited:
+            while True:
+                try:
+                    batch, produce_ms = self._queue.get(timeout=0.5)
+                    break
+                except queue.Empty:
+                    if self._producer_exc is not None:
+                        raise RuntimeError(
+                            "data producer thread died"
+                        ) from self._producer_exc
+                    if self._thread is not None and not self._thread.is_alive():
+                        raise RuntimeError("data producer thread exited "
+                                           "without an exception")
+            waited.set(produce_ms=produce_ms)
+        return batch
 
     def stop(self):
         self._stop.set()

@@ -50,6 +50,7 @@ from tecogan_tpu_torch.utils.cuda_graphs import (
     capture_route,
     resolve_capture,
 )
+from tecogan_tpu_torch.utils.profiling import span
 
 WARMUP_FRAMES = 5  # reference dataloader.py:42-44
 
@@ -173,23 +174,25 @@ class Staging:
         """Put (n <= chunk, B, h, w, 3) frames, split by rows over the LR
         buffers, into them on each device's current stream, padded by
         repeating the last frame (the extra outputs are discarded)."""
-        i = self.uploads % len(self.buffers)
-        for event in self.read[i]:
-            event.synchronize()  # the device has read its last upload
-        r0, read = 0, []
-        for host, lr in zip(self.buffers[i], self.lrs):
-            rows = lr.shape[2]
-            view = host.numpy()
-            view[:len(piece)] = piece[:, :, r0:r0 + rows]
-            view[len(piece):] = piece[-1, :, r0:r0 + rows]
-            r0 += rows
-            if host is not lr:
-                with torch.cuda.device(lr.device):
-                    lr.copy_(host, non_blocking=True)
-                    read.append(torch.cuda.Event())
-                    read[-1].record()
-        self.read[i] = read
-        self.uploads += 1
+        with span("stream.upload"):
+            i = self.uploads % len(self.buffers)
+            with span("stream.upload_wait"):
+                for event in self.read[i]:
+                    event.synchronize()  # the device has read its last upload
+            r0, read = 0, []
+            for host, lr in zip(self.buffers[i], self.lrs):
+                rows = lr.shape[2]
+                view = host.numpy()
+                view[:len(piece)] = piece[:, :, r0:r0 + rows]
+                view[len(piece):] = piece[-1, :, r0:r0 + rows]
+                r0 += rows
+                if host is not lr:
+                    with torch.cuda.device(lr.device):
+                        lr.copy_(host, non_blocking=True)
+                        read.append(torch.cuda.Event())
+                        read[-1].record()
+            self.read[i] = read
+            self.uploads += 1
 
 
 def copy_out(hrs: List[torch.Tensor], n: int) -> Tuple[List[torch.Tensor], List]:
@@ -198,14 +201,15 @@ def copy_out(hrs: List[torch.Tensor], n: int) -> Tuple[List[torch.Tensor], List]
     pinned memory on each device's current stream without blocking, an
     event each (the next chunk's run overwrites a graph's output); on the
     CPU as they are."""
-    hosts, done = [x[:n] for x in hrs], []
-    for k, x in enumerate(hosts):
-        if x.device.type == "cuda":
-            hosts[k] = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-            with torch.cuda.device(x.device):
-                hosts[k].copy_(x, non_blocking=True)
-                done.append(torch.cuda.Event())
-                done[-1].record()
+    with span("stream.copy_out"):
+        hosts, done = [x[:n] for x in hrs], []
+        for k, x in enumerate(hosts):
+            if x.device.type == "cuda":
+                hosts[k] = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                with torch.cuda.device(x.device):
+                    hosts[k].copy_(x, non_blocking=True)
+                    done.append(torch.cuda.Event())
+                    done[-1].record()
     return hosts, done
 
 
@@ -271,7 +275,9 @@ class StreamingSR:
     Each chunk shape (chunk length, batch, h, w, LR dtype) gets its static
     buffers and its program on first use, kept for later runs; a new shape
     warms up and captures once, inside that run's wall time
-    (:attr:`capture_s` sums those seconds). Each run zeroes the state first.
+    (:attr:`capture_s` sums those seconds). Each run zeroes the state first;
+    :attr:`runs` counts them, and a run's spans carry its number
+    (``utils/profiling.py:span``, recorded while a profiler runs).
     """
 
     def __init__(self, config: TecoConfig, generator: Generator, fnet: FNet,
@@ -302,6 +308,7 @@ class StreamingSR:
                                     max_displacement=4.0 * config.flow_max_velocity)
         self._chunks: Dict[Tuple, _Chunk] = {}
         self.capture_s = 0.0
+        self.runs = 0
 
     def _chunk(self, chunk: int, frames: np.ndarray) -> _Chunk:
         _, batch, h, w, _ = frames.shape
@@ -318,21 +325,24 @@ class StreamingSR:
         """Run (T, B, h, w, 3) frames; ``deliver(hr, start)`` gets each
         chunk's (n, B, 4h, 4w, 3) outputs in order. Returns wall seconds."""
         t0 = time.perf_counter()
-        prog = self._chunk(chunk, frames)
-        for state in prog.states:  # the zero state (reference main.py:197-199)
-            for t in state:
-                t.zero_()
-        pending = None
-        for s in range(0, frames.shape[0], chunk):
-            piece = frames[s:s + chunk]
-            prog.staging.upload(piece)
-            hr = prog.run()
-            hosts, done = copy_out(hr if isinstance(hr, list) else [hr], len(piece))
+        self.runs += 1
+        with span("stream.run", item=self.runs, frames=frames.shape[0], chunk=chunk):
+            with span("stream.reset"):
+                prog = self._chunk(chunk, frames)
+                for state in prog.states:  # the zero state (reference main.py:197-199)
+                    for t in state:
+                        t.zero_()
+            pending = None
+            for s in range(0, frames.shape[0], chunk):
+                piece = frames[s:s + chunk]
+                prog.staging.upload(piece)
+                hr = prog.run()
+                hosts, done = copy_out(hr if isinstance(hr, list) else [hr], len(piece))
+                if pending is not None:
+                    _deliver(deliver, pending)
+                pending = (hosts, done, s)
             if pending is not None:
-                deliver(*fetch_chunk(*pending))
-            pending = (hosts, done, s)
-        if pending is not None:
-            deliver(*fetch_chunk(*pending))
+                _deliver(deliver, pending)
         return time.perf_counter() - t0
 
     # ------------------------------------------------------------- public
@@ -387,8 +397,16 @@ class StreamingSR:
 def fetch_chunk(hosts: List[torch.Tensor], done: List, start: int) -> Tuple[np.ndarray, int]:
     """A pending chunk's outputs as numpy (the row shards joined), after
     its copies (``done``, CUDA events; none on the CPU) have landed."""
-    for event in done:
-        event.synchronize()
+    with span("stream.fetch_wait"):
+        for event in done:
+            event.synchronize()
     if len(hosts) == 1:
         return hosts[0].numpy(), start
     return np.concatenate([h.numpy() for h in hosts], axis=2), start
+
+
+def _deliver(deliver: Callable[[np.ndarray, int], None], pending: Tuple) -> None:
+    """Hand a pending chunk's fetched outputs to the caller."""
+    got = fetch_chunk(*pending)
+    with span("stream.deliver"):
+        deliver(*got)

@@ -37,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
+import time
 from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -48,6 +49,7 @@ from tecogan_tpu_torch.models.generator import Generator
 from tecogan_tpu_torch.recurrent.inference import place_models
 from tecogan_tpu_torch.recurrent.step import RecurrentState, frame_step, init_state
 from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram, resolve_capture
+from tecogan_tpu_torch.utils.profiling import span
 
 _FRAME_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.float32): torch.float32}
 
@@ -100,16 +102,19 @@ class HostFrame:
     be in flight. ``np.asarray(frame)`` waits for that tick's copy only (a
     CUDA event) and gives the (4h, 4w, 3) frame; it stays valid across
     later ticks (each tick copies into its own pinned buffer) and may be
-    read on another thread."""
+    read on another thread. ``tick`` numbers the server's tick that made it
+    (the item of its ``serve.fetch_wait`` span)."""
 
-    __slots__ = ("_host", "_done", "_slot")
+    __slots__ = ("_host", "_done", "_slot", "tick")
 
-    def __init__(self, host: torch.Tensor, done: Optional[torch.cuda.Event], slot: int):
-        self._host, self._done, self._slot = host, done, slot
+    def __init__(self, host: torch.Tensor, done: Optional[torch.cuda.Event], slot: int,
+                 tick: int):
+        self._host, self._done, self._slot, self.tick = host, done, slot, tick
 
     def __array__(self, dtype=None, copy=None):
-        if self._done is not None:
-            self._done.synchronize()
+        with span("serve.fetch_wait", item=self.tick):
+            if self._done is not None:
+                self._done.synchronize()
         frame = self._host.numpy()[self._slot]
         if dtype is not None and frame.dtype != dtype:
             return frame.astype(dtype)
@@ -183,6 +188,7 @@ class VSRServer:
         # the device may still be reading the other's last upload.
         self._staging = [_Staging(max_streams, self.device) for _ in range(2)]
         self._ticks = 0
+        self._capture_s = 0.0
         self._slot_of: Dict[object, int] = {}
         self._fresh: Dict[object, bool] = {}
         self._free = list(range(max_streams - 1, -1, -1))  # pop() -> slot 0 first
@@ -234,8 +240,10 @@ class VSRServer:
                                      self._masks, self._state, lr)
             if self.capture:
                 self._masks.zero_()
+                t0 = time.perf_counter()
                 tick = CapturedProgram(body, (lr, self._masks, *self._state),
                                        name=f"VSRServer tick {tuple(lr.shape)} {dtype}")
+                self._capture_s += time.perf_counter() - t0
             else:
                 tick = body
             self._programs[dtype] = tick
@@ -261,6 +269,14 @@ class VSRServer:
             tick()
             if on_cuda:
                 torch.cuda.synchronize()
+
+    @property
+    def capture_s(self) -> float:
+        """Seconds the captured ticks took to warm up and capture (every
+        device's, with a mesh), as ``StreamingSR.capture_s`` counts them."""
+        if self._pools is not None:
+            return sum(pool.capture_s for pool in self._pools)
+        return self._capture_s
 
     def graph_pool_bytes(self) -> int:
         """Device bytes held by the captured ticks' memory pools (their
@@ -360,43 +376,50 @@ class VSRServer:
                 f"frames must be uint8 or float32 in [0, 1], got "
                 f"{first.dtype} (cast float inputs to float32)")
         dtype = _FRAME_DTYPES[first.dtype]
-        with self._dispatch_lock:
+        with self._dispatch_lock, span("serve.step", item=self._ticks, frames=len(ids),
+                                       slots=self.max_streams):
             tick = self._program(dtype)  # before the uploads: a capture zeroes the masks
             staging = self._staging[self._ticks % len(self._staging)]
             if staging.done is not None:
-                staging.done.synchronize()  # its last upload has been read
-            lr_host = staging.lr_buffer((self.max_streams, self.height, self.width, 3), dtype)
-            lr_np, masks_np = lr_host.numpy(), staging.masks.numpy()
-            masks_np[:] = False
-            for sid in ids:
-                slot = self._slot_of[sid]
-                frame = np.asarray(frames[sid])
-                if frame.shape != (self.height, self.width, 3):
-                    raise ValueError(
-                        f"stream {sid!r}: frame shape {frame.shape} != "
-                        f"({self.height}, {self.width}, 3)")
-                if frame.dtype != first.dtype:
-                    raise ValueError("mixed frame dtypes in one tick")
-                lr_np[slot] = frame
-                masks_np[1, slot] = True
-                masks_np[0, slot] = self._fresh[sid]
-            lr = self._lr_batch(dtype)
-            lr.copy_(lr_host, non_blocking=True)
-            self._masks.copy_(staging.masks, non_blocking=True)
-            if self.device.type == "cuda":
-                staging.done = torch.cuda.Event()
-                staging.done.record()
+                with span("serve.stage_wait"):
+                    staging.done.synchronize()  # its last upload has been read
+            with span("serve.stage"):
+                lr_host = staging.lr_buffer((self.max_streams, self.height, self.width, 3),
+                                            dtype)
+                lr_np, masks_np = lr_host.numpy(), staging.masks.numpy()
+                masks_np[:] = False
+                for sid in ids:
+                    slot = self._slot_of[sid]
+                    frame = np.asarray(frames[sid])
+                    if frame.shape != (self.height, self.width, 3):
+                        raise ValueError(
+                            f"stream {sid!r}: frame shape {frame.shape} != "
+                            f"({self.height}, {self.width}, 3)")
+                    if frame.dtype != first.dtype:
+                        raise ValueError("mixed frame dtypes in one tick")
+                    lr_np[slot] = frame
+                    masks_np[1, slot] = True
+                    masks_np[0, slot] = self._fresh[sid]
+            with span("serve.upload"):
+                lr = self._lr_batch(dtype)
+                lr.copy_(lr_host, non_blocking=True)
+                self._masks.copy_(staging.masks, non_blocking=True)
+                if self.device.type == "cuda":
+                    staging.done = torch.cuda.Event()
+                    staging.done.record()
             out = tick()
-            host, done = out, None  # on the CPU, the eager tick's own new tensor
-            if self.device.type == "cuda":  # the next replay overwrites out
-                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                host.copy_(out, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
+            with span("serve.copy_out"):
+                host, done = out, None  # on the CPU, the eager tick's own new tensor
+                if self.device.type == "cuda":  # the next replay overwrites out
+                    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                    host.copy_(out, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+            tick_id = self._ticks
             self._ticks += 1
         for sid in ids:
             self._fresh[sid] = False
-        handles = {sid: HostFrame(host, done, self._slot_of[sid]) for sid in ids}
+        handles = {sid: HostFrame(host, done, self._slot_of[sid], tick_id) for sid in ids}
         if fetch:
             return {sid: np.asarray(h) for sid, h in handles.items()}
         return handles

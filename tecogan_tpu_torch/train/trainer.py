@@ -106,6 +106,7 @@ from tecogan_tpu_torch.recurrent.step import (
 )
 from tecogan_tpu_torch.train import losses as L
 from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram, resolve_capture
+from tecogan_tpu_torch.utils.profiling import span
 
 _REMAT_BUDGET_BYTES = 4 << 30  # unrolled activations above which "auto" remats
 
@@ -337,17 +338,19 @@ class _Program:
             self.hr.copy_(batch)
             return
         i = self.uploads % len(self.staging)
-        if self.done[i] is not None:
-            self.done[i].synchronize()  # the device has read its last upload
-        host = self.staging[i]
-        if isinstance(batch, np.ndarray):
-            host.numpy()[...] = batch
-        else:
-            host.copy_(batch)
-        if host is not self.hr:
-            self.hr.copy_(host, non_blocking=True)
-            self.done[i] = torch.cuda.Event()
-            self.done[i].record()
+        with span("train.upload_wait"):
+            if self.done[i] is not None:
+                self.done[i].synchronize()  # the device has read its last upload
+        with span("train.upload"):
+            host = self.staging[i]
+            if isinstance(batch, np.ndarray):
+                host.numpy()[...] = batch
+            else:
+                host.copy_(batch)
+            if host is not self.hr:
+                self.hr.copy_(host, non_blocking=True)
+                self.done[i] = torch.cuda.Event()
+                self.done[i].record()
         self.uploads += 1
 
     def _addresses(self, trainer: "Trainer") -> Tuple[int, ...]:
@@ -385,7 +388,8 @@ class _Program:
         if self.graph is None or self._addresses(trainer) != self.addresses:
             self._capture(trainer)
         out = self.graph()
-        return tuple(t.clone() for t in out) if self.kind == "generate" else out.clone()
+        with span("train.clone"):
+            return tuple(t.clone() for t in out) if self.kind == "generate" else out.clone()
 
 
 class Trainer:
@@ -678,12 +682,13 @@ class Trainer:
         step's ``learning_rate`` (a host float) and, in TecoGAN mode,
         ``t_balance``. The gradients stay in the parameters' ``.grad`` until
         the next step."""
-        lr = self.schedule(state.step)
-        vec = self._program("train", state, hr_seq).run(self, hr_seq)
-        state.step += 1
-        metrics: Dict[str, Union[torch.Tensor, float]] = dict(
-            zip(self.metric_keys("train"), vec.unbind()))
-        metrics["learning_rate"] = lr
+        with span("train.step", item=state.step):
+            lr = self.schedule(state.step)
+            vec = self._program("train", state, hr_seq).run(self, hr_seq)
+            state.step += 1
+            metrics: Dict[str, Union[torch.Tensor, float]] = dict(
+                zip(self.metric_keys("train"), vec.unbind()))
+            metrics["learning_rate"] = lr
         return state, metrics
 
     def eval_step(self, state: TrainState, hr_seq: Batch) -> Dict[str, torch.Tensor]:

@@ -39,7 +39,10 @@ that pool too.
   thread count) to the wrappers' ``launches`` counters, so they count the
   kernels that ran;
 - releases its graph and its memory pool on :meth:`close`, or when it is
-  dropped (a ``CUDAGraph`` resets itself when freed).
+  dropped (a ``CUDAGraph`` resets itself when freed);
+- while a profiler runs, marks its warm-up and capture (span
+  ``graph.capture``, from outside the captured block) and each replay
+  (``graph.replay``) with :func:`~tecogan_tpu_torch.utils.profiling.span`.
 
 A replay reads every tensor at the address it had during the capture, the
 models' parameters included: moving the models (``.to()`` another dtype or
@@ -51,12 +54,14 @@ from __future__ import annotations
 import gc
 import os
 import threading
+import time
 import traceback
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from tecogan_tpu_torch.kernels import LaunchRecord
+from tecogan_tpu_torch.utils.profiling import span
 
 # torch.cuda.graph allows one capture at a time in a process.
 _CAPTURE_LOCK = threading.Lock()
@@ -118,12 +123,16 @@ class CapturedProgram:
             raise ValueError(f"{name}: a CUDA graph needs CUDA tensors, not {device}")
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         failure = None
-        with _CAPTURE_LOCK, torch.cuda.device(device):
+        with (span("graph.capture", program=name) as capture_span, _CAPTURE_LOCK,
+              torch.cuda.device(device)):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
+            t0 = time.perf_counter()
             with torch.cuda.stream(side):
                 body()
             torch.cuda.current_stream().wait_stream(side)
+            side.synchronize()  # as torch.cuda.graph does on entry: the warm-up's end
+            capture_span.set(warmup_s=time.perf_counter() - t0)
             graph = torch.cuda.CUDAGraph()
             record = LaunchRecord(stream=side.cuda_stream)
             collecting = gc.isenabled()
@@ -154,7 +163,8 @@ class CapturedProgram:
         """Replay the graph on the current stream; returns the output."""
         if self._graph is None:
             raise RuntimeError(f"{self.name}: the program was closed")
-        self._graph.replay()
+        with span("graph.replay", program=self.name):
+            self._graph.replay()
         self._launches.add()
         return self.output
 

@@ -2,12 +2,15 @@
 
 The reference has no tracing, only wall-clock aggregates: per-frame SR time
 at inference (main.py:256-260,270) and images/sec + ETA in training
-(main.py:404-411). This module gives both, and traces:
+(main.py:404-411); the port's training loop keeps its own images/sec
+window (``train/loop.py``). This module traces and times:
 
 - :func:`trace`: ``torch.profiler`` around a block (the CPU, and the card's
   kernels when there is one), written as a Chrome trace into a directory;
+- :func:`span`: the port's spans at its layer boundaries, on the
+  profiler's clock, recorded only while a profiler runs on the calling
+  thread (:func:`spans`, :func:`clear`);
 - :func:`sync`: wait for a tensor's device and return a scalar;
-- :class:`StepTimer`: images/sec and ETA, the JAX package's arithmetic;
 - :func:`device_time_samples` / :func:`device_time`: seconds per call of a
   function in its steady state, timed with CUDA events on the card and with
   ``perf_counter`` after a synchronisation on the CPU.
@@ -15,12 +18,18 @@ at inference (main.py:256-260,270) and images/sec + ETA in training
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
+
+SPAN_PREFIX = "tecogan."  # a span's range in the profiler's trace
+RING_RECORDS = 65536  # closed spans kept in memory, the newest
 
 
 def _first_tensor(x) -> Optional[torch.Tensor]:
@@ -39,7 +48,8 @@ def _first_tensor(x) -> Optional[torch.Tensor]:
 @contextlib.contextmanager
 def trace(log_dir: str):
     """``with trace("/tmp/trace"):`` profiles the block and writes
-    ``<log_dir>/trace.json`` (Chrome trace format)."""
+    ``<log_dir>/trace.json`` (Chrome trace format), with the port's spans
+    (:func:`span`) opened on this thread among the kernels."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -47,6 +57,140 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class SpanRecord(NamedTuple):
+    """One closed span. ``start_ns``/``end_ns`` are on the profiler's clock
+    (``time.time_ns``, the duration from ``perf_counter_ns``); ``parent`` is
+    the ``id`` of the span open around it on its thread (None at the top);
+    ``item`` is the clip, tick or step it belongs to (its parent's unless
+    given)."""
+
+    id: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[int]
+    item: object
+    thread: int
+    attrs: Dict
+
+
+class _SpanRing:
+    """The newest ``size`` closed spans; the oldest are dropped and counted."""
+
+    def __init__(self, size: int):
+        self.records: "collections.deque[SpanRecord]" = collections.deque(maxlen=size)
+        self.dropped = 0
+        self.lock = threading.Lock()
+
+    def add(self, record: SpanRecord) -> None:
+        with self.lock:
+            if len(self.records) == self.records.maxlen:
+                self.dropped += 1
+            self.records.append(record)
+
+
+_RING = _SpanRing(RING_RECORDS)
+_IDS = itertools.count(1)
+_OPEN = threading.local()  # each thread's stack of open spans
+
+
+def _open_spans() -> List["_Span"]:
+    stack = getattr(_OPEN, "stack", None)
+    if stack is None:
+        stack = _OPEN.stack = []
+    return stack
+
+
+class _Span:
+    """A span while the profiler runs: a ``record_function`` range in the
+    trace and, once closed, a :class:`SpanRecord` in the ring."""
+
+    __slots__ = ("name", "item", "attrs", "id", "parent", "_range", "_start_ns", "_t0")
+
+    def __init__(self, name: str, item, attrs: Dict):
+        self.name, self.item, self.attrs = name, item, attrs
+
+    def __enter__(self) -> "_Span":
+        stack = _open_spans()
+        outer = stack[-1] if stack else None
+        self.parent = None if outer is None else outer.id
+        if self.item is None and outer is not None:
+            self.item = outer.item
+        self.id = next(_IDS)
+        stack.append(self)
+        self._range = torch.profiler.record_function(SPAN_PREFIX + self.name)
+        # Stamp before opening the range: the profiler stamps the range's
+        # start early in the call, and the call can be slow (about 1 ms the
+        # first time in a profile), so a stamp taken after it starts late.
+        self._start_ns = time.time_ns()
+        self._t0 = time.perf_counter_ns()
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        took = time.perf_counter_ns() - self._t0
+        _open_spans().pop()
+        self._range.__exit__(*exc)
+        _RING.add(SpanRecord(self.id, self.name, self._start_ns, self._start_ns + took,
+                             self.parent, self.item, threading.get_ident(), self.attrs))
+        return False
+
+    def set(self, **attrs) -> None:
+        """Attributes known only inside the span."""
+        self.attrs.update(attrs)
+
+
+class _Off:
+    """The span while no profiler runs on the calling thread: it enters
+    nothing and records nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_Off":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+def span(name: str, item=None, **attrs):
+    """``with span("serve.step", item=tick, frames=n):`` marks a layer
+    boundary of the port. Off unless a profiler runs on the calling thread
+    (:func:`trace`, or any ``torch.profiler.profile``): then it is one
+    shared no-op and costs the check. On, the block is the range
+    ``tecogan.<name>`` in the profiler's trace, and its record (name, start
+    and end on the profiler's clock, the enclosing span, ``item``, the
+    thread, ``attrs``) goes into an in-memory ring when it closes. Never
+    open one inside a captured CUDA graph's body."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name, item, attrs)
+
+
+def spans() -> List[SpanRecord]:
+    """The ring's records, oldest first, each appended as its span closed."""
+    with _RING.lock:
+        return list(_RING.records)
+
+
+def dropped_spans() -> int:
+    """Records the ring dropped, full, since the last :func:`clear`."""
+    return _RING.dropped
+
+
+def clear() -> None:
+    """Empty the ring and its count of dropped records."""
+    with _RING.lock:
+        _RING.records.clear()
+        _RING.dropped = 0
 
 
 def sync(x) -> float:
@@ -59,34 +203,6 @@ def sync(x) -> float:
     if t.device.type == "cuda":
         torch.cuda.synchronize(t.device)
     return float(t.detach().float().sum())
-
-
-class StepTimer:
-    """Images/sec + ETA tracking (reference main.py:404-411 semantics)."""
-
-    def __init__(self, items_per_step: float, total_steps: Optional[int] = None):
-        self.items_per_step = items_per_step
-        self.total_steps = total_steps
-        self._t0 = time.perf_counter()
-        self._steps = 0
-
-    def tick(self, n: int = 1) -> None:
-        self._steps += n
-
-    def rate(self) -> float:
-        dt = time.perf_counter() - self._t0
-        return self.items_per_step * self._steps / dt if dt > 0 else 0.0
-
-    def eta_hours(self, current_step: int) -> Optional[float]:
-        if not self.total_steps or self._steps == 0:
-            return None
-        dt = time.perf_counter() - self._t0
-        per_step = dt / self._steps
-        return (self.total_steps - current_step) * per_step / 3600.0
-
-    def reset(self) -> None:
-        self._t0 = time.perf_counter()
-        self._steps = 0
 
 
 def device_time_samples(fn: Callable, *args, iters: int = 10,

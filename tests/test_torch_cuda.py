@@ -1465,3 +1465,33 @@ def test_slot_pool_mesh_on_one_card(cuda_device):
             np.testing.assert_array_equal(a[k], b[k])
     for k in range(4):
         assert np.abs(outs[0][0][k].astype(np.int16) - outs[2][0][k]).max() <= 1
+
+
+@pytest.mark.cuda
+def test_captured_program_spans(cuda_device):
+    """A ``CapturedProgram`` under the profiler: one ``graph.capture`` (its
+    warm-up and capture, with the program's name and ``warmup_s``) and a
+    ``graph.replay`` a replay, each a ``tecogan.*`` range of the trace;
+    the captured body opens none and the replays give its output."""
+    from tecogan_tpu_torch.utils import profiling
+    from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
+
+    x = torch.arange(64, dtype=torch.float32, device=cuda_device)
+    profiling.clear()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        prog = CapturedProgram(lambda: x * 2 + 1, (x,), name="spans")
+        for _ in range(3):
+            out = prog()
+        torch.cuda.synchronize()
+    records = profiling.spans()
+    names = sorted(r.name for r in records)
+    assert names == ["graph.capture"] + ["graph.replay"] * 3
+    (capture,) = [r for r in records if r.name == "graph.capture"]
+    assert capture.attrs["program"] == "spans" and capture.attrs["warmup_s"] > 0
+    assert all(r.attrs == {"program": "spans"} for r in records if r.name == "graph.replay")
+    ranges = sorted(e.name for e in prof.events()
+                    if e.name.startswith(profiling.SPAN_PREFIX) and e.device_type.name == "CPU")
+    assert ranges == [profiling.SPAN_PREFIX + n for n in names]
+    torch.testing.assert_close(out, x * 2 + 1)
+    prog.close()

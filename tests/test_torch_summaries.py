@@ -33,7 +33,6 @@ from tecogan_tpu_torch.train.loop import SUMMARY_TAGS, train
 from tecogan_tpu_torch.train.trainer import _generate_body
 from tecogan_tpu_torch.utils import SummaryLogger, encode_gif, tb_events
 from tecogan_tpu_torch.utils.profiling import (
-    StepTimer,
     device_time,
     device_time_samples,
     sync,
@@ -266,10 +265,6 @@ def test_profiling_utils(tmp_path):
     samples = device_time_samples(f, x, iters=2, warmup=1, passes=3)
     assert len(samples) == 3 and all(s > 0 for s in samples)
     assert sync({"a": f(x)}) == 192.0 and sync([]) == 0.0
-    t = StepTimer(items_per_step=4, total_steps=100)
-    assert t.eta_hours(0) is None
-    t.tick(10)
-    assert t.rate() > 0 and t.eta_hours(10) is not None
     with trace(str(tmp_path / "tr")):
         float(f(torch.ones(())).sum())
     assert any((tmp_path / "tr").rglob("*"))
