@@ -29,6 +29,10 @@ Phases, each raising on failure (so the exit code is non-zero):
    training); untimed at two edge shapes; the bfloat16
    chain also, one block at three shapes, against its own rounding points
    in float32 (8e-3);
+3c. the transposed convs' epilogue (bias, ReLU and SAME crop in one pass)
+   in bfloat16 at the 2160p, 5-slot 1080p serving and Vid4 convs' output
+   shapes: bit-equal to its plain version and to the two ATen passes it
+   replaces (``add_``, ``F.relu``), timed beside both, with its byte bound;
 3b. the native data-loader core: the machine's toolchain (``<png.h>``,
    ``<zlib.h>``, ``ldconfig -p``'s libpng and libz) and the build of
    ``tecogan_tpu_torch/csrc/tecodata.cpp`` (its own PNG codec on zlib)
@@ -44,8 +48,9 @@ Phases, each raising on failure (so the exit code is non-zero):
    576x720, bfloat16, chunks of 23, captured as one CUDA graph per chunk
    (the default on the card) and with ``capture=False`` in the same call:
    the two outputs bit-equal under cuDNN's deterministic algorithms; each
-   mode's frames/s (runs in turns), launch counts (exactly 736 chain and 48
-   K1 a run, the captured ones added per replay), peak memory and graph
+   mode's frames/s (runs in turns), launch counts (exactly 736 chain, 48
+   K1 and 92 epilogue a run, the captured ones added per replay), peak
+   memory and graph
    pool; then a ``torch.profiler`` split of one run of each (chain / K1 /
    cuDNN / glue, device idle share), whose chain (the tensor-core kernel)
    and K1 launches must equal the counters';
@@ -232,10 +237,12 @@ launches on the streaming, FRVSR and TecoGAN training paths (float32 and
 bfloat16) and per serving bucket tick. The
 second-to-last line of stdout is a JSON object with one entry per kernel
 (K1, K2 and the bfloat16 chain with a ``bf16_training`` entry; the NV12
-kernel, which replaces no TPU kernel, with its launches in phase 15 (d));
+kernel, which replaces no TPU kernel, with its launches in phase 15 (d);
+the transposed convs' epilogue, which replaces none either, with its
+launches in phase 6 and its times by cell);
 the last is ``{"ok": true, "device": {...}}``. Imports no JAX.
 
-``python3 chip_smoke.py --kernels-only`` stops after phase 3 and prints no
+``python3 chip_smoke.py --kernels-only`` stops after phase 3c and prints no
 result line (for comparing two trees' kernels in one call).
 """
 
@@ -686,6 +693,63 @@ def check_kernels(dev):
                                     library_ms=lib_ms, bound_ms=bound_ms,
                                     bound_by=bound_by))
             log(line)
+    return records
+
+
+# Phase 3c: the transposed convs' raw outputs (B, C, 2H + 1, 2W + 1) that the
+# epilogue crops, with the paths they serve: the 4x and 2x convs of a 2160p
+# frame (540x960 LR), of a 5-slot 1080p serving tick (270x480 LR) and of a
+# Vid4 frame (144x180 LR, phase 6's geometry).
+EPILOGUE_CASES = (
+    ("2160p 4x", (1, 64, 2161, 3841), "stream_2160p"),
+    ("2160p 2x", (1, 64, 1081, 1921), "stream_2160p"),
+    ("serve 5 slots 4x", (5, 64, 1081, 1921), "serve_1080p_live"),
+    ("serve 5 slots 2x", (5, 64, 541, 961), "serve_1080p_live"),
+    ("Vid4 4x", (1, 64, 577, 721), "streaming"),
+    ("Vid4 2x", (1, 64, 289, 361), "streaming"))
+
+
+def check_epilogue(dev):
+    """Phase 3c. The transposed convs' epilogue in bfloat16 (the inference
+    path's dtype) at :data:`EPILOGUE_CASES`' shapes, bit-equal to its plain
+    version and to the two ATen passes it replaces (``add_`` of the bias
+    over the whole conv output, then ``F.relu`` of the SAME crop), timed
+    beside both (the two passes' input drifts as ``add_`` repeats: timing
+    only). Its bound: the conv output read once and the crop written once.
+    Returns one record per case."""
+    from tecogan_tpu_torch.kernels import bias_relu_crop, bias_relu_crop_plain
+
+    gen = torch.Generator(device=dev).manual_seed(39)
+    records = []
+    for label, shape, path in EPILOGUE_CASES:
+        c = shape[1]
+        y = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bias = (0.5 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+        biased, column = y.clone(), bias.view(1, -1, 1, 1)
+        got = bias_relu_crop(y, bias)
+        same = (torch.equal(got, bias_relu_crop_plain(y, bias))
+                and torch.equal(got, F.relu(y.clone().add_(column)[..., :-1, :-1])))
+        if not same:
+            raise RuntimeError(f"[epilogue] {label} {shape}: the kernel differs from the "
+                               "two ATen passes")
+        times = time_fns([lambda: bias_relu_crop(y, bias),
+                          lambda: bias_relu_crop_plain(y, bias),
+                          lambda: F.relu(biased.add_(column)[..., :-1, :-1])])
+        (ms, lo, hi), (plain_ms, plo, phi), (two_ms, tlo, thi) = times
+        bound_ms, bound_by, arithmetic = bound(
+            1, (y.numel() + got.numel() + c) * y.element_size(), 2 * got.numel(),
+            "float32 CUDA cores")
+        log(f"[kernel] bias_relu_crop bfloat16 {label} {shape}: bit-equal to plain and to the "
+            f"two ATen passes; kernel_ms={ms:.4f} [{lo:.4f}-{hi:.4f}] plain_ms={plain_ms:.4f} "
+            f"[{plo:.4f}-{phi:.4f}] two_pass_ms={two_ms:.4f} [{tlo:.4f}-{thi:.4f}] (add_ + "
+            f"F.relu, median [min-max]) bound_ms={bound_ms:.5f} by {bound_by}: {arithmetic}; "
+            f"share of bound {bound_ms / ms:.1%}; path {path}")
+        records.append(dict(label=f"{label} {shape}", paths=[path], max_abs_err=0.0, ms=ms,
+                            plain_ms=plain_ms, two_pass_ms=two_ms, bound_ms=bound_ms,
+                            bound_by=bound_by))
+        del y, biased, got
+        torch.cuda.empty_cache()
     return records
 
 
@@ -1534,7 +1598,7 @@ def run_main_path(dev, card: str):
     captured, eager), launches, peak memory (and the graph's pool) and a
     profile. Returns the captured run's launch counts."""
     from tecogan_tpu_torch.config import TecoConfig
-    from tecogan_tpu_torch.kernels import resblock_chain, upsample4
+    from tecogan_tpu_torch.kernels import bias_relu_crop, resblock_chain, upsample4
     from tecogan_tpu_torch.recurrent import StreamingSR
     from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
 
@@ -1587,14 +1651,17 @@ def run_main_path(dev, card: str):
         base = torch.cuda.memory_allocated()
         upsample4.launches = 0
         resblock_chain.launches = 0
+        bias_relu_crop.launches = 0
         hr, secs = rec["sr"].run(frames, warmup=WARMUP)
         rec["launches"] = {"upsample4": upsample4.launches,
-                           "resblock_chain": resblock_chain.launches}
+                           "resblock_chain": resblock_chain.launches,
+                           "bias_relu_crop": bias_relu_crop.launches}
         rec["steady_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
         rec["secs"].append(secs)
         if hr.shape != want or hr.dtype != np.uint8 or hr.min() == hr.max():
             raise RuntimeError(f"[main] {mode}: output {hr.shape} {hr.dtype}, want {want} uint8")
-    need = {"upsample4": FRAMES + FRAMES // CHUNK, "resblock_chain": NUM_RESBLOCK * FRAMES}
+    need = {"upsample4": FRAMES + FRAMES // CHUNK, "resblock_chain": NUM_RESBLOCK * FRAMES,
+            "bias_relu_crop": 2 * FRAMES}
     for mode, rec in runs.items():
         log(f"[main] {mode}: launches of a run {rec['launches']}, want {need}")
         if rec["launches"] != need:
@@ -2332,8 +2399,11 @@ def bf16_train(dev, cfg, out_dir: str, steps: int, steady, label: str, **train_k
     if state.step != steps or len(starts) != steps:
         raise RuntimeError(f"{label}: {state.step} steps, {len(starts)} step calls")
     check_step_launches(launches, (0,), step_launch_want(cfg), label)
-    if set(entries) != BF16_ENTRIES:
-        raise RuntimeError(f"{label}: library entries {entries}, want only {BF16_ENTRIES}")
+    # The summaries' generate calls run the generator with no gradient to
+    # record: its transposed convs take the epilogue's bfloat16 entry.
+    want_entries = BF16_ENTRIES | {"tt_bias_relu_crop_bf16"}
+    if set(entries) != want_entries:
+        raise RuntimeError(f"{label}: library entries {entries}, want only {want_entries}")
     if "compute dtype bfloat16, float32 master weights" not in text:
         raise RuntimeError(f"{label}: train() did not name the dtype: {text[-2000:]}")
     ints = {"device_step", "counter_with_d", "counter_wo_d", "d_opt.count"}
@@ -4721,8 +4791,9 @@ def main() -> None:
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
     records = phase("3 kernels", check_kernels, dev)
+    epilogue = phase("3c transposed convs' epilogue", check_epilogue, dev)
     if "--kernels-only" in sys.argv[1:]:
-        log("[main] --kernels-only: phases 1-3 done; no result line")
+        log("[main] --kernels-only: phases 1-3c done; no result line")
         return
     phase("3b native loader build", build_native, card)
     phase("4 autograd", check_autograd, dev)
@@ -4891,6 +4962,24 @@ def main() -> None:
                     "tests/nvdec_streams.py:ModelNvdec (decodes nothing) in place of NVDEC, "
                     "which refused: " + nvdec["refused"]),
         "cases": nvdec["nv12"]["timed"]})
+    # The transposed convs' epilogue (phase 3c): its launches in phase 6's
+    # streaming run (2 a frame), its times summed over each path's cases.
+    def epilogue_sums(path):
+        own = [r for r in epilogue if path in r["paths"]]
+        return {k: sum(r[k] for r in own) for k in ("ms", "plain_ms", "two_pass_ms", "bound_ms")}
+
+    kernels.append({
+        "name": "bias_relu_crop", "route": "cuda",
+        "source": "tecogan_tpu_torch/csrc/bias_relu_crop.cu", "replaces": None,
+        "replaces_note": "no TPU kernel (XLA fuses the bias and ReLU into the transposed "
+                         "conv): ATen's add_ of a cuDNN transposed conv's bias and F.relu of "
+                         "its SAME crop",
+        "launches": stream_launches.get("bias_relu_crop", 0), "max_abs_err": 0.0,
+        **epilogue_sums("streaming"), "bound_by": "bytes", "library_ms": None,
+        "library_note": "two_pass_ms: the add_ and F.relu it replaces",
+        "path": "streaming", "dtype": "bfloat16",
+        "by_cell": {p: epilogue_sums(p) for p in ("stream_2160p", "serve_1080p_live")},
+        "cases": epilogue})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,12 +9,15 @@ counters count the kernels that ran, captured or not). ``upsample4`` and
 ``resblock_chain`` are
 differentiable (``torch.autograd.Function``s) on both devices. Importing
 this package registers the launches as operators,
-``torch.ops.tecogan_torch.{upsample4,upsample4_bwd,resblock_chain,nv12_rgb}``
-(``ops.py``), which an exported program calls. ``nv12_to_rgb`` converts the
-frames that the card's NVDEC decodes (``data/video_nvdec.py``); it replaces
-no TPU kernel.
+``torch.ops.tecogan_torch.{upsample4,upsample4_bwd,resblock_chain,nv12_rgb,
+bias_relu_crop}`` (``ops.py``), which an exported program calls.
+``nv12_to_rgb`` converts the frames that the card's NVDEC decodes
+(``data/video_nvdec.py``); ``bias_relu_crop`` is the generator's transposed
+convs' bias, ReLU and crop in one pass (``models/layers.py:Conv2Tran.
+forward_relu``). Neither replaces a TPU kernel.
 """
 
+from tecogan_tpu_torch.kernels.epilogue import bias_relu_crop, bias_relu_crop_plain
 from tecogan_tpu_torch.kernels.nv12 import nv12_to_rgb, nv12_to_rgb_plain, yuv_coefficients
 from tecogan_tpu_torch.kernels.ops import LaunchRecord
 from tecogan_tpu_torch.kernels.resblocks import (
@@ -32,6 +35,8 @@ from tecogan_tpu_torch.kernels.upsample4 import (
 
 __all__ = [
     "LaunchRecord",
+    "bias_relu_crop",
+    "bias_relu_crop_plain",
     "bicubic_four",
     "nv12_to_rgb",
     "nv12_to_rgb_plain",

@@ -57,6 +57,9 @@ _SIGNATURES = {
     # (surface, pitch, luma_rows, left, top, width, height, y_coeff, y_offset,
     # v2r, u2b, u2g, v2g, out, stream): NV12 -> RGB24 of the display area
     "tt_nv12_rgb": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # (y, bias, out, B, H, W, C, stream); H, W are out's sizes, y has one more
+    "tt_bias_relu_crop_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "tt_bias_relu_crop_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -5,7 +5,9 @@
 - conv3 -> 64 + ReLU;
 - ``num_resblock`` residual blocks, run by the chain kernel
   (``kernels/resblocks.py``);
-- two stride-2 transposed convs -> 64 + ReLU (4x), conv3 -> 3;
+- two stride-2 transposed convs -> 64 + ReLU (4x), each with its bias,
+  ReLU and crop in one pass where autograd records nothing
+  (``Conv2Tran.forward_relu``), conv3 -> 3;
 - plus the Catmull-Rom 4x upsample of the LR frame (``kernels/upsample4.py``);
 - output mapped to [-1, 1].
 
@@ -80,7 +82,7 @@ class Generator(nn.Module):
         if len(self.resblocks):
             net = resblock_chain(net.permute(0, 2, 3, 1).contiguous(),
                                  *self.trunk_weights()).permute(0, 3, 1, 2)
-        net = F.relu(self.conv_tran1(net))
-        net = F.relu(self.conv_tran2(net))
+        net = self.conv_tran1.forward_relu(net)
+        net = self.conv_tran2.forward_relu(net)
         net = self.output_stage_conv(net).permute(0, 2, 3, 1)
         return preprocess(net + bicubic_four(lr))

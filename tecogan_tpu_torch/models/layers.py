@@ -16,6 +16,8 @@ import torch.distributed.nn.functional as dist_nn
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tecogan_tpu_torch.kernels.epilogue import bias_relu_crop
+
 
 def conv2(in_channels: int, out_channels: int) -> nn.Conv2d:
     """3x3 stride-1 SAME conv with bias (reference lib/ops.py:47-56)."""
@@ -36,6 +38,18 @@ class Conv2Tran(nn.ConvTranspose2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x)[..., :-1, :-1]
+
+    def forward_relu(self, x: torch.Tensor) -> torch.Tensor:
+        """``relu(self(x))``. Where autograd records nothing (grad mode off,
+        or neither x nor a parameter needs a gradient) the conv runs with no
+        bias and one pass adds it, applies the ReLU and crops
+        (``kernels/epilogue.py``); otherwise ``F.relu(self(x))``."""
+        if torch.is_grad_enabled() and (x.requires_grad or any(
+                p.requires_grad for p in (self.weight, self.bias))):
+            return F.relu(self.forward(x))
+        y = F.conv_transpose2d(x, self.weight, None, self.stride, self.padding,
+                               self.output_padding, self.groups, self.dilation)
+        return bias_relu_crop(y, self.bias)
 
 
 class StridedConv4(nn.Conv2d):

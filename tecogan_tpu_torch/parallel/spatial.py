@@ -284,8 +284,8 @@ class ShardedStep:
 
                 net = halo_map(chain, net, 2 * kk, what=f"chain of {kk} blocks")
         for name in ("conv_tran1", "conv_tran2"):
-            net = halo_map(lambda i, e: _nhwc(F.relu(getattr(self.generators[i], name)(_nchw(e)))),
-                           net, 1, 2, "transposed conv")
+            net = halo_map(lambda i, e: _nhwc(getattr(self.generators[i], name).forward_relu(
+                _nchw(e))), net, 1, 2, "transposed conv")
         net = self._conv(net, lambda i: self.generators[i].output_stage_conv, None, "generator")
         skip = halo_map(lambda i, e: bicubic_four(e.contiguous()), lrs, 2, 4, "bicubic skip")
         return [preprocess(a + b) for a, b in zip(net, skip)]

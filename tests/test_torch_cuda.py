@@ -11,6 +11,7 @@ imports no JAX, so it also runs where only PyTorch is installed:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from chip_smoke import (
     BF16_D_LOSS_RTOL,
@@ -26,6 +27,8 @@ from chip_smoke import (
 from tecogan_tpu_torch.config import FRVSR_PRESET
 from tecogan_tpu_torch.data.synthetic import synthetic_clip
 from tecogan_tpu_torch.kernels import (
+    bias_relu_crop,
+    bias_relu_crop_plain,
     resblock_chain,
     resblock_chain_plain,
     upsample4,
@@ -76,6 +79,136 @@ def test_upsample4_kernel_matches_plain(cuda_device, shape, filt, dtype):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+# The transposed convs' raw outputs (B, C, 2H + 1, 2W + 1) that the epilogue
+# crops: 2160p's 4x and 2x convs, a 5-slot 1080p serving tick's 4x conv, and
+# small ones: a 2x3 output, one pixel, and 24 channels (three bfloat16
+# vectors a pixel, a block of 255 threads) on a ragged width.
+EPILOGUE_SHAPES = [(1, 64, 2161, 3841), (1, 64, 1081, 1921), (5, 64, 1081, 1921),
+                   (2, 64, 3, 5), (1, 64, 2, 2), (3, 24, 9, 71)]
+EPILOGUE_IDS = ["2160p_4x", "2160p_2x", "serve_4x", "2x3", "1px", "24ch"]
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def _conv_output(shape, dtype, device, seed):
+    """A conv output as cuDNN leaves it: dense in channels_last."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    y = torch.randn(shape, generator=gen, device=device).to(dtype)
+    return y.contiguous(memory_format=torch.channels_last)
+
+
+def _two_passes(y, bias):
+    """What the epilogue replaces, as ATen runs a biased cuDNN transposed
+    conv and the ReLU: ``add_`` of the bias over all of y, then ``F.relu``
+    of the SAME crop."""
+    return F.relu(y.clone().add_(bias.view(1, -1, 1, 1))[..., :-1, :-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES, ids=EPILOGUE_IDS)
+def test_bias_relu_crop_kernel_matches_plain(cuda_device, shape, dtype):
+    """The epilogue against its plain version and the two ATen passes it
+    replaces: bit-equal (its rounding points are add_'s and clamp_min's),
+    dense in channels_last, one launch."""
+    b, c, h1, w1 = shape
+    y = _conv_output(shape, dtype, cuda_device, 31)
+    bias = (0.5 * torch.randn(c, generator=torch.Generator().manual_seed(32))).to(
+        cuda_device, dtype)
+    before = bias_relu_crop.launches
+    got = bias_relu_crop(y, bias)
+    assert bias_relu_crop.launches == before + 1
+    assert got.shape == (b, c, h1 - 1, w1 - 1)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, bias_relu_crop_plain(y, bias))
+    assert torch.equal(got, _two_passes(y, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bias_relu_crop_passes_nan_and_signed_zeros_as_aten(cuda_device, dtype):
+    """NaN (both signs), infinities, signed zeros and values whose sum with
+    the bias is a signed zero, with biases of -0, +0, NaN and inf among the
+    channels: the same bits as the two ATen passes."""
+    nan, inf = float("nan"), float("inf")
+    specials = torch.tensor([nan, -nan, inf, -inf, -0.0, 0.0, 1.0, -1.0, 1e-30, -1e-30])
+    gen = torch.Generator().manual_seed(33)
+    shape = (2, 16, 7, 9)
+    y = torch.randn(shape, generator=gen)
+    pick = torch.rand(shape, generator=gen) < 0.5
+    y[pick] = specials[torch.randint(len(specials), (int(pick.sum()),), generator=gen)]
+    bias = torch.tensor([-0.0, 0.0, nan, inf, -inf, 1.0, -1.0, 0.5] * 2)
+    y = y.to(cuda_device, dtype).contiguous(memory_format=torch.channels_last)
+    y[:, 5, ::2, ::3] = -1.0  # + 1.0: +0 from a sum
+    y[:, 6, ::2, ::3] = 1.0   # - 1.0: +0 from a sum
+    bias = bias.to(cuda_device, dtype)
+    got, want = bias_relu_crop(y, bias), _two_passes(y, bias)
+    assert torch.isnan(want).any() and (want == 0).any()
+    bits = _BITS[dtype]
+    diff = got.view(bits) != want.view(bits)
+    assert not diff.any(), (f"{int(diff.sum())} values differ: got {got[diff][:8].tolist()} "
+                            f"want {want[diff][:8].tolist()} from y {y[..., :-1, :-1][diff][:8]}")
+    assert torch.equal(bias_relu_crop_plain(y, bias).view(bits), want.view(bits))
+
+
+@pytest.mark.cuda
+def test_bias_relu_crop_rejects_what_the_kernel_does_not_take(cuda_device):
+    """C not a multiple of the 16-byte vector (C = 3), NCHW-contiguous y,
+    y and bias on two devices (either way), mixed or other dtypes: raises,
+    with no fallback and no launch."""
+    y = _conv_output((1, 64, 5, 7), torch.bfloat16, cuda_device, 34)
+    bias = torch.zeros(64, device=cuda_device, dtype=torch.bfloat16)
+    before = bias_relu_crop.launches
+    for dtype, vector in ((torch.bfloat16, 8), (torch.float32, 4)):
+        y3 = _conv_output((1, 3, 5, 7), dtype, cuda_device, 35)
+        with pytest.raises(ValueError, match=f"multiple of {vector}"):
+            bias_relu_crop(y3, torch.zeros(3, device=cuda_device, dtype=dtype))
+    with pytest.raises(ValueError, match="channels_last"):
+        bias_relu_crop(y.contiguous(), bias)
+    with pytest.raises(ValueError, match="y is on cuda:0 and bias on cpu"):
+        bias_relu_crop(y, bias.cpu())
+    with pytest.raises(ValueError, match="y is on cpu and bias on cuda:0"):
+        bias_relu_crop(y.cpu(), bias)
+    with pytest.raises(TypeError, match="one dtype"):
+        bias_relu_crop(y, bias.float())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bias_relu_crop(y.half(), bias.half())
+    assert bias_relu_crop.launches == before
+
+
+@pytest.mark.cuda
+def test_generator_epilogue_equals_two_passes_at_2160p(cuda_device, monkeypatch):
+    """Generator.forward under inference_mode on a 540x960 input (the
+    2160p cell's frame: 16 blocks, bfloat16, the models in channels_last as
+    the streaming path places them) against the two-pass composition
+    (F.relu of the biased transposed conv's crop), cuDNN deterministic:
+    bit-equal, with 2 epilogue launches a call and none on the two passes."""
+    from tecogan_tpu_torch.models.layers import Conv2Tran, glorot_init_
+    from tecogan_tpu_torch.models.generator import Generator
+    from tecogan_tpu_torch.recurrent.inference import place_models
+    from tecogan_tpu_torch.models.fnet import FNet
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    gen = glorot_init_(Generator(16, 64), torch.Generator().manual_seed(36))
+    with torch.no_grad():
+        for conv in (gen.conv_tran1, gen.conv_tran2):
+            conv.bias.uniform_(-0.1, 0.1, generator=torch.Generator().manual_seed(37))
+    gen, _ = place_models(gen, FNet(), cuda_device, torch.bfloat16)
+    x = torch.rand((1, 540, 960, 51), generator=torch.Generator().manual_seed(38)).to(
+        cuda_device)
+    outs, launches = [], []
+    for two_passes in (False, True):
+        if two_passes:
+            monkeypatch.setattr(Conv2Tran, "forward_relu", lambda self, x: F.relu(self(x)))
+        before = bias_relu_crop.launches
+        with torch.inference_mode():
+            outs.append(gen(x))
+        torch.cuda.synchronize()
+        launches.append(bias_relu_crop.launches - before)
+    assert launches == [2, 0]
+    assert outs[0].shape == (1, 2160, 3840, 3)
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.cuda
@@ -646,8 +779,8 @@ def test_server_tick_matches_streaming(cuda_device):
     """A 1-slot VSRServer, tick by tick, against StreamingSR.run on the same
     stream, float32 with TF32 off: the same frame step at the same batch
     (FNet once a frame with chunks of 1); after the prewarm (which captures
-    the tick, its warm-up tick running the kernels once) the chain and K1
-    launch on every tick."""
+    the tick, its warm-up tick running the kernels once) the chain, K1 and
+    the transposed convs' epilogue (2 a tick) launch on every tick."""
     from tecogan_tpu_torch.config import TecoConfig
     from tecogan_tpu_torch.recurrent import StreamingSR
     from tecogan_tpu_torch.serve import VSRServer
@@ -658,9 +791,10 @@ def test_server_tick_matches_streaming(cuda_device):
                     device=cuda_device)
     srv.prewarm()
     srv.open("a")
-    before = (upsample4.launches, resblock_chain.launches)
+    before = (upsample4.launches, resblock_chain.launches, bias_relu_crop.launches)
     got = np.stack([srv.step({"a": f})["a"] for f in frames])
-    assert (upsample4.launches - before[0], resblock_chain.launches - before[1]) == (8, 16)
+    assert (upsample4.launches - before[0], resblock_chain.launches - before[1],
+            bias_relu_crop.launches - before[2]) == (8, 16, 8)
     want, _ = StreamingSR(cfg, *_serving_models(22, 4), output="float32",
                           device=cuda_device).run(frames)
     assert got.shape == want.shape == (4, 128, 192, 3)
@@ -693,9 +827,10 @@ def test_export_round_trip_on_the_card(cuda_device, tmp_path, dtype):
     gen, fnet = place_models(gen, fnet, cuda_device, cfg.torch_dtype)
     torch.backends.cudnn.deterministic = True
     try:
-        before = (upsample4.launches, resblock_chain.launches)
+        before = (upsample4.launches, resblock_chain.launches, bias_relu_crop.launches)
         new_state, hr = step(state, lr)
-        assert (upsample4.launches - before[0], resblock_chain.launches - before[1]) == (2, 3)
+        assert (upsample4.launches - before[0], resblock_chain.launches - before[1],
+                bias_relu_crop.launches - before[2]) == (2, 3, 2)
         with torch.inference_mode():
             ref_state, ref_hr = build_frame_fn(cfg, "uint8")(gen, fnet, state, lr)
     finally:
@@ -731,7 +866,8 @@ def test_streaming_captured_matches_eager(cuda_device, monkeypatch, dtype):
     """StreamingSR captured (the default on the card) against capture=False
     under cuDNN's deterministic algorithms, 2 blocks, 32x48, chunks of 4
     with a ragged last one: bit-equal outputs, the same launches per run
-    (3 chunks: K1 3 flows + 12 skips, the chain 2 x 12), one capture for the
+    (3 chunks: K1 3 flows + 12 skips, the chain 2 x 12, the transposed
+    convs' epilogue 2 a frame, 2 x 12), one capture for the
     chunk shape across three runs and none on the eager side."""
     from tecogan_tpu_torch.config import TecoConfig
     from tecogan_tpu_torch.recurrent import StreamingSR
@@ -747,13 +883,14 @@ def test_streaming_captured_matches_eager(cuda_device, monkeypatch, dtype):
         assert sr.capture is (capture is None)
         captures = CapturedProgram.captures
         sr.run(frames, warmup=2)
-        before = (upsample4.launches, resblock_chain.launches)
+        before = (upsample4.launches, resblock_chain.launches, bias_relu_crop.launches)
         out, _ = sr.run(frames, warmup=2)
-        counts.append((upsample4.launches - before[0], resblock_chain.launches - before[1]))
+        counts.append((upsample4.launches - before[0], resblock_chain.launches - before[1],
+                       bias_relu_crop.launches - before[2]))
         outs.append(out)
         sr.run(frames[:7], warmup=2)  # the same chunk shape
         assert CapturedProgram.captures - captures == (capture is None)
-    assert counts[0] == counts[1] == (15, 24)
+    assert counts[0] == counts[1] == (15, 24, 24)
     assert outs[0].shape == (8, 128, 192, 3)
     np.testing.assert_array_equal(outs[0], outs[1])
 

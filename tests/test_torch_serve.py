@@ -501,6 +501,7 @@ def test_export_round_trip(weights, rng, tmp_path, output, input_dtype):
     calls = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
     assert calls.count("tecogan_torch.upsample4.default") == 2  # flow and skip
     assert calls.count("tecogan_torch.resblock_chain.default") == 1
+    assert calls.count("tecogan_torch.bias_relu_crop.default") == 2  # the transposed convs
     path = str(tmp_path / "step.pt2")
     save_frame_step(exported, path)
     step = load_frame_step(path)
