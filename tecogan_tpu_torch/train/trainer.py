@@ -70,6 +70,14 @@ update. A state tensor that has moved (rebound, or restored by
 :meth:`Trainer.generate`, the summaries' forward pass (the JAX package's
 jitted ``_generate_impl``), is a third kind of program, "generate", kept
 beside the step's: its own static batch and graph, no state touched.
+
+Under a profiler an eager step records the stages of its body as spans
+(``utils/profiling.py:span``): ``train.unroll`` (FNet and the generator's
+unroll), ``train.vgg``, ``train.dst`` (the discriminator's inputs and its
+frozen forwards on the generator's side), ``train.backward``,
+``train.adam`` (G's and FNet's) and ``train.d_step``. A capture records
+none, so a replay has none. The gate's counts are the state's
+``counter_with_d`` and ``counter_wo_d``.
 """
 
 from __future__ import annotations
@@ -594,10 +602,11 @@ class Trainer:
         (``tecogan_tpu/train/trainer.py:238-343``)."""
         cfg = self.config
         fnet = cast_at_use(state.fnet, self.dtype)
-        flow_lr, flow_hr = flows_for_sequence(fnet, r_inputs)
-        gen_outputs, _ = unroll_generator(
-            cast_at_use(state.generator, self.dtype), r_inputs, flow_hr,
-            remat=self.remat and torch.is_grad_enabled(), with_warppre=False)
+        with span("train.unroll"):
+            flow_lr, flow_hr = flows_for_sequence(fnet, r_inputs)
+            gen_outputs, _ = unroll_generator(
+                cast_at_use(state.generator, self.dtype), r_inputs, flow_hr,
+                remat=self.remat and torch.is_grad_enabled(), with_warppre=False)
         b, t = gen_outputs.shape[:2]
         s_gen = gen_outputs.reshape(b * t, *gen_outputs.shape[2:])
         s_tar = r_targets.reshape(b * t, *r_targets.shape[2:])
@@ -607,9 +616,10 @@ class Trainer:
         }
         gen_loss = metrics["l2_content_loss"]
         if self.vgg is not None:
-            vgg_total, per_layer = L.vgg_cosine_loss(
-                vgg19_normalized_features(self.vgg, s_gen),
-                vgg19_normalized_features(self.vgg, s_tar))
+            with span("train.vgg"):
+                vgg_total, per_layer = L.vgg_cosine_loss(
+                    vgg19_normalized_features(self.vgg, s_gen),
+                    vgg19_normalized_features(self.vgg, s_tar))
             gen_loss = gen_loss + cfg.vgg_scaling * vgg_total
             for i, v in enumerate(per_layer):
                 metrics[f"vgg_loss_{i + 2}"] = v
@@ -621,29 +631,30 @@ class Trainer:
             metrics["PingPang"] = pp
         aux: Dict = {}
         if cfg.gan:
-            flow_back = None if cfg.pingpong else self._backward_flows(fnet, r_inputs)
-            real, fake = L.assemble_dst_inputs(r_inputs, r_targets, gen_outputs, flow_hr,
-                                               cfg, flow_back)
-            d_real, real_layers = self._frozen_d(state.discriminator, real)
-            d_fake, fake_layers = self._frozen_d(state.discriminator, fake)
-            adv = (-torch.log(d_fake + cfg.eps)).mean()
-            dt_ratio = self.dt_ratio_at(state.device_step)
-            gen_loss = gen_loss + cfg.ratio * adv * dt_ratio
-            metrics["t_adversarial_loss"] = adv
-            metrics["Dst_ratio"] = dt_ratio
-            metrics["t_discrim_real_output"] = d_real.mean()
-            metrics["t_discrim_fake_output"] = d_fake.mean()
-            if cfg.d_layerloss:
-                layer_sum, raw = L.d_layer_losses(real_layers, fake_layers,
-                                                  cfg.d_layer_norm, cfg.d_layer_fix_range)
-                gen_loss = gen_loss + layer_sum * dt_ratio
-                for i, v in enumerate(raw):
-                    metrics[f"D_layer_{i}_loss"] = v
-                metrics["D_layer_loss_sum"] = layer_sum
-            # t_balance drives the adaptive gate (reference Teco.py:397-399).
-            aux = dict(t_balance=torch.log(d_real + cfg.eps).mean() + adv,
-                       real=real, fake=fake)
-            metrics["t_discrim_loss"] = d_loss(d_real, d_fake, cfg.eps)
+            with span("train.dst"):
+                flow_back = None if cfg.pingpong else self._backward_flows(fnet, r_inputs)
+                real, fake = L.assemble_dst_inputs(r_inputs, r_targets, gen_outputs, flow_hr,
+                                                   cfg, flow_back)
+                d_real, real_layers = self._frozen_d(state.discriminator, real)
+                d_fake, fake_layers = self._frozen_d(state.discriminator, fake)
+                adv = (-torch.log(d_fake + cfg.eps)).mean()
+                dt_ratio = self.dt_ratio_at(state.device_step)
+                gen_loss = gen_loss + cfg.ratio * adv * dt_ratio
+                metrics["t_adversarial_loss"] = adv
+                metrics["Dst_ratio"] = dt_ratio
+                metrics["t_discrim_real_output"] = d_real.mean()
+                metrics["t_discrim_fake_output"] = d_fake.mean()
+                if cfg.d_layerloss:
+                    layer_sum, raw = L.d_layer_losses(real_layers, fake_layers,
+                                                      cfg.d_layer_norm, cfg.d_layer_fix_range)
+                    gen_loss = gen_loss + layer_sum * dt_ratio
+                    for i, v in enumerate(raw):
+                        metrics[f"D_layer_{i}_loss"] = v
+                    metrics["D_layer_loss_sum"] = layer_sum
+                # t_balance drives the adaptive gate (reference Teco.py:397-399).
+                aux = dict(t_balance=torch.log(d_real + cfg.eps).mean() + adv,
+                           real=real, fake=fake)
+                metrics["t_discrim_loss"] = d_loss(d_real, d_fake, cfg.eps)
         metrics["All_loss_Gen"] = gen_loss
         return gen_loss, metrics, aux
 
@@ -719,18 +730,21 @@ def _train_body(trainer: Trainer, state: TrainState, hr: torch.Tensor) -> torch.
     # One joint backward, valid because the warp loss is G-free
     # (reference computes the two gradients separately, Teco.py:446-447).
     joint = gen_loss + cfg.warp_scaling * metrics["l2_warp_loss"]
-    state.gen_opt.zero_grad(set_to_none=True)
-    state.fnet_opt.zero_grad(set_to_none=True)
-    joint.backward()
-    trainer._reduce_grads(state.generator, state.fnet)
-    lr = trainer.lr_at(state.device_step)
-    for opt in (state.gen_opt, state.fnet_opt):
-        for group in opt.param_groups:
-            group["lr"].copy_(lr)
-        opt.step()
+    with span("train.backward"):
+        state.gen_opt.zero_grad(set_to_none=True)
+        state.fnet_opt.zero_grad(set_to_none=True)
+        joint.backward()
+        trainer._reduce_grads(state.generator, state.fnet)
+    with span("train.adam"):
+        lr = trainer.lr_at(state.device_step)
+        for opt in (state.gen_opt, state.fnet_opt):
+            for group in opt.param_groups:
+                group["lr"].copy_(lr)
+            opt.step()
     metrics = {k: v.detach() for k, v in metrics.items()}
     if cfg.gan:
-        trainer._d_step(state, aux["real"], aux["fake"])
+        with span("train.d_step"):
+            trainer._d_step(state, aux["real"], aux["fake"])
         metrics["t_balance"] = aux["t_balance"].detach()
     metrics = trainer._reduce_metrics(metrics)
     d = cfg.loss_ema_decay

@@ -9,7 +9,7 @@ window (``train/loop.py``). This module traces and times:
   kernels when there is one), written as a Chrome trace into a directory;
 - :func:`span`: the port's spans at its layer boundaries, on the
   profiler's clock, recorded only while a profiler runs on the calling
-  thread (:func:`spans`, :func:`clear`);
+  thread and no CUDA graph captures on it (:func:`spans`, :func:`clear`);
 - :func:`sync`: wait for a tensor's device and return a scalar;
 - :func:`device_time_samples` / :func:`device_time`: seconds per call of a
   function in its steady state, timed with CUDA events on the card and with
@@ -165,14 +165,22 @@ def span(name: str, item=None, **attrs):
     """``with span("serve.step", item=tick, frames=n):`` marks a layer
     boundary of the port. Off unless a profiler runs on the calling thread
     (:func:`trace`, or any ``torch.profiler.profile``): then it is one
-    shared no-op and costs the check. On, the block is the range
-    ``tecogan.<name>`` in the profiler's trace, and its record (name, start
-    and end on the profiler's clock, the enclosing span, ``item``, the
-    thread, ``attrs``) goes into an in-memory ring when it closes. Never
-    open one inside a captured CUDA graph's body."""
-    if not torch.autograd._profiler_enabled():
+    shared no-op and costs the check. Off too while the current CUDA
+    stream captures a graph: a replay runs no Python, so a span in a
+    captured body (the trainer's stages) records only when the body runs
+    eagerly. On, the block is the range ``tecogan.<name>`` in the
+    profiler's trace, and its record (name, start and end on the
+    profiler's clock, the enclosing span, ``item``, the thread, ``attrs``)
+    goes into an in-memory ring when it closes."""
+    if not torch.autograd._profiler_enabled() or _capturing():
         return _OFF
     return _Span(name, item, attrs)
+
+
+def _capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (never before
+    the process has made its CUDA context; the check makes none)."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
 
 
 def spans() -> List[SpanRecord]:

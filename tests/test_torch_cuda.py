@@ -622,6 +622,42 @@ def test_training_captured_matches_eager(cuda_device, mode):
 
 
 @pytest.mark.cuda
+def test_captured_gan_step_records_no_stage_spans(cuda_device):
+    """The TecoGAN step's stage spans on the card, where a span is off
+    while a stream captures: under a profiler, a trainer's first, capturing
+    call records each stage once (the capture's eager warm-up) and its
+    capture none; its replays record ``train.step`` and ``graph.replay``
+    and no stage; an eager trainer (``capture=False``) records every stage
+    a step. The gate's counters read as the steps taken."""
+    from tecogan_tpu_torch.config import TECOGAN_PRESET
+    from tecogan_tpu_torch.models.vgg19 import random_vgg19
+    from tecogan_tpu_torch.utils import profiling
+
+    stages = ("train.unroll", "train.vgg", "train.dst", "train.backward", "train.adam",
+              "train.d_step")
+    cfg = TECOGAN_PRESET.replace(num_resblock=2, batch_size=1, rnn_n=3, crop_size=16)
+    tar = cfg.hr_load_size
+    batch = (synthetic_clip(3, tar, tar, seed=40, content="natural")[None] * 255
+             ).astype(np.uint8)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    counts = {}
+    for capture in (None, False):
+        trainer = Trainer(cfg, cuda_device, vgg=random_vgg19(3), capture=capture)
+        state = trainer.init_state(7)
+        profiling.clear()
+        with torch.profiler.profile(activities=acts):
+            for _ in range(3):
+                trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+        names = [r.name for r in profiling.spans()]
+        counts[capture] = {n: names.count(n) for n in (*stages, "train.step", "graph.replay")}
+        assert int(state.counter_with_d) + int(state.counter_wo_d) == 3
+    assert counts[None] == {**{s: 1 for s in stages}, "train.step": 3, "graph.replay": 3}
+    assert counts[False] == {**{s: 3 for s in stages}, "train.step": 3, "graph.replay": 0}
+    profiling.clear()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["frvsr", "tecogan"])
 def test_bf16_training_captured_matches_eager(cuda_device, mode):
     """As test_training_captured_matches_eager, in bfloat16 (float32 master

@@ -15,10 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from tecogan_tpu_torch.config import TecoConfig
+from tecogan_tpu_torch.config import TECOGAN_PRESET, TecoConfig
 from tecogan_tpu_torch.data.loader import BatchLoader, SceneDataset
 from tecogan_tpu_torch.data.synthetic import write_synthetic_scenes
 from tecogan_tpu_torch.models import FNet, Generator
+from tecogan_tpu_torch.models.vgg19 import random_vgg19
 from tecogan_tpu_torch.recurrent import StreamingSR
 from tecogan_tpu_torch.serve import VSRServer
 from tecogan_tpu_torch.train import trainer as trainer_module
@@ -172,14 +173,21 @@ def test_server_step_spans():
 
 class _EagerProgram:
     """A stand-in for ``CapturedProgram`` on the CPU: the warm-up runs the
-    body, each call runs it again (a replay)."""
+    body, each call runs it again (a replay). A replay runs no Python, so
+    the body's spans (the trainer's stages) record nothing in it: the call
+    runs the body as a capture sees it."""
 
     def __init__(self, body, inputs, name):
         body()
         self.body = body
 
     def __call__(self):
-        return self.body()
+        capturing = profiling._capturing
+        profiling._capturing = lambda: True
+        try:
+            return self.body()
+        finally:
+            profiling._capturing = capturing
 
     def close(self):
         self.body = None
@@ -213,6 +221,81 @@ def test_train_step_spans(monkeypatch):
         if r.name != "train.step":
             assert r.parent == top[r.item].id
     _check_in_trace(prof, records)
+
+
+STAGES = ("train.unroll", "train.vgg", "train.dst", "train.backward", "train.adam",
+          "train.d_step")
+
+
+def _gan_trainer():
+    """An eager TecoGAN trainer on the CPU at a tiny size (VGG19 at its real
+    widths on 32 x 32 frames) and its batches."""
+    cfg = TECOGAN_PRESET.replace(num_resblock=1, gen_channels=8, crop_size=8, batch_size=1,
+                                 rnn_n=3)
+    trainer = Trainer(cfg, "cpu", vgg=random_vgg19(3))
+    rng = np.random.RandomState(1)
+    batches = [(rng.rand(1, 3, cfg.hr_load_size, cfg.hr_load_size, 3) * 255).astype(np.uint8)
+               for _ in range(5)]
+    return trainer, trainer.init_state(4), batches
+
+
+def test_gan_step_stage_spans():
+    """An eager TecoGAN step records its stages, once each and in the
+    body's order, nested under its ``train.step`` and carrying its item;
+    each is a ``tecogan.<name>`` range of the profiler's trace. Without a
+    profiler the same step records nothing."""
+    trainer, state, batches = _gan_trainer()
+    clear()
+    trainer.train_step(state, batches[0])
+    assert spans() == []
+    prof, records = _profiled(lambda: trainer.train_step(state, batches[1]))
+    names = Counter(r.name for r in records)
+    assert names == Counter({"train.step": 1, "train.upload_wait": 1, "train.upload": 1,
+                             **{s: 1 for s in STAGES}})
+    (top,) = [r for r in records if r.name == "train.step"]
+    assert top.item == 1 and top.parent is None
+    stages = sorted((r for r in records if r.name in STAGES), key=lambda r: r.start_ns)
+    assert [r.name for r in stages] == list(STAGES)
+    for before, after in zip(stages, stages[1:]):
+        assert before.end_ns <= after.start_ns
+    for r in stages:
+        assert r.parent == top.id and r.item == 1
+        assert top.start_ns <= r.start_ns and r.end_ns <= top.end_ns
+    _check_in_trace(prof, records)
+
+
+def test_spans_off_while_capturing(monkeypatch):
+    """While the current stream captures a graph, a span is the shared
+    no-op, profiler or not: a replay runs no Python, so a span in a
+    captured body records only when the body runs eagerly. Here no CUDA
+    context exists, so nothing captures."""
+    monkeypatch.setattr(profiling, "_capturing", lambda: True)
+    clear()
+    with torch.profiler.profile(activities=CPU):
+        assert span("train.unroll") is span("train.vgg")
+        with span("train.vgg"):
+            pass
+    assert spans() == []
+    monkeypatch.undo()
+    assert profiling._capturing() is False
+
+
+@pytest.mark.parametrize("opened, closed", [(2, 3), (0, 2), (3, 0)])
+def test_gate_counts_as_read(opened, closed):
+    """The gate's counters, the state's ``counter_with_d`` and
+    ``counter_wo_d`` as the benchmark reads them after a run of steps,
+    count the steps whose gate was open (the discriminator's update
+    applied) and closed: ``opened`` steps with the EMA held under
+    ``d_balance``, then ``closed`` above it; FRVSR's state has none."""
+    trainer, state, batches = _gan_trainer()
+    for i in range(opened + closed):
+        state.ema_tbalance.fill_(-100.0 if i < opened else 100.0)
+        trainer.train_step(state, batches[i % len(batches)])
+    assert (int(state.counter_with_d), int(state.counter_wo_d)) == (opened, closed)
+    assert int(state.d_opt.count) == opened
+    frvsr = Trainer(TecoConfig(num_resblock=1, crop_size=8, ratio=-0.01, vgg_scaling=-1.0),
+                    "cpu")
+    assert frvsr.init_state(0).counter_with_d is None
 
 
 def test_loader_wait_carries_the_producers_stamp(tmp_path):
