@@ -84,7 +84,7 @@ Phases, each raising on failure (so the exit code is non-zero):
    starts, no synchronisation), exactly 100 chain, 11 K1 and 1 K2
    launches a step (twice at the first), only the bfloat16 library
    entries, the state float32; 3 captured against 3 eager steps
-   bit-equal; the profile (the chain as ``resblock_kernel_mma``), and
+   bit-equal; the profile (the chain as ``resblock_kernel_wgmma``), and
    the paced ms/step, idle share, replay device time and split, the
    eager chain backward, peak and graph pool beside phase 8's and 8b's
    float32 numbers;
@@ -140,7 +140,7 @@ Phases, each raising on failure (so the exit code is non-zero):
 11b. TECOGAN_PRESET in bfloat16 through ``train()``, warm-started from
    phase 8's float32 FRVSR checkpoint, captured, 10 steps paced, exactly
    304 chain, 21 K1 and 1 K2 launches a step, the gate's counters, a
-   replay's profile (``resblock_kernel_mma``), ms/step, device time,
+   replay's profile (``resblock_kernel_wgmma``), ms/step, device time,
    peak and pool beside phase 11's float32 numbers.
 
 12. serving (``tecogan_tpu_torch.serve``): (a) a 3-slot ``VSRServer`` at
@@ -154,7 +154,7 @@ Phases, each raising on failure (so the exit code is non-zero):
    device segment behind; then ``VSRServer`` pools of 1, 4 and 8 slots,
    captured and with ``capture=False``, timed in turns (ms/tick, host ms
    inside ``step()``, aggregate frames/s, peak memory, graph pool) and each
-   profiled (device idle share; the chain, as ``resblock_kernel_mma``, and
+   profiled (device idle share; the chain, as ``resblock_kernel_wgmma``, and
    K1 launched as often as the counters say); (c) a 4-slot server's
    captured ticks bit-equal to ``capture=False`` ones at 144x180 under
    cuDNN's deterministic algorithms, and the frame step exported
@@ -462,6 +462,14 @@ def einsum_upsample_bwd(g: torch.Tensor, filter_: str, alpha: float):
 
 
 CHAIN_NO_LIBRARY = "no single call computes a residual block"
+# The bfloat16 chain's time at phase 3's shapes with the kernel that the
+# warpgroup-MMA one replaced (mma.sync.m16n8k16 fed by ldmatrix, 8x16-pixel
+# tiles, 2 CTAs an SM), on "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md §6).
+MMA_SYNC_CHAIN_MS = {
+    "chain N=16 (1,144,180,64)": 0.4031, "chain N=16 (4,144,180,64)": 1.3057,
+    "chain N=10 (4,32,32,64)": 0.1623, "chain N=16 (4,32,32,64)": 0.2598,
+    "chain N=16 (1,540,960,64)": 5.3842, "chain N=16 (5,270,480,64)": 6.7260,
+    "chain N=4 (1,80,180,64)": 0.0703}
 # A library call computes the kernel's function, in another rounding order:
 # it must land within this share of the output's scale of the plain version.
 LIBRARY_TOL = 5e-2
@@ -630,8 +638,15 @@ def check_kernels(dev):
         lim = 0.5 * (6.0 / (2 * 9 * CHANNELS)) ** 0.5
         chains = [(1, LR_H, LR_W, NUM_RESBLOCK, True, "streaming" if bf16 else None),
                   (2, 37, 53, 3, False, None), (1, 5, 7, 1, False, None)]
-        if bf16:  # a serving tick of the 4-slot pool (phase 12)
-            chains.append((SERVE_SLOTS, LR_H, LR_W, NUM_RESBLOCK, True, "serving"))
+        if bf16:
+            # A serving tick of the 4-slot pool (phase 12); the benchmark's
+            # 2160p stream (a 540x960 LR frame) and 5-slot 1080p tick
+            # (270x480 LR); the first of 2 row shards of a Vid4 frame with
+            # its 8-row halo, 4 blocks a call (parallel/spatial.py, phase 17).
+            chains += [(SERVE_SLOTS, LR_H, LR_W, NUM_RESBLOCK, True, "serving"),
+                       (1, 540, 960, NUM_RESBLOCK, True, "stream_2160p"),
+                       (5, 270, 480, NUM_RESBLOCK, True, "serve_1080p_live"),
+                       (1, LR_H // 2 + 8, LR_W, 4, True, "sharded streaming")]
         chains += [(4, 32, 32, 10, True, "training"), (4, 32, 32, 16, True, "tecogan")]
         for b, h, w, n, timed, path in chains:
             x = torch.relu(seeded((b, h, w, CHANNELS), 1.0, gen, dev, dtype))
@@ -644,9 +659,12 @@ def check_kernels(dev):
                           lambda a=args: resblock_chain_plain(*a),
                           (path, CHAIN_NO_LIBRARY, chain_bound(x, n)) if timed else None))
         if bf16:
-            # One block against its rounding points (chain_oracle_bf16):
-            # a dropped tap or a misplaced fragment row shows here.
-            for b, h, w in ((1, LR_H, LR_W), (2, 37, 53), (1, 5, 7)):
+            # One block against its rounding points (chain_oracle_bf16) at
+            # every path's shape: a dropped tap, a misplaced accumulator row
+            # or a wrong edge of the tile walk shows here.
+            for b, h, w in ((1, LR_H, LR_W), (2, 37, 53), (1, 5, 7), (1, 540, 960),
+                            (5, 270, 480), (SERVE_SLOTS, LR_H, LR_W), (4, 32, 32),
+                            (1, LR_H // 2 + 8, LR_W)):
                 x = torch.relu(seeded((b, h, w, CHANNELS), 1.0, gen, dev, dtype))
                 args = (x, *(seeded(s, k, gen, dev, dtype) for s, k in (
                     ((1, 3, 3, CHANNELS, CHANNELS), lim), ((1, CHANNELS), 0.1),
@@ -655,6 +673,7 @@ def check_kernels(dev):
                               "vs its rounding points", lambda a=args: resblock_chain(*a),
                               lambda a=args: chain_oracle_bf16(*a), None))
         for kernel, label, fn, plain_fn, timing in cases:
+            planned = dict(resblock_chain.plan_launches)
             got = fn()
             torch.cuda.synchronize()
             want = plain_fn()
@@ -662,6 +681,10 @@ def check_kernels(dev):
             tol = TOL[(kernel, dtype)]
             line = f"[kernel] {kernel} {name} {label}: max_abs_err={err:.3e} " \
                    f"rel={rel:.3e} tol={tol:.0e}"
+            # The bfloat16 chain's tile walk at this shape (chain_plan).
+            line += "".join(f" plan: {plan} x{n - planned.get(plan, 0)}"
+                            for plan, n in resblock_chain.plan_launches.items()
+                            if n != planned.get(plan, 0))
             if not rel <= tol:
                 log(line)
                 raise RuntimeError(f"{kernel} {name} {label}: rel error {rel:.3e} > {tol}")
@@ -686,6 +709,11 @@ def check_kernels(dev):
                     line += f" library_ms=None ({lib})"
                 line += (f" (median [min-max]) bound_ms={bound_ms:.5f} by {bound_by}: "
                          f"{arithmetic}; share of bound {bound_ms / ms:.1%}")
+                replaced = MMA_SYNC_CHAIN_MS.get(label) if (kernel, bf16) == (
+                    "resblock_chain", True) else None
+                if replaced is not None:
+                    line += (f"; the mma.sync kernel it replaced: {replaced:.4f} ms "
+                             f"({replaced / ms:.2f}x)")
                 paths = [path] if isinstance(path, str) else list(path or ())
                 line += f"; paths {', '.join(paths) or 'none at this shape and dtype'}"
                 records.append(dict(kernel=kernel, dtype=name, label=label, paths=paths,
@@ -1427,7 +1455,7 @@ def profile_step(dev, cfg, state, steady: dict, name: str, vgg=None,
     kernels = {"resblock_chain": resblock_chain, "upsample4": upsample4,
                "upsample4_bwd": upsample4_bwd}
     want = step_launch_want(cfg)
-    chain_name = ("resblock_kernel_mma" if cfg.compute_dtype == "bfloat16"
+    chain_name = ("resblock_kernel_wgmma" if cfg.compute_dtype == "bfloat16"
                   else "resblock_kernel_tf32x3")
     summary = {}
     for mode, trainer in trainers.items():
@@ -1507,19 +1535,19 @@ def profile_step(dev, cfg, state, steady: dict, name: str, vgg=None,
 def profiled_launches(names, chain_want: int, k1_want: int, label: str):
     """The profile's launches of the bfloat16 chain kernel and of K1, which
     must equal the counters' (``want``): the chain only as
-    ``resblock_kernel_mma``. Returns (chain, K1)."""
+    ``resblock_kernel_wgmma``. Returns (chain, K1)."""
     chain = names["chain kernel"]
     for key, count in chain.items():
         log(f"[profile]   chain kernel: {count} launches of {key[:100]}")
-    mma = sum(n for key, n in chain.items() if "resblock_kernel_mma" in key)
+    wgmma = sum(n for key, n in chain.items() if "resblock_kernel_wgmma" in key)
     k1 = sum(names["K1 (flow upsample, bicubic skip)"].values())
-    log(f"[profile]   {label}: the profile shows {mma} launches of resblock_kernel_mma "
+    log(f"[profile]   {label}: the profile shows {wgmma} launches of resblock_kernel_wgmma "
         f"and {k1} of K1; the counters {chain_want} and {k1_want}")
-    if (mma, k1) != (chain_want, k1_want) or sum(chain.values()) != mma:
+    if (wgmma, k1) != (chain_want, k1_want) or sum(chain.values()) != wgmma:
         raise RuntimeError(f"[profile] {label}: the chain ran {chain} and K1 {k1} times, "
-                           f"want {chain_want} launches of resblock_kernel_mma and "
+                           f"want {chain_want} launches of resblock_kernel_wgmma and "
                            f"{k1_want} of K1")
-    return mma, k1
+    return wgmma, k1
 
 
 def profile_streaming(sr, frames, secs: float, launches) -> dict:
@@ -4781,7 +4809,8 @@ def main() -> None:
     blocks = ctypes.c_int(0)
     _build.check(_build.library().tt_resblock_chain_bf16_blocks_per_sm(
         ctypes.byref(blocks)), "resblock_chain occupancy")
-    log(f"[build] bfloat16 chain kernel: {blocks.value} resident blocks per SM")
+    log(f"[build] bfloat16 chain kernel: {blocks.value} resident CTA(s) per SM (the "
+        f"persistent walk launches at most one a SM)")
     size, clusters = ctypes.c_int(0), ctypes.c_int(0)
     _build.check(_build.library().tt_resblock_chain_f32_clusters(
         ctypes.byref(size), ctypes.byref(clusters)), "resblock_chain clusters")

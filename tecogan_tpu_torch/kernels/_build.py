@@ -48,7 +48,8 @@ _SIGNATURES = {
     "tt_upsample4_bwd_bf16": (_P, _P, _I, _I, _I, _I, _I, _F, _P),
     # (x, buf_a, buf_b, w1, b1, w2, b2, B, H, W, N, stream)
     "tt_resblock_chain_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "tt_resblock_chain_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (x, buf_a, buf_b, w1, b1, w2, b2, B, H, W, N, seg_rows, grid, stream)
+    "tt_resblock_chain_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (int* blocks): resident blocks per SM of the bfloat16 chain kernel
     "tt_resblock_chain_bf16_blocks_per_sm": (_P,),
     # (int* cluster_size, int* clusters): the float32 chain kernel's cluster

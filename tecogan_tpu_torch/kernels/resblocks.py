@@ -5,23 +5,39 @@ Replaces ``tecogan_tpu/kernels/resblocks.py``: ``_chain_kernel`` (K3, via
 (K5). The three compute one function, N blocks of
 ``x += conv3(relu(conv3(x, w1) + b1), w2) + b2`` with SAME padding; K4/K5
 only repack it for the TPU's 128-lane matrix unit. Both CUDA kernels run
-one launch per block on 8x16-pixel tiles in shared memory, with the conv1
-output kept on chip and masked to zero outside the image, as implicit
-GEMMs on the tensor cores (``mma.sync``, float32 accumulation): in
-bfloat16 (``csrc/resblock_chain_mma.cu``) at the JAX kernel's rounding
-points; in float32 (``csrc/resblock_chain.cu``) with each product split
-into three TF32 products, which keeps float32 accuracy, and a cluster of 4
-CTAs per tile, each computing a quarter of the channels; see their headers.
+one launch per block, keep the conv1 output on chip, masked to zero
+outside the image, and compute each conv as an implicit GEMM on the
+tensor cores with float32 accumulation; see their headers.
+
+In bfloat16 (``csrc/resblock_chain_mma.cu``, at the JAX kernel's rounding
+points) both convs run as ``wgmma.m64n64k16`` with A and B in shared
+memory: 32 FLOP per byte of shared memory, the SM's ratio of tensor-core
+rate to shared-memory bandwidth (4,096 FLOP to 128 B a cycle), where the
+earlier ``mma.sync`` + ``ldmatrix`` design brought 16-20 and stalled near
+23% of the 989 TFLOP/s bound. An image row of 64 pixels of 128 B (one
+flat row, the 128-byte swizzle's row) is one m64 tile, and tap (dy, dx) is
+ring row dy with its start moved dx pixels: no copy per tap. TMA brings the
+x rows (its zero fill is SAME padding) and both convs' weights, which stay
+in shared memory; one persistent CTA per SM walks units of 60-column
+strips over segments of rows (:func:`chain_plan`), a producer warp keeping
+a 6-row x ring loaded while one warpgroup runs conv1 into a 4-row y ring
+and another conv2 one row behind it. The bound is the tensor cores':
+2·2·9·64·64 FLOP a pixel at 989 TFLOP/s. In float32
+(``csrc/resblock_chain.cu``) each product is split into three TF32
+products (``mma.sync``), which keeps float32 accuracy, on 8x16-pixel tiles
+with a cluster of 4 CTAs per tile, each computing a quarter of the
+channels.
 
 Layout as in the JAX package: x (B, H, W, C), w1/w2 (N, 3, 3, C, C) HWIO,
-b1/b2 (N, C). The kernel is specialised to C = 64, the TecoGAN width.
+b1/b2 (N, C). The kernels are specialised to C = 64, the TecoGAN width.
 
 The launch is a registered operator, ``torch.ops.tecogan_torch.
 resblock_chain`` (``kernels/ops.py``), with a fake kernel that gives its
 output's shape, so ``torch.export`` traces through it; its ``launches``
-counter is kept in the operator's body (``ops.count``), so an exported
-program's replays count too, and a captured CUDA graph adds its launches on
-every replay.
+counter (and, in bfloat16, ``plan_launches`` by :attr:`ChainPlan.name`)
+is kept in the operator's body (``ops.count``), so an exported program's
+replays count too, and a captured CUDA graph adds its launches on every
+replay.
 
 :func:`resblock_chain` is differentiable on both devices through one
 ``torch.autograd.Function``. Its forward takes the plain version
@@ -35,6 +51,9 @@ chain, so on the card the backward is cuDNN's.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -43,6 +62,50 @@ from tecogan_tpu_torch.kernels import _build, ops
 KERNEL_CHANNELS = 64
 _ENTRY = {torch.float32: "tt_resblock_chain_f32",
           torch.bfloat16: "tt_resblock_chain_bf16"}
+# The bfloat16 kernel's strips: a flat row of 64 pixels (one wgmma M) gives
+# 60 output columns; equal to ``TW`` in csrc/resblock_chain_mma.cu.
+STRIP_COLS = 64 - 4
+
+
+class ChainPlan(NamedTuple):
+    """The bfloat16 kernel's tile walk: ``units`` strips-by-segments of
+    ``seg_rows`` output rows (the last segment of a column may be shorter)
+    over ``grid`` persistent CTAs."""
+    strips: int
+    seg_rows: int
+    segs: int
+    units: int
+    grid: int
+
+    @property
+    def name(self) -> str:
+        return f"{self.seg_rows}-row segments, {self.units} units on {self.grid} CTAs"
+
+
+@functools.lru_cache(maxsize=None)
+def chain_plan(b: int, h: int, w: int, sms: int) -> ChainPlan:
+    """The tile walk for x (b, h, w, 64) on ``sms`` SMs, one CTA each.
+
+    A unit of s output rows costs conv1 s + 2 rows and conv2 s, so a CTA's
+    time grows as (units it walks) x (s + 1): the segment height is the one
+    that makes ceil(units / sms) x (s + 1) least, the fewest units among
+    equals. Whole columns when b x strips fill the card; at (1, 540, 960)
+    on 132 SMs, 16 strips x 8 segments of 68 rows."""
+    strips = -(-w // STRIP_COLS)
+    best = None
+    for segs in range(1, h + 1):
+        rows = -(-h // segs)
+        segs = -(-h // rows)
+        units = b * strips * segs
+        key = (-(-units // sms) * (rows + 1), units)
+        if best is None or key < best[0]:
+            best = (key, ChainPlan(strips, rows, segs, units, min(units, sms)))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def resblock_chain_plain(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -92,13 +155,17 @@ def _forward(x, w1, b1, w2, b2) -> torch.Tensor:
         return x.clone()
     b, h, w, _ = x.shape
     buf_a, buf_b = torch.empty_like(x), torch.empty_like(x)
-    lib = _build.library()
-    err = getattr(lib, _ENTRY[x.dtype])(
-        x.data_ptr(), buf_a.data_ptr(), buf_b.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), b, h, w, n,
-        torch.cuda.current_stream().cuda_stream)
+    args = [x.data_ptr(), buf_a.data_ptr(), buf_b.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), b, h, w, n]
+    plan = None
+    if x.dtype == torch.bfloat16:
+        plan = chain_plan(b, h, w, _sm_count(x.device.index))
+        args += [plan.seg_rows, plan.grid]
+    err = getattr(_build.library(), _ENTRY[x.dtype])(
+        *args, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "resblock_chain")
-    ops.count(resblock_chain, n)  # one kernel launch per residual block
+    # One kernel launch per residual block.
+    ops.count(resblock_chain, n, plan.name if plan else None)
     return buf_a if n % 2 else buf_b
 
 
@@ -139,6 +206,7 @@ def resblock_chain(x, w1, b1, w2, b2) -> torch.Tensor:
 
 
 resblock_chain.launches = 0  # kernel launches (CUDA tensors only)
+resblock_chain.plan_launches = {}  # bfloat16 launches by ChainPlan.name
 
 
 ops.register("resblock_chain(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) "

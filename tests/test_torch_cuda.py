@@ -255,25 +255,38 @@ def test_resblock_chain_f32_matches_plain(cuda_device, shape, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 37, 53), (3, 20, 33), (1, 5, 7)],
-                         ids=["ragged", "batch3", "tiny"])
-def test_resblock_chain_bf16_matches_its_rounding_points(cuda_device, shape):
-    """The bfloat16 tensor-core kernel, one block, against its rounding
-    points repeated in float32 (chain_oracle_bf16): partial tiles on both
-    axes, B = 3 on grid.z, a frame smaller than one tile. Tolerance 8e-3 of
-    the output's scale, ~2 bfloat16 ulps: float32 sums in another order may
-    flip a rounding of y or of the output."""
+@pytest.mark.parametrize("shape,n", [
+    ((1, 540, 960), 2), ((5, 270, 480), 1), ((1, 144, 180), 2), ((4, 32, 32), 2),
+    ((1, 80, 180), 4), ((2, 37, 53), 1), ((3, 20, 33), 1), ((1, 5, 7), 1)],
+    ids=["2160p", "serve-5-slots", "vid4", "training", "shard", "ragged", "batch3", "tiny"])
+def test_resblock_chain_bf16_matches_its_rounding_points(cuda_device, shape, n):
+    """The bfloat16 warpgroup-MMA kernel against its rounding points
+    repeated in float32 (chain_oracle_bf16) at each path's shape: a 2160p
+    stream's LR frame (16 strips x 8 segments), a 5-slot 1080p serving
+    tick (several units a CTA), Vid4, bfloat16 training's crops, the first
+    of 2 row shards of a Vid4 frame with its 8-row halo
+    (``parallel/spatial.py``, 4 blocks a call), partial strips and
+    segments, B = 3, a frame smaller than one strip. Tolerance 8e-3 of the
+    output's scale, ~2 bfloat16 ulps: float32 sums in another order may
+    flip a rounding of y or of the output. Each launch is counted under the
+    plan that :func:`chain_plan` gives the shape; the input is left as it
+    was."""
+    from tecogan_tpu_torch.kernels.resblocks import chain_plan
+
     rng = np.random.RandomState(5)
     c = 64
     lim = 0.5 * (6.0 / (2 * 9 * c)) ** 0.5
     x = torch.relu(_tensor(rng, (*shape, c), 1.0, cuda_device)).bfloat16()
     weights = [_tensor(rng, s, k, cuda_device).bfloat16()
-               for s, k in (((1, 3, 3, c, c), lim), ((1, c), 0.1),
-                            ((1, 3, 3, c, c), lim), ((1, c), 0.1))]
+               for s, k in (((n, 3, 3, c, c), lim), ((n, c), 0.1),
+                            ((n, 3, 3, c, c), lim), ((n, c), 0.1))]
+    plan = chain_plan(*shape, torch.cuda.get_device_properties(0).multi_processor_count)
     before, launches = x.clone(), resblock_chain.launches
+    planned = resblock_chain.plan_launches.get(plan.name, 0)
     got = resblock_chain(x, *weights)
     want = chain_oracle_bf16(x, *weights)
-    assert resblock_chain.launches == launches + 1
+    assert resblock_chain.launches == launches + n
+    assert resblock_chain.plan_launches[plan.name] == planned + n
     assert torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max() <= 8e-3 * max(1.0, want.float().abs().max())
     torch.testing.assert_close(x, before, rtol=0, atol=0)  # input untouched
