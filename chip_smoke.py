@@ -1,246 +1,157 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (``tecogan_tpu_torch``) on one NVIDIA GPU.
+"""Correctness check of the PyTorch port (``tecogan_tpu_torch``) on one
+NVIDIA GPU, with each kernel timed alone beside its plain version.
 
     python3 chip_smoke.py
 
-Phases, each raising on failure (so the exit code is non-zero):
+The port's speed end to end is measured by the benchmark's cells
+(``BENCHMARK.json``, ``portbench/``); this script checks what the cells do
+not: bit-equality, launch counts, resumes, codecs, NVDEC, orbax and the
+parallel paths. Phase 3's table of kernels is its one measurement, with
+the benchmark's own bounds (``portbench/harness/flops.py``) and kernel
+groups (``portbench/harness/trace.py``). Phases, each raising on failure
+(so the exit code is non-zero):
 
 1. versions, the card's name and power limit; no CUDA -> exit non-zero;
 2. build the CUDA kernels from ``tecogan_tpu_torch/csrc`` with nvcc
    (``-Xptxas -v``), with the bfloat16 chain kernel's resident blocks per
    SM and the float32 chain kernel's cluster size and resident clusters;
 3. each kernel against its plain PyTorch version on the card (K1, K2 the
-   upsample's adjoint, the chain), at the streaming and training paths'
-   shapes and a ragged one, float32 (TF32 off) and bfloat16, with the
+   upsample's adjoint, the chain), at the streaming, serving and training
+   paths' shapes and ragged ones, float32 (TF32 off) and bfloat16, with the
    error beside its tolerance and CUDA-event times of the device's work
    (median and range of 5 alternating windows, each queued behind a
    device-side spin so the host's dispatch is not timed) of the kernel,
    its plain version and, where one PyTorch call computes the same
    function (``torch.einsum`` for K1 and K2; none for the chain), that
    call, with the bound (bytes over HBM's rate or operations over the
-   units' peak, its arithmetic printed) and the kernel's share of it; K1
-   also at the training path's shapes, (36,32,32,2) bilinear and
-   (4,32,32,3) bicubic, and at TecoGAN training's, the flow
-   (72,32,32,2) and the discriminator's bilinear LR triplets
-   (24,32,32,9), alpha 1; K2 at (36,128,128,2) and (72,128,128,2); the
-   chain also at the training shapes, (4,32,32,64) with N=10 (FRVSR) and
-   N=16 (TecoGAN), the float32 one bound by its 3xTF32 tensor-core
-   products; all of these in both dtypes (float32 and bfloat16
-   training); untimed at two edge shapes; the bfloat16
-   chain also, one block at three shapes, against its own rounding points
-   in float32 (8e-3);
+   units' peak, its arithmetic printed; the chain's as the benchmark's
+   ``chain_launch_bound``) and the kernel's share of it; the bfloat16
+   chain also, one block at each path's shape, against its own rounding
+   points in float32 (8e-3);
 3c. the transposed convs' epilogue (bias, ReLU and SAME crop in one pass)
    in bfloat16 at the 2160p, 5-slot 1080p serving and Vid4 convs' output
    shapes: bit-equal to its plain version and to the two ATen passes it
    replaces (``add_``, ``F.relu``), timed beside both, with its byte bound;
-3b. the native data-loader core: the machine's toolchain (``<png.h>``,
-   ``<zlib.h>``, ``ldconfig -p``'s libpng and libz) and the build of
-   ``tecogan_tpu_torch/csrc/tecodata.cpp`` (its own PNG codec on zlib)
-   with g++ into ``tecogan_tpu_torch/_build/``;
+3b. the native data-loader core: the machine's toolchain and the build of
+   ``tecogan_tpu_torch/csrc/tecodata.cpp`` with g++;
 4. autograd: the upsample (both filters) and the chain on the card against
    the same functions on the CPU, gradients of every input, float32; K1
-   and K2 also in bfloat16 at bfloat16 training's shapes (the backward is
-   K2's bfloat16 entry);
+   and K2 also in bfloat16 at bfloat16 training's shapes;
 5. the whole streaming path at full width (16 resblocks, 64 channels) on
-   the GPU against the same seeded weights on the CPU (plain versions),
-   float32, 6 frames of 64x96;
+   the GPU against the same seeded weights on the CPU, float32, 6 frames
+   of 64x96;
 6. the streaming path at size: 46 uint8 frames of 144x180 -> 41 of
-   576x720, bfloat16, chunks of 23, captured as one CUDA graph per chunk
-   (the default on the card) and with ``capture=False`` in the same call:
-   the two outputs bit-equal under cuDNN's deterministic algorithms; each
-   mode's frames/s (runs in turns), launch counts (exactly 736 chain, 48
-   K1 and 92 epilogue a run, the captured ones added per replay), peak
-   memory and graph
-   pool; then a ``torch.profiler`` split of one run of each (chain / K1 /
-   cuDNN / glue, device idle share), whose chain (the tensor-core kernel)
-   and K1 launches must equal the counters';
-7. one FRVSR training step at full width (10 resblocks, real FNet),
-   batch 2, 4 frames, crop 32, float32, GPU (the captured step, the
-   default on the card) against CPU: losses and the gradient of every
-   parameter;
+   576x720, bfloat16, chunks of 23, captured and with ``capture=False``:
+   the two outputs bit-equal under cuDNN's deterministic algorithms;
+   exactly 736 chain, 48 K1 and 92 epilogue launches a run in each mode,
+   one capture; a ``torch.profiler`` run of each mode whose chain and K1
+   launches equal the counters';
+7. one FRVSR training step at full width, batch 2, 4 frames, crop 32,
+   float32, the card's captured step against the CPU: losses and the
+   gradient of every parameter;
 7b. the same step in bfloat16 (float32 master weights), card against CPU,
-   each held against the CPU's own bfloat16 error (its float32 step of
-   phase 7): losses within max(1e-3 of scale, twice the CPU's gap), per
-   parameter the gradient's relative error within twice the CPU's own
-   plus 0.02 (median 0.08); only the kernels' bfloat16 entries ran, twice
-   a step's launches (the capture's warm-up and one replay);
-8. the training path at size through ``train.loop.train``: FRVSR_PRESET
-   (batch 4, crop 32, 10 frames, 10 resblocks) on synthetic PNG scenes,
-   captured (the default): 40 steps, then a resume to 45; then 15 steps
-   with ``capture=False``; each mode's ms/step, frames/s, peak memory,
-   graph pool and capture seconds, and exactly 100 chain, 11 K1 and 1 K2
-   launches a step (twice that at a program's first step: its eager
-   warm-up and one replay); the same state stepped 3 times captured and 3
-   times eagerly, bit-equal in every state tensor under
-   ``torch.use_deterministic_algorithms``; then both modes on one batch
-   timed in turns (captured, eager, eager, captured) and one step of each
-   under ``torch.profiler`` (device time, idle share, split; the profile's
-   chain, which must be the float32 cluster kernel, K1 and K2 launches
-   equal to the counters'). This phase runs with PyTorch's default
-   precision flags (cuDNN in TF32), as the training CLI does; the
-   comparisons before it with TF32 off;
-8c. FRVSR_PRESET in bfloat16 through ``train()`` on phase 8's scenes,
-   captured, 25 steps paced by the device (the gap between steps'
-   starts, no synchronisation), exactly 100 chain, 11 K1 and 1 K2
-   launches a step (twice at the first), only the bfloat16 library
-   entries, the state float32; 3 captured against 3 eager steps
-   bit-equal; the profile (the chain as ``resblock_kernel_wgmma``), and
-   the paced ms/step, idle share, replay device time and split, the
-   eager chain backward, peak and graph pool beside phase 8's and 8b's
-   float32 numbers;
-8b. where FRVSR_PRESET's ``train()`` loses time against its one-batch
-   step: ``train()`` with the native executor (asserted to run), the
-   python executor and a loader whose batches were all decoded before the
-   first step, captured, each timed with a synchronisation around every
-   step and paced by the device, with the uploads' and the loader waits'
-   host time; one batch with no loader synchronised step by step and
-   queued; the upload alone (``_Program.upload``); ms/step, frames/s and
-   idle share against a replay's profiled device time;
+   each held against the CPU's own bfloat16 error; only the kernels'
+   bfloat16 entries ran, twice a step's launches;
+8. FRVSR_PRESET through ``train.loop.train`` on synthetic PNG scenes,
+   captured: 40 steps, then a resume to 45; then 15 steps with
+   ``capture=False``; exactly 100 chain, 11 K1 and 1 K2 launches a step
+   (twice that at a program's first step), no recapture; every save's
+   GIFs and event CRCs and every ``generate`` call's launches; 3 captured
+   against 3 eager steps bit-equal in every state tensor under
+   ``torch.use_deterministic_algorithms``; a captured generate bit-equal
+   to an eager one; a profiled step of each mode whose chain (the float32
+   cluster kernel), K1 and K2 launches equal the counters'. With PyTorch's
+   default precision flags, as the training CLI runs;
+8c. FRVSR_PRESET in bfloat16 through ``train()``, captured, 25 steps: the
+   same launches, only the bfloat16 library entries, the state float32,
+   captured == eager, the generate check and the profiles' launches (the
+   chain as ``resblock_kernel_wgmma``);
 9. the inference CLI and the metrics suite at the main path's width: 41
    synthetic 576x720 HR PNGs -> ``cli.main --mode inference
-   --input_dir_HR`` (blur and 4x subsample on the card, 5 warm-up frames
-   prepended, bfloat16, 16 resblocks, chunks of 23) -> 41 HR PNGs, with
-   the kernels' launch counts (the run's and its capture's warm-up chunk:
-   the CLI reaches the captured path), byte-equal to ``StreamingSR.run`` on
-   the same LR frames (both under cuDNN's deterministic algorithms; a second,
-   timed CLI run keeps the default flags); the blur on the card against the CPU; a ``--checkpoint``
-   run on phase 8's checkpoint (10 blocks: the depth NOTE); ``cli.metrics``
-   on the 41 outputs against their HR frames (tOF by the torch Farneback
-   on the card); and ``evaluate_folders`` with a seeded random LPIPS on the
-   card against the CPU on 8 frames. Prints the split of the CLI's wall
-   time (decode + blur, stream, encode, flush) and the suite's seconds per
-   frame; the CLI runs again with the native and the python PNG codec in
-   turns, the native library's decode and encode counters asserted (41
-   and 41 frames, or 0 and 0);
-9b. the native PNG codec against ``data/png.py`` on the 41 576x720 PNGs
-   (filter 0) and 8 Paeth-filtered ones: decode bit-equal, encode then
-   ``read_png`` gives the input back, both codecs timed;
-10. one TecoGAN step at full width (TECOGAN_PRESET's widths: 16 blocks,
-   the real FNet, the merged Dst, VGG19 with seeded random weights), batch
-   1, crop 32, 3 frames with ping-pong (5), float32 with TF32 off, GPU
-   (captured) against CPU, with the discriminator's gate forced open and closed:
-   every loss, every generator, FNet and discriminator gradient, the
-   discriminator's running statistics after the step, and its parameters
-   (moved when open, bit-unchanged when closed);
-10b. the same step in bfloat16, gate open, card against CPU, as phase 7b
-   (phase 10's CPU step the float32 yardstick);
-11. TecoGAN training at size through ``train.loop.train``: TECOGAN_PRESET
-   (batch 4, crop 32, 10 frames with ping-pong, 16 blocks) with random
-   VGG19 weights on phase 8's scenes, warm-started from phase 8's
-   10-block FRVSR checkpoint (reference case 3), captured: 20 steps and a
-   resume to 25, then 10 steps with ``capture=False``, as phase 8 (exactly
-   304 chain, 21 K1 and 1 K2 launches a step; the gate's counters; 3
-   steps captured against 3 eager, bit-equal, D's statistics, Adam state
-   and gate included); then the in-turn timing and the profiles (the
-   eager step's split by module: VGG19's and the discriminator's kernels,
-   attributed through their forwards and backwards; other cuDNN; K1 + K2;
-   glue; Adam; the device idle share of each mode).
-   Phase 10 switches TF32 off for its comparison; phase 11 runs with the
-   default flags, as training does;
-11b. TECOGAN_PRESET in bfloat16 through ``train()``, warm-started from
-   phase 8's float32 FRVSR checkpoint, captured, 10 steps paced, exactly
-   304 chain, 21 K1 and 1 K2 launches a step, the gate's counters, a
-   replay's profile (``resblock_kernel_wgmma``), ms/step, device time,
-   peak and pool beside phase 11's float32 numbers.
+   --input_dir_HR`` (bfloat16, 16 resblocks, chunks of 23) byte-equal to
+   ``StreamingSR.run`` on the same LR frames, with the run's and its
+   capture's warm-up chunk's launches and one capture; ``--spatial_shards
+   2`` and ``--pipeline`` on one card byte-equal to their references; a
+   run with the python PNG codec (the native library's counters 0, and 41
+   and 41 in the native runs); the blur on the card against the CPU; a
+   ``--checkpoint`` run on phase 8's checkpoint (the depth NOTE);
+   ``cli.metrics`` on the outputs; ``evaluate_folders`` with a seeded
+   random LPIPS on the card against the CPU;
+9b. the native PNG codec against ``data/png.py``: decode bit-equal on the
+   41 PNGs and 8 Paeth-filtered ones, encode then ``read_png`` gives the
+   input back;
+10. one TecoGAN step at TECOGAN_PRESET's widths, batch 1, crop 32, 3
+   frames with ping-pong, float32 with TF32 off, the card's captured step
+   against the CPU, with the discriminator's gate forced open and closed:
+   every loss and gradient, D's running statistics and its parameters;
+10b. the same step in bfloat16, gate open, as phase 7b;
+11. TECOGAN_PRESET through ``train()`` with random VGG19 weights on phase
+   8's scenes, warm-started from phase 8's checkpoint, captured: 20 steps
+   and a resume to 25, then 10 eager, as phase 8 (exactly 304 chain, 21 K1
+   and 1 K2 launches a step; the gate's counters; captured == eager, D's
+   statistics, Adam state and gate included; the profiles' launches);
+11b. TECOGAN_PRESET in bfloat16 through ``train()``, captured, 10 steps,
+   as phase 8c, with the gate's counters;
+12. serving: (a) a 3-slot ``VSRServer`` GPU against CPU, float32, with
+   staggered attaches and an idle slot (its state bit-unchanged on the
+   card); (b) ``MultiGeometryServer`` in bfloat16, a 4-slot 144x180 bucket
+   and two 120x180 streams, 46 captured ticks with exactly 16 chain and 2
+   K1 launches a bucket tick, and an eviction that leaves no segment of
+   the evicted bucket's graph pool; ``VSRServer`` pools of 1, 4 and 8
+   slots, captured and eager, each profiled (the chain, as
+   ``resblock_kernel_wgmma``, and K1 launched as often as the counters
+   say); (c) a 4-slot server's captured ticks bit-equal to ``capture=
+   False`` ones, and the frame step exported, loaded in a fresh process
+   that imports only torch and ``tecogan_tpu_torch.kernels``, bit-equal to
+   the captured tick with its launches counted; (d) ``cli.serve`` on three
+   LR PNG dirs in float32 within 1 u8 level of ``cli.main`` per dir (the
+   random generator's recurrence damped, see ``run_serve_cli``), then in
+   bfloat16 with the native and the python PNG codec (two captures, the
+   native library's counters); (e) the state budget counting a captured
+   bucket's graph pool: a geometry refused while the bucket is busy, which
+   evicts it once idle;
+13. the run cases: ``data.prepare --synthetic`` and ``cli.run`` cases 4,
+   3, 1, 2 and 0 as subprocesses on the card;
+14. video-file I/O without OpenCV (``run_video``): the port's video
+   library's build; a seeded 30-frame 144x180 clip written as .avi, .mp4
+   and .mkv and read back within the bound ``tests/test_torch_video_io.py``
+   holds, at the written fps; ``cli.main --input_video`` bit-equal to the
+   PNG route with equal launches; ``--output_video`` bit-equal to the
+   writer on the PNG route's frames; ``cli.serve --output_videos`` on two
+   geometries; ``extract_scene`` from inside the MPEG-4 GOP;
+15. H.264 and VP9 input on the card's NVDEC (``run_nvdec``), over the test
+   streams of ``tests/nvdec_streams.py``: the binding's build and
+   ``cuvidGetDecoderCaps``; the parser's format of every stream. Where
+   NVDEC refuses with CUDA_ERROR_OUT_OF_MEMORY in a container that
+   withholds NVIDIA's ``video`` capability (``NvdecUnavailable``), every
+   reader must raise it and the rest runs over ``ModelNvdec`` (which
+   decodes nothing): NVDEC's decode is then NOT verified, as the log and
+   the kernels line (``nvdec_decode_verified``) say. The H.264 streams
+   bit-equal to their expected frames (with NVDEC also the VP9 fixture's
+   SHA-256); the NV12 kernel bit-equal to its plain version and timed
+   beside its bound; ``cli.main --input_video`` bit-equal to the PNG route
+   with one NV12 launch a frame; ``cli.serve --output_videos``;
+   ``extract_scene`` from inside a GOP with B-frames;
+16. the JAX package's orbax checkpoints without JAX (``run_orbax``): the
+   committed JAX-written fixture ``tests/data/jax_orbax_small`` read by the
+   port, every leaf equal to its SHA-256; a TECOGAN_PRESET TrainState
+   through ``save_jax_checkpoint`` and ``restore_checkpoint``, bit-equal;
+   ``cli.main --checkpoint`` on that directory and on the port's
+   ``state.pt`` of the same weights: byte-equal PNGs, launches counted;
+17. parallelism on one card (the mesh names it twice): (a) ``StreamingSR``
+   on 2 row shards, captured and eager, bit-equal to each other and within
+   a level of the unsharded frame step, launches and halo warps counted;
+   (b) ``PipelinedStreamingSR`` bit-equal to ``StreamingSR``; (c)
+   ``DataParallelTrainer`` at world size 1 (NCCL) bit-equal to
+   ``Trainer``, and at world size 2 (gloo, two processes: ``chip_smoke.py
+   --dp-worker PORT RANK OUT``) against one process; (d) a ``VSRServer``
+   over a 2-device mesh bit-equal to two 2-slot pools.
 
-12. serving (``tecogan_tpu_torch.serve``): (a) a 3-slot ``VSRServer`` at
-   full width, float32 with TF32 off, GPU against CPU with staggered
-   attaches and an idle slot (outputs within PATH_TOL, the idle slot's
-   state bit-unchanged on the card); (b) ``MultiGeometryServer`` in
-   bfloat16, a 4-slot bucket at 144x180 and a bucket of two 120x180
-   streams, each tick captured by the prewarm, 46 ticks with the kernels'
-   launch counts (exactly 16 chain and 2 K1 per bucket tick), each
-   bucket's graph pool, and an eviction whose bucket's pool leaves no
-   device segment behind; then ``VSRServer`` pools of 1, 4 and 8 slots,
-   captured and with ``capture=False``, timed in turns (ms/tick, host ms
-   inside ``step()``, aggregate frames/s, peak memory, graph pool) and each
-   profiled (device idle share; the chain, as ``resblock_kernel_wgmma``, and
-   K1 launched as often as the counters say); (c) a 4-slot server's
-   captured ticks bit-equal to ``capture=False`` ones at 144x180 under
-   cuDNN's deterministic algorithms, and the frame step exported
-   at (4,144,180) bfloat16, loaded in a fresh process that imports only
-   torch and ``tecogan_tpu_torch.kernels``, bit-equal to a ``VSRServer``
-   captured tick under
-   cuDNN's deterministic algorithms, its launches counted; (d) ``cli.serve``
-   on three LR PNG dirs (two geometries, one with Paeth rows): float32
-   within 1 u8 level of ``cli.main --mode inference`` per dir (the random
-   generator's recurrence damped, see ``run_serve_cli``), then timed
-   bfloat16 runs with the native and the python PNG codec in turns, each
-   with its wall split and the native library's counters asserted; and
-   the PNG decode of a Paeth frame at 144x180 and 576x720; (e) the state
-   budget counting a captured bucket's graph pool: under a budget below a
-   4-slot 144x180 pool a 120x180 geometry is refused while that bucket is
-   busy, and evicts it once idle. Phase 3 also times the chain N=16 at
-   (4,144,180,64) and K1 at (4,144,180,2/3) in bfloat16, a serving tick's
-   shapes.
-13. the run cases (``run_cases``): ``data.prepare --synthetic`` and
-   ``cli.run`` cases 4, 3, 1, 2 and 0 as subprocesses on the card;
-14. video-file I/O (``run_video``, no OpenCV): (a) the build of the port's
-   video library (``csrc/tecovideo*.cpp``, g++) and its seconds; (b) a
-   seeded 30-frame 144x180 clip written by the port's writer as .avi
-   (Motion JPEG), .mp4 and .mkv (MPEG-4 Part 2, the .mkv at 29.97 fps),
-   read back: count, shape, fps equal to the written, mean |error| within
-   the bound ``tests/test_torch_video_io.py`` holds (the JAX writer's on
-   the same clip + 0.5), encode and decode frames/s per file; (c)
-   ``cli.main --input_video clip.mp4`` at full width (16 blocks, the
-   default dtype) and the same CLI on a PNG directory of the port's decode
-   of the clip, under cuDNN's deterministic algorithms: bit-equal outputs,
-   the chain's and K1's launches counted for each and equal; then
-   ``--output_video out.mp4``, decoded and bit-equal to the port's writer
-   on the PNG route's frames, and the CLI's frames/s with video against
-   PNG I/O, timed in turns; (d) ``cli.serve`` on two video sources of two
-   geometries (.mp4 at 24 fps, .mkv at 29.97) with ``--output_videos``:
-   counts, shapes and each output's fps; (e) ``data.prepare.extract_scene``
-   from frame 5 (inside the MPEG-4 GOP) of the .avi and the .mp4: the PNGs
-   equal the decoded frames through ``resize_area``;
-15. H.264 and VP9 input on the card's NVDEC (``run_nvdec``), over the
-   test streams of ``tests/nvdec_streams.py`` (loaded by path): (a) the
-   NVDEC binding's build (``csrc/tecovideo_nvdec.cpp``, g++) and
-   ``cuvidGetDecoderCaps`` for H.264 and VP9 at 8-bit 4:2:0; every test
-   stream through the port's NVDEC reader, whose parser must report the
-   expected coded size, display area, range and matrix. Where NVDEC
-   refuses ``cuvidGetDecoderCaps`` with CUDA_ERROR_OUT_OF_MEMORY in a
-   container that withholds NVIDIA's ``video`` capability (the one
-   case ``NvdecUnavailable`` names), every reader must raise it, and (b),
-   (d)-(f) run with ``ModelNvdec`` (the streams' numpy model, which
-   decodes nothing) in NVDEC's place: NVDEC's decode is then NOT verified,
-   which the log and the kernels line (``nvdec_decode_verified``) say;
-   any other NVDEC failure fails the phase. (b) the hand-written H.264
-   streams (I_PCM, P with integer vectors and P_Skip, B-frames, 144x180
-   cropped, full-range BT.709) in MP4 and MKV through
-   ``read_video_frames`` bit-equal to their expected frames, and with
-   NVDEC the VP9 fixture's frames equal to their recorded SHA-256 and the
-   frames/s at 144x180 and 720x1280; (c) the NV12 kernel bit-equal to its
-   plain version (pitch > width, odd offsets, both ranges, BT.601 and
-   BT.709) and timed beside its bound; (d) ``cli.main --input_video`` on
-   a 30-frame 144x180 H.264 clip at full width, bit-equal to the PNG
-   route of the same decoded frames with the same chain and K1 launches
-   and one NV12 launch a frame, the two routes timed in turns; (e)
-   ``cli.serve --output_videos`` on an H.264 source and one of another
-   geometry (VP9 with NVDEC): counts, shapes and each output's fps; (f)
-   ``extract_scene`` from frame 5 of the B-frame stream: the exact frames
-   in display order;
-16. the JAX package's orbax checkpoints without JAX (``run_orbax``): (a)
-   the committed JAX-written fixture ``tests/data/jax_orbax_small`` (OCDBT
-   store, zstd, inline and indirect values) read by the port, every leaf
-   equal to its SHA-256, and the zstd decoder's MB/s on its chunks; (b) a
-   TECOGAN_PRESET TrainState (16 blocks, 64 channels, full FNet, float32)
-   after 3 captured steps through ``save_jax_checkpoint`` and
-   ``restore_checkpoint`` into a fresh state, bit-equal, with the write
-   and read seconds and MB/s; (c) ``cli.main --checkpoint`` on that
-   directory and on the port's ``state.pt`` of the same weights over
-   phase 9's PNG dir (bfloat16, cuDNN deterministic): byte-equal PNGs,
-   K1's and the chain's launches counted (``orbax_cli_launches``).
-
-Then one ``[yardstick]`` line per timed case of phase 3 with its wrapper's
-launches on the streaming, FRVSR and TecoGAN training paths (float32 and
-bfloat16) and per serving bucket tick. The
-second-to-last line of stdout is a JSON object with one entry per kernel
-(K1, K2 and the bfloat16 chain with a ``bf16_training`` entry; the NV12
-kernel, which replaces no TPU kernel, with its launches in phase 15 (d);
-the transposed convs' epilogue, which replaces none either, with its
-launches in phase 6 and its times by cell);
-the last is ``{"ok": true, "device": {...}}``. Imports no JAX.
+Then each phase's seconds (the run's own clock), one ``[yardstick]`` line
+per timed case of phase 3 with its wrapper's launches on each path, a JSON
+line with one entry per kernel (K1, K2, both chains, the NV12 kernel and
+the epilogue) and last ``{"ok": true, "device": {...}}``. Imports no JAX.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3c and prints no
 result line (for comparing two trees' kernels in one call).
@@ -267,6 +178,9 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+
+from portbench.harness.flops import HBM_BYTES_PER_S, chain_launch_bound, peak_flops  # noqa: E402
+from portbench.harness.trace import group_of, union_s  # noqa: E402
 
 REPO = Path(__file__).resolve().parent
 LR_H, LR_W = 144, 180          # Vid4 calendar geometry (-> 576x720)
@@ -309,8 +223,6 @@ STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-4, 1e-3
 TRAIN_STEPS, RESUME_STEPS, SAVE_FREQ, EAGER_STEPS = 40, 45, 20, 15
 # TecoGAN training (phase 11): TECOGAN_PRESET on the same scenes.
 GAN_STEPS, GAN_RESUME_STEPS, GAN_EAGER_STEPS = 20, 25, 10
-# Steps a window of the in-turn timing on one batch (profile_step).
-PROFILE_STEPS = 5
 # Profiles of one step taken to see every launch the counters count.
 PROFILE_ATTEMPTS = 3
 # Phase 10's parameters after one Adam step, GPU vs CPU, where the
@@ -323,7 +235,7 @@ SCENE_FRAMES, SCENE_H, SCENE_W = 14, 240, 320
 # as the chain (it dominates), relative to the output's scale.
 PATH_TOL = 1e-3
 # Serving (phase 12): slots of the calendar bucket, the second bucket's
-# geometry (Vid4's foliage and walk) and the pool sizes timed; ticks per
+# geometry (Vid4's foliage and walk) and the pool sizes profiled; ticks per
 # run, as phase 6's frames.
 SERVE_SLOTS, SERVE_GEO2, SERVE_POOLS = 4, (120, 180), (1, 4, 8)
 # Phase 12 (d)'s weights: the stem's weights on the warped previous output
@@ -397,22 +309,23 @@ SPIN_CYCLES_PER_S = 1.98e9
 # The bound of a timed case: the least time an H100 SXM could take for the
 # same work, the larger of its bytes (each input read once, each output
 # written once) over the HBM rate and its operations over the peak rate of
-# the units that do them (NVIDIA's H100 SXM data sheet, dense).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16 tensor cores": 989e12, "float32 CUDA cores": 67e12,
-              "TF32 tensor cores": 495e12}
+# the units that do them. The HBM rate, the tensor cores' peaks and the
+# chain's work are the benchmark's (portbench/harness/flops.py); K1, K2 and
+# the epilogue run on the float32 CUDA cores, whose peak the benchmark does
+# not use (NVIDIA's H100 SXM data sheet, dense).
+CUDA_CORE_FLOPS = 67e12
 
 
-def bound(launches: int, bytes_: float, flops: float, unit: str):
+def bound(launches: int, bytes_: float, flops: float, peak: float, unit: str):
     """(bound ms, "bytes" or "operations", its arithmetic) of `launches`
-    launches that each move `bytes_` and do `flops` on `unit`; each launch
-    is bound by the larger of its two times."""
+    launches that each move `bytes_` and do `flops` on `unit`, whose peak
+    is `peak` FLOP/s; each launch is bound by the larger of its two times."""
     mem_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-    op_ms = flops / PEAK_FLOPS[unit] * 1e3
+    op_ms = flops / peak * 1e3
     by = "bytes" if mem_ms >= op_ms else "operations"
     per = f"{launches} launches x " if launches > 1 else ""
-    text = (f"{per}max({bytes_ / 1e6:.2f} MB / 3.35 TB/s = {mem_ms:.5f} ms, "
-            f"{flops / 1e9:.4f} GFLOP / {PEAK_FLOPS[unit] / 1e12:.0f} TFLOP/s "
+    text = (f"{per}max({bytes_ / 1e6:.2f} MB / {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+            f"{mem_ms:.5f} ms, {flops / 1e9:.4f} GFLOP / {peak / 1e12:.0f} TFLOP/s "
             f"{unit} = {op_ms:.5f} ms)")
     return launches * max(mem_ms, op_ms), by, text
 
@@ -423,21 +336,8 @@ def upsample_bound(lr_elems: int, itemsize: int, nt: int):
     multiply-adds for each element of the H pass (4H x W) and of the W
     pass (4H x 4W): 40 NT flops per x element, in float32 on the CUDA
     cores."""
-    return bound(1, 17 * lr_elems * itemsize, 40 * nt * lr_elems, "float32 CUDA cores")
-
-
-def chain_bound(x: torch.Tensor, n: int):
-    """n resblock launches on x (B, H, W, 64): each reads x, its 2 convs'
-    weights and biases and writes its output; 2 x 9 x 64 x 64 multiply-adds
-    per pixel and conv, on the tensor cores: once in bfloat16, three times
-    in TF32 for float32 (the float32 kernel takes each product as three
-    TF32 products to keep float32 accuracy)."""
-    c, size = x.shape[-1], x.element_size()
-    px = x.numel() // c
-    bf16 = x.dtype == torch.bfloat16
-    return bound(n, (2 * x.numel() + 2 * 9 * c * c + 2 * c) * size,
-                 (1 if bf16 else 3) * 2 * 2 * 9 * c * c * px,
-                 "bf16 tensor cores" if bf16 else "TF32 tensor cores")
+    return bound(1, 17 * lr_elems * itemsize, 40 * nt * lr_elems, CUDA_CORE_FLOPS,
+                 "float32 CUDA cores")
 
 
 def einsum_upsample(x: torch.Tensor, filter_: str, alpha: float):
@@ -648,8 +548,14 @@ def check_kernels(dev):
                        (5, 270, 480, NUM_RESBLOCK, True, "serve_1080p_live"),
                        (1, LR_H // 2 + 8, LR_W, 4, True, "sharded streaming")]
         chains += [(4, 32, 32, 10, True, "training"), (4, 32, 32, 16, True, "tecogan")]
+        # Each launch bound as the benchmark bounds one (chain_launch_bound):
+        # the model's work on the tensor cores of the dtype, TF32 for float32
+        # (whose kernel takes each product as three TF32 products: work the
+        # bound does not count).
+        unit = "bf16 tensor cores" if bf16 else "TF32 tensor cores"
         for b, h, w, n, timed, path in chains:
             x = torch.relu(seeded((b, h, w, CHANNELS), 1.0, gen, dev, dtype))
+            _, work = chain_launch_bound((b, h, w), x.element_size(), name)
             args = (x, seeded((n, 3, 3, CHANNELS, CHANNELS), lim, gen, dev, dtype),
                     seeded((n, CHANNELS), 0.1, gen, dev, dtype),
                     seeded((n, 3, 3, CHANNELS, CHANNELS), lim, gen, dev, dtype),
@@ -657,7 +563,9 @@ def check_kernels(dev):
             cases.append(("resblock_chain", f"chain N={n} ({b},{h},{w},64)",
                           lambda a=args: resblock_chain(*a),
                           lambda a=args: resblock_chain_plain(*a),
-                          (path, CHAIN_NO_LIBRARY, chain_bound(x, n)) if timed else None))
+                          (path, CHAIN_NO_LIBRARY, bound(n, work["bytes"], work["flops"],
+                                                         peak_flops(name), unit))
+                          if timed else None))
         if bf16:
             # One block against its rounding points (chain_oracle_bf16) at
             # every path's shape: a dropped tap, a misplaced accumulator row
@@ -673,7 +581,6 @@ def check_kernels(dev):
                               "vs its rounding points", lambda a=args: resblock_chain(*a),
                               lambda a=args: chain_oracle_bf16(*a), None))
         for kernel, label, fn, plain_fn, timing in cases:
-            planned = dict(resblock_chain.plan_launches)
             got = fn()
             torch.cuda.synchronize()
             want = plain_fn()
@@ -681,10 +588,6 @@ def check_kernels(dev):
             tol = TOL[(kernel, dtype)]
             line = f"[kernel] {kernel} {name} {label}: max_abs_err={err:.3e} " \
                    f"rel={rel:.3e} tol={tol:.0e}"
-            # The bfloat16 chain's tile walk at this shape (chain_plan).
-            line += "".join(f" plan: {plan} x{n - planned.get(plan, 0)}"
-                            for plan, n in resblock_chain.plan_launches.items()
-                            if n != planned.get(plan, 0))
             if not rel <= tol:
                 log(line)
                 raise RuntimeError(f"{kernel} {name} {label}: rel error {rel:.3e} > {tol}")
@@ -767,7 +670,7 @@ def check_epilogue(dev):
         (ms, lo, hi), (plain_ms, plo, phi), (two_ms, tlo, thi) = times
         bound_ms, bound_by, arithmetic = bound(
             1, (y.numel() + got.numel() + c) * y.element_size(), 2 * got.numel(),
-            "float32 CUDA cores")
+            CUDA_CORE_FLOPS, "float32 CUDA cores")
         log(f"[kernel] bias_relu_crop bfloat16 {label} {shape}: bit-equal to plain and to the "
             f"two ATen passes; kernel_ms={ms:.4f} [{lo:.4f}-{hi:.4f}] plain_ms={plain_ms:.4f} "
             f"[{plo:.4f}-{phi:.4f}] two_pass_ms={two_ms:.4f} [{tlo:.4f}-{thi:.4f}] (add_ + "
@@ -877,7 +780,6 @@ def check_step_vs_cpu(dev) -> dict:
         state = trainer.init_state(12)
         fix_flows_mid_cell(state)
         captures = CapturedProgram.captures
-        t0 = time.perf_counter()
         _, metrics = trainer.train_step(state, batch)
         if trainer.capture != (device.type == "cuda") or \
                 CapturedProgram.captures - captures != trainer.capture:
@@ -890,8 +792,7 @@ def check_step_vs_cpu(dev) -> dict:
                 if p.grad is None:
                     raise RuntimeError(f"[step] {device}: {prefix}.{name} got no gradient")
                 grads[f"{prefix}.{name}"] = p.grad.detach().cpu()
-        log(f"[step] {device} ({'captured' if trainer.capture else 'eager'}): one step in "
-            f"{time.perf_counter() - t0:.2f} s, "
+        log(f"[step] {device} ({'captured' if trainer.capture else 'eager'}): one step, "
             + ", ".join(f"{k} {v:.6f}" for k, v in sorted(losses.items())))
         runs.append((losses, grads))
     (loss_gpu, grad_gpu), (loss_cpu, grad_cpu) = runs
@@ -917,31 +818,27 @@ def check_step_vs_cpu(dev) -> dict:
 
 
 @contextlib.contextmanager
-def timed_train_steps(kernels):
-    """Time each ``Trainer.train_step`` between two synchronisations (loader
-    waits, saves, summaries and validation fall outside) and count each
-    kernel wrapper's launches inside it. Yields the three lists it fills:
-    seconds, {kernel: launches} per step, and the trainers that stepped."""
+def counted_train_steps(kernels):
+    """Count each kernel wrapper's launches inside each
+    ``Trainer.train_step`` (loader waits, saves, summaries and validation
+    fall outside). Yields the two lists it fills: {kernel: launches} per
+    step, and the trainers that stepped."""
     from tecogan_tpu_torch.train import Trainer
 
-    step_secs, step_launches, trainers = [], [], []
+    step_launches, trainers = [], []
     train_step = Trainer.train_step
 
-    def timed_step(self, state, hr_seq):
+    def counted_step(self, state, hr_seq):
         if self not in trainers:
             trainers.append(self)
-        torch.cuda.synchronize()
         before = {name: k.launches for name, k in kernels.items()}
-        start = time.perf_counter()
         result = train_step(self, state, hr_seq)
-        torch.cuda.synchronize()
-        step_secs.append(time.perf_counter() - start)
         step_launches.append({name: k.launches - before[name] for name, k in kernels.items()})
         return result
 
-    Trainer.train_step = timed_step
+    Trainer.train_step = counted_step
     try:
-        yield step_secs, step_launches, trainers
+        yield step_launches, trainers
     finally:
         Trainer.train_step = train_step
 
@@ -1006,9 +903,9 @@ def check_captured_equals_eager(dev, cfg, label: str, vgg=None, steps: int = 3) 
         f"device step{', D statistics, D Adam, gate EMA and counters' if cfg.gan else ''})")
 
 
-# Each training phase's summaries: generate's launches a replay, replay ms,
-# graph pool MiB and the seconds of each save's GIFs and events, by preset
-# and dtype (phases 8, 8c, 11, 11b), for the kernels line.
+# Each training phase's summaries: generate's launches a replay, replay ms
+# and graph pool MiB, by preset and dtype (phases 8, 8c, 11, 11b), for the
+# kernels line.
 GENERATE = {}
 
 
@@ -1023,12 +920,12 @@ def generate_launch_want(cfg):
 
 @contextlib.contextmanager
 def watched_summaries(kernels):
-    """While open, each ``Trainer.generate`` call is synchronised around and
-    its kernel launches counted (apart from the steps': the loop calls it
-    after a save, outside ``train_step``), and each ``SummaryLogger.gif``
-    (one GIF and its TensorBoard image) is timed. Yields the two lists it
-    fills: dict(trainer, launches, s) per generate call and (log dir, step,
-    tag, s) per GIF."""
+    """While open, each ``Trainer.generate`` call's kernel launches are
+    counted (apart from the steps': the loop calls it after a save, outside
+    ``train_step``), and each ``SummaryLogger.gif`` (one GIF and its
+    TensorBoard image) is recorded. Yields the two lists it fills:
+    dict(trainer, launches) per generate call and (log dir, step, tag) per
+    GIF."""
     from tecogan_tpu_torch.train import Trainer
     from tecogan_tpu_torch.utils.summaries import SummaryLogger
 
@@ -1036,22 +933,17 @@ def watched_summaries(kernels):
     generate, gif = Trainer.generate, SummaryLogger.gif
 
     def counted(self, state, hr_seq):
-        torch.cuda.synchronize()
         before = {name: k.launches for name, k in kernels.items()}
-        t0 = time.perf_counter()
         out = generate(self, state, hr_seq)
-        torch.cuda.synchronize()
-        calls.append(dict(trainer=self, s=time.perf_counter() - t0,
-                          launches={name: k.launches - before[name]
-                                    for name, k in kernels.items()}))
+        calls.append(dict(trainer=self, launches={name: k.launches - before[name]
+                                                  for name, k in kernels.items()}))
         return out
 
-    def timed(self, step, tag, sequence, **kw):
-        t0 = time.perf_counter()
+    def recorded(self, step, tag, sequence, **kw):
         gif(self, step, tag, sequence, **kw)
-        writes.append((self.log_dir, step, tag, time.perf_counter() - t0))
+        writes.append((self.log_dir, step, tag))
 
-    Trainer.generate, SummaryLogger.gif = counted, timed
+    Trainer.generate, SummaryLogger.gif = counted, recorded
     try:
         yield calls, writes
     finally:
@@ -1060,11 +952,10 @@ def watched_summaries(kernels):
 
 def check_summaries(label: str, cfg, saves: dict, calls, writes) -> dict:
     """Every save of ``saves`` ({log dir: [steps]}) wrote the four tags'
-    GIFs, timed, and their TensorBoard images into an event file whose every
+    GIFs and their TensorBoard images into an event file whose every
     record's CRC checks; every ``generate`` call launched exactly
     :func:`generate_launch_want`, twice that at a captured trainer's first
-    call (its warm-up and one replay). Returns the seconds of each save's
-    summary writes and the launches of one replay."""
+    call (its warm-up and one replay). Returns the launches of one replay."""
     from tecogan_tpu_torch.train.loop import SUMMARY_TAGS
     from tecogan_tpu_torch.utils.tb_events import read_records
 
@@ -1080,13 +971,13 @@ def check_summaries(label: str, cfg, saves: dict, calls, writes) -> dict:
     if len(calls) != sum(len(v) for v in saves.values()):
         raise RuntimeError(f"{label}: {len(calls)} generate calls for saves {saves}")
     per_save = {}
-    for log_dir, step, tag, secs in writes:
-        per_save.setdefault((log_dir, step), []).append((tag, secs))
+    for log_dir, step, tag in writes:
+        per_save.setdefault((log_dir, step), []).append(tag)
     for log_dir, steps in saves.items():
         events = [f for f in os.listdir(log_dir) if f.startswith("events.out.tfevents.")]
         records = [r for f in events for r in read_records(os.path.join(log_dir, f))]
         for step in steps:
-            tags = [t for t, _ in per_save.get((log_dir, step), [])]
+            tags = per_save.get((log_dir, step), [])
             if sorted(tags) != sorted(SUMMARY_TAGS):
                 raise RuntimeError(f"{label}: save {step} in {log_dir} wrote {tags}")
             for tag in SUMMARY_TAGS:
@@ -1095,13 +986,11 @@ def check_summaries(label: str, cfg, saves: dict, calls, writes) -> dict:
                     raise RuntimeError(f"{label}: no GIF {path}")
                 if not any(f"{tag}/0".encode() in r for r in records):
                     raise RuntimeError(f"{label}: no {tag}/0 image in {events}")
-    secs = [sum(s for _, s in v) for v in per_save.values()]
     replays = [c["launches"] for c in calls if c["launches"] == want]
     log(f"{label} summaries: {len(calls)} generate calls (launches {want} a replay, twice "
-        f"that at a captured trainer's first call), {len(secs)} saves x 4 GIFs + TensorBoard "
-        f"images, every event record's CRC checked; GIFs and events "
-        f"{float(np.mean(secs)):.3f} s a save (max {max(secs):.3f})")
-    return dict(save_s=secs, launches=replays[0] if replays else want)
+        f"that at a captured trainer's first call), {len(per_save)} saves x 4 GIFs + "
+        f"TensorBoard images, every event record's CRC checked")
+    return dict(launches=replays[0] if replays else want)
 
 
 def check_generate(dev, cfg, state, label: str, card: str, vgg=None) -> dict:
@@ -1155,33 +1044,24 @@ def check_generate(dev, cfg, state, label: str, card: str, vgg=None) -> dict:
 
 def train_modes(cfg, kernels, runs, capturing, label):
     """``runs``: {mode: [calls of train()]}, captured (the default) then
-    eager (``capture=False``), each step timed and its launches counted:
-    exactly ``step_launch_want`` a step, twice that at the ``capturing``
-    steps of the captured mode. Returns {mode: dict(secs, launches, totals,
-    peak MiB and graph pool MiB of the largest call, capture s, wall s, the
+    eager (``capture=False``), each step's launches counted: exactly
+    ``step_launch_want`` a step, twice that at the ``capturing`` steps of
+    the captured mode. Returns {mode: dict(launches a step, totals, the
     last call's state)}."""
     want = step_launch_want(cfg)
     out = {}
     for mode, calls in runs.items():
-        m = dict(peak=0.0, pool=0.0, capture_s=0.0, recaptures=0, modes=set())
-        with timed_train_steps(kernels) as (step_secs, step_launches, trainers):
+        m = dict(recaptures=0, modes=set())
+        with counted_train_steps(kernels) as (step_launches, trainers):
             for k in kernels.values():
                 k.launches = 0
-            t0 = time.perf_counter()
             for call in calls:
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                base = torch.cuda.memory_allocated()
                 m["state"] = call()
-                m["peak"] = max(m["peak"], (torch.cuda.max_memory_allocated() - base) / 2**20)
-                m["pool"] = max(m["pool"], sum(t.pool_bytes() for t in trainers) / 2**20)
-                m["capture_s"] += sum(t.capture_s for t in trainers)
                 m["recaptures"] += sum(t.recaptures for t in trainers)
                 m["modes"] |= {t.capture for t in trainers}
                 del trainers[:]  # its graphs and pools go with it
-            m["wall"] = time.perf_counter() - t0
             m["totals"] = {name: k.launches for name, k in kernels.items()}
-        m.update(secs=step_secs, launches=step_launches)
+        m["launches"] = step_launches
         if m["modes"] != {mode == "captured"} or m["recaptures"]:
             raise RuntimeError(f"{label} {mode}: capture {m['modes']}, "
                                f"{m['recaptures']} recaptures")
@@ -1191,29 +1071,13 @@ def train_modes(cfg, kernels, runs, capturing, label):
     return out
 
 
-def log_modes(label, cfg, modes, steady, card) -> None:
-    """ms/step, frames/s, peak memory, graph pool and capture seconds of
-    each mode's train() run."""
-    frames = cfg.batch_size * cfg.unroll_frames
-    for mode, m in modes.items():
-        a, b = steady[mode]
-        ms = sum(m["secs"][a:b]) / (b - a) * 1e3
-        m["ms"] = ms
-        log(f"{label} {mode}: steady {ms:.2f} ms/step over steps {a + 1}-{b}, "
-            f"{frames / ms * 1e3:.1f} frames/s; {len(m['secs'])} steps in {m['wall']:.2f} s "
-            f"wall; peak {m['peak']:.0f} MiB above the run's start; graph pools "
-            f"{m['pool']:.0f} MiB; capture (warm-up + capture) {m['capture_s']:.3f} s; "
-            f"launches a step {m['launches'][-1]}; card: {card}")
-
-
 def run_training(dev, card: str, tmp: str):
     """Phase 8: FRVSR_PRESET through ``train()`` on synthetic scenes under
     ``tmp``, captured: 40 steps and a resume to 45 (checkpoints in
     ``<tmp>/run/checkpoints``); then 15 steps with ``capture=False``; then
     the captured and eager programs stepped 3 times from one state and
-    compared, and the profile. Returns the launch counts of the 45 captured
-    steps and of one steady step, and a summary for phase 8c (the captured
-    ms/step, peak and pool MiB, the profile's)."""
+    compared, and the profile's launches. Returns the launch counts of the
+    45 captured steps and of one steady step."""
     import io
 
     from tecogan_tpu_torch.config import FRVSR_PRESET
@@ -1225,12 +1089,10 @@ def run_training(dev, card: str, tmp: str):
     kernels = {"upsample4": upsample4, "upsample4_bwd": upsample4_bwd,
                "resblock_chain": resblock_chain}
     data, out_dir = os.path.join(tmp, "scenes"), os.path.join(tmp, "run")
-    t0 = time.perf_counter()
     write_synthetic_scenes(data, 3, SCENE_FRAMES, SCENE_H, SCENE_W, start_index=2000)
     write_synthetic_scenes(data, 1, SCENE_FRAMES, SCENE_H, SCENE_W,
                            start_index=2251, seed=100)
-    log(f"[train] 4 synthetic scenes of {SCENE_FRAMES} {SCENE_H}x{SCENE_W} PNG "
-        f"frames written in {time.perf_counter() - t0:.1f} s")
+    log(f"[train] 4 synthetic scenes of {SCENE_FRAMES} {SCENE_H}x{SCENE_W} PNG frames written")
     cfg = FRVSR_PRESET.replace(input_video_dir=data, max_frm=SCENE_FRAMES - 1,
                                save_freq=SAVE_FREQ, summary_freq=10)
     printed = io.StringIO()
@@ -1247,10 +1109,10 @@ def run_training(dev, card: str, tmp: str):
     for line in printed.getvalue().splitlines():
         if line.startswith(("step ", "Resumed", "Saved", "Dataset")):
             log(f"[train] | {line}")
-    if state.step != RESUME_STEPS or len(modes["captured"]["secs"]) != RESUME_STEPS or \
+    if state.step != RESUME_STEPS or len(modes["captured"]["launches"]) != RESUME_STEPS or \
             modes["eager"]["state"].step != EAGER_STEPS:
         raise RuntimeError(f"[train] steps to {state.step}, "
-                           f"{len(modes['captured']['secs'])} step calls; eager "
+                           f"{len(modes['captured']['launches'])} step calls; eager "
                            f"{modes['eager']['state'].step}")
     if f"Resumed from step {TRAIN_STEPS}" not in printed.getvalue():
         raise RuntimeError("[train] the second run did not resume")
@@ -1276,216 +1138,70 @@ def run_training(dev, card: str, tmp: str):
         f"cuDNN TF32 {'on' if torch.backends.cudnn.allow_tf32 else 'off'}): captured "
         f"{TRAIN_STEPS} steps, resumed to {RESUME_STEPS}; eager {EAGER_STEPS} steps; every "
         f"parameter moved; {len(rows)} scalar rows")
-    log_modes("[train]", cfg, modes, {"captured": (20, TRAIN_STEPS),
-                                      "eager": (EAGER_STEPS - 10, EAGER_STEPS)}, card)
     check_captured_equals_eager(dev, cfg, "[train]")
     GENERATE["FRVSR_PRESET float32"] = dict(summaries, **check_generate(
         dev, cfg, state, "[train]", card))
-    prof = profile_step(dev, cfg, state, {m: modes[m]["ms"] for m in modes}, "FRVSR_PRESET")
-    summary = dict(ms=modes["captured"]["ms"], peak=modes["captured"]["peak"],
-                   pool=modes["captured"]["pool"], profile=prof)
-    return launches, modes["captured"]["launches"][-1], summary
+    profile_step(dev, cfg, state, "FRVSR_PRESET")
+    return launches, modes["captured"]["launches"][-1]
 
 
-# Profile groups: a kernel goes to the first group one of whose needles is
-# in its name; the rest is glue.
-PROFILE_GROUPS = {
-    "chain kernel": ("resblock_kernel",),
-    "K2 (flow upsample backward)": ("upsample4_bwd_kernel",),
-    "K1 (flow upsample, bicubic skip)": ("upsample4_kernel",),
-    "cuDNN/cuBLAS convs and GEMMs": ("conv", "cudnn", "xmma", "gemm", "dgrad",
-                                     "wgrad", "cutlass", "sm90"),
-    "Adam": ("multi_tensor", "adam")}
-GLUE = "glue (elementwise, gathers, copies)"
-
-
-def device_us(evt, total: bool = False) -> float:
-    name = "device_time_total" if total else "self_device_time_total"
-    if not hasattr(evt, name):  # older torch
-        name = name.replace("device", "cuda")
-    return getattr(evt, name)
-
-
-def busy_us(spans) -> float:
-    """The time covered by the union of (start, end) intervals: kernels
-    that overlap (a chain block launched while the previous one runs) count
-    once."""
-    busy, end = 0.0, -math.inf
-    for s, e in sorted(spans):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return busy
-
-
-def device_split(prof):
-    """A torch.profiler window's device time by kernel group: the time the
-    device was busy, the union of its kernels' intervals, in all and per
-    group. An operator's row holds the device time of the kernels it
-    launched itself (by_op: where the glue comes from). Returns (total us,
-    {group: us}, {group: {kernel: launches}}, by_op)."""
+def device_kernels(prof):
+    """A torch.profiler window's device seconds, the union of its kernels'
+    intervals (``portbench/harness/trace.py:union_s``: overlapping kernels
+    count once), and each kernel's launches by name in the benchmark's
+    groups (``group_of``): (seconds, {group: {kernel: launches}})."""
     from torch.autograd import DeviceType
 
-    spans = {g: [] for g in [*PROFILE_GROUPS, GLUE]}
-    names = {g: {} for g in spans}
+    spans, names = [], {}
     for evt in prof.events():
         # A user annotation on the device's timeline spans kernels; it is none.
         if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
             continue
-        key = evt.name.lower()
-        group = next((g for g, needles in PROFILE_GROUPS.items()
-                      if any(n.lower() in key for n in needles)), GLUE)
-        spans[group].append((evt.time_range.start, evt.time_range.end))
-        names[group][evt.name] = names[group].get(evt.name, 0) + 1
-    by_op = [(device_us(row), row.count, row.key) for row in prof.key_averages()
-             if row.device_type != DeviceType.CUDA and device_us(row) > 0]
-    total = busy_us([s for group in spans.values() for s in group])
-    split = {g: busy_us(s) for g, s in spans.items()}
-    return total, split, names, sorted(by_op, reverse=True)
+        spans.append((evt.time_range.start, evt.time_range.end))
+        group = names.setdefault(group_of(evt.name), {})
+        group[evt.name] = group.get(evt.name, 0) + 1
+    return union_s(spans), names
 
 
-def log_split(total: float, split, by_op) -> None:
-    for group, us in split.items():
-        log(f"[profile]   {group}: {us / 1e3:.3f} ms ({us / total:.1%})")
-    for us, count, key in by_op[:8]:
-        log(f"[profile]   by op: {us / 1e3:.3f} ms in {count} calls of {key[:80]}")
-
-
-def _annotated(cls, label: str):
-    """``cls.forward`` inside a ``record_function(label)`` range."""
-    from torch.profiler import record_function
-
-    forward = cls.forward
-
-    def wrapped(self, *args, **kwargs):
-        with record_function(label):
-            return forward(self, *args, **kwargs)
-    return wrapped
-
-
-def module_kernel_us(prof, labels):
-    """{label: (conv us, other us)}: the device time of the kernels launched
-    inside each ``record_function(label)`` range (a module's forward) and
-    inside the autograd engine's functions of the nodes those forwards made
-    (matched by sequence number): the module's forward and backward. Sums
-    of kernel durations, from each CPU op's own kernels."""
-    import bisect
-
-    from torch.autograd import DeviceType
-
-    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
-    spans = {label: {} for label in labels}
-
-    def add(label, e):
-        spans[label].setdefault(e.thread, []).append((e.time_range.start, e.time_range.end))
-
-    def inside(label, e):
-        ranges = spans[label].get(e.thread, [])
-        i = bisect.bisect_right(ranges, (e.time_range.start, math.inf)) - 1
-        return i >= 0 and e.time_range.end <= ranges[i][1]
-
-    for e in cpu:
-        if e.name in labels:
-            add(e.name, e)
-    for label in labels:
-        for ranges in spans[label].values():
-            ranges.sort()
-    seqs = {label: {e.sequence_nr for e in cpu if e.sequence_nr >= 0 and inside(label, e)}
-            for label in labels}
-    for e in cpu:
-        if e.name.startswith("autograd::engine::evaluate_function:"):
-            for label in labels:
-                if e.sequence_nr in seqs[label]:
-                    add(label, e)
-    for label in labels:
-        for ranges in spans[label].values():
-            ranges.sort()
-    conv_needles = PROFILE_GROUPS["cuDNN/cuBLAS convs and GEMMs"]
-    out = {}
-    for label in labels:
-        conv = other = 0.0
-        for e in cpu:
-            if e.kernels and inside(label, e):
-                for k in e.kernels:
-                    if any(n in k.name.lower() for n in conv_needles):
-                        conv += k.duration
-                    else:
-                        other += k.duration
-        out[label] = (conv, other)
-    return out
-
-
-def profile_step(dev, cfg, state, steady: dict, name: str, vgg=None,
-                 modes=("captured", "eager")) -> dict:
-    """Both modes (or those in ``modes``) on one batch, with no loader
-    running: ms/step in turns (captured, eager, eager, captured), then one
-    step of each under torch.profiler, split by kernel group: device time
-    (the union of kernel intervals) and the idle share against each mode's
-    ms/step in train() (``steady``, where it has the mode) and alone. A
-    profile must show the chain (as the kernel of the step's dtype: the
-    float32 cluster kernel or the bfloat16 tensor-core one), K1 and K2 as
-    often as the counters say. In TecoGAN mode VGG19's and the
-    discriminator's kernels are split out of the eager step's profile
-    (``record_function`` ranges are not replayed; :func:`module_kernel_us`).
-    Returns {mode: dict(device_ms, alone=(min, max) ms/step, split={group:
-    ms})}, and under "chain_bwd_ms" the eager step's chain backward."""
+def profile_step(dev, cfg, state, name: str, vgg=None, modes=("captured", "eager")) -> None:
+    """One step of each mode (or those in ``modes``) on one batch under
+    torch.profiler, after two unprofiled steps: the profile must show the
+    chain (as the kernel of the step's dtype: the float32 cluster kernel or
+    the bfloat16 tensor-core one), K1 and K2 as often as the counters say."""
     from torch.profiler import ProfilerActivity, profile
 
     from tecogan_tpu_torch.kernels import resblock_chain, upsample4, upsample4_bwd
-    from tecogan_tpu_torch.models import Discriminator, VGG19Features
     from tecogan_tpu_torch.train import Trainer
 
-    trainers = {mode: Trainer(cfg, dev, vgg=vgg, capture=None if mode == "captured" else False)
-                for mode in modes}
-    batch = frvsr_batch(cfg, cfg.batch_size, 21)
-    for trainer in trainers.values():
-        for _ in range(2):
-            trainer.train_step(state, batch)
-    alone = {mode: [] for mode in trainers}
-    for mode in [m for m in ("captured", "eager", "eager", "captured") if m in trainers]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
-            trainers[mode].train_step(state, batch)
-        torch.cuda.synchronize()
-        alone[mode].append((time.perf_counter() - t0) / PROFILE_STEPS * 1e3)
-    log(f"[profile] {name} on one batch, no loader running, {PROFILE_STEPS} steps a window "
-        f"in turns: " + "; ".join(f"{mode} {', '.join(f'{ms:.2f}' for ms in v)} ms/step"
-                                 for mode, v in alone.items()))
     kernels = {"resblock_chain": resblock_chain, "upsample4": upsample4,
                "upsample4_bwd": upsample4_bwd}
     want = step_launch_want(cfg)
     chain_name = ("resblock_kernel_wgmma" if cfg.compute_dtype == "bfloat16"
                   else "resblock_kernel_tf32x3")
-    summary = {}
-    for mode, trainer in trainers.items():
+    batch = frvsr_batch(cfg, cfg.batch_size, 21)
+    for mode in modes:
+        trainer = Trainer(cfg, dev, vgg=vgg, capture=None if mode == "captured" else False)
+        for _ in range(2):
+            trainer.train_step(state, batch)
         # The counters must count a step's launches every time. The
         # profile must show them too; a profile that misses one (CUPTI
         # has been seen to drop a kernel record of a replay: 10 of 11 K1
         # in phase 8's float32 replay on an H100) is taken again, at most
         # PROFILE_ATTEMPTS times.
         for attempt in range(1, PROFILE_ATTEMPTS + 1):
-            forwards = {cls: cls.forward for cls in (VGG19Features, Discriminator)}
             before = {k: w.launches for k, w in kernels.items()}
-            try:
-                if mode == "eager":
-                    VGG19Features.forward = _annotated(VGG19Features, "vgg19")
-                    Discriminator.forward = _annotated(Discriminator, "discriminator")
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    trainer.train_step(state, batch)
-                    torch.cuda.synchronize()
-            finally:
-                for cls, forward in forwards.items():
-                    cls.forward = forward
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                trainer.train_step(state, batch)
+                torch.cuda.synchronize()
             counted = {k: w.launches - before[k] for k, w in kernels.items()}
-            total, split, names, by_op = device_split(prof)
-            if total <= 0:
+            busy, names = device_kernels(prof)
+            if busy <= 0:
                 raise RuntimeError(f"[profile] {name} {mode}: torch.profiler recorded no "
                                    "device time")
-            chain = names["chain kernel"]
+            chain = names.get("chain", {})
             shown = {"resblock_chain": sum(n for key, n in chain.items() if chain_name in key),
-                     "upsample4": sum(names["K1 (flow upsample, bicubic skip)"].values()),
-                     "upsample4_bwd": sum(names["K2 (flow upsample backward)"].values())}
+                     "upsample4": sum(names.get("k1", {}).values()),
+                     "upsample4_bwd": sum(names.get("k2", {}).values())}
             log(f"[profile] {name} {mode}: the profile shows {shown} launches (the chain as "
                 f"{chain_name}); the counters {counted}; want {want}")
             if counted != want:
@@ -1497,50 +1213,17 @@ def profile_step(dev, cfg, state, steady: dict, name: str, vgg=None,
                                    f"in each of {attempt} profiles, counters {counted}")
             log(f"[profile] {name} {mode}: the profile missed launches the counters "
                 f"count; profiling again ({attempt} of {PROFILE_ATTEMPTS})")
-        ms = total / 1e3
-        in_train = (f"{steady[mode]:.2f} ms/step in train() (device idle share "
-                    f"{max(0.0, 1 - ms / steady[mode]):.1%}) and " if mode in steady else "")
-        log(f"[profile] one {name} step {mode}: {ms:.2f} ms of device time against "
-            f"{in_train}{min(alone[mode]):.2f}-"
-            f"{max(alone[mode]):.2f} ms/step on one batch with no loader running (idle "
-            f"{max(0.0, 1 - ms / min(alone[mode])):.1%}-{max(0.0, 1 - ms / max(alone[mode])):.1%})")
-        log_split(total, split, by_op)
-        summary[mode] = dict(device_ms=ms, alone=(min(alone[mode]), max(alone[mode])),
-                             split={g: us / 1e3 for g, us in split.items()})
-        if mode == "captured":
-            continue
-        replay = sum(device_us(e, total=True) for e in prof.events() if e.name.startswith(
-            "autograd::engine::evaluate_function: _ResblockChain"))
-        summary["chain_bwd_ms"] = replay / 1e3
-        log(f"[profile]   of which the chain's backward (plain-chain replay + its "
-            f"cuDNN backward, all kinds): {replay / 1e3:.3f} ms ({replay / total:.1%})")
-        if not cfg.gan:
-            continue
-        modules = module_kernel_us(prof, ("vgg19", "discriminator"))
-        convs = split["cuDNN/cuBLAS convs and GEMMs"]
-        for label, (conv, other) in modules.items():
-            log(f"[profile]   of which {label} (forward and backward, kernel durations): "
-                f"convs {conv / 1e3:.3f} ms ({conv / total:.1%}), other kernels "
-                f"{other / 1e3:.3f} ms ({other / total:.1%})")
-            convs -= conv
-        if not all(conv > 0 for conv, _ in modules.values()):
-            log("[profile]   (the module attribution found no kernels: the profiler's CPU "
-                "ops carry no kernels here)")
-        log(f"[profile]   other cuDNN/cuBLAS (the chain's backward replay, FNet, the "
-            f"generator's stem and upsample, the Gaussian): {convs / 1e3:.3f} ms "
-            f"({convs / total:.1%})")
-    return summary
 
 
 def profiled_launches(names, chain_want: int, k1_want: int, label: str):
     """The profile's launches of the bfloat16 chain kernel and of K1, which
     must equal the counters' (``want``): the chain only as
     ``resblock_kernel_wgmma``. Returns (chain, K1)."""
-    chain = names["chain kernel"]
+    chain = names.get("chain", {})
     for key, count in chain.items():
         log(f"[profile]   chain kernel: {count} launches of {key[:100]}")
     wgmma = sum(n for key, n in chain.items() if "resblock_kernel_wgmma" in key)
-    k1 = sum(names["K1 (flow upsample, bicubic skip)"].values())
+    k1 = sum(names.get("k1", {}).values())
     log(f"[profile]   {label}: the profile shows {wgmma} launches of resblock_kernel_wgmma "
         f"and {k1} of K1; the counters {chain_want} and {k1_want}")
     if (wgmma, k1) != (chain_want, k1_want) or sum(chain.values()) != wgmma:
@@ -1550,31 +1233,21 @@ def profiled_launches(names, chain_want: int, k1_want: int, label: str):
     return wgmma, k1
 
 
-def profile_streaming(sr, frames, secs: float, launches) -> dict:
-    """One StreamingSR.run under torch.profiler, split by kernel group; the
-    profile's chain (the bfloat16 tensor-core kernel) and K1 launches must
-    equal the counters' ``launches`` of a run. Returns the device time and
-    the idle share against ``secs`` of unprofiled wall."""
+def profile_streaming(sr, frames, launches) -> None:
+    """One StreamingSR.run under torch.profiler: the profile's chain (the
+    bfloat16 tensor-core kernel) and K1 launches must equal the counters'
+    ``launches`` of a run."""
     from torch.profiler import ProfilerActivity, profile
 
     mode = "captured" if sr.capture else "eager (capture=False)"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sr.run(frames, warmup=WARMUP)
         torch.cuda.synchronize()
-    total, split, names, by_op = device_split(prof)
-    if total <= 0:
+    busy, names = device_kernels(prof)
+    if busy <= 0:
         raise RuntimeError(f"[profile] streaming {mode}: torch.profiler recorded no device time")
-    idle = max(0.0, 1 - total / 1e3 / (secs * 1e3))
-    log(f"[profile] streaming {mode}, one StreamingSR.run of {FRAMES} frames: "
-        f"{total / 1e3:.2f} ms of device time, {total / 1e3 / FRAMES:.3f} ms/frame, "
-        f"against {secs * 1e3:.2f} ms of wall unprofiled ({FRAMES / secs:.2f} "
-        f"frames/s processed; device idle share {idle:.1%})")
-    log_split(total, split, by_op)
     profiled_launches(names, launches["resblock_chain"], launches["upsample4"],
                       f"streaming {mode}")
-    return {"device_ms": total / 1e3, "idle": idle,
-            "chain_ms": split["chain kernel"] / 1e3,
-            "k1_ms": split["K1 (flow upsample, bicubic skip)"] / 1e3}
 
 
 def build_models(seed: int, config):
@@ -1604,8 +1277,8 @@ def check_path_vs_cpu(dev) -> float:
     outs = []
     for device in (dev, torch.device("cpu")):
         sr = StreamingSR(cfg, *build_models(5, cfg), output="float32", device=device)
-        out, secs = sr.run(frames)
-        log(f"[path] {device}: {out.shape} in {secs:.2f} s")
+        out, _ = sr.run(frames)
+        log(f"[path] {device}: {out.shape}")
         outs.append(torch.from_numpy(out))
     if outs[0].shape != (6, 256, 384, 3):
         raise RuntimeError(f"unexpected output shape {tuple(outs[0].shape)}")
@@ -1622,9 +1295,9 @@ def run_main_path(dev, card: str):
     """Phase 6: the streaming path at size, captured (the default on the
     card) and with ``capture=False``, in the same call: the two outputs
     bit-equal under cuDNN's deterministic algorithms; then, with the
-    default flags, each mode's frames/s (runs in turns: eager, captured,
-    captured, eager), launches, peak memory (and the graph's pool) and a
-    profile. Returns the captured run's launch counts."""
+    default flags, each mode's launches and captures in a run after its
+    first, and a profile of one run of each. Returns the captured run's
+    launch counts."""
     from tecogan_tpu_torch.config import TecoConfig
     from tecogan_tpu_torch.kernels import bias_relu_crop, resblock_chain, upsample4
     from tecogan_tpu_torch.recurrent import StreamingSR
@@ -1655,66 +1328,30 @@ def run_main_path(dev, card: str):
         raise RuntimeError("[main] the captured streaming run differs from the eager one")
 
     # (b) Each mode with the default flags: a first run (the capture, for
-    # the captured mode), peak memory from there; then timed runs in turns.
-    runs = {}
-    for mode, capture in modes.items():
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        captures = CapturedProgram.captures
-        sr = StreamingSR(cfg, *models, output="uint8", device=dev, capture=capture)
-        _, first = sr.run(frames, warmup=WARMUP)
-        torch.cuda.synchronize()
-        pool = sum(c.run.pool_bytes() for c in sr._chunks.values()) if sr.capture else 0
-        runs[mode] = {"sr": sr, "secs": [], "first_s": first, "capture_s": sr.capture_s,
-                      "captures": CapturedProgram.captures - captures,
-                      "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20,
-                      "reserved_mib": torch.cuda.max_memory_reserved() / 2**20,
-                      "pool_mib": pool / 2**20}
-    for mode in ("eager", "captured", "captured", "eager"):
-        rec = runs[mode]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        upsample4.launches = 0
-        resblock_chain.launches = 0
-        bias_relu_crop.launches = 0
-        hr, secs = rec["sr"].run(frames, warmup=WARMUP)
-        rec["launches"] = {"upsample4": upsample4.launches,
-                           "resblock_chain": resblock_chain.launches,
-                           "bias_relu_crop": bias_relu_crop.launches}
-        rec["steady_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
-        rec["secs"].append(secs)
-        if hr.shape != want or hr.dtype != np.uint8 or hr.min() == hr.max():
-            raise RuntimeError(f"[main] {mode}: output {hr.shape} {hr.dtype}, want {want} uint8")
+    # the captured mode), then a run whose launches are counted.
     need = {"upsample4": FRAMES + FRAMES // CHUNK, "resblock_chain": NUM_RESBLOCK * FRAMES,
             "bias_relu_crop": 2 * FRAMES}
-    for mode, rec in runs.items():
-        log(f"[main] {mode}: launches of a run {rec['launches']}, want {need}")
-        if rec["launches"] != need:
-            raise RuntimeError(f"[main] {mode} launched {rec['launches']}, want {need}")
+    runs = {}
+    for mode, capture in modes.items():
+        captures = CapturedProgram.captures
+        sr = StreamingSR(cfg, *models, output="uint8", device=dev, capture=capture)
+        sr.run(frames, warmup=WARMUP)
+        upsample4.launches = resblock_chain.launches = bias_relu_crop.launches = 0
+        hr, _ = sr.run(frames, warmup=WARMUP)
+        launches = {"upsample4": upsample4.launches, "resblock_chain": resblock_chain.launches,
+                    "bias_relu_crop": bias_relu_crop.launches}
+        runs[mode] = {"sr": sr, "launches": launches,
+                      "captures": CapturedProgram.captures - captures}
+        if hr.shape != want or hr.dtype != np.uint8 or hr.min() == hr.max():
+            raise RuntimeError(f"[main] {mode}: output {hr.shape} {hr.dtype}, want {want} uint8")
+        log(f"[main] {mode}: launches of a run {launches}, want {need}; card: {card}")
+        if launches != need:
+            raise RuntimeError(f"[main] {mode} launched {launches}, want {need}")
     if (runs["captured"]["captures"], runs["eager"]["captures"]) != (1, 0):
         raise RuntimeError(f"[main] captures: {runs['captured']['captures']} captured, "
                            f"{runs['eager']['captures']} eager; want 1 and 0")
-    for mode, rec in runs.items():
-        secs = min(rec["secs"])
-        rec["frames_per_s"] = [FRAMES / s for s in rec["secs"]]
-        log(f"[main] {mode}: {FRAMES} frames ({FRAMES - WARMUP} delivered) {LR_H}x{LR_W} -> "
-            f"{4 * LR_H}x{4 * LR_W}, bfloat16, {NUM_RESBLOCK} resblocks, chunk {CHUNK}: "
-            f"runs of {', '.join(f'{s:.4f}' for s in rec['secs'])} s wall, "
-            f"{', '.join(f'{f:.2f}' for f in rec['frames_per_s'])} frames/s processed "
-            f"({(FRAMES - WARMUP) / secs:.2f} delivered at best); the first run "
-            f"{rec['first_s']:.3f} s (of which building the chunk's program "
-            f"{rec['capture_s']:.3f} s); peak allocated above the models "
-            f"{rec['peak_mib']:.0f} MiB in the first run, {rec['steady_peak_mib']:.0f} MiB in a "
-            f"later one; graph pool {rec['pool_mib']:.0f} MiB; card: {card}")
-    for mode in ("captured", "eager"):
-        rec = runs[mode]
-        rec.update(profile_streaming(rec["sr"], frames, float(np.median(rec["secs"])),
-                                     rec["launches"]))
-    log("[main] streaming records " + json.dumps(
-        {m: {k: v for k, v in r.items() if k != "sr"} for m, r in runs.items()}))
+    for rec in runs.values():
+        profile_streaming(rec["sr"], frames, rec["launches"])
     return runs["captured"]["launches"]
 
 
@@ -1757,7 +1394,6 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
     # (a) 41 HR PNGs and the phase-6 model (16 blocks) as a params npz.
     hr_dir, npz = os.path.join(tmp, "cli_hr"), os.path.join(tmp, "cli_params.npz")
     os.makedirs(hr_dir)
-    t0 = time.perf_counter()
     hr = (synthetic_clip(CLI_FRAMES, 4 * LR_H, 4 * LR_W, seed=31, content="natural")
           * 255).astype(np.uint8)
     with ThreadPoolExecutor(8) as pool:
@@ -1767,14 +1403,13 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
     gen_tree, fnet_tree = to_jax_params(*build_models(6, cfg))
     params_to_npz(npz, generator=gen_tree, fnet=fnet_tree)
     log(f"[cli] {CLI_FRAMES} synthetic HR PNGs of {4 * LR_H}x{4 * LR_W} and a "
-        f"{NUM_RESBLOCK}-block params npz written in {time.perf_counter() - t0:.1f} s")
+        f"{NUM_RESBLOCK}-block params npz written")
 
     # (b) The CLI, in-process, as a user calls it; counted. Run 1 and the
     # direct StreamingSR.run it is compared with use cuDNN's deterministic
     # algorithms: a transposed conv may otherwise sum with atomics, and one
     # float ulp can flip a uint8 level. Run 2, into another directory, keeps
-    # PyTorch's default flags, as a user's run does, and shows the spread of
-    # the wall time.
+    # PyTorch's default flags, as a user's run does, with the python codec.
     def cli(out_dir, *extra, codec="native", mesh_devices=None):
         """One CLI run with the native or the python PNG codec (and the
         parallel flags' devices, as a library caller places them); ``stats``
@@ -1783,13 +1418,11 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
         counts = codec_counts()
         with contextlib.redirect_stdout(printed), (
                 python_codec() if codec == "python" else contextlib.nullcontext()):
-            t0 = time.perf_counter()
             stats = cli_main.main(["--mode", "inference", "--input_dir_HR", hr_dir,
                                    "--output_dir", out_dir, "--device", "cuda", *extra],
                                   mesh_devices=mesh_devices)
-            wall = time.perf_counter() - t0
         stats.update(codec=codec, native=tuple(n - c for n, c in zip(codec_counts(), counts)))
-        return stats, wall, printed.getvalue()
+        return stats, printed.getvalue()
 
     out_dir = os.path.join(tmp, "cli_out")
     argv = ["--params_npz", npz, "--compute_dtype", "bfloat16", "--infer_chunk", str(CHUNK)]
@@ -1822,9 +1455,9 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
                 ("--pipeline float32", ["--pipeline"], argv32))):
             _zero_counts()
             before = CapturedProgram.captures
-            stats, wall, printed = cli(os.path.join(tmp, f"cli_par{k}"), *args, *flags,
-                                       mesh_devices=[card_dev] * 2 if flags else None)
-            par[name] = dict(stats=stats, wall=wall, launches=_launch_counts(),
+            stats, printed = cli(os.path.join(tmp, f"cli_par{k}"), *args, *flags,
+                                 mesh_devices=[card_dev] * 2 if flags else None)
+            par[name] = dict(stats=stats, launches=_launch_counts(),
                              captures=CapturedProgram.captures - before,
                              io=[ln for ln in printed.splitlines() if ln.startswith("io:")])
         sharded = StreamingSR(cfg, *from_jax_params(trees["generator"], trees["fnet"]),
@@ -1833,11 +1466,10 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
         direct_sharded, _ = sharded.run(data.inputs, warmup=WARMUP)
     finally:
         torch.backends.cudnn.deterministic = False
-    # Runs 2-5 keep the default flags, the PNG codecs in turns (phase 9b
+    # Run 2 keeps the default flags, with the python PNG codec (phase 9b
     # holds the two codecs' pixels equal).
-    for codec in ("native", "python", "python", "native"):
-        runs.append(cli(os.path.join(tmp, f"cli_out{len(runs) + 1}"), *argv, codec=codec))
-    for i, (stats, _, _) in enumerate(runs, 1):
+    runs.append(cli(os.path.join(tmp, "cli_out2"), *argv, codec="python"))
+    for i, (stats, _) in enumerate(runs, 1):
         want = (CLI_FRAMES, CLI_FRAMES) if stats["codec"] == "native" else (0, 0)
         if stats["native"] != want:
             raise RuntimeError(f"[cli] run {i} ({stats['codec']} codec): the native library "
@@ -1869,26 +1501,20 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
     if launches != need or captures != 1:
         raise RuntimeError(f"[cli] launched {launches} with {captures} captures, want "
                            f"{need} and 1")
-    for i, (stats, wall, printed) in enumerate(runs, 1):
+    for i, (stats, _) in enumerate(runs, 1):
         flags = "cuDNN deterministic" if i == 1 else "default flags"
         log(f"[cli] run {i} ({flags}, {stats['codec']} PNG codec: the native library decoded "
             f"and encoded {stats['native']} frames): {CLI_FRAMES} HR PNGs {4 * LR_H}x{4 * LR_W} "
-            f"-> LR {LR_H}x{LR_W} "
-            f"(+{WARMUP} warm-up) -> {stats['written']} HR PNGs, bfloat16, "
-            f"{NUM_RESBLOCK} resblocks, chunk {CHUNK}: decode + blur "
-            f"{stats['decode_s']:.3f} s, stream {stats['stream_s']:.3f} s "
-            f"({stats['frames'] / stats['stream_s']:.2f} frames/s processed; of it the "
-            f"capture {stats['capture_s']:.3f} s), encode {stats['encode_s']:.3f} s on the "
-            f"writer thread, writer flush {stats['flush_s']:.3f} s, {stats['threads']} encode "
-            f"threads; end to end {wall:.3f} s wall, {stats['written'] / wall:.2f} frames/s "
-            f"PNG dir to PNG dir; card: {card}")
-    for line in runs[0][2].splitlines():
+            f"-> LR {LR_H}x{LR_W} (+{WARMUP} warm-up) -> {stats['written']} HR PNGs, bfloat16, "
+            f"{NUM_RESBLOCK} resblocks, chunk {CHUNK}, {stats['threads']} encode threads; "
+            f"card: {card}")
+    for line in runs[0][1].splitlines():
         if line.startswith(("total time", "Wrote", "io:")):
             log(f"[cli] | {line}")
     # The parallel flags: each run's PNGs against its reference, its
     # launches (2 shards: twice the plain run's; the pipeline: the plain
     # run's), its captures (1 a chunk shape sharded or plain, 2 pipelined)
-    # and the program seconds inside the stream.
+    # and a program built inside the stream.
     got32 = read_frames([os.path.join(par["plain float32"]["stats"]["out_dir"], n)
                          for n in names])
     if got32.shape != got.shape or got32.min() == got32.max():
@@ -1911,10 +1537,7 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
             f"{stats['written']} PNGs "
             f"{'byte-equal to' if same else 'DIFFERING from'} {against}; "
             f"route {stats['route']}; launches {rec['launches']} (want {want}), "
-            f"{rec['captures']} capture(s) (want {want_captures}); stream "
-            f"{stats['stream_s']:.3f} s, program {stats['capture_s']:.3f} s, decode + blur "
-            f"{stats['decode_s']:.3f} s, writer flush {stats['flush_s']:.3f} s; end to end "
-            f"{rec['wall']:.3f} s wall; card: {card}")
+            f"{rec['captures']} capture(s) (want {want_captures}); card: {card}")
         for line in rec["io"]:
             log(f"[cli] {name} | {line}")
         if (not same or rec["launches"] != want or rec["captures"] != want_captures
@@ -1926,8 +1549,8 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
                                f"{stats['route']!r}")
 
     # (d) The checkpoint route: phase 8's 10-block checkpoint, float32.
-    stats, wall, printed = cli(os.path.join(tmp, "cli_ckpt"), "--checkpoint", ckpt_dir,
-                               "--max_frames", "10")
+    stats, printed = cli(os.path.join(tmp, "cli_ckpt"), "--checkpoint", ckpt_dir,
+                         "--max_frames", "10")
     note = [ln for ln in printed.splitlines() if ln.startswith(("Loaded checkpoint", "NOTE:"))]
     if stats["written"] != 10 or not any(
             "NOTE: checkpoint has 10 resblocks; overriding --num_resblock 16" in ln
@@ -1935,16 +1558,14 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
         raise RuntimeError(f"[cli] --checkpoint run: {stats}, {note}")
     for line in note:
         log(f"[cli] --checkpoint | {line}")
-    log(f"[cli] --checkpoint: {stats['written']} frames, float32, in {wall:.3f} s")
+    log(f"[cli] --checkpoint: {stats['written']} frames, float32")
 
     # (e) The metrics CLI on the 41 outputs against their HR frames.
     metrics_dir = os.path.join(tmp, "cli_metrics")
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
-        t0 = time.perf_counter()
         avg = cli_metrics.main(["--output", metrics_dir, "--results", out_dir,
                                 "--targets", hr_dir, "--device", "cuda"])
-        wall = time.perf_counter() - t0
     header = Path(metrics_dir, "metrics.csv").read_text().splitlines()[0]
     scored = CLI_FRAMES - 4
     if "tOF_00" not in header or sorted(avg) != [
@@ -1952,7 +1573,7 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
             math.isfinite(v) for v in avg.values()):
         raise RuntimeError(f"[eval] metrics CLI: header {header}, {avg}")
     log(f"[eval] cli.metrics --device cuda, {scored} frames scored (PSNR, SSIM, tOF; "
-        f"no LPIPS weights): {wall:.3f} s, {wall / scored:.4f} s/frame; "
+        f"no LPIPS weights): "
         + ", ".join(f"{k} {v:.6f}" for k, v in avg.items()) + f"; card: {card}")
 
     # (f) evaluate_folders with a seeded random LPIPS, card against CPU.
@@ -1966,16 +1587,11 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
     lin = [np.abs(rng.randn(c)).astype(np.float32) for c in (64, 192, 384, 256, 256)]
     evals = []
     for device in (dev, torch.device("cpu")):
-        timings = {}
         with contextlib.redirect_stdout(io.StringIO()):
-            t0 = time.perf_counter()
             avg = evaluate_folders([res8], [tar8], os.path.join(tmp, f"eval_{len(evals)}"),
-                                   lpips_model=LPIPS(alex, lin, device), device=device,
-                                   timings=timings)
-            wall = time.perf_counter() - t0
-        evals.append((avg, timings, wall, _csv_cells(
-            os.path.join(tmp, f"eval_{len(evals)}", "metrics.csv"))))
-    (avg_d, t_d, wall_d, cells_d), (avg_c, t_c, wall_c, cells_c) = evals
+                                   lpips_model=LPIPS(alex, lin, device), device=device)
+        evals.append((avg, _csv_cells(os.path.join(tmp, f"eval_{len(evals)}", "metrics.csv"))))
+    (avg_d, cells_d), (avg_c, cells_c) = evals
     if [(n, i) for n, i, _ in cells_d] != [(n, i) for n, i, _ in cells_c]:
         raise RuntimeError("[eval] card and CPU metrics.csv differ in layout")
     scored = sum(name == "PSNR_00" for name, _, _ in cells_d)
@@ -1996,11 +1612,6 @@ def run_cli(dev, card: str, tmp: str, ckpt_dir: str):
         f"tol {EVAL_TOL:.0e}")
     if sorted(worst) != ["LPIPS", "tLP100", "tOF"] or max(worst.values()) > EVAL_TOL:
         raise RuntimeError(f"[eval] card vs CPU: {worst}")
-    n = CLI_EVAL_FRAMES - 4
-    for name, t, wall in (("card", t_d, wall_d), ("CPU", t_c, wall_c)):
-        log(f"[eval] {name}: {wall / n:.4f} s/frame in all: PNG read {t['read'] / n:.4f}, "
-            f"PSNR+SSIM {t['psnr_ssim'] / n:.4f}, Farneback {t['farneback'] / n:.4f}, "
-            f"LPIPS {t['lpips'] / n:.4f} s/frame; card: {card}")
     log("[eval] FrameAvg card: " + ", ".join(f"{k} {v:.6f}" for k, v in avg_d.items()))
     log("[eval] FrameAvg CPU:  " + ", ".join(f"{k} {v:.6f}" for k, v in avg_c.items()))
     return launches
@@ -2030,9 +1641,7 @@ def check_gan_step_vs_cpu(dev) -> dict:
                 disc = state.discriminator
                 d_before = {n: p.detach().cpu().clone() for n, p in disc.named_parameters()}
                 stats_before = {n: b.detach().cpu().clone() for n, b in disc.named_buffers()}
-                t0 = time.perf_counter()
                 _, metrics = trainer.train_step(state, batch)
-                secs = time.perf_counter() - t0
                 grads = {}
                 for prefix, module in (("generator", state.generator), ("fnet", state.fnet),
                                        ("discriminator", disc)):
@@ -2049,7 +1658,7 @@ def check_gan_step_vs_cpu(dev) -> dict:
                     counters=(int(state.counter_with_d), int(state.counter_wo_d),
                               int(state.d_opt.count))))
                 log(f"[gan step] {device} ({'captured' if trainer.capture else 'eager'}), "
-                    f"gate {gate}: one step in {secs:.2f} s, "
+                    f"gate {gate}: one step, "
                     + ", ".join(f"{k} {v:.6f}" for k, v in sorted(runs[-1]["losses"].items())))
             gpu, cpu = runs
             if gate == "open":
@@ -2116,8 +1725,7 @@ def run_tecogan_training(dev, card: str, tmp: str):
     FRVSR checkpoint, captured: 20 steps and a resume to 25; then 10 steps
     with ``capture=False`` from the same warm start; then the captured and
     eager programs stepped 3 times from one state and compared, and the
-    profile. Returns the launches of one steady ``train_step`` and a
-    summary for phase 11b (as phase 8's)."""
+    profile's launches. Returns the launches of one steady ``train_step``."""
     import io
 
     from tecogan_tpu_torch.config import TECOGAN_PRESET
@@ -2155,10 +1763,10 @@ def run_tecogan_training(dev, card: str, tmp: str):
         if line.startswith(("step ", "Resumed", "Saved", "Dataset", "Warm-started",
                             "warm_start", "WARNING")):
             log(f"[gan train] | {line}")
-    if state.step != GAN_RESUME_STEPS or len(modes["captured"]["secs"]) != GAN_RESUME_STEPS \
+    if state.step != GAN_RESUME_STEPS or len(modes["captured"]["launches"]) != GAN_RESUME_STEPS \
             or modes["eager"]["state"].step != GAN_EAGER_STEPS:
         raise RuntimeError(f"[gan train] steps to {state.step}, "
-                           f"{len(modes['captured']['secs'])} step calls; eager "
+                           f"{len(modes['captured']['launches'])} step calls; eager "
                            f"{modes['eager']['state'].step}")
     for want in (f"Warm-started weights from {frvsr_ckpt}",
                  "warm_start: partial generator restore", f"Resumed from step {GAN_STEPS}"):
@@ -2190,15 +1798,11 @@ def run_tecogan_training(dev, card: str, tmp: str):
         f"{GAN_STEPS} steps, resumed to {GAN_RESUME_STEPS}; eager {GAN_EAGER_STEPS}; gate: "
         f"{counters[0]} steps with D, {counters[1]} without, t_balance EMA "
         f"{float(state.ema_tbalance):.4f}; {len(rows)} scalar rows")
-    log_modes("[gan train]", cfg, modes, {"captured": (10, GAN_STEPS),
-                                          "eager": (GAN_EAGER_STEPS - 5, GAN_EAGER_STEPS)}, card)
     check_captured_equals_eager(dev, cfg, "[gan train]", vgg=vgg)
     GENERATE["TECOGAN_PRESET float32"] = dict(summaries, **check_generate(
         dev, cfg, state, "[gan train]", card, vgg=vgg()))
-    prof = profile_step(dev, cfg, state, {m: modes[m]["ms"] for m in modes}, "TECOGAN_PRESET",
-                        vgg=vgg())
-    return step, dict(ms=modes["captured"]["ms"], peak=modes["captured"]["peak"],
-                      pool=modes["captured"]["pool"], profile=prof)
+    profile_step(dev, cfg, state, "TECOGAN_PRESET", vgg=vgg())
+    return step
 
 
 # ---------------------------------------------------------------- bfloat16 training
@@ -2221,11 +1825,9 @@ def run_tecogan_training(dev, card: str, tmp: str):
 # the card 5.5e-3).
 BF16_LOSS_RTOL, BF16_D_LOSS_RTOL = 1e-3, 2.0 ** -6
 BF16_GRAD_OWN, BF16_GRAD_FLOOR, BF16_GRAD_MEDIAN = 2.0, 0.02, 0.08
-# Phase 8c: FRVSR_PRESET in bfloat16 through train(), captured, paced over
-# steps 11-25 (0-based starts 10 and 24); phase 11b: TECOGAN_PRESET, steps
-# 4-10.
-BF16_TRAIN_STEPS, BF16_STEADY = 25, (10, 24)
-BF16_GAN_STEPS, BF16_GAN_STEADY = 10, (3, 9)
+# Steps of phase 8c (FRVSR_PRESET in bfloat16 through train(), captured) and
+# of phase 11b (TECOGAN_PRESET).
+BF16_TRAIN_STEPS, BF16_GAN_STEPS = 25, 10
 # The library entries a bfloat16 training step calls, and no other.
 BF16_ENTRIES = {"tt_resblock_chain_bf16", "tt_upsample4_bf16", "tt_upsample4_bwd_bf16"}
 
@@ -2286,10 +1888,8 @@ def bf16_step_vs_cpu(dev, label: str, cfg, batch, cpu_f32: dict, vgg_seed=None) 
         if cfg.gan:
             state.ema_tbalance = torch.tensor(-100.0, device=device)
         before = {k: w.launches for k, w in kernels.items()}
-        t0 = time.perf_counter()
         with entries_called() as entries:
             _, metrics = trainer.train_step(state, batch)
-        secs = time.perf_counter() - t0
         grads = {}
         for prefix, module in (("generator", state.generator), ("fnet", state.fnet),
                                ("discriminator", state.discriminator)):
@@ -2302,7 +1902,7 @@ def bf16_step_vs_cpu(dev, label: str, cfg, batch, cpu_f32: dict, vgg_seed=None) 
                          grads=grads, entries=entries,
                          launches={k: w.launches - before[k] for k, w in kernels.items()}))
         log(f"{label} {device} ({'captured' if trainer.capture else 'eager'}): one bfloat16 "
-            f"step in {secs:.2f} s, library entries {entries}, launches {runs[-1]['launches']}, "
+            f"step, library entries {entries}, launches {runs[-1]['launches']}, "
             + ", ".join(f"{k} {v:.6f}" for k, v in sorted(runs[-1]["losses"].items())))
     gpu, cpu = runs
     want = {k: 2 * n for k, n in step_launch_want(cfg).items()}
@@ -2373,59 +1973,34 @@ def check_bf16_gan_step_vs_cpu(dev, cpu_f32: dict) -> None:
         torch.backends.cudnn.allow_tf32 = saved
 
 
-def bf16_train(dev, cfg, out_dir: str, steps: int, steady, label: str, **train_kw) -> dict:
+def bf16_train(dev, cfg, out_dir: str, steps: int, label: str, **train_kw) -> dict:
     """``train()`` of ``cfg`` (bfloat16) for ``steps`` steps, captured (the
-    default), paced by the device as a user's run: nothing synchronises
-    inside, and a step's time is the gap between successive steps' starts
-    over ``steady``. Each step's launches are read on the host (a replay
-    adds its capture's): exactly a step's, twice that at the first (its
-    warm-up and one replay); only the bfloat16 library entries run; the
-    state stays float32. Returns the state, ms/step, peak and graph pool
-    MiB, capture s, one steady step's launches and train()'s output."""
+    default), as a user's run: nothing synchronises inside. Each step's
+    launches are read on the host (a replay adds its capture's): exactly a
+    step's, twice that at the first (its warm-up and one replay); only the
+    bfloat16 library entries run; the state stays float32. Returns the
+    state, one steady step's launches, train()'s output, the entries and
+    the summaries' launches."""
     import io
 
     from tecogan_tpu_torch.kernels import resblock_chain, upsample4, upsample4_bwd
-    from tecogan_tpu_torch.train import Trainer
     from tecogan_tpu_torch.train.loop import train
     from tecogan_tpu_torch.train.trainer import named_state_tensors
 
     kernels = {"resblock_chain": resblock_chain, "upsample4": upsample4,
                "upsample4_bwd": upsample4_bwd}
-    starts, launches, trainers = [], [], []
-    train_step = Trainer.train_step
-
-    def step(self, state, hr_seq):
-        if self not in trainers:
-            trainers.append(self)
-        before = {k: w.launches for k, w in kernels.items()}
-        starts.append(time.perf_counter())
-        out = train_step(self, state, hr_seq)
-        launches.append({k: w.launches - before[k] for k, w in kernels.items()})
-        return out
-
     printed = io.StringIO()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    Trainer.train_step = step
-    try:
-        with contextlib.redirect_stdout(printed), entries_called() as entries, \
-                watched_summaries(kernels) as (calls, writes):
-            state = train(cfg, out_dir, dev, max_steps=steps, test_while_train=False, **train_kw)
-        torch.cuda.synchronize()
-    finally:
-        Trainer.train_step = train_step
-    wall = time.perf_counter() - t0
+    with contextlib.redirect_stdout(printed), entries_called() as entries, \
+            watched_summaries(kernels) as (calls, writes), \
+            counted_train_steps(kernels) as (launches, trainers):
+        state = train(cfg, out_dir, dev, max_steps=steps, test_while_train=False, **train_kw)
+        if len(trainers) != 1 or not trainers[0].capture or trainers[0].recaptures:
+            raise RuntimeError(f"{label}: {len(trainers)} trainers, capture "
+                               f"{[t.capture for t in trainers]}")
+        del trainers[:]
     text = printed.getvalue()
-    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-    if len(trainers) != 1 or not trainers[0].capture or trainers[0].recaptures:
-        raise RuntimeError(f"{label}: {len(trainers)} trainers, capture "
-                           f"{[t.capture for t in trainers]}")
-    pool, capture_s = trainers[0].pool_bytes() / 2**20, trainers[0].capture_s
-    del trainers[:]
-    if state.step != steps or len(starts) != steps:
-        raise RuntimeError(f"{label}: {state.step} steps, {len(starts)} step calls")
+    if state.step != steps or len(launches) != steps:
+        raise RuntimeError(f"{label}: {state.step} steps, {len(launches)} step calls")
     check_step_launches(launches, (0,), step_launch_want(cfg), label)
     # The summaries' generate calls run the generator with no gradient to
     # record: its transposed convs take the epilogue's bfloat16 entry.
@@ -2442,40 +2017,15 @@ def bf16_train(dev, cfg, out_dir: str, steps: int, steady, label: str, **train_k
         raise RuntimeError(f"{label}: loss EMAs {state.ema_losses}")
     summaries = check_summaries(label, cfg, {os.path.join(out_dir, "log"): [steps]}, calls,
                                 writes)
-    a, b = steady
-    return dict(state=state, ms=(starts[b] - starts[a]) / (b - a) * 1e3, peak=peak, pool=pool,
-                capture_s=capture_s, launches=launches[-1], text=text, wall=wall,
-                entries=entries, summaries=summaries)
+    return dict(state=state, launches=launches[-1], text=text, entries=entries,
+                summaries=summaries)
 
 
-def log_against_f32(label: str, name: str, bf16: dict, prof: dict, f32: dict) -> None:
-    """bfloat16 beside float32 from the same call: the replay's device time
-    and split, one batch alone, the eager chain backward, peak and pool."""
-    b, f = prof["captured"], f32["profile"]["captured"]
-    log(f"{label} {name}, bfloat16 beside float32 (same call): a replay's device time "
-        f"{b['device_ms']:.2f} vs {f['device_ms']:.2f} ms; one batch alone, captured, "
-        f"{b['alone'][0]:.2f}-{b['alone'][1]:.2f} vs {f['alone'][0]:.2f}-{f['alone'][1]:.2f} "
-        f"ms/step; peak {bf16['peak']:.0f} vs {f32['peak']:.0f} MiB above the run's start; "
-        f"graph pool {bf16['pool']:.0f} vs {f32['pool']:.0f} MiB")
-    log(f"{label} {name} replay split, bfloat16 vs float32 ms: " + "; ".join(
-        f"{g} {b['split'][g]:.3f} vs {f['split'][g]:.3f}" for g in b["split"]))
-    if "eager" in prof:
-        e, fe = prof["eager"], f32["profile"]["eager"]
-        log(f"{label} {name} eager step, bfloat16 vs float32: device {e['device_ms']:.2f} vs "
-            f"{fe['device_ms']:.2f} ms, of which the chain's backward (plain-chain replay on "
-            f"cuDNN) {prof['chain_bwd_ms']:.3f} vs {f32['profile']['chain_bwd_ms']:.3f} ms, "
-            f"the chain forward {e['split']['chain kernel']:.3f} vs "
-            f"{fe['split']['chain kernel']:.3f} ms; alone {e['alone'][0]:.2f}-"
-            f"{e['alone'][1]:.2f} vs {fe['alone'][0]:.2f}-{fe['alone'][1]:.2f} ms/step")
-
-
-def run_bf16_training(dev, card: str, tmp: str, f32: dict, f32_paced: dict):
+def run_bf16_training(dev, card: str, tmp: str):
     """Phase 8c: FRVSR_PRESET in bfloat16 through ``train()`` on phase 8's
-    scenes, captured, paced (:func:`bf16_train`); 3 captured steps against
-    3 eager ones, bit-equal; the profile, whose chain is the bfloat16
-    tensor-core kernel; everything beside phase 8's float32 numbers
-    (``f32``) and phase 8b's paced float32 ``train()`` (``f32_paced``).
-    Returns one step's launches."""
+    scenes, captured (:func:`bf16_train`); 3 captured steps against 3 eager
+    ones, bit-equal; the profile's launches, whose chain is the bfloat16
+    tensor-core kernel. Returns one step's launches."""
     from tecogan_tpu_torch.config import FRVSR_PRESET
     from tecogan_tpu_torch.train import Trainer
 
@@ -2483,8 +2033,7 @@ def run_bf16_training(dev, card: str, tmp: str, f32: dict, f32_paced: dict):
                                input_video_dir=os.path.join(tmp, "scenes"),
                                max_frm=SCENE_FRAMES - 1, display_freq=10**6,
                                summary_freq=10**6, save_freq=10**6)
-    r = bf16_train(dev, cfg, os.path.join(tmp, "bf16_run"), BF16_TRAIN_STEPS, BF16_STEADY,
-                   "[bf16 train]")
+    r = bf16_train(dev, cfg, os.path.join(tmp, "bf16_run"), BF16_TRAIN_STEPS, "[bf16 train]")
     state = r["state"]
     fresh = Trainer(cfg, "cpu").init_state(cfg.rand_seed)
     for prefix, m0, m1 in (("generator", fresh.generator, state.generator),
@@ -2492,33 +2041,24 @@ def run_bf16_training(dev, card: str, tmp: str, f32: dict, f32_paced: dict):
         for (name, p0), p1 in zip(m0.named_parameters(), m1.parameters()):
             if torch.equal(p0, p1.detach().cpu()):
                 raise RuntimeError(f"[bf16 train] {prefix}.{name} did not move")
-    frames = cfg.batch_size * cfg.unroll_frames
-    a, b = BF16_STEADY
     log(f"[bf16 train] FRVSR_PRESET ({cfg.num_resblock} resblocks, batch {cfg.batch_size}, "
         f"crop {cfg.crop_size}, {cfg.rnn_n} frames) in bfloat16, float32 master weights, "
-        f"through train(), captured, {BF16_TRAIN_STEPS} steps in {r['wall']:.2f} s wall: paced "
-        f"{r['ms']:.2f} ms/step over steps {a + 1}-{b + 1}, {frames / r['ms'] * 1e3:.1f} "
-        f"frames/s (float32, phase 8b's native loader paced: {f32_paced['paced_ms']:.2f}); "
-        f"launches a step {r['launches']} (the first twice that), library entries "
-        f"{sorted(r['entries'])} only; every parameter moved, the state float32; capture "
-        f"{r['capture_s']:.3f} s; card: {card}")
+        f"through train(), captured, {BF16_TRAIN_STEPS} steps: launches a step "
+        f"{r['launches']} (the first twice that), library entries {sorted(r['entries'])} "
+        f"only; every parameter moved, the state float32; card: {card}")
     check_captured_equals_eager(dev, cfg, "[bf16 train]")
     GENERATE["FRVSR_PRESET bfloat16"] = dict(r["summaries"], **check_generate(
         dev, cfg, state, "[bf16 train]", card))
-    prof = profile_step(dev, cfg, state, {"captured": r["ms"]}, "FRVSR_PRESET bfloat16")
-    log(f"[bf16 train] paced idle share {max(0.0, 1 - prof['captured']['device_ms'] / r['ms']):.1%}"
-        f" (float32: {max(0.0, 1 - f32_paced['device_ms'] / f32_paced['paced_ms']):.1%}, "
-        f"phase 8b)")
-    log_against_f32("[bf16 train]", "FRVSR_PRESET", r, prof, f32)
+    profile_step(dev, cfg, state, "FRVSR_PRESET bfloat16")
     return r["launches"]
 
 
-def run_bf16_tecogan_training(dev, card: str, tmp: str, f32: dict):
+def run_bf16_tecogan_training(dev, card: str, tmp: str):
     """Phase 11b: TECOGAN_PRESET in bfloat16 through ``train()`` with random
     VGG19 weights on phase 8's scenes, warm-started from phase 8's float32
-    FRVSR checkpoint, captured, paced (:func:`bf16_train`); the gate's
-    counters; a replay's profile (the bfloat16 chain kernel), beside phase
-    11's float32 numbers (``f32``). Returns one step's launches."""
+    FRVSR checkpoint, captured (:func:`bf16_train`); the gate's counters; a
+    replay's profile's launches (the bfloat16 chain kernel). Returns one
+    step's launches."""
     from tecogan_tpu_torch.config import TECOGAN_PRESET
     from tecogan_tpu_torch.models.vgg19 import random_vgg19
 
@@ -2528,8 +2068,7 @@ def run_bf16_tecogan_training(dev, card: str, tmp: str, f32: dict):
                                  summary_freq=10**6, save_freq=10**6)
     ckpt = os.path.join(tmp, "run", "checkpoints")
     r = bf16_train(dev, cfg, os.path.join(tmp, "bf16_tecogan"), BF16_GAN_STEPS,
-                   BF16_GAN_STEADY, "[bf16 gan train]", vgg=random_vgg19(cfg.rand_seed),
-                   pre_trained_dir=ckpt)
+                   "[bf16 gan train]", vgg=random_vgg19(cfg.rand_seed), pre_trained_dir=ckpt)
     state = r["state"]
     if f"Warm-started weights from {ckpt}" not in r["text"]:
         raise RuntimeError("[bf16 gan train] no warm start in train()'s output")
@@ -2537,22 +2076,16 @@ def run_bf16_tecogan_training(dev, card: str, tmp: str, f32: dict):
     if sum(counters) != BF16_GAN_STEPS or int(state.d_opt.count) != counters[0]:
         raise RuntimeError(f"[bf16 gan train] gate counters {counters}, Adam count "
                            f"{int(state.d_opt.count)}")
-    frames = cfg.batch_size * cfg.unroll_frames
-    a, b = BF16_GAN_STEADY
     log(f"[bf16 gan train] TECOGAN_PRESET ({cfg.num_resblock} resblocks, batch "
         f"{cfg.batch_size}, crop {cfg.crop_size}, {cfg.unroll_frames} frames ping-pong, VGG19 "
         f"random weights) in bfloat16, warm-started from phase 8's float32 FRVSR checkpoint, "
-        f"captured, {BF16_GAN_STEPS} steps in {r['wall']:.2f} s wall: paced {r['ms']:.2f} "
-        f"ms/step over steps {a + 1}-{b + 1}, {frames / r['ms'] * 1e3:.1f} frames/s (float32, "
-        f"phase 11, synchronised around each step: {f32['ms']:.2f}); launches a step "
-        f"{r['launches']} (the first twice that), library entries {sorted(r['entries'])} "
-        f"only; gate: {counters[0]} steps with D, {counters[1]} without; the state float32; "
-        f"capture {r['capture_s']:.3f} s; card: {card}")
+        f"captured, {BF16_GAN_STEPS} steps: launches a step {r['launches']} (the first twice "
+        f"that), library entries {sorted(r['entries'])} only; gate: {counters[0]} steps with "
+        f"D, {counters[1]} without; the state float32; card: {card}")
     GENERATE["TECOGAN_PRESET bfloat16"] = dict(r["summaries"], **check_generate(
         dev, cfg, state, "[bf16 gan train]", card, vgg=random_vgg19(cfg.rand_seed)))
-    prof = profile_step(dev, cfg, state, {"captured": r["ms"]}, "TECOGAN_PRESET bfloat16",
-                        vgg=random_vgg19(cfg.rand_seed), modes=("captured",))
-    log_against_f32("[bf16 gan train]", "TECOGAN_PRESET", r, prof, f32)
+    profile_step(dev, cfg, state, "TECOGAN_PRESET bfloat16",
+                 vgg=random_vgg19(cfg.rand_seed), modes=("captured",))
     return r["launches"]
 
 
@@ -2606,29 +2139,24 @@ def check_serving_vs_cpu(dev) -> None:
 def serve_ticks(srv, frames, ticks: int = FRAMES):
     """`ticks` ticks of every open stream of `srv` (stream k on frame t + k),
     fetch=False, each tick's frames read one tick later, as a writer
-    thread reads them. Returns (wall seconds, the last tick's frames);
-    ``serve_ticks.step_s`` holds the host's seconds inside ``step``."""
+    thread reads them. Returns the last tick's frames."""
     streams = list(srv.open_streams)
-    t0 = time.perf_counter()
-    last, step_s = {}, 0.0
+    last = {}
     for t in range(ticks):
-        t_s = time.perf_counter()
         out = srv.step({sid: frames[sid][(t + k) % len(frames[sid])]
                         for k, sid in enumerate(streams)}, fetch=False)
-        step_s += time.perf_counter() - t_s
         for hr in last.values():
             np.asarray(hr)
         last = out
     arrays = {sid: np.asarray(hr) for sid, hr in last.items()}
     torch.cuda.synchronize()
-    serve_ticks.step_s = step_s
-    return time.perf_counter() - t0, arrays
+    return arrays
 
 
-def profile_serving(srv, frames, secs: float, label: str) -> dict:
-    """One serve_ticks run under torch.profiler, split by kernel group; the
-    profile must show the chain (the bfloat16 tensor-core kernel) and K1
-    launched as often as the counters say."""
+def profile_serving(srv, frames, label: str) -> None:
+    """One serve_ticks run under torch.profiler: the profile must show the
+    chain (the bfloat16 tensor-core kernel) and K1 launched as often as the
+    counters say."""
     from torch.profiler import ProfilerActivity, profile
 
     from tecogan_tpu_torch.kernels import resblock_chain, upsample4
@@ -2637,30 +2165,23 @@ def profile_serving(srv, frames, secs: float, label: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         serve_ticks(srv, frames)
     counted = (upsample4.launches - before[0], resblock_chain.launches - before[1])
-    total, split, names, by_op = device_split(prof)
-    if total <= 0:
+    busy, names = device_kernels(prof)
+    if busy <= 0:
         raise RuntimeError(f"[profile] serving {label}: torch.profiler recorded no device time")
-    idle = max(0.0, 1 - total / 1e3 / (secs * 1e3))
-    log(f"[profile] serving {label}, one run of {FRAMES} ticks: {total / 1e3:.2f} ms of "
-        f"device time, {total / 1e3 / FRAMES:.3f} ms/tick, against {secs * 1e3:.2f} ms of "
-        f"wall unprofiled (device idle share {idle:.1%})")
-    log_split(total, split, by_op)
     if counted != (2 * FRAMES, NUM_RESBLOCK * FRAMES):
         raise RuntimeError(f"[profile] serving {label}: the counters say K1 {counted[0]}, "
                            f"chain {counted[1]}; want {2 * FRAMES}, {NUM_RESBLOCK * FRAMES}")
     profiled_launches(names, counted[1], counted[0], f"serving {label}")
-    return {"device_ms": total / 1e3, "idle": idle}
 
 
 def run_serving(dev, card: str):
     """Phase 12 (b): MultiGeometryServer in bfloat16 at full width, a
     4-slot bucket of 144x180 streams and a bucket of two 120x180 ones,
     FRAMES ticks after prewarm (which captures each bucket's tick),
-    counted (the main path of serving), each bucket's graph pool, and an
-    eviction that gives the evicted bucket's pool back; then VSRServer
-    pools of 1, 4 and 8 slots at 144x180, captured and with
-    ``capture=False``, each timed in turns and profiled. Returns (launches
-    per bucket tick, the models, the pool records)."""
+    counted (the main path of serving), and an eviction that gives the
+    evicted bucket's pool back; then VSRServer pools of 1, 4 and 8 slots
+    at 144x180, captured and with ``capture=False``, each profiled.
+    Returns (launches per bucket tick, the models)."""
     from tecogan_tpu_torch.config import TecoConfig
     from tecogan_tpu_torch.kernels import resblock_chain, upsample4
     from tecogan_tpu_torch.serve import MultiGeometryServer, VSRServer
@@ -2671,24 +2192,20 @@ def run_serving(dev, card: str):
     clips = {g: (rng.rand(FRAMES, *hw, 3) * 255).astype(np.uint8) for g, hw in geos.items()}
     srv = MultiGeometryServer(cfg, *build_models(6, cfg), slots_per_geometry=SERVE_SLOTS,
                               output="uint8", device=dev)
-    t0 = time.perf_counter()
     srv.prewarm(geos.values())
-    warm = time.perf_counter() - t0
     streams = {**{f"cal{i}": "cal" for i in range(SERVE_SLOTS)}, "walk0": "walk", "walk1": "walk"}
     for sid, g in streams.items():
         srv.open(sid, *geos[g])
     frames = {sid: np.roll(clips[g], -i, axis=0) for i, (sid, g) in enumerate(streams.items())}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     upsample4.launches = 0
     resblock_chain.launches = 0
-    secs, last = serve_ticks(srv, frames)
+    last = serve_ticks(srv, frames)
     launches = {"upsample4": upsample4.launches, "resblock_chain": resblock_chain.launches}
-    peak = torch.cuda.max_memory_allocated() / 2**20
     bucket_ticks = FRAMES * len(geos)
     need = {"upsample4": 2 * bucket_ticks, "resblock_chain": NUM_RESBLOCK * bucket_ticks}
-    log(f"[serve] (b) launches over {FRAMES} ticks of {len(geos)} captured buckets "
-        f"{launches}, want {need}")
+    log(f"[serve] (b) MultiGeometryServer, bfloat16, {NUM_RESBLOCK} resblocks, buckets "
+        f"{srv.geometries}: launches over {FRAMES} ticks of {len(streams)} streams in "
+        f"{len(geos)} captured buckets {launches}, want {need}; card: {card}")
     if launches != need:
         raise RuntimeError(f"[serve] launched {launches}, want {need}")
     for sid, hr in last.items():
@@ -2696,61 +2213,22 @@ def run_serving(dev, card: str):
         if hr.shape != (4 * h, 4 * w, 3) or hr.dtype != np.uint8 or hr.min() == hr.max():
             raise RuntimeError(f"[serve] {sid}: output {hr.shape} {hr.dtype}, "
                                f"range [{hr.min()}, {hr.max()}]")
-    pools = {geo: b.graph_pool_bytes() / 2**20 for geo, b in srv._buckets.items()}
-    log(f"[serve] (b) MultiGeometryServer, bfloat16, {NUM_RESBLOCK} resblocks, buckets "
-        f"{srv.geometries}: prewarm (capture) {warm:.2f} s; {FRAMES} ticks of {len(streams)} "
-        f"streams in {secs:.3f} s, {secs / FRAMES * 1e3:.2f} ms/tick, "
-        f"{len(streams) * FRAMES / secs:.2f} frames/s aggregate; peak allocated "
-        f"{peak:.0f} MiB; graph pools {', '.join(f'{g}: {m:.1f} MiB' for g, m in pools.items())} "
-        f"(bucket_bytes, the JAX formula, counts {', '.join(f'{g}: {srv.bucket_bytes(*g) / 2**20:.1f} MiB' for g in pools)}); card: {card}")
     check_eviction(srv, geos["walk"], ["walk0", "walk1"])
     models = (srv.generator, srv.fnet)
-    pools = {}
     for slots in SERVE_POOLS:
         ids = [f"s{i}" for i in range(slots)]
         frames = {sid: np.roll(clips["cal"], -i, axis=0) for i, sid in enumerate(ids)}
-        recs = {}
         for mode, capture in (("captured", None), ("eager", False)):
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
             pool = VSRServer(cfg, *models, LR_H, LR_W, max_streams=slots, output="uint8",
                              device=dev, capture=capture)
             pool.prewarm()
             for sid in ids:
                 pool.open(sid)
-            first, _ = serve_ticks(pool, frames)  # the first run after prewarm
-            recs[mode] = {"pool": pool, "first_ms_per_tick": first / FRAMES * 1e3,
-                          "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20,
-                          "graph_pool_mib": pool.graph_pool_bytes() / 2**20,
-                          "secs": [], "step_s": []}
-        for mode in ("eager", "captured", "captured", "eager"):
-            rec = recs[mode]
-            secs, _ = serve_ticks(rec["pool"], frames)
-            rec["secs"].append(secs)
-            rec["step_s"].append(serve_ticks.step_s)
-        for mode, rec in recs.items():
-            secs = float(np.median(rec["secs"]))
-            rec.update({"slots": slots, "ms_per_tick": [s / FRAMES * 1e3 for s in rec["secs"]],
-                        "frames_per_s": [slots * FRAMES / s for s in rec["secs"]],
-                        "host_step_ms": [s / FRAMES * 1e3 for s in rec["step_s"]]})
-            log(f"[serve] (b) VSRServer {slots} slot(s) of {LR_H}x{LR_W}, bfloat16, {mode}: "
-                f"{FRAMES} ticks, {', '.join(f'{m:.3f}' for m in rec['ms_per_tick'])} ms/tick, "
-                f"{', '.join(f'{f:.2f}' for f in rec['frames_per_s'])} frames/s aggregate (the "
-                f"first {FRAMES} ticks after prewarm: {rec['first_ms_per_tick']:.3f} ms/tick); "
-                f"the host spends {', '.join(f'{m:.3f}' for m in rec['host_step_ms'])} ms/tick "
-                f"inside step(); peak allocated {rec['peak_mib']:.0f} MiB above what was "
-                f"allocated before the pool (prewarm and first run), graph pool "
-                f"{rec['graph_pool_mib']:.1f} MiB; card: {card}")
-            rec.update(profile_serving(rec["pool"], frames, secs, f"{slots} slot(s) {mode}"))
-        if slots == 1:
-            log_tick_host_split(recs["captured"]["pool"], recs["eager"]["pool"])
-        pools[slots] = {m: {k: v for k, v in r.items() if k not in ("pool", "secs", "step_s")}
-                        for m, r in recs.items()}
-    log("[serve] (b) pool records " + json.dumps({str(k): v for k, v in pools.items()}))
+            serve_ticks(pool, frames)  # the first run after prewarm
+            profile_serving(pool, frames, f"{slots} slot(s) {mode}")
+            del pool
     per_tick = {k: v / bucket_ticks for k, v in launches.items()}
-    return per_tick, models, pools
+    return per_tick, models
 
 
 def check_eviction(srv, geo, stream_ids) -> None:
@@ -2764,9 +2242,6 @@ def check_eviction(srv, geo, stream_ids) -> None:
     third = (geo[0] - 24, geo[1])
     saved = srv.state_budget_mb
     srv.state_budget_mb = (srv.footprint_bytes + srv.bucket_bytes(*third) - 1) / 2**20
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    reserved = torch.cuda.memory_reserved()
     try:
         srv.open("third", *third)
     finally:
@@ -2776,45 +2251,12 @@ def check_eviction(srv, geo, stream_ids) -> None:
     left = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                if tuple(seg["segment_pool_id"]) == pool_id)
     log(f"[serve] (b) eviction: opening {third[0]}x{third[1]} evicted the idle "
-        f"{geo[0]}x{geo[1]} bucket (its graph pool held {held / 2**20:.1f} MiB); the card's "
-        f"reserved memory went from {reserved / 2**20:.1f} to "
-        f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB with the new bucket's buffers, "
-        f"{left} bytes of the evicted pool left; buckets {srv.geometries}")
+        f"{geo[0]}x{geo[1]} bucket (its graph pool held {held} bytes), {left} bytes of the "
+        f"evicted pool left; buckets {srv.geometries}")
     if geo in srv.geometries or left or held <= 0:
         raise RuntimeError(f"[serve] eviction: buckets {srv.geometries}, {left} bytes of the "
                            f"pool left of {held}")
     srv.close("third")
-
-
-def log_tick_host_split(captured, eager) -> None:
-    """The host's seconds to queue a 1-slot tick (no wait on the device:
-    each is queued FRAMES times, then the device is synchronised): the
-    captured tick's replay, and the eager tick and its parts."""
-    from tecogan_tpu_torch.recurrent.step import RecurrentState, generator_step, upscale_flow
-
-    def host_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(FRAMES):
-            fn()
-        ms = (time.perf_counter() - t0) / FRAMES * 1e3
-        torch.cuda.synchronize()
-        return ms
-
-    lr = eager._lr_batch(torch.uint8)
-    with torch.inference_mode():
-        state = RecurrentState(*(t.clone() for t in eager._state))
-        x = (lr.float() / 255.0).to(eager.dtype)
-        pair = torch.cat([state.prev_lr, x], dim=-1)
-        flow = upscale_flow(eager.fnet(pair), eager.height, eager.width)
-        parts = {"captured tick (replay)": captured._programs[torch.uint8],
-                 "eager tick (masks, frame step, state)": eager._programs[torch.uint8],
-                 "FNet": lambda: eager.fnet(pair),
-                 "warp + generator": lambda: generator_step(eager.generator, state, x, flow)}
-        times = {name: host_ms(fn) for name, fn in parts.items()}
-    log("[serve] (b) host time to queue one 1-slot tick's parts: "
-        + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
 
 
 def recurrence_gain(dev, gen, fnet, frames: int = 16) -> list:
@@ -2900,16 +2342,12 @@ def check_export(dev, tmp: str, models) -> None:
             raise RuntimeError("[serve] (c) the captured tick differs from the eager one")
         want = [srv._state.prev_lr.cpu(), srv._state.prev_hr.cpu(),
                 torch.from_numpy(np.stack([out[sid] for sid in ids]))]
-        t0 = time.perf_counter()
         save_frame_step(export_frame_step(cfg, *models, batch=SERVE_SLOTS, height=LR_H,
                                           width=LR_W, device=dev), path)
-        export_s = time.perf_counter() - t0
     finally:
         torch.backends.cudnn.deterministic = False
-    t0 = time.perf_counter()
     child = subprocess.run([sys.executable, "-c", EXPORT_CHILD, path, inputs, outputs],
                            cwd=REPO, capture_output=True, text=True, timeout=300)
-    child_s = time.perf_counter() - t0
     if child.returncode != 0:
         raise RuntimeError(f"[serve] the exported step's process failed:\n{child.stderr[-4000:]}")
     report = json.loads(child.stdout.strip().splitlines()[-1])
@@ -2919,8 +2357,7 @@ def check_export(dev, tmp: str, models) -> None:
                                                              "tecogan_tpu_torch.serve",
                                                              "tecogan_tpu_torch.recurrent"))]
     log(f"[serve] (c) exported frame step ({SERVE_SLOTS},{LR_H},{LR_W}) bfloat16 uint8: "
-        f"export + save {export_s:.2f} s, {os.path.getsize(path) / 1e6:.1f} MB; a fresh "
-        f"process loaded and ran it in {child_s:.2f} s with launches upsample4 "
+        f"a fresh process loaded and ran it with launches upsample4 "
         f"{report['upsample4']}, resblock_chain {report['resblock_chain']}; (prev_lr, "
         f"prev_hr, hr) bit-equal to VSRServer's captured tick: {equal}; model modules imported "
         f"there: {loaded or 'none'}")
@@ -2955,9 +2392,9 @@ def run_serve_cli(dev, card: str, tmp: str) -> None:
     """Phase 12 (d): ``cli.serve`` on three LR PNG dirs (two 144x180, one
     120x180 written with Paeth rows) with a 16-block params npz: in float32
     (TF32 off) each stream within 1 u8 level of ``cli.main --mode
-    inference`` on its dir; then a timed bfloat16 run with the split of its
-    wall. Also times the PNG decode of one Paeth frame at 144x180 and at
-    576x720."""
+    inference`` on its dir; then bfloat16 runs with the native and the
+    python PNG codec, their captures and the native library's counters.
+    Also decodes a filter-0 and a Paeth frame at 144x180 and at 576x720."""
     import io
 
     from tecogan_tpu_torch.cli import main as cli_main
@@ -3007,10 +2444,8 @@ def run_serve_cli(dev, card: str, tmp: str) -> None:
     def quiet(fn, argv):
         printed = io.StringIO()
         with contextlib.redirect_stdout(printed):
-            t0 = time.perf_counter()
             result = fn(argv)
-            wall = time.perf_counter() - t0
-        return result, wall, printed.getvalue()
+        return result, printed.getvalue()
 
     saved = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -3018,7 +2453,7 @@ def run_serve_cli(dev, card: str, tmp: str) -> None:
         # The budget counts the captured ticks' graph pools, about twice
         # bfloat16's in float32: two 4-slot buckets need more than the
         # default 2048 MB.
-        stats, _, _ = quiet(cli_serve.main, [
+        stats, _ = quiet(cli_serve.main, [
             "--device", str(dev), "--input_dirs", ",".join(paths), "--output_dir",
             os.path.join(tmp, "served32"), "--params_npz", npz, "--compute_dtype", "float32",
             "--state_budget_mb", "16384"])
@@ -3041,12 +2476,12 @@ def run_serve_cli(dev, card: str, tmp: str) -> None:
             max(m for m, _ in worst.values()) > 1:
         raise RuntimeError(f"[serve] cli.serve vs cli.main: {worst}, {stats['written']}")
 
-    # Timed bfloat16 runs, the PNG codecs in turns.
+    # bfloat16 runs with the native and the python PNG codec.
     source_frames = sum(d[1] for d in dirs.values())
-    for i, codec in enumerate(("native", "python", "python", "native")):
+    for i, codec in enumerate(("native", "python")):
         captures, counts = CapturedProgram.captures, codec_counts()
         with python_codec() if codec == "python" else contextlib.nullcontext():
-            stats, wall, printed = quiet(cli_serve.main, [
+            stats, _ = quiet(cli_serve.main, [
                 "--device", str(dev), "--input_dirs", ",".join(paths), "--output_dir",
                 os.path.join(tmp, f"served16_{i}"), "--params_npz", npz,
                 "--compute_dtype", "bfloat16"])
@@ -3058,46 +2493,25 @@ def run_serve_cli(dev, card: str, tmp: str) -> None:
         if native != want:
             raise RuntimeError(f"[serve] (d) cli.serve ({codec} codec): the native library "
                                f"decoded and encoded {native} frames, want {want}")
-        if i == 0:
-            for line in printed.splitlines():
-                if line.startswith(("total time", "io:", "[serve] prewarmed")) or \
-                        "aggregate" in line:
-                    log(f"[serve] (d) | {line}")
         log(f"[serve] (d) cli.serve bfloat16, {codec} PNG codec (the native library decoded "
             f"and encoded {native} frames), 3 PNG dirs ({', '.join(f'{n} {d[0][0]}x{d[0][1]} x{d[1]}' for n, d in dirs.items())}; walk Paeth-filtered): "
-            f"{stats['frames']} HR PNGs in {stats['secs']:.3f} s of serving, "
-            f"{stats['frames'] / stats['secs']:.2f} frames/s aggregate, {wall:.3f} s end to end "
-            f"with the writer flush; {stats['ticks']} ticks; decode {stats['decode_s']:.3f} s "
-            f"on the source threads, ticks {stats['tick_s']:.3f} s, waiting for decode or a "
-            f"prewarm {stats['idle_s']:.3f} s, encode {stats['encode_s']:.3f} s on the writer "
-            f"threads, writer flush {stats['flush_s']:.3f} s; {captures} tick graphs captured "
-            f"(one a geometry); card: {card}")
+            f"{stats['frames']} HR PNGs, {stats['ticks']} ticks; {captures} tick graphs "
+            f"captured (one a geometry); card: {card}")
 
     rng = np.random.RandomState(15)
     for h, w in ((LR_H, LR_W), (4 * LR_H, 4 * LR_W)):
         img = (synthetic_clip(1, h, w, seed=50, content="natural")[0] * 255).astype(np.uint8)
         img = np.clip(img.astype(np.int16) + rng.randint(-3, 4, img.shape), 0, 255).astype(np.uint8)
-        times = {}
         for kind, writer in (("filter 0", write_png), ("Paeth", write_png_paeth)):
             path = os.path.join(tmp, f"decode_{h}x{w}_{kind[0]}.png")
             writer(path, img)
             if not np.array_equal(read_png(path), img):
                 raise RuntimeError(f"[serve] {kind} PNG {h}x{w} decodes wrong")
-            reps = []
-            for _ in range(5):
-                t0 = time.perf_counter()
-                read_png(path)
-                reps.append(time.perf_counter() - t0)
-            times[kind] = float(np.median(reps)) * 1e3
-        log(f"[serve] PNG decode {h}x{w} RGB (median of 5, host CPU of the card's machine): "
-            + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items()))
+    log("[serve] PNG decode of a filter-0 and a Paeth frame at 144x180 and 576x720: "
+        "equal to the written pixels")
 
 
 # ---------------------------------------------------------------- native data path
-# The FRVSR train() split (phase 8b): steps a train() call, the steady
-# window (steps 11-25, 1-based), steps of the one-batch and upload timings.
-SPLIT_STEPS, SPLIT_STEADY, SPLIT_ALONE = 25, (10, 24), 20
-
 
 @contextlib.contextmanager
 def python_codec():
@@ -3142,189 +2556,12 @@ def build_native(card: str) -> None:
         raise RuntimeError("[native] no <zlib.h>: the native data-loader core cannot build")
     path = native_loader.library_path()
     fresh = not path.exists()
-    t0 = time.perf_counter()
     native_loader.load_library()
-    log(f"[native] {'built' if fresh else 'found'} {path.relative_to(REPO)} in "
-        f"{time.perf_counter() - t0:.2f} s from tecogan_tpu_torch/csrc/tecodata.cpp: "
+    log(f"[native] {'built' if fresh else 'found'} {path.relative_to(REPO)} "
+        f"from tecogan_tpu_torch/csrc/tecodata.cpp: "
         f"{' '.join(('g++', *native_loader._CXXFLAGS, '...', *native_loader._LDFLAGS))}, the "
         f"port's own PNG codec on zlib (libpng {'present' if found['png.h'] else 'absent'} "
         f"here; the build never uses it); card: {card}")
-
-
-def run_loader_split(dev, card: str, tmp: str) -> dict:
-    """Phase 8b: where FRVSR_PRESET's ``train()`` loses time against its
-    one-batch step. On phase 8's scenes, captured, in turns: ``train()``
-    with the native executor, the python executor, and a loader whose
-    every batch was decoded before the first step; each once with a
-    synchronisation around every step (as phase 8 times it) and once
-    paced by the device (a user's run: the time between successive steps'
-    starts, one synchronisation at the end); the uploads' and the loader
-    waits' host seconds inside. Then on one batch with no loader: steps
-    synchronised one by one and queued back to back, and the upload alone
-    (``_Program.upload``: the staging copy and its event wait). Idle share
-    = 1 - a replay's device time (profiled) / ms a step. Returns the
-    native loader's paced ms/step and the replay's device ms (phase 8c's
-    float32 yardstick)."""
-    import io
-
-    from torch.profiler import ProfilerActivity, profile
-
-    from tecogan_tpu_torch.config import FRVSR_PRESET
-    from tecogan_tpu_torch.data.loader import BatchLoader
-    from tecogan_tpu_torch.data.native_loader import NativeExecutor
-    from tecogan_tpu_torch.train import Trainer
-    from tecogan_tpu_torch.train import loop
-    from tecogan_tpu_torch.train import trainer as trainer_mod
-
-    cfg = FRVSR_PRESET.replace(input_video_dir=os.path.join(tmp, "scenes"),
-                               max_frm=SCENE_FRAMES - 1, display_freq=10**6,
-                               summary_freq=10**6, save_freq=10**6)
-    frames = cfg.batch_size * cfg.unroll_frames
-    a, b = SPLIT_STEADY
-
-    class Prefilled:
-        """Stands in for train()'s loader: every batch of the run decoded
-        (natively) before the first step, so no decode runs during the
-        steps."""
-
-        executor_used = "prefilled"
-
-        def __init__(self, dataset, seed=None, executor=None):
-            self.dataset, self.seed, self.batches = dataset, seed, None
-
-        def start(self):
-            if self.batches is None:
-                with BatchLoader(self.dataset, seed=self.seed, executor="native") as src:
-                    self.batches = [src.next_batch() for _ in range(SPLIT_STEPS)]
-            return self
-
-        def next_batch(self):
-            return self.start().batches.pop(0)
-
-        def stop(self):
-            pass
-
-        __enter__ = start
-
-        def __exit__(self, *exc):
-            self.stop()
-
-    upload = trainer_mod._Program.upload
-    train_step = Trainer.train_step
-    results = {}
-    for executor, synced in (("native", True), ("python", True), ("prefilled", True),
-                             ("prefilled", False), ("python", False), ("native", False)):
-        made, waits, uploads, starts, synced_s = [], [], [], [], []
-
-        def make(dataset, **kw):
-            loader = (Prefilled(dataset, kw.get("seed")) if executor == "prefilled"
-                      else BatchLoader(dataset, **{**kw, "executor": executor}))
-            made.append(loader)
-            next_batch = loader.next_batch
-
-            def timed_next():
-                t0 = time.perf_counter()
-                batch = next_batch()
-                waits.append(time.perf_counter() - t0)
-                return batch
-            loader.next_batch = timed_next
-            return loader
-
-        def timed_upload(self, batch):
-            t0 = time.perf_counter()
-            upload(self, batch)
-            uploads.append(time.perf_counter() - t0)
-
-        def step(self, state, hr_seq):
-            if synced:
-                torch.cuda.synchronize()
-            starts.append(time.perf_counter())
-            out = train_step(self, state, hr_seq)
-            if synced:
-                torch.cuda.synchronize()
-                synced_s.append(time.perf_counter() - starts[-1])
-            return out
-
-        loop.BatchLoader, trainer_mod._Program.upload, Trainer.train_step = (
-            make, timed_upload, step)
-        sequences = NativeExecutor.sequences
-        try:
-            printed = io.StringIO()
-            with contextlib.redirect_stdout(printed):
-                state = loop.train(cfg, os.path.join(tmp, f"split_{executor}_{synced}"), dev,
-                                   max_steps=SPLIT_STEPS, test_while_train=False)
-            torch.cuda.synchronize()
-            end = time.perf_counter()
-        finally:
-            loop.BatchLoader, trainer_mod._Program.upload, Trainer.train_step = (
-                BatchLoader, upload, train_step)
-        sequences = NativeExecutor.sequences - sequences
-        used = made[0].executor_used
-        if used != executor or state.step != SPLIT_STEPS or len(starts) != SPLIT_STEPS:
-            raise RuntimeError(f"[split] {executor}: the loader ran {used}, {state.step} steps; "
-                               f"{printed.getvalue()[-2000:]}")
-        if (sequences > 0) != (executor != "python"):
-            raise RuntimeError(f"[split] {executor}: the native executor loaded {sequences} "
-                               "sequences")
-        ms = (sum(synced_s[a:b + 1]) / (b + 1 - a) if synced
-              else (starts[b] - starts[a]) / (b - a)) * 1e3
-        results[(executor, synced)] = dict(
-            ms=ms, upload_ms=1e3 * float(np.mean(uploads[a:b + 1])),
-            wait_ms=1e3 * float(np.mean(waits[a:b + 1])), sequences=sequences,
-            wall=end - starts[0])
-
-    # One batch, no loader: synchronised step by step, and back to back.
-    trainer = Trainer(cfg, dev)
-    state = trainer.init_state(cfg.rand_seed)
-    batch = frvsr_batch(cfg, cfg.batch_size, 21)
-    for _ in range(2):
-        trainer.train_step(state, batch)
-    alone = {}
-    for mode in ("synced", "queued", "queued", "synced"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(SPLIT_ALONE):
-            trainer.train_step(state, batch)
-            if mode == "synced":
-                torch.cuda.synchronize()
-        torch.cuda.synchronize()
-        alone.setdefault(mode, []).append((time.perf_counter() - t0) / SPLIT_ALONE * 1e3)
-    prog = trainer._program("train", state, batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(SPLIT_ALONE):
-            prog.upload(batch)
-        torch.cuda.synchronize()
-        upload_ms = (time.perf_counter() - t0) / SPLIT_ALONE * 1e3
-    copy_ms = device_split(prof)[0] / 1e3 / SPLIT_ALONE  # the staging copies' device time
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(state, batch)
-        torch.cuda.synchronize()
-    device_ms = device_split(prof)[0] / 1e3
-    if device_ms <= 0:
-        raise RuntimeError("[split] torch.profiler recorded no device time")
-
-    def idle(ms):
-        return f"idle {max(0.0, 1 - device_ms / ms):.1%}"
-
-    log(f"[split] FRVSR_PRESET train(), captured, batch {cfg.batch_size} x {cfg.unroll_frames} "
-        f"frames ({batch.nbytes / 2**20:.2f} MiB uint8 a batch), steps {a + 1}-{b + 1} of "
-        f"{SPLIT_STEPS}; a replay's device time {device_ms:.2f} ms; card: {card}")
-    for (executor, synced), r in results.items():
-        log(f"[split] train() {executor} loader, "
-            f"{'a synchronisation around each step' if synced else 'paced by the device'}: "
-            f"{r['ms']:.2f} ms/step, {frames / r['ms'] * 1e3:.1f} frames/s, {idle(r['ms'])}; "
-            f"inside: upload {r['upload_ms']:.3f} ms, waiting for the loader "
-            f"{r['wait_ms']:.3f} ms a step; native sequences {r['sequences']}")
-    log(f"[split] one batch, no loader, {SPLIT_ALONE} steps a window in turns: "
-        + "; ".join(f"{mode} {', '.join(f'{ms:.2f}' for ms in v)} ms/step ({idle(min(v))}-"
-                    f"{idle(max(v))[5:]})" for mode, v in alone.items())
-        + f"; the upload alone (staging copy + event wait, {batch.nbytes / 2**20:.2f} MiB): "
-        f"{upload_ms:.3f} ms, {frames / upload_ms * 1e3:.1f} frames/s, the device busy "
-        f"{copy_ms:.3f} ms of it with the copy (idle {max(0.0, 1 - copy_ms / upload_ms):.1%})")
-    return dict(paced_ms=results[("native", False)]["ms"], device_ms=device_ms)
 
 
 def check_codec(tmp: str, card: str) -> None:
@@ -3332,21 +2569,17 @@ def check_codec(tmp: str, card: str) -> None:
     machine: the 41 synthetic 576x720 HR PNGs of phase 9 (filter 0) and 8
     of them rewritten with every row Paeth-filtered decode bit-equal
     (``decode_frames_u8`` against ``read_rgb``); ``encode_frames`` then
-    ``read_png`` gives the input back. Times both codecs on 8 threads."""
+    ``read_png`` gives the input back."""
     from tecogan_tpu_torch.data.inference import read_frames
     from tecogan_tpu_torch.data.native_loader import NativeFrameIO
-    from tecogan_tpu_torch.data.png import read_png, write_png
+    from tecogan_tpu_torch.data.png import read_png
     from tecogan_tpu_torch.ops import list_png_in_dir
 
     paths = list_png_in_dir(os.path.join(tmp, "cli_hr"), prefix_skip="\x00")
     io = NativeFrameIO(8)
     try:
-        t0 = time.perf_counter()
         native = io.decode_frames_u8(paths)
-        native_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
         python = read_frames(paths, 8)
-        python_s = time.perf_counter() - t0
         if len(paths) != CLI_FRAMES or not np.array_equal(native, python):
             raise RuntimeError(f"[codec] {len(paths)} filter-0 PNGs: native != read_rgb in "
                                f"{int((native != python).sum())} values")
@@ -3354,40 +2587,21 @@ def check_codec(tmp: str, card: str) -> None:
         os.makedirs(os.path.dirname(paeth[0]))
         for path, img in zip(paeth, native):
             write_png_paeth(path, img)
-        t0 = time.perf_counter()
         got = io.decode_frames_u8(paeth)
-        paeth_native_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
         want = read_frames(paeth, 8)
-        paeth_python_s = time.perf_counter() - t0
         if not (np.array_equal(got, want) and np.array_equal(got, native[:8])):
             raise RuntimeError("[codec] Paeth PNGs: native != read_rgb")
         encoded = [os.path.join(tmp, "codec", f"enc_{i}.png") for i in range(8)]
-        t0 = time.perf_counter()
         io.encode_frames(encoded, native[:8])
-        encode_s = time.perf_counter() - t0
     finally:
         io.close()
     back = np.stack([read_png(p) for p in encoded])
     if not np.array_equal(back, native[:8]):
         raise RuntimeError("[codec] encode_frames -> read_png does not give the input back")
-    t0 = time.perf_counter()
-    for i, img in enumerate(native[:8]):
-        write_png(os.path.join(tmp, "codec", f"py_{i}.png"), img)
-    write_s = time.perf_counter() - t0
-    mb = {name: np.mean([os.path.getsize(p) for p in ps]) / 1e6
-          for name, ps in (("filter 0", paths), ("Paeth", paeth), ("native", encoded))}
     h, w = native.shape[1:3]
     log(f"[codec] native decode_frames_u8 == data/png.py read_rgb, bit for bit: {len(paths)} "
         f"{h}x{w} filter-0 PNGs and 8 Paeth-filtered ones; encode_frames -> read_png gives "
-        f"the 8 frames back")
-    log(f"[codec] {h}x{w} RGB, ms a frame (host CPU of the card's machine): decode, 8 threads: "
-        f"filter 0 native {native_s / len(paths) * 1e3:.2f}, python "
-        f"{python_s / len(paths) * 1e3:.2f}; Paeth native {paeth_native_s / 8 * 1e3:.2f}, "
-        f"python {paeth_python_s / 8 * 1e3:.2f}; encode: native (8 threads, Sub, level 1, "
-        f"Z_RLE) {encode_s / 8 * 1e3:.2f}, python write_png (one thread, filter 0, level 6) "
-        f"{write_s / 8 * 1e3:.2f}; mean file MB: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in mb.items()) + f"; card: {card}")
+        f"the 8 frames back; card: {card}")
 
 
 def check_budget(dev, card: str, models) -> None:
@@ -3446,8 +2660,8 @@ CASE4_STEPS, CASE4_SAVE, CASE3_STEPS, CASE_LR_FRAMES = 10, 5, 5, 12
 
 def run_cases(card: str, tmp: str) -> None:
     """Phase 13: ``data.prepare --synthetic`` and ``cli.run`` cases 4, 3, 1,
-    2 and 0 as a user runs them, each a subprocess on the card with rc 0 and
-    its wall seconds: FRVSR_PRESET training (10 steps, saves at 5 and 10,
+    2 and 0 as a user runs them, each a subprocess on the card with rc 0:
+    FRVSR_PRESET training (10 steps, saves at 5 and 10,
     each with its four GIFs), TecoGAN_PRESET training warm-started from it
     (the 10 -> 16-block partial restore), random-weight inference on a
     12-frame 144x180 scene, its metrics (read back with
@@ -3462,20 +2676,17 @@ def run_cases(card: str, tmp: str) -> None:
     os.makedirs(root)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
-    walls = {}
 
     def child(name, *argv):
         log_path = os.path.join(root, f"{name.replace(' ', '_')}.log")
-        t0 = time.perf_counter()
         with open(log_path, "w") as out:
             rc = subprocess.call([sys.executable, "-m", *argv], cwd=str(REPO), env=env,
                                  stdout=out, stderr=subprocess.STDOUT,
                                  stdin=subprocess.DEVNULL)
-        walls[name] = time.perf_counter() - t0
         text = open(log_path).read()
         if rc != 0:
             raise RuntimeError(f"[cases] {name}: rc {rc}; its output ends:\n{text[-3000:]}")
-        log(f"[cases] {name}: rc 0 in {walls[name]:.1f} s wall; card: {card}")
+        log(f"[cases] {name}: rc 0; card: {card}")
         return text
 
     data = os.path.join(root, "TrainingDataPath")
@@ -3543,7 +2754,7 @@ def run_cases(card: str, tmp: str) -> None:
         f"{CASE3_STEPS} steps warm-started from case 4, case 1 on {CASE_LR_FRAMES} frames "
         f"{LR_H}x{LR_W} -> {4 * LR_H}x{4 * LR_W} (16 blocks, random weights), case 2 "
         f"{', '.join(f'{k} {v:.4f}' for k, v in sorted(avg.items()))} (random weights), case 0: "
-        f"all rc 0; wall s {', '.join(f'{k} {v:.1f}' for k, v in walls.items())}; card: {card}")
+        f"all rc 0; card: {card}")
 
 
 # Video-file I/O (phase 14): the clip, its frame rates and the mean
@@ -3583,36 +2794,28 @@ def run_video(dev, card: str, tmp: str) -> dict:
     root = os.path.join(tmp, "video")
     os.makedirs(root)
     # (a) The library, from the checkout's sources.
-    t0 = time.perf_counter()
     lib_path = video_native.build_library()
     video_native.load_library()
-    log(f"[video] libtecovideo built and loaded in {time.perf_counter() - t0:.1f} s -> "
-        f"{lib_path.relative_to(REPO)} (g++ {' '.join(video_native._CXXFLAGS)}, one process "
-        f"per source, linked {' '.join(video_native._LDFLAGS)})")
+    log(f"[video] libtecovideo built and loaded -> {lib_path.relative_to(REPO)} (g++ "
+        f"{' '.join(video_native._CXXFLAGS)}, one process per source, linked "
+        f"{' '.join(video_native._LDFLAGS)})")
 
     # (b) Write and read back each container.
     clip = video_clip(VIDEO_FRAMES, LR_H, LR_W, VIDEO_SEED)
     paths = {}
     for ext, fps in VIDEO_FILES:
         path = paths[ext] = os.path.join(root, f"clip.{ext}")
-        t0 = time.perf_counter()
         w = VideoFrameWriter(path, fps=fps)
         w.submit(clip[:13], 0)
         w.submit(clip[13:], 13)
         if w.close() != VIDEO_FRAMES:
             raise RuntimeError(f"[video] {ext}: the writer wrote {w.count} frames")
-        enc = time.perf_counter() - t0
-        t0 = time.perf_counter()
         back, got_fps = read_video_frames(path)
-        dec = time.perf_counter() - t0
         err = float(np.abs(back.astype(np.float64) - clip).mean())
         codec = video_native.NativeVideoReader(path)
         log(f"[video] {ext} ({codec.codec} in {codec.container}, {got_fps} fps, "
             f"{os.path.getsize(path)} B): {back.shape[0]} frames {back.shape[1:]} read back, "
-            f"mean |error| {err:.3f} (bound {VIDEO_ERR_BOUND[ext]}); encode {enc:.3f} s "
-            f"({VIDEO_FRAMES / enc:.1f} frames/s), decode {dec:.3f} s "
-            f"({VIDEO_FRAMES / dec:.1f} frames/s) at {LR_H}x{LR_W} on the card's host; card: "
-            f"{card}")
+            f"mean |error| {err:.3f} (bound {VIDEO_ERR_BOUND[ext]}); card: {card}")
         codec.close()
         if back.shape != clip.shape or got_fps != fps or not err <= VIDEO_ERR_BOUND[ext]:
             raise RuntimeError(f"[video] {ext}: {back.shape} at {got_fps} fps, error {err}")
@@ -3633,10 +2836,8 @@ def run_video(dev, card: str, tmp: str) -> dict:
         upsample4.launches = 0
         resblock_chain.launches = 0
         with contextlib.redirect_stdout(printed):
-            t0 = time.perf_counter()
             stats = cli_main.main(["--mode", "inference", "--output_dir",
                                    os.path.join(root, name), "--params_npz", npz, *extra])
-            stats["wall"] = time.perf_counter() - t0
         stats["launches"] = {"upsample4": upsample4.launches,
                              "resblock_chain": resblock_chain.launches}
         return stats
@@ -3663,15 +2864,11 @@ def run_video(dev, card: str, tmp: str) -> dict:
         f"{NUM_RESBLOCK} blocks, {cfg.compute_dtype}, chunk {cfg.infer_chunk}) bit-equal to "
         f"the PNG route on the port's decode: {VIDEO_FRAMES} HR frames "
         f"{4 * LR_H}x{4 * LR_W}; launches {launches} in both (fps read {from_video['fps']})")
-    # --output_video, then the two I/O routes timed in turns.
-    runs = {"video": [], "png": []}
-    for i in range(2):
-        out = f"out{i}.mp4"
-        stats = cli(f"vout{i}", "--input_video", paths["mp4"], "--output_video", out)
-        runs["video"].append(stats)
-        runs["png"].append(cli(f"pout{i}", "--input_dir_LR", png_dir))
-    hr_video, hr_fps = read_video_frames(runs["video"][0]["dest"])
-    pngs = read_frames([os.path.join(root, "pout0", n) for n in names])
+    # --output_video, against the writer on the PNG route's frames.
+    hr_video, hr_fps = read_video_frames(
+        cli("vout", "--input_video", paths["mp4"], "--output_video", "out.mp4")["dest"])
+    cli("pout", "--input_dir_LR", png_dir)
+    pngs = read_frames([os.path.join(root, "pout", n) for n in names])
     direct = os.path.join(root, "direct.mp4")
     w = VideoFrameWriter(direct, fps=hr_fps)
     w.submit(pngs, 0)
@@ -3682,14 +2879,6 @@ def run_video(dev, card: str, tmp: str) -> dict:
         raise RuntimeError(f"[video] --output_video: {hr_video.shape} at {hr_fps} fps, not "
                            "the writer's encoding of the PNG route's frames")
     hr_err = float(np.abs(hr_video.astype(np.float64) - pngs).mean())
-    for kind in ("video", "png"):
-        walls = [r["wall"] for r in runs[kind]]
-        rates = [VIDEO_FRAMES / wl for wl in walls]
-        split = ", ".join(f"decode {r['decode_s']:.3f} s stream {r['stream_s']:.3f} s flush "
-                          f"{r['flush_s']:.3f} s encode {r['encode_s']:.3f} s"
-                          for r in runs[kind])
-        log(f"[video] CLI with {kind} I/O ({'clip.mp4 -> out.mp4' if kind == 'video' else 'PNG dir -> PNGs'}): "
-            f"{' / '.join(f'{x:.2f}' for x in rates)} frames/s wall ({split}); card: {card}")
     log(f"[video] --output_video out.mp4: {hr_video.shape[0]} frames at {hr_fps} fps, "
         f"bit-equal to the writer on the PNG route's frames, mean |error| {hr_err:.3f} "
         f"against them")
@@ -3699,13 +2888,10 @@ def run_video(dev, card: str, tmp: str) -> dict:
     w = VideoFrameWriter(second, fps=29.97)
     w.submit(video_clip(12, *VIDEO_GEO2, VIDEO_SEED + 1), 0)
     w.close()
-    printed = io.StringIO()
-    with contextlib.redirect_stdout(printed):
-        t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
         stats = cli_serve.main(["--input_dirs", f"{paths['mp4']},{second}", "--output_dir",
                                 os.path.join(root, "served"), "--params_npz", npz,
                                 "--output_videos", "--max_streams", "2"])
-        wall = time.perf_counter() - t0
     want_written = {"clip": VIDEO_FRAMES, "street": 12}
     if stats["written"] != want_written:
         raise RuntimeError(f"[video] cli.serve wrote {stats['written']}")
@@ -3716,8 +2902,7 @@ def run_video(dev, card: str, tmp: str) -> dict:
             raise RuntimeError(f"[video] cli.serve {name}.mp4: {hr.shape} at {hr_fps} fps")
     log(f"[video] cli.serve on clip.mp4 ({LR_H}x{LR_W}, 24 fps) and street.mkv "
         f"({VIDEO_GEO2[0]}x{VIDEO_GEO2[1]}, 29.97 fps) with --output_videos: wrote "
-        f"{stats['written']}, each .mp4 at its source's fps, in {wall:.2f} s wall "
-        f"(decode {stats['decode_s']:.3f} s, encode {stats['encode_s']:.3f} s); card: {card}")
+        f"{stats['written']}, each .mp4 at its source's fps; card: {card}")
 
     # (e) extract_scene from frame 5 of the .avi and the .mp4.
     for ext in ("avi", "mp4"):
@@ -3738,9 +2923,9 @@ def run_video(dev, card: str, tmp: str) -> dict:
 
 
 # H.264 and VP9 input on the card's NVDEC (phase 15): the 144x180 H.264
-# clip of the CLI run, the frames each decode rate is timed over, and the
-# NV12 kernel's timed surfaces (display size, coded size, pitch).
-NVDEC_CLI_FRAMES, NVDEC_RATE_FRAMES, NVDEC_720P_FRAMES = 30, 30, 8
+# clip of the CLI run, the frames of the decode checks at 144x180 and 720p,
+# and the NV12 kernel's timed surfaces (display size, coded size, pitch).
+NVDEC_CLI_FRAMES, NVDEC_DECODE_FRAMES, NVDEC_720P_FRAMES = 30, 30, 8
 NV12_TIMED = (((144, 180), (144, 192), 256), ((720, 1280), (720, 1280), 1536))
 # The bytes a pixel of the NV12 conversion moves: 1.5 read, 3 written.
 NV12_BYTES_PER_PX = 4.5
@@ -3850,7 +3035,8 @@ def check_nv12_kernel(dev, card: str) -> dict:
              lambda: nv12_to_rgb_plain(surface, ch, 0, 0, w, h, coeffs)])
         bound_ms = NV12_BYTES_PER_PX * h * w / HBM_BYTES_PER_S * 1e3
         bound_by = "bytes"
-        text = (f"({NV12_BYTES_PER_PX * h * w / 1e6:.3f} MB / 3.35 TB/s; about 15 integer "
+        text = (f"({NV12_BYTES_PER_PX * h * w / 1e6:.3f} MB / {HBM_BYTES_PER_S / 1e12:.2f} "
+                "TB/s; about 15 integer "
                 "operations a pixel)")
         log(f"[nvdec] NV12 kernel {h}x{w} (coded {ch}x{cw}, pitch {pitch}): {ms:.4f} ms "
             f"[{lo:.4f}-{hi:.4f}], plain {plain_ms:.4f} ms [{plo:.4f}-{phi:.4f}], library None "
@@ -3885,9 +3071,8 @@ def run_nvdec(dev, card: str, tmp: str) -> dict:
     root = os.path.join(tmp, "nvdec")
     os.makedirs(root)
     # (a) The binding, from the checkout's source, and NVDEC's capabilities.
-    t0 = time.perf_counter()
     lib = video_nvdec.load_library()
-    log(f"[nvdec] NVDEC binding built and loaded in {time.perf_counter() - t0:.1f} s -> "
+    log(f"[nvdec] NVDEC binding built and loaded -> "
         f"{video_nvdec.library_path().relative_to(REPO)} (g++ "
         f"{' '.join(video_nvdec._CXXFLAGS)}); CUDA driver {lib.tvn_driver_version()}")
     refused = None  # NvdecUnavailable's message; any other failure raises
@@ -3914,8 +3099,7 @@ def run_nvdec(dev, card: str, tmp: str) -> dict:
         stand_in = tn.ModelNvdec([*h264.values(), clip, geo2])
         log("[nvdec] NVDEC DECODE NOT VERIFIED on this card: (b)-(f) below run the port's "
             "demuxer, readers, CLIs and NV12 kernel over ModelNvdec in NVDEC's place, which "
-            "decodes nothing (it hands over the streams' numpy model); VP9 and NVDEC's rates "
-            "not measured")
+            "decodes nothing (it hands over the streams' numpy model); VP9 not decoded")
     mode = "stand-in" if stand_in else "NVDEC"
     with model_in_place_of_nvdec(stand_in) if stand_in else contextlib.nullcontext():
         # (b) Every stream, decoded bit-equal to the frames OpenCV gives.
@@ -3929,31 +3113,20 @@ def run_nvdec(dev, card: str, tmp: str) -> dict:
             "bit-equal to the model's (OpenCV's) frames"
             + (" (the model's own pictures through the NV12 kernel: not a decode)"
                if stand_in else ""))
-        if stand_in is None:  # NVDEC's own rates, and VP9, which has no model
-            rate = tn.H264Stream("crop", frames=NVDEC_RATE_FRAMES)
-            big = tn.H264Stream("crop", h=720, w=1280, frames=NVDEC_720P_FRAMES)
-            rates = {}
-            for codec, size, st, n in (("h264", f"{LR_H}x{LR_W}", rate, NVDEC_RATE_FRAMES),
-                                       ("h264", "720x1280", big, NVDEC_720P_FRAMES)):
-                path = st.write(os.path.join(root, f"rate_{size}.mp4"))
-                read_video_frames(path, max_frames=2)  # warm-up
-                t0 = time.perf_counter()
-                got, _ = read_video_frames(path)
-                rates[(codec, size)] = n / (time.perf_counter() - t0)
+        if stand_in is None:  # NVDEC's decode at two sizes, and VP9, which has no model
+            for size, h, w, n in ((f"{LR_H}x{LR_W}", LR_H, LR_W, NVDEC_DECODE_FRAMES),
+                                  ("720x1280", 720, 1280, NVDEC_720P_FRAMES)):
+                st = tn.H264Stream("crop", h=h, w=w, frames=n)
+                got, _ = read_video_frames(st.write(os.path.join(root, f"decode_{size}.mp4")))
                 if got.shape[0] != n:
                     raise RuntimeError(f"[nvdec] {size}: {got.shape[0]} frames of {n}")
             want = tn.vp9_expected()
             got, fps = read_video_frames(str(tn.VP9_FIXTURE))
             if tn.frame_sha256(got) != want["frames"] or fps != want["fps"]:
                 raise RuntimeError("[nvdec] the VP9 fixture's frames differ from OpenCV's")
-            t0 = time.perf_counter()
-            read_video_frames(str(tn.VP9_FIXTURE))
-            rates[("vp9", f"{LR_H}x{LR_W}")] = got.shape[0] / (time.perf_counter() - t0)
             log(f"[nvdec] VP9 fixture ({got.shape[0]} frames {LR_H}x{LR_W}, libvpx with "
-                "hidden alt-ref frames): every frame's SHA-256 equal to OpenCV's")
-            log(f"[nvdec] read_video_frames frames/s: "
-                + ", ".join(f"{c} {sz} {r:.1f}" for (c, sz), r in rates.items())
-                + f"; card: {card}")
+                "hidden alt-ref frames): every frame's SHA-256 equal to OpenCV's; card: "
+                f"{card}")
 
         # (d) The inference CLI on the H.264 clip and on PNGs of its decode.
         decoded, _ = read_video_frames(clip.write(os.path.join(root, "clip.mp4")))
@@ -3969,10 +3142,8 @@ def run_nvdec(dev, card: str, tmp: str) -> dict:
         def cli(name, *extra):
             upsample4.launches = resblock_chain.launches = nv12_to_rgb.launches = 0
             with contextlib.redirect_stdout(io.StringIO()):
-                t0 = time.perf_counter()
                 stats = cli_main.main(["--mode", "inference", "--output_dir",
                                        os.path.join(root, name), "--params_npz", npz, *extra])
-                stats["wall"] = time.perf_counter() - t0
             stats["launches"] = {"upsample4": upsample4.launches,
                                  "resblock_chain": resblock_chain.launches,
                                  "nv12_rgb": nv12_to_rgb.launches}
@@ -3998,18 +3169,10 @@ def run_nvdec(dev, card: str, tmp: str) -> dict:
                 or launches["nv12_rgb"] != NVDEC_CLI_FRAMES or from_png["launches"]["nv12_rgb"]:
             raise RuntimeError(f"[nvdec] launches {launches} (H.264) vs {from_png['launches']} "
                                "(PNG)")
-        runs = {"h264": [], "png": []}
-        for kind in ("h264", "png", "png", "h264"):
-            runs[kind].append(cli(f"timed_{kind}_{len(runs[kind])}",
-                                  *(("--input_video", video_in) if kind == "h264"
-                                    else ("--input_dir_LR", png_dir))))
         log(f"[nvdec] ({mode}) cli.main --input_video clip.mp4 (H.264, {NVDEC_CLI_FRAMES} frames "
             f"{LR_H}x{LR_W}, {NUM_RESBLOCK} blocks, {cfg.compute_dtype}) bit-equal to the PNG "
             f"route on the same decoded frames under cuDNN's deterministic algorithms; "
-            f"launches {launches} (PNG route: {from_png['launches']}); frames/s wall in turns: "
-            + ", ".join(f"{k} {' / '.join(f'{NVDEC_CLI_FRAMES / r['wall']:.2f}' for r in v)} "
-                        f"(decode {' / '.join(f'{r['decode_s']:.3f}' for r in v)} s)"
-                        for k, v in runs.items()) + f"; card: {card}")
+            f"launches {launches} (PNG route: {from_png['launches']}); card: {card}")
 
         # (e) cli.serve on two geometries: H.264 at 120x180 beside the VP9
         # fixture at 144x180 (the stand-in: beside H.264 at 144x180).
@@ -4017,11 +3180,9 @@ def run_nvdec(dev, card: str, tmp: str) -> dict:
         sources = ([clip.write(os.path.join(root, "serve_clip.mp4")), street] if stand_in
                    else [street, str(tn.VP9_FIXTURE)])
         with contextlib.redirect_stdout(io.StringIO()):
-            t0 = time.perf_counter()
             stats = cli_serve.main(["--input_dirs", ",".join(sources), "--output_dir",
                                     os.path.join(root, "served"), "--params_npz", npz,
                                     "--output_videos", "--max_streams", "2"])
-            wall = time.perf_counter() - t0
         served = {}
         for src in sources:
             frames, fps = read_video_frames(src)
@@ -4037,8 +3198,7 @@ def run_nvdec(dev, card: str, tmp: str) -> dict:
         log(f"[nvdec] ({mode}) cli.serve --output_videos on "
             + ", ".join(f"{n} ({s[1]}x{s[2]}, {s[0]} frames, {f} fps)"
                         for n, (s, f) in served.items())
-            + f": wrote {stats['written']}, each .mp4 4x at its source's fps, in {wall:.2f} s "
-            f"wall (decode {stats['decode_s']:.3f} s); card: {card}")
+            + f": wrote {stats['written']}, each .mp4 4x at its source's fps; card: {card}")
 
         # (f) extract_scene from inside a GOP with B-frames: the exact frames.
         b_frames = h264["b_main"].expected_rgb()
@@ -4078,20 +3238,14 @@ def _flat_leaves(tree, path=()):
     return [(path, np.ascontiguousarray(tree))]
 
 
-def _dir_bytes(root: str) -> int:
-    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(root)
-               for f in files)
-
-
 def run_orbax(dev, card: str, tmp: str) -> dict:
     """Phase 16: the JAX package's orbax checkpoints without JAX. (a) The
     committed JAX-written fixture (OCDBT, zstd nodes and chunks, inline and
     indirect values, the ``ocdbt.process_0`` sub-store) read by the port:
-    every leaf equal to its recorded SHA-256, and the zstd decoder's rate
-    on its chunks. (b) A TECOGAN_PRESET TrainState (16 blocks, 64
-    channels, full FNet, float32) after a few captured steps, written by
-    ``save_jax_checkpoint`` and restored into a fresh state bit-equal,
-    timed. (c) ``cli.main --checkpoint`` on that directory and on the
+    every leaf equal to its recorded SHA-256. (b) A TECOGAN_PRESET
+    TrainState (16 blocks, 64 channels, full FNet, float32) after a few
+    captured steps, written by ``save_jax_checkpoint`` and restored into a
+    fresh state bit-equal. (c) ``cli.main --checkpoint`` on that directory and on the
     port's ``state.pt`` of the same weights, over phase 9's PNG dir,
     bfloat16: byte-equal PNGs; K1 and the chain counted in the first run.
     Returns the launches."""
@@ -4114,35 +3268,18 @@ def run_orbax(dev, card: str, tmp: str) -> dict:
     # (a) The fixture, against its recorded hashes.
     want = json.loads(ORBAX_SHA256.read_text())
     step_dir = ORBAX_FIXTURE / str(want["step"])
-    t0 = time.perf_counter()
     zstd.load_library()  # g++ builds csrc/tecozstd.cpp on first use
-    build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     leaves = _flat_leaves(read_jax_checkpoint(str(step_dir)))
-    read_s = time.perf_counter() - t0
     got = {"/".join(p): hashlib.sha256(a.tobytes()).hexdigest() for p, a in leaves}
     if got != {k: v["sha256"] for k, v in want["leaves"].items()}:
         bad = sorted(k for k in set(got) | set(want["leaves"])
                      if got.get(k) != want["leaves"].get(k, {}).get("sha256"))
         raise RuntimeError(f"[orbax] fixture leaves differ from their SHA-256: {bad}")
     reader = OcdbtReader(str(step_dir / "default"))
-    frames = [v for v in (reader.read(k) for k in reader.keys() if not k.endswith(".zarray"))
-              if v[:4] == b"\x28\xb5\x2f\xfd"]
-    out_bytes = sum(len(zstd.decompress(f)) for f in frames)
-    reps = 200
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        for f in frames:
-            zstd.decompress(f)
-    zstd_s = (time.perf_counter() - t0) / reps
     log(f"[orbax] (a) fixture {step_dir.relative_to(REPO)} (JAX-written OCDBT store, "
-        f"{_dir_bytes(str(step_dir))} B on disk, {len(reader.keys())} keys of which "
+        f"{len(reader.keys())} keys of which "
         f"{sum(not isinstance(v, bytes) for v in reader._values.values())} indirect): "
-        f"{len(leaves)} leaves equal to their SHA-256, read in {read_s * 1e3:.1f} ms (the "
-        f"decoder's build before it {build_s:.2f} s); zstd "
-        f"decode of its {len(frames)} compressed chunks ({sum(map(len, frames))} B -> "
-        f"{out_bytes} B): {zstd_s * 1e3:.3f} ms, {out_bytes / zstd_s / 1e6:.1f} MB/s of "
-        f"output (host); card: {card}")
+        f"{len(leaves)} leaves equal to their SHA-256; card: {card}")
 
     # (b) A full-width TecoGAN state after captured steps, round trip.
     cfg = TECOGAN_PRESET.replace(batch_size=1, rnn_n=3)
@@ -4164,15 +3301,10 @@ def run_orbax(dev, card: str, tmp: str) -> dict:
             np.abs(v).max() > 0 for v in adam["mu"][f"resblock_{cfg.num_resblock}_conv_2"].values()):
         raise RuntimeError("[orbax] the Adam moments or count are still fresh")
     jax_dir, port_dir = os.path.join(tmp, "orbax_jax"), os.path.join(tmp, "orbax_port")
-    t0 = time.perf_counter()
     save_jax_checkpoint(jax_dir, state)
-    write_s = time.perf_counter() - t0
-    size = _dir_bytes(jax_dir)
     fresh = Trainer(cfg, dev, vgg=random_vgg19(cfg.rand_seed)).init_state(cfg.rand_seed + 1)
-    t0 = time.perf_counter()
     restore_checkpoint(jax_dir, fresh)
     sync()
-    restore_s = time.perf_counter() - t0
     after = _flat_leaves(train_state_to_jax(fresh))
     flat_before = dict(_flat_leaves(before))
     if {p for p, _ in after} != set(flat_before) or not all(
@@ -4182,11 +3314,10 @@ def run_orbax(dev, card: str, tmp: str) -> dict:
     n_elems = sum(a.size for a in flat_before.values())
     log(f"[orbax] (b) TECOGAN_PRESET TrainState ({cfg.num_resblock} blocks, "
         f"{cfg.gen_channels} channels, full FNet, float32; {len(flat_before)} leaves, "
-        f"{n_elems} elements) after {ORBAX_STEPS} captured steps: save_jax_checkpoint "
-        f"{write_s:.3f} s ({size / write_s / 1e6:.1f} MB/s, {size} B, plain zarr layout), "
-        f"restore_checkpoint into a fresh state on the card {restore_s:.3f} s "
-        f"({size / restore_s / 1e6:.1f} MB/s); every leaf bit-equal, Adam moments and "
-        f"counts, D's statistics, EMAs and gate counters included; card: {card}")
+        f"{n_elems} elements) after {ORBAX_STEPS} captured steps: save_jax_checkpoint (plain "
+        f"zarr layout), restore_checkpoint into a fresh state on the card: every leaf "
+        f"bit-equal, Adam moments and counts, D's statistics, EMAs and gate counters "
+        f"included; card: {card}")
     save_checkpoint(port_dir, state)
     del trainer, state, fresh
     torch.cuda.empty_cache()
@@ -4205,9 +3336,7 @@ def run_orbax(dev, card: str, tmp: str) -> dict:
                 upsample4.launches = 0
                 resblock_chain.launches = 0
             with contextlib.redirect_stdout(printed):
-                t0 = time.perf_counter()
                 stats = cli_main.main(argv + ["--output_dir", out, "--checkpoint", ckpt])
-                wall = time.perf_counter() - t0
             if i == 0:
                 launches = {"upsample4": upsample4.launches,
                             "resblock_chain": resblock_chain.launches}
@@ -4216,7 +3345,7 @@ def run_orbax(dev, card: str, tmp: str) -> dict:
             prints.append(printed.getvalue())
             log(f"[orbax] (c) cli.main --checkpoint {os.path.basename(ckpt)} "
                 f"({'JAX layout' if i == 0 else 'state.pt'}): {stats['written']} HR PNGs "
-                f"{outs[-1].shape[1:3]}, stream {stats['stream_s']:.3f} s, {wall:.3f} s wall")
+                f"{outs[-1].shape[1:3]}")
     finally:
         torch.backends.cudnn.deterministic = False
     if outs[0].shape != (CLI_FRAMES, 4 * LR_H, 4 * LR_W, 3) or not np.array_equal(*outs):
@@ -4244,8 +3373,8 @@ def run_orbax(dev, card: str, tmp: str) -> dict:
 # Parallelism on one card (tecogan_tpu_torch/parallel): the mesh names
 # cuda:0 twice, so every sharded path runs at its real shard shapes with the
 # real kernels and halo logic; two shards or two stages on one card say
-# nothing about scaling, so the times are printed as the cost of the
-# sharding. Peer copies and NCCL at world size > 1 need two cards.
+# nothing about scaling. Peer copies and NCCL at world size > 1 need two
+# cards.
 PAR_FRAMES, PAR_CHUNK, PAR_SHARDS, PAR_SLOTS = 8, 4, 2, 4
 # Phase 17 (c): the two ranks' step against one process on their
 # concatenated batch (losses, gradients, D's statistics), phase 7's
@@ -4286,62 +3415,26 @@ def deterministic():
         torch.backends.cudnn.allow_tf32 = flags[2]
 
 
-PAR_RUNS = 4  # timed runs after a warm-up run
-
-
-def _timed_turns(srs: dict, frames, runs: int = PAR_RUNS):
+def _run_each(srs: dict, frames):
     """A warm-up run of each engine in ``srs`` (a captured one captures
-    there), then ``runs`` timed rounds, each engine once a round, in turns
-    (the order reversed every other round): per engine its output, the
-    wall seconds of each timed run, the launches of its last, and the
-    graphs it captured."""
+    there), then one more run of each: per engine its output, the launches
+    of that run, and the graphs it captured."""
     from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
 
     rec = {}
     for name, sr in srs.items():
         captures = CapturedProgram.captures
         sr.run(frames)
-        rec[name] = dict(sr=sr, secs=[], captures=CapturedProgram.captures - captures)
+        rec[name] = dict(sr=sr, captures=CapturedProgram.captures - captures)
     captures = CapturedProgram.captures
-    for r in range(runs):
-        for name in (list(srs) if r % 2 == 0 else list(srs)[::-1]):
-            torch.cuda.synchronize()
-            _zero_counts()
-            out, secs = srs[name].run(frames)
-            torch.cuda.synchronize()
-            rec[name].update(out=out, launches=_launch_counts())
-            rec[name]["secs"].append(secs)
+    for name, sr in srs.items():
+        _zero_counts()
+        out, _ = sr.run(frames)
+        rec[name].update(out=out, launches=_launch_counts())
     if CapturedProgram.captures != captures:
-        raise RuntimeError("[par] a timed run captured a graph: the chunk shape's program "
+        raise RuntimeError("[par] a second run captured a graph: the chunk shape's program "
                            "was not kept")
     return rec
-
-
-def _pool_mib(sr) -> float:
-    """MiB of a captured engine's graph pools (``StreamingSR``: a program a
-    chunk shape; the pipeline: two), 0 eager."""
-    if not sr.capture:
-        return 0.0
-    if hasattr(sr, "_chunks"):
-        return sum(c.run.pool_bytes() for c in sr._chunks.values()) / 2**20
-    return sum(sum(st.pool_bytes()) for st in sr._stages.values()) / 2**20
-
-
-def _largest_segment_mib(sr) -> float:
-    """MiB of the largest segment in a captured ``StreamingSR``'s graph
-    pools: one allocation's worth, as a convolution's workspace."""
-    pools = {c.run.pool_id for c in sr._chunks.values()}
-    return max((seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                if tuple(seg["segment_pool_id"]) in pools), default=0) / 2**20
-
-
-def _secs(rec) -> str:
-    return ", ".join(f"{s:.4f}" for s in rec["secs"])
-
-
-def quantize(x: torch.Tensor) -> torch.Tensor:
-    """HR frames in [0, 1] to uint8, as the port quantises them."""
-    return (x.float() * 255.0).clamp_(0.0, 255.0).to(torch.uint8)
 
 
 def spatial_teacher_forced(dev, cfg, models, frames: np.ndarray, devices) -> int:
@@ -4352,7 +3445,7 @@ def spatial_teacher_forced(dev, cfg, models, frames: np.ndarray, devices) -> int
     whose states drift apart once cuDNN rounds one convolution otherwise
     at the shards' shapes, every frame is held on its own."""
     from tecogan_tpu_torch.parallel.spatial import ShardedState, ShardedStep, gather_rows
-    from tecogan_tpu_torch.recurrent.inference import place_models
+    from tecogan_tpu_torch.recurrent.inference import as_output, place_models
     from tecogan_tpu_torch.recurrent.step import frame_step, init_state
 
     gen, fnet = place_models(*models, dev, cfg.torch_dtype)
@@ -4365,7 +3458,8 @@ def spatial_teacher_forced(dev, cfg, models, frames: np.ndarray, devices) -> int
             sharded = ShardedState(step.split(state.prev_lr), step.split(state.prev_hr, 4))
             _, hr_s = step.frame_step(sharded, step.split(lr))
             state, hr = frame_step(gen, fnet, state, lr)
-            diff = quantize(gather_rows(hr_s, dev)).int() - quantize(hr).int()
+            diff = (as_output(gather_rows(hr_s, dev), "uint8").int()
+                    - as_output(hr, "uint8").int())
             worst = max(worst, int(diff.abs().max()))
     return worst
 
@@ -4373,7 +3467,7 @@ def spatial_teacher_forced(dev, cfg, models, frames: np.ndarray, devices) -> int
 def run_spatial(dev, card: str) -> None:
     """Phase 17 (a): ``StreamingSR`` on a 2-shard mesh ``[cuda:0, cuda:0]``
     at LR 144x180, full width, captured (one graph a chunk shape) and
-    eager in turns, against each other (bit-equal, the same launches) and
+    eager, against each other (bit-equal, the same launches) and
     the unsharded run; the halo warp bit-equal to the unsharded warp at the
     path's HR shape."""
     from tecogan_tpu_torch.config import TecoConfig
@@ -4406,7 +3500,7 @@ def run_spatial(dev, card: str) -> None:
                                             ("sharded", False, mesh),
                                             ("captured sharded", None, mesh),
                                             ("captured unsharded", None, None))}
-            runs = _timed_turns(srs, frames)
+            runs = _run_each(srs, frames)
             forced = spatial_teacher_forced(dev, cfg, build_models(173, cfg), frames,
                                             [dev] * PAR_SHARDS)
         a, b = runs["sharded"]["out"], runs["unsharded"]["out"]
@@ -4437,30 +3531,23 @@ def run_spatial(dev, card: str) -> None:
         need = {"resblock_chain": NUM_RESBLOCK * PAR_SHARDS * PAR_FRAMES,
                 "upsample4": PAR_SHARDS * (PAR_FRAMES + chunks), "upsample4_bwd": 0}
         got = runs["sharded"]["launches"]
-        pool = _pool_mib(cap["sr"])
+        pool = sum(c.run.pool_bytes() for c in cap["sr"]._chunks.values())
         log(f"[par] (a) spatial streaming {dtype} -> {output}, {PAR_FRAMES} frames "
             f"{LR_H}x{LR_W} -> {4 * LR_H}x{4 * LR_W}, {NUM_RESBLOCK} resblocks, chunk "
             f"{PAR_CHUNK}, {PAR_SHARDS} shards of {shard_rows(LR_H, PAR_SHARDS)} LR rows on {dev} "
             f"twice, halo depth k={step.chain_blocks} blocks a chain call "
             f"({2 * step.chain_blocks}-row halo), halo warps {step.halo_warps}, gathered "
-            f"warps {step.gather_warps} in {1 + PAR_RUNS} eager runs: sharded vs unsharded "
+            f"warps {step.gather_warps} in 2 eager runs: sharded vs unsharded "
             f"{what}; launches a run sharded {got} (a frame: chain "
             f"{got['resblock_chain'] / PAR_FRAMES:g}, K1 {got['upsample4'] / PAR_FRAMES:g}), "
             f"unsharded {runs['unsharded']['launches']}; card: {card}")
         log(f"[par] (a) spatial streaming {dtype}, captured sharded ({cap['sr'].route}; "
-            f"{cap['captures']} capture(s) in {1 + PAR_RUNS} runs, capture_s "
-            f"{cap['sr'].capture_s:.4f}, graph pool {pool:.1f} MiB, its largest segment "
-            f"{_largest_segment_mib(cap['sr']):.1f}; the captured unsharded run's "
-            f"{_pool_mib(runs['captured unsharded']['sr']):.1f}, largest "
-            f"{_largest_segment_mib(runs['captured unsharded']['sr']):.1f}): "
+            f"{cap['captures']} capture(s) in 2 runs): "
             f"{'bit-equal to' if same else 'DIFFERS from'} the eager sharded run, launches a "
-            f"run {cap['launches']}; wall s a run in turns, captured sharded {_secs(cap)}, "
-            f"eager sharded {_secs(runs['sharded'])}, captured unsharded "
-            f"{_secs(runs['captured unsharded'])}, eager unsharded {_secs(runs['unsharded'])} "
-            f"(one card: the cost of the sharding, no scaling claimed); card: {card}")
+            f"run {cap['launches']}; card: {card}")
         if not ok:
             raise RuntimeError(f"[par] (a) {dtype}: sharded differs from unsharded: {what}")
-        if got != need or step.halo_warps != (1 + PAR_RUNS) * PAR_FRAMES or step.gather_warps:
+        if got != need or step.halo_warps != 2 * PAR_FRAMES or step.gather_warps:
             raise RuntimeError(f"[par] (a) {dtype}: launches {got}, want {need}; halo warps "
                                f"{step.halo_warps}, gathered {step.gather_warps}")
         # The captured engine traces the warp twice (the capture's warm-up and
@@ -4470,7 +3557,7 @@ def run_spatial(dev, card: str) -> None:
                 or not cap["sr"].route.startswith("captured")):
             raise RuntimeError(f"[par] (a) {dtype}: captured sharded: bit-equal {same}, "
                                f"launches {cap['launches']} (want {need}), captures "
-                               f"{cap['captures']} (want 1), pool {pool} MiB, halo warps "
+                               f"{cap['captures']} (want 1), pool {pool} bytes, halo warps "
                                f"{cap_step.halo_warps} (want {2 * PAR_CHUNK}), route "
                                f"{cap['sr'].route!r}")
         PARALLEL[f"spatial_{dtype}_run"] = got
@@ -4480,7 +3567,7 @@ def run_spatial(dev, card: str) -> None:
 def run_pipeline(dev, card: str) -> None:
     """Phase 17 (b): ``PipelinedStreamingSR`` with both stages on
     ``cuda:0`` (two streams), each stage a captured graph, against a
-    captured ``StreamingSR``, and both eager, in turns: bfloat16 from uint8
+    captured ``StreamingSR``, and both eager: bfloat16 from uint8
     frames, and float32 from float32 frames in chunks of 2 (stage F's
     frames are then its input buffer, which the next chunk's upload
     overwrites once stage R has copied them in)."""
@@ -4506,27 +3593,23 @@ def run_pipeline(dev, card: str) -> None:
                        recurrent_device=dev, capture=False),
                    "eager StreamingSR": StreamingSR(cfg, *build_models(175, cfg),
                                                     output=output, device=dev, capture=False)}
-            runs = _timed_turns(srs, frames)
+            runs = _run_each(srs, frames)
         want = runs["captured StreamingSR"]
         chunks = -(-PAR_FRAMES // chunk)
         need = {"resblock_chain": NUM_RESBLOCK * PAR_FRAMES, "upsample4": PAR_FRAMES + chunks,
                 "upsample4_bwd": 0}
         cap = runs["captured pipeline"]
         (stages,) = cap["sr"]._stages.values()
-        pools = [b / 2**20 for b in stages.pool_bytes()]
+        pools = stages.pool_bytes()
         same = {name: np.array_equal(r["out"], want["out"]) for name, r in runs.items()}
         log(f"[par] (b) pipeline, flow and recurrent stages on {dev} (two streams), {dtype} "
             f"from {frames.dtype} frames -> {output}, {PAR_FRAMES} frames {LR_H}x{LR_W}, chunk "
-            f"{chunk}, cuDNN deterministic, in turns: bit-equal to the captured StreamingSR: "
+            f"{chunk}, cuDNN deterministic: bit-equal to the captured StreamingSR: "
             + ", ".join(f"{name} {ok}" for name, ok in same.items())
             + "; launches a run " + ", ".join(f"{name} {r['launches']}"
                                              for name, r in runs.items())
             + f"; captured pipeline ({cap['sr'].route}): {cap['captures']} captures for its "
-            f"chunk shape, capture_s {cap['sr'].capture_s:.4f}, graph pools stage F "
-            f"{pools[0]:.1f} MiB, stage R {pools[1]:.1f} MiB (StreamingSR's "
-            f"{_pool_mib(want['sr']):.1f}); wall s a run "
-            + ", ".join(f"{name} {_secs(r)}" for name, r in runs.items())
-            + f" (one card); card: {card}")
+            f"chunk shape; card: {card}")
         if (not all(same.values()) or any(r["launches"] != need for r in runs.values())
                 or cap["captures"] != 2 or not all(p > 0 for p in pools)):
             raise RuntimeError(f"[par] (b) {dtype}: the pipeline differs from StreamingSR: "
@@ -4547,14 +3630,10 @@ def _dp_configs():
 
 
 def _dp_step(trainer, state, batch):
-    """One timed step: (metrics, seconds, launches)."""
-    torch.cuda.synchronize()
+    """One counted step: (metrics, launches)."""
     _zero_counts()
-    t0 = time.perf_counter()
     _, metrics = trainer.train_step(state, batch)
-    metrics = {k: float(v) for k, v in metrics.items()}
-    torch.cuda.synchronize()
-    return metrics, time.perf_counter() - t0, _launch_counts()
+    return {k: float(v) for k, v in metrics.items()}, _launch_counts()
 
 
 def _dp_state(trainer, state):
@@ -4575,8 +3654,8 @@ def _dp_state(trainer, state):
 def dp_worker(port: str, rank: str, out_path: str) -> None:
     """One rank of phase 17 (c)'s world size 2 over gloo (``chip_smoke.py
     --dp-worker PORT RANK OUT``): each preset's first step, eager, on this
-    rank's half of the global batch; its metrics, gradients, D statistics,
-    seconds and launches saved to OUT."""
+    rank's half of the global batch; its metrics, gradients, D statistics
+    and launches saved to OUT."""
     sys.path.insert(0, str(REPO))
     from tecogan_tpu_torch.models.vgg19 import random_vgg19
     from tecogan_tpu_torch.parallel import DataParallelTrainer, init_distributed
@@ -4592,8 +3671,8 @@ def dp_worker(port: str, rank: str, out_path: str) -> None:
         state = trainer.init_state(12)
         fix_flows_mid_cell(state)
         batch = trainer.put_batch(frvsr_batch(cfg, cfg.batch_size, 176))
-        metrics, secs, launches = _dp_step(trainer, state, batch)
-        results[preset] = dict(metrics=metrics, secs=secs, launches=launches,
+        metrics, launches = _dp_step(trainer, state, batch)
+        results[preset] = dict(metrics=metrics, launches=launches,
                                tensors=_dp_state(trainer, state))
     torch.save(results, out_path)
     torch.distributed.destroy_process_group()
@@ -4647,15 +3726,13 @@ def run_data_parallel(dev, card: str, tmp: str) -> None:
                 f"{cfg.batch_size}, {cfg.rnn_n} frames, crop {cfg.crop_size}, 2 steps vs the plain "
                 f"Trainer under deterministic algorithms: metrics "
                 f"{'bit-equal' if m_a == m_b else 'DIFFER'}, {len(s_a) - len(differ)} of "
-                f"{len(s_a)} state tensors bit-equal; step s (first: warm-up, capture, replay) "
-                f"{', '.join(f'{s[1]:.4f}' for s in steps)} (Trainer "
-                f"{', '.join(f'{s[1]:.4f}' for s in log_steps['Trainer'][1])}); launches a "
-                f"step {steps[1][2]} (first {steps[0][2]}); card: {card}")
+                f"{len(s_a)} state tensors bit-equal; launches a step {steps[1][1]} (first: "
+                f"warm-up, capture, replay {steps[0][1]}); card: {card}")
             if m_a != m_b or differ or not captured:
                 raise RuntimeError(f"[par] (c) {preset} world size 1: metrics equal "
                                    f"{m_a == m_b}, differing state {differ[:5]}, captured "
                                    f"{captured}")
-            PARALLEL[f"dp_{preset}_world1_step"] = steps[1][2]
+            PARALLEL[f"dp_{preset}_world1_step"] = steps[1][1]
     finally:
         dist.destroy_process_group()
 
@@ -4674,8 +3751,7 @@ def run_data_parallel(dev, card: str, tmp: str) -> None:
             trainer = Trainer(cfg, dev, vgg=random_vgg19(7) if cfg.gan else None, capture=False)
             state = trainer.init_state(12)
             fix_flows_mid_cell(state)
-            metrics, secs, launches = _dp_step(trainer, state,
-                                               frvsr_batch(cfg, cfg.batch_size, 176))
+            metrics, launches = _dp_step(trainer, state, frvsr_batch(cfg, cfg.batch_size, 176))
             want = _dp_state(trainer, state)
             got = ranks[0][preset]
             if got["metrics"] != ranks[1][preset]["metrics"]:
@@ -4695,10 +3771,8 @@ def run_data_parallel(dev, card: str, tmp: str) -> None:
                 f"batch {cfg.batch_size // 2} a rank, against one process on the batch of "
                 f"{cfg.batch_size}: the ranks' metrics identical; losses worst rel "
                 f"{loss_worst:.3e}, gradients and D statistics worst rel {worst:.3e} "
-                f"({worst_name}), tol {PAR_STEP_TOL:.0e}; step s rank 0 "
-                f"{got['secs']:.4f}, rank 1 {ranks[1][preset]['secs']:.4f}, one process "
-                f"{secs:.4f}; launches a step a rank {rank_launches[0]}, one process "
-                f"{launches}; card: {card}")
+                f"({worst_name}), tol {PAR_STEP_TOL:.0e}; launches a step a rank "
+                f"{rank_launches[0]}, one process {launches}; card: {card}")
             if worst > PAR_STEP_TOL or loss_worst > PAR_STEP_TOL:
                 raise RuntimeError(f"[par] (c) {preset}: world size 2 differs from one process")
             if rank_launches[0] != launches or rank_launches[1] != launches:
@@ -4725,7 +3799,7 @@ def run_slot_pool(dev, card: str) -> None:
     clips = {f"s{k}": (rng.rand(PAR_FRAMES, LR_H, LR_W, 3) * 255).astype(np.uint8)
              for k in range(PAR_SLOTS)}
     halves = [list(clips)[:PAR_SLOTS // 2], list(clips)[PAR_SLOTS // 2:]]
-    outs, secs, launches = {}, {}, {}
+    outs, launches = {}, {}
     with deterministic():
         for name, m, groups in (("4-slot", None, [list(clips)]), ("mesh", mesh, [list(clips)]),
                                 ("2-slot", None, halves)):
@@ -4738,16 +3812,12 @@ def run_slot_pool(dev, card: str) -> None:
                 srv.prewarm()
                 servers.append((srv, group))
             ticks = []
-            torch.cuda.synchronize()
             _zero_counts()
-            t0 = time.perf_counter()
             for t in range(PAR_FRAMES):
                 tick = {}
                 for srv, group in servers:
                     tick.update(srv.step({sid: clips[sid][t] for sid in group}))
                 ticks.append(tick)
-            torch.cuda.synchronize()
-            secs[name] = time.perf_counter() - t0
             launches[name] = {k: v / PAR_FRAMES for k, v in _launch_counts().items()}
             outs[name] = ticks
 
@@ -4764,9 +3834,7 @@ def run_slot_pool(dev, card: str) -> None:
         f"pools on the same streams; against the unsharded 4-slot pool the first tick max "
         f"|diff| {max(first)} level(s), the later ticks {max(wide[PAR_SLOTS:])} (cuDNN's "
         f"algorithms by batch size; random weights); launches a tick {launches['mesh']} "
-        f"(4-slot {launches['4-slot']}); wall s {PAR_FRAMES} ticks mesh {secs['mesh']:.4f}, "
-        f"4-slot {secs['4-slot']:.4f}, two 2-slot pools {secs['2-slot']:.4f} (one card); "
-        f"card: {card}")
+        f"(4-slot {launches['4-slot']}); card: {card}")
     if any(per_device) or max(first) > 1:
         raise RuntimeError(f"[par] (d) the meshed pool differs: per device {max(per_device)}, "
                            f"first tick against 4 slots {max(first)} levels")
@@ -4804,8 +3872,8 @@ def main() -> None:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"[build] kernels built and loaded in {_build.build_and_load(verbose=True):.1f} s "
-        f"-> {_build.library_path().relative_to(REPO)}")
+    _build.build_and_load(verbose=True)
+    log(f"[build] kernels built and loaded -> {_build.library_path().relative_to(REPO)}")
     blocks = ctypes.c_int(0)
     _build.check(_build.library().tt_resblock_chain_bf16_blocks_per_sm(
         ctypes.byref(blocks)), "resblock_chain occupancy")
@@ -4834,11 +3902,9 @@ def main() -> None:
     # cuDNN convolutions in TF32, float32 matmuls in full float32.
     torch.backends.cudnn.allow_tf32 = True
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches, train_step_launches, train_f32 = phase(
+        train_launches, train_step_launches = phase(
             "8 FRVSR training", run_training, dev, card, tmp)
-        paced_f32 = phase("8b loader split", run_loader_split, dev, card, tmp)
-        bf16_step_launches = phase("8c bf16 FRVSR training", run_bf16_training, dev, card, tmp,
-                                   train_f32, paced_f32)
+        bf16_step_launches = phase("8c bf16 FRVSR training", run_bf16_training, dev, card, tmp)
         # Phase 9 runs as a user's CLI does, with the same default flags.
         cli_launches = phase("9 CLI and suite", run_cli, dev, card, tmp,
                              os.path.join(tmp, "run", "checkpoints"))
@@ -4847,13 +3913,12 @@ def main() -> None:
         phase("10b bf16 TecoGAN step vs CPU", check_bf16_gan_step_vs_cpu, dev, gan_cpu_f32)
         # Phase 11 trains as a user does, with the default flags, on phase
         # 8's scenes and from its checkpoint; 11b in bfloat16 likewise.
-        gan_launches, gan_f32 = phase("11 TecoGAN training", run_tecogan_training, dev, card,
-                                      tmp)
+        gan_launches = phase("11 TecoGAN training", run_tecogan_training, dev, card, tmp)
         bf16_gan_launches = phase("11b bf16 TecoGAN training", run_bf16_tecogan_training, dev,
-                                  card, tmp, gan_f32)
+                                  card, tmp)
         # Phase 12: serving. (a) and (d)'s comparison switch TF32 off inside.
         phase("12a server vs CPU", check_serving_vs_cpu, dev)
-        serve_launches, serve_models, _ = phase("12b serving", run_serving, dev, card)
+        serve_launches, serve_models = phase("12b serving", run_serving, dev, card)
         phase("12c export", check_export, dev, tmp, serve_models)
         phase("12d cli.serve", run_serve_cli, dev, card, tmp)
         phase("12e state budget", check_budget, dev, card, serve_models)

@@ -15,10 +15,9 @@ whose Python kernels cost less to dispatch than ``torch.library.custom_op``'s
 wrapper; the inference path calls them several times a frame.
 
 Each body counts its kernel launches with :func:`count`, in its wrapper's
-``launches`` integer (and, for a kernel that takes one of several plans,
-in its ``plan_launches`` dict by plan), in the calling thread's tally and
-in the record of a capture running on the current CUDA stream. A captured
-CUDA graph replays launches without running any Python, so the captured program
+``launches`` integer, in the calling thread's tally and in the record of a
+capture running on the current CUDA stream. A captured CUDA graph replays
+launches without running any Python, so the captured program
 (``utils/cuda_graphs.py``) reads the launches its capture made in a
 :class:`LaunchRecord` and adds them again on every replay: ``launches``
 counts the kernels that ran. A capture's record is keyed by its stream,
@@ -30,7 +29,7 @@ step lands in the capture's record.
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -70,28 +69,17 @@ def _stream_key() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _add(counts: Dict, key, n: int) -> None:
-    counts[key] = counts.get(key, 0) + n
-
-
-def count(wrapper: Callable, n: int = 1, plan: Optional[str] = None) -> None:
-    """Add ``n`` kernel launches to ``wrapper.launches`` (and under
-    ``plan`` to ``wrapper.plan_launches``), to the calling thread's tally
-    and, during a capture on the current stream, to that capture's
-    record."""
+def count(wrapper: Callable, n: int = 1) -> None:
+    """Add ``n`` kernel launches to ``wrapper.launches``, to the calling
+    thread's tally and, during a capture on the current stream, to that
+    capture's record."""
     record = _STREAM_RECORDS.get(_stream_key()) if _STREAM_RECORDS else None
     with _COUNT_LOCK:
         wrapper.launches += n
-        if plan is not None:
-            _add(wrapper.plan_launches, plan, n)
         if record is not None:
-            _add(record.launches, wrapper, n)
-            if plan is not None:
-                _add(record.plans, (wrapper, plan), n)
+            record.launches[wrapper] = record.launches.get(wrapper, 0) + n
     tally = _tally()
-    _add(tally, wrapper, n)
-    if plan is not None:
-        _add(tally, (wrapper, plan), n)
+    tally[wrapper] = tally.get(wrapper, 0) + n
 
 
 class LaunchRecord:
@@ -108,7 +96,6 @@ class LaunchRecord:
     def __init__(self, stream: Optional[int] = None):
         self.stream = stream
         self.launches: Dict[Callable, int] = {}
-        self.plans: Dict[Tuple[Callable, str], int] = {}  # launches by (wrapper, plan)
 
     def __enter__(self) -> "LaunchRecord":
         if self.stream is None:
@@ -125,16 +112,10 @@ class LaunchRecord:
             with _COUNT_LOCK:
                 del _STREAM_RECORDS[self.stream]
             return
-        moved = {k: n - self._before.get(k, 0) for k, n in _tally().items()
-                 if n != self._before.get(k, 0)}
-        self.launches = {k: n for k, n in moved.items() if not isinstance(k, tuple)}
-        self.plans = {k: n for k, n in moved.items() if isinstance(k, tuple)}
+        after = _tally()
+        self.launches = {w: n - self._before.get(w, 0) for w, n in after.items()
+                         if n != self._before.get(w, 0)}
 
     def add(self, times: int = 1) -> None:
-        planned: Dict[Callable, int] = {}
-        for (wrapper, plan), n in self.plans.items():
-            count(wrapper, n * times, plan)
-            _add(planned, wrapper, n)
         for wrapper, n in self.launches.items():
-            if n != planned.get(wrapper, 0):
-                count(wrapper, (n - planned.get(wrapper, 0)) * times)
+            count(wrapper, n * times)

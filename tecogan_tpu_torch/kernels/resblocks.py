@@ -34,10 +34,9 @@ b1/b2 (N, C). The kernels are specialised to C = 64, the TecoGAN width.
 The launch is a registered operator, ``torch.ops.tecogan_torch.
 resblock_chain`` (``kernels/ops.py``), with a fake kernel that gives its
 output's shape, so ``torch.export`` traces through it; its ``launches``
-counter (and, in bfloat16, ``plan_launches`` by :attr:`ChainPlan.name`)
-is kept in the operator's body (``ops.count``), so an exported program's
-replays count too, and a captured CUDA graph adds its launches on every
-replay.
+counter is kept in the operator's body (``ops.count``), so an exported
+program's replays count too, and a captured CUDA graph adds its launches on
+every replay.
 
 :func:`resblock_chain` is differentiable on both devices through one
 ``torch.autograd.Function``. Its forward takes the plain version
@@ -76,10 +75,6 @@ class ChainPlan(NamedTuple):
     segs: int
     units: int
     grid: int
-
-    @property
-    def name(self) -> str:
-        return f"{self.seg_rows}-row segments, {self.units} units on {self.grid} CTAs"
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,7 +152,6 @@ def _forward(x, w1, b1, w2, b2) -> torch.Tensor:
     buf_a, buf_b = torch.empty_like(x), torch.empty_like(x)
     args = [x.data_ptr(), buf_a.data_ptr(), buf_b.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), b, h, w, n]
-    plan = None
     if x.dtype == torch.bfloat16:
         plan = chain_plan(b, h, w, _sm_count(x.device.index))
         args += [plan.seg_rows, plan.grid]
@@ -165,7 +159,7 @@ def _forward(x, w1, b1, w2, b2) -> torch.Tensor:
         *args, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "resblock_chain")
     # One kernel launch per residual block.
-    ops.count(resblock_chain, n, plan.name if plan else None)
+    ops.count(resblock_chain, n)
     return buf_a if n % 2 else buf_b
 
 
@@ -206,7 +200,6 @@ def resblock_chain(x, w1, b1, w2, b2) -> torch.Tensor:
 
 
 resblock_chain.launches = 0  # kernel launches (CUDA tensors only)
-resblock_chain.plan_launches = {}  # bfloat16 launches by ChainPlan.name
 
 
 ops.register("resblock_chain(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) "

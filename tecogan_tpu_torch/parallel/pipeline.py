@@ -50,6 +50,7 @@ from tecogan_tpu_torch.recurrent.inference import (
     chunk_flows,
     copy_out,
     fetch_chunk,
+    place_model,
     run_frames,
 )
 from tecogan_tpu_torch.recurrent.step import init_state
@@ -58,11 +59,6 @@ from tecogan_tpu_torch.utils.cuda_graphs import (
     capture_route,
     resolve_capture,
 )
-
-
-def _place(module: torch.nn.Module, device: torch.device, dtype: torch.dtype):
-    fmt = torch.channels_last if device.type == "cuda" else torch.preserve_format
-    return module.to(device=device, dtype=dtype, memory_format=fmt).eval()
 
 
 @torch.inference_mode()
@@ -154,8 +150,8 @@ class PipelinedStreamingSR:
         self.capture = resolve_capture(capture, self.flow_device)
         self.route = (f"stage F {capture_route(self.capture, self.flow_device)}, stage R "
                       f"{capture_route(self.capture, self.recurrent_device)}")
-        self.fnet = _place(fnet, self.flow_device, self.dtype)
-        self.generator = _place(generator, self.recurrent_device, self.dtype)
+        self.fnet = place_model(fnet, self.flow_device, self.dtype)
+        self.generator = place_model(generator, self.recurrent_device, self.dtype)
         self.on_cuda = self.flow_device.type == "cuda"
         if self.on_cuda:
             self.flow_stream = torch.cuda.Stream(self.flow_device)

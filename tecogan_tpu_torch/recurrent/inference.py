@@ -55,15 +55,20 @@ from tecogan_tpu_torch.utils.profiling import span
 WARMUP_FRAMES = 5  # reference dataloader.py:42-44
 
 
-def place_models(generator: Generator, fnet: FNet, device: torch.device,
-                 dtype: torch.dtype) -> Tuple[Generator, FNet]:
-    """Move the models to ``device`` and ``dtype`` in place, in eval mode;
+def place_model(module: torch.nn.Module, device: torch.device,
+                dtype: torch.dtype) -> torch.nn.Module:
+    """Move ``module`` to ``device`` and ``dtype`` in place, in eval mode;
     on the card in ``channels_last``, the layout of the NHWC activations
     the convolutions see."""
     memory_format = (torch.channels_last if device.type == "cuda"
                      else torch.preserve_format)
-    return tuple(m.to(device=device, dtype=dtype, memory_format=memory_format).eval()
-                 for m in (generator, fnet))
+    return module.to(device=device, dtype=dtype, memory_format=memory_format).eval()
+
+
+def place_models(generator: Generator, fnet: FNet, device: torch.device,
+                 dtype: torch.dtype) -> Tuple[Generator, FNet]:
+    """:func:`place_model` of both models."""
+    return place_model(generator, device, dtype), place_model(fnet, device, dtype)
 
 
 def prepend_warmup(frames: List) -> List:

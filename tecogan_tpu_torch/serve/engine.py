@@ -46,7 +46,7 @@ import torch
 from tecogan_tpu_torch.config import TecoConfig
 from tecogan_tpu_torch.models.fnet import FNet
 from tecogan_tpu_torch.models.generator import Generator
-from tecogan_tpu_torch.recurrent.inference import place_models
+from tecogan_tpu_torch.recurrent.inference import as_output, place_models
 from tecogan_tpu_torch.recurrent.step import RecurrentState, frame_step, init_state
 from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram, resolve_capture
 from tecogan_tpu_torch.utils.profiling import span
@@ -73,11 +73,7 @@ def build_frame_fn(config: TecoConfig, output: str = "uint8"):
         if lr.dtype == torch.uint8:
             lr = lr.float() / 255.0
         state, hr = frame_step(generator, fnet, state, lr.to(dtype))
-        if output == "uint8":
-            out = (hr.float() * 255.0).clamp_(0.0, 255.0).to(torch.uint8)
-        else:
-            out = hr.float()
-        return state, out
+        return state, as_output(hr, output)
 
     return frame_fn
 

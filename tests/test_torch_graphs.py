@@ -169,26 +169,6 @@ def test_launch_record_counts_this_threads_launches():
     assert empty.launches == {}
 
 
-def test_launch_record_replays_plan_counts():
-    """Launches counted under a plan (the bfloat16 chain's tile walk) land
-    in the wrapper's ``plan_launches`` and in a record's ``plans``, beside
-    its ``launches``; add() counts both again, as a captured graph's replay
-    does, and launches of the same wrapper without a plan only in
-    ``launches``."""
-    plan = "3-row segments, 2 units on 2 CTAs"
-    before = resblock_chain.launches, resblock_chain.plan_launches.get(plan, 0)
-    with LaunchRecord() as record:
-        ops.count(resblock_chain, 16, plan)
-        ops.count(resblock_chain, 3)
-    assert record.launches == {resblock_chain: 19}
-    assert record.plans == {(resblock_chain, plan): 16}
-    record.add(2)
-    assert resblock_chain.launches == before[0] + 3 * 19
-    assert resblock_chain.plan_launches[plan] == before[1] + 3 * 16
-    record.add(-3)
-    assert (resblock_chain.launches, resblock_chain.plan_launches[plan]) == before
-
-
 def test_launch_counts_survive_concurrent_threads():
     """Replays on several threads at once (buckets ticking beside a
     background capture) lose no launch: 16 threads, a short switch
