@@ -33,6 +33,11 @@ groups (``portbench/harness/trace.py``). Phases, each raising on failure
    in bfloat16 at the 2160p, 5-slot 1080p serving and Vid4 convs' output
    shapes: bit-equal to its plain version and to the two ATen passes it
    replaces (``add_``, ``F.relu``), timed beside both, with its byte bound;
+3d. the recurrent step's input in one pass (``warp_pack``: the warp of the
+   previous HR frame, its 4x space-to-depth and the concat with the LR
+   frame) in bfloat16 at the 2160p, 5-slot 1080p serving and Vid4 frames:
+   bit-equal to the ATen route it replaces, timed beside it, with its byte
+   bound;
 3b. the native data-loader core: the machine's toolchain and the build of
    ``tecogan_tpu_torch/csrc/tecodata.cpp`` with g++;
 4. autograd: the upsample (both filters) and the chain on the card against
@@ -44,7 +49,8 @@ groups (``portbench/harness/trace.py``). Phases, each raising on failure
 6. the streaming path at size: 46 uint8 frames of 144x180 -> 41 of
    576x720, bfloat16, chunks of 23, captured and with ``capture=False``:
    the two outputs bit-equal under cuDNN's deterministic algorithms;
-   exactly 736 chain, 48 K1 and 92 epilogue launches a run in each mode,
+   exactly 736 chain, 48 K1, 92 epilogue and 46 ``warp_pack`` launches a
+   run in each mode,
    one capture; a ``torch.profiler`` run of each mode whose chain and K1
    launches equal the counters';
 7. one FRVSR training step at full width, batch 2, 4 frames, crop 32,
@@ -150,10 +156,11 @@ groups (``portbench/harness/trace.py``). Phases, each raising on failure
 
 Then each phase's seconds (the run's own clock), one ``[yardstick]`` line
 per timed case of phase 3 with its wrapper's launches on each path, a JSON
-line with one entry per kernel (K1, K2, both chains, the NV12 kernel and
-the epilogue) and last ``{"ok": true, "device": {...}}``. Imports no JAX.
+line with one entry per kernel (K1, K2, both chains, the NV12 kernel, the
+epilogue and ``warp_pack``) and last ``{"ok": true, "device": {...}}``.
+Imports no JAX.
 
-``python3 chip_smoke.py --kernels-only`` stops after phase 3c and prints no
+``python3 chip_smoke.py --kernels-only`` stops after phase 3d and prints no
 result line (for comparing two trees' kernels in one call).
 """
 
@@ -680,6 +687,64 @@ def check_epilogue(dev):
                             plain_ms=plain_ms, two_pass_ms=two_ms, bound_ms=bound_ms,
                             bound_by=bound_by))
         del y, biased, got
+        torch.cuda.empty_cache()
+    return records
+
+
+# Phase 3d: the HR frames whose warp, pack and concat ``warp_pack`` makes in
+# one pass: a 2160p frame, a 5-slot 1080p serving tick and a Vid4 frame.
+WARP_PACK_CASES = (
+    ("2160p", (1, 2160, 3840), "stream_2160p"),
+    ("serve 5 slots", (5, 1080, 1920), "serve_1080p_live"),
+    ("Vid4", (1, 576, 720), "streaming"))
+
+
+def warp_pack_bytes(shape, itemsize: int) -> int:
+    """What ``warp_pack`` must move for (B, H, W) HR frames: the flow (2
+    values a pixel), the previous frame (3) and the LR frame (3 a 16th)
+    read once, the (B, H/4, W/4, 51) input written once."""
+    b, h, w = shape
+    return (b * h * w * 5 + b * (h // 4) * (w // 4) * (3 + 51)) * itemsize
+
+
+def check_warp_pack(dev):
+    """Phase 3d. ``warp_pack`` in bfloat16 (the inference path's dtype) at
+    :data:`WARP_PACK_CASES`' shapes, under a smooth pan and sway of up to
+    5.5 HR pixels as the cells' clips have: bit-equal to the ATen route it
+    replaces (``cat([lr, warp_space_to_depth(...)])``, its plain version),
+    timed beside it. Its bound: :func:`warp_pack_bytes`. Returns one record
+    per case."""
+    from tecogan_tpu_torch.kernels import warp_pack, warp_pack_plain
+
+    gen = torch.Generator(device=dev).manual_seed(40)
+    records = []
+    for label, shape, path in WARP_PACK_CASES:
+        b, h, w = shape
+        lr = torch.rand((b, h // 4, w // 4, 3), generator=gen, device=dev).to(torch.bfloat16)
+        image = torch.rand((b, h, w, 3), generator=gen, device=dev).to(torch.bfloat16)
+        ys = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1) / h
+        xs = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w) / w
+        phase_ = torch.arange(b, device=dev, dtype=torch.float32).view(b, 1, 1)
+        flow = torch.stack([(1.5 + 2.0 * torch.sin(6.3 * xs + phase_)).expand(b, h, w),
+                            (-2.5 + 3.0 * torch.cos(6.3 * ys + phase_)).expand(b, h, w)],
+                           dim=-1).to(torch.bfloat16)
+        got = warp_pack(lr, image, flow)
+        if not torch.equal(got, warp_pack_plain(lr, image, flow)):
+            raise RuntimeError(f"[warp_pack] {label} {shape}: the kernel differs from the "
+                               "ATen route")
+        (ms, lo, hi), (plain_ms, plo, phi) = time_fns(
+            [lambda: warp_pack(lr, image, flow), lambda: warp_pack_plain(lr, image, flow)])
+        bound_ms, bound_by, arithmetic = bound(
+            1, warp_pack_bytes(shape, 2), 27 * b * h * w, CUDA_CORE_FLOPS,
+            "float32 CUDA cores")
+        log(f"[kernel] warp_pack bfloat16 {label} {shape}: bit-equal to the ATen route; "
+            f"kernel_ms={ms:.4f} [{lo:.4f}-{hi:.4f}] plain_ms={plain_ms:.4f} "
+            f"[{plo:.4f}-{phi:.4f}] (median [min-max]) bound_ms={bound_ms:.5f} by {bound_by}: "
+            f"{arithmetic}; share of bound {bound_ms / ms:.1%}; plain / kernel "
+            f"{plain_ms / ms:.1f}x; path {path}")
+        records.append(dict(label=f"{label} {shape}", paths=[path], max_abs_err=0.0, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+        del lr, image, flow, got
         torch.cuda.empty_cache()
     return records
 
@@ -1300,6 +1365,7 @@ def run_main_path(dev, card: str):
     launch counts."""
     from tecogan_tpu_torch.config import TecoConfig
     from tecogan_tpu_torch.kernels import bias_relu_crop, resblock_chain, upsample4
+    from tecogan_tpu_torch.kernels import warp_pack
     from tecogan_tpu_torch.recurrent import StreamingSR
     from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
 
@@ -1330,16 +1396,17 @@ def run_main_path(dev, card: str):
     # (b) Each mode with the default flags: a first run (the capture, for
     # the captured mode), then a run whose launches are counted.
     need = {"upsample4": FRAMES + FRAMES // CHUNK, "resblock_chain": NUM_RESBLOCK * FRAMES,
-            "bias_relu_crop": 2 * FRAMES}
+            "bias_relu_crop": 2 * FRAMES, "warp_pack": FRAMES}
     runs = {}
     for mode, capture in modes.items():
         captures = CapturedProgram.captures
         sr = StreamingSR(cfg, *models, output="uint8", device=dev, capture=capture)
         sr.run(frames, warmup=WARMUP)
         upsample4.launches = resblock_chain.launches = bias_relu_crop.launches = 0
+        warp_pack.launches = 0
         hr, _ = sr.run(frames, warmup=WARMUP)
         launches = {"upsample4": upsample4.launches, "resblock_chain": resblock_chain.launches,
-                    "bias_relu_crop": bias_relu_crop.launches}
+                    "bias_relu_crop": bias_relu_crop.launches, "warp_pack": warp_pack.launches}
         runs[mode] = {"sr": sr, "launches": launches,
                       "captures": CapturedProgram.captures - captures}
         if hr.shape != want or hr.dtype != np.uint8 or hr.min() == hr.max():
@@ -2184,6 +2251,7 @@ def run_serving(dev, card: str):
     Returns (launches per bucket tick, the models)."""
     from tecogan_tpu_torch.config import TecoConfig
     from tecogan_tpu_torch.kernels import resblock_chain, upsample4
+    from tecogan_tpu_torch.kernels import warp_pack
     from tecogan_tpu_torch.serve import MultiGeometryServer, VSRServer
 
     cfg = TecoConfig(num_resblock=NUM_RESBLOCK, compute_dtype="bfloat16")
@@ -2199,10 +2267,13 @@ def run_serving(dev, card: str):
     frames = {sid: np.roll(clips[g], -i, axis=0) for i, (sid, g) in enumerate(streams.items())}
     upsample4.launches = 0
     resblock_chain.launches = 0
+    warp_pack.launches = 0
     last = serve_ticks(srv, frames)
-    launches = {"upsample4": upsample4.launches, "resblock_chain": resblock_chain.launches}
+    launches = {"upsample4": upsample4.launches, "resblock_chain": resblock_chain.launches,
+                "warp_pack": warp_pack.launches}
     bucket_ticks = FRAMES * len(geos)
-    need = {"upsample4": 2 * bucket_ticks, "resblock_chain": NUM_RESBLOCK * bucket_ticks}
+    need = {"upsample4": 2 * bucket_ticks, "resblock_chain": NUM_RESBLOCK * bucket_ticks,
+            "warp_pack": bucket_ticks}
     log(f"[serve] (b) MultiGeometryServer, bfloat16, {NUM_RESBLOCK} resblocks, buckets "
         f"{srv.geometries}: launches over {FRAMES} ticks of {len(streams)} streams in "
         f"{len(geos)} captured buckets {launches}, want {need}; card: {card}")
@@ -3889,8 +3960,9 @@ def main() -> None:
 
     records = phase("3 kernels", check_kernels, dev)
     epilogue = phase("3c transposed convs' epilogue", check_epilogue, dev)
+    warp_packs = phase("3d warp, pack and concat", check_warp_pack, dev)
     if "--kernels-only" in sys.argv[1:]:
-        log("[main] --kernels-only: phases 1-3c done; no result line")
+        log("[main] --kernels-only: phases 1-3d done; no result line")
         return
     phase("3b native loader build", build_native, card)
     phase("4 autograd", check_autograd, dev)
@@ -4074,6 +4146,20 @@ def main() -> None:
         "path": "streaming", "dtype": "bfloat16",
         "by_cell": {p: epilogue_sums(p) for p in ("stream_2160p", "serve_1080p_live")},
         "cases": epilogue})
+    # The recurrent step's input in one pass (phase 3d): its launches in
+    # phase 6's streaming run (1 a frame) and a serving bucket tick (1).
+    kernels.append({
+        "name": "warp_pack", "route": "cuda", "source": "tecogan_tpu_torch/csrc/warp_pack.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel (XLA fuses the JAX package's gather, lerp, pack and "
+                         "concat): ATen's warp_space_to_depth and torch.cat",
+        "launches": stream_launches.get("warp_pack", 0),
+        "serving_launches": serve_launches.get("warp_pack", 0), "max_abs_err": 0.0,
+        **{k: sum(r[k] for r in warp_packs if "streaming" in r["paths"])
+           for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes", "library_ms": None,
+        "library_note": "plain_ms: the ATen route it replaces",
+        "path": "streaming", "dtype": "bfloat16", "cases": warp_packs})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,11 +10,13 @@ counters count the kernels that ran, captured or not). ``upsample4`` and
 differentiable (``torch.autograd.Function``s) on both devices. Importing
 this package registers the launches as operators,
 ``torch.ops.tecogan_torch.{upsample4,upsample4_bwd,resblock_chain,nv12_rgb,
-bias_relu_crop}`` (``ops.py``), which an exported program calls.
+bias_relu_crop,warp_pack}`` (``ops.py``), which an exported program calls.
 ``nv12_to_rgb`` converts the frames that the card's NVDEC decodes
 (``data/video_nvdec.py``); ``bias_relu_crop`` is the generator's transposed
 convs' bias, ReLU and crop in one pass (``models/layers.py:Conv2Tran.
-forward_relu``). Neither replaces a TPU kernel.
+forward_relu``); ``warp_pack`` is the recurrent step's warp, space-to-depth
+and input concat in one pass (``recurrent/step.py:generator_step``). None of
+them replaces a TPU kernel.
 """
 
 from tecogan_tpu_torch.kernels.epilogue import bias_relu_crop, bias_relu_crop_plain
@@ -32,6 +34,7 @@ from tecogan_tpu_torch.kernels.upsample4 import (
     upsample4_plain,
     upscale_bilinear4,
 )
+from tecogan_tpu_torch.kernels.warp_pack import warp_pack, warp_pack_plain
 
 __all__ = [
     "LaunchRecord",
@@ -47,5 +50,7 @@ __all__ = [
     "upsample4_bwd_plain",
     "upsample4_plain",
     "upscale_bilinear4",
+    "warp_pack",
+    "warp_pack_plain",
     "yuv_coefficients",
 ]

@@ -61,6 +61,9 @@ _SIGNATURES = {
     # (y, bias, out, B, H, W, C, stream); H, W are out's sizes, y has one more
     "tt_bias_relu_crop_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     "tt_bias_relu_crop_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # (lr, image, flow, out, B, H, W, stream); H, W are image's
+    "tt_warp_pack_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "tt_warp_pack_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -25,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from tecogan_tpu_torch.kernels.upsample4 import upscale_bilinear4
+from tecogan_tpu_torch.kernels.warp_pack import warp_pack
 from tecogan_tpu_torch.models.fnet import FNet, pad_flow_to
 from tecogan_tpu_torch.models.generator import Generator
 from tecogan_tpu_torch.ops.image import deprocess, preprocess
@@ -66,9 +67,15 @@ def generator_step(generator: Generator, state: RecurrentState,
                    lr_frame: torch.Tensor, flow_hr: torch.Tensor
                    ) -> Tuple[RecurrentState, torch.Tensor]:
     """The recurrent half of a step, given the frame's HR flow: warp the
-    previous output, pack it, run the generator."""
-    packed = warp_space_to_depth(state.prev_hr, flow_hr, 4)
-    hr = deprocess(generator(torch.cat([lr_frame, packed], dim=-1)))
+    previous output, pack it, run the generator. Where autograd records
+    nothing (grad mode off, or no input needs a gradient) the warp, the pack
+    and the concat are one pass (``kernels/warp_pack.py``)."""
+    inputs = (lr_frame, state.prev_hr, flow_hr)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        x = torch.cat([lr_frame, warp_space_to_depth(state.prev_hr, flow_hr, 4)], dim=-1)
+    else:
+        x = warp_pack(*inputs)
+    hr = deprocess(generator(x))
     return RecurrentState(prev_lr=lr_frame, prev_hr=hr), hr
 
 

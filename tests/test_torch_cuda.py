@@ -211,6 +211,74 @@ def test_generator_epilogue_equals_two_passes_at_2160p(cuda_device, monkeypatch)
     assert torch.equal(outs[0], outs[1])
 
 
+# The recurrent step's input: HR frames of the three inference cells
+# (2160p, a 5-slot 1080p serving tick, Vid4) and a ragged one whose LR size
+# (45 x 47) is not a multiple of the kernel's tile.
+WARP_PACK_SHAPES = [(1, 2160, 3840), (5, 1080, 1920), (1, 576, 720), (2, 180, 188)]
+WARP_PACK_IDS = ["2160p", "serve5", "vid4", "ragged"]
+
+
+def _warp_pack_inputs(shape, dtype, device, seed):
+    """lr, image and a flow of (dy, dx) up to 96 HR pixels, which crosses
+    every border, with a tenth of the pixels at whole-pixel flows (fraction
+    0) and a hundredth far outside the frame (the clamps)."""
+    b, h, w = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lr = torch.rand((b, h // 4, w // 4, 3), generator=gen, device=device)
+    image = torch.rand((b, h, w, 3), generator=gen, device=device)
+    flow = (torch.rand((b, h, w, 2), generator=gen, device=device) * 2 - 1) * 96
+    pick = torch.rand((b, h, w, 1), generator=gen, device=device)
+    flow = torch.where(pick < 0.1, flow.round(), flow)
+    flow = torch.where(pick > 0.99, flow * 100, flow)
+    return lr.to(dtype), image.to(dtype), flow.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", WARP_PACK_SHAPES, ids=WARP_PACK_IDS)
+def test_warp_pack_kernel_matches_plain(cuda_device, shape, dtype):
+    """The warp, pack and concat in one launch against the ATen route it
+    replaces (``cat([lr, warp_space_to_depth(...)])``): bit-equal, its
+    rounding points being the ATen ops'."""
+    from tecogan_tpu_torch.kernels import warp_pack, warp_pack_plain
+
+    lr, image, flow = _warp_pack_inputs(shape, dtype, cuda_device, 41)
+    before = warp_pack.launches
+    got = warp_pack(lr, image, flow)
+    assert warp_pack.launches == before + 1
+    want = warp_pack_plain(lr, image, flow)
+    assert got.shape == want.shape == (shape[0], shape[1] // 4, shape[2] // 4, 51)
+    bits = _BITS[dtype]
+    diff = got.view(bits) != want.view(bits)
+    assert not diff.any(), (f"{int(diff.sum())} values differ, first at "
+                            f"{diff.nonzero()[:4].tolist()}: got {got[diff][:8].tolist()} "
+                            f"want {want[diff][:8].tolist()}")
+
+
+@pytest.mark.cuda
+def test_warp_pack_rejects_what_the_kernel_does_not_take(cuda_device):
+    """Inputs on two devices, a non-contiguous image, mixed dtypes, an image
+    whose data starts between two 4-byte words: raises, with no fallback and
+    no launch."""
+    from tecogan_tpu_torch.kernels import warp_pack
+
+    lr, image, flow = _warp_pack_inputs((1, 16, 24), torch.bfloat16, cuda_device, 42)
+    before = warp_pack.launches
+    with pytest.raises(ValueError, match="are on cpu, cuda:0 and cuda:0"):
+        warp_pack(lr.cpu(), image, flow)
+    with pytest.raises(ValueError, match="are on cuda:0, cuda:0 and cpu"):
+        warp_pack(lr, image, flow.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        warp_pack(lr, image.transpose(1, 2).contiguous().transpose(1, 2), flow)
+    with pytest.raises(TypeError, match="one dtype"):
+        warp_pack(lr, image, flow.float())
+    shifted = torch.empty(image.numel() + 1, dtype=image.dtype, device=cuda_device)[1:]
+    shifted = shifted.view(image.shape).copy_(image)
+    with pytest.raises(ValueError, match="image aligned to 4 bytes"):
+        warp_pack(lr, shifted, flow)
+    assert warp_pack.launches == before
+
+
 @pytest.mark.cuda
 def test_resblock_chain_kernel_matches_plain(cuda_device):
     """float32 at a ragged shape (partial tiles on both axes), 3 blocks,
@@ -822,9 +890,11 @@ def test_server_tick_matches_streaming(cuda_device):
     """A 1-slot VSRServer, tick by tick, against StreamingSR.run on the same
     stream, float32 with TF32 off: the same frame step at the same batch
     (FNet once a frame with chunks of 1); after the prewarm (which captures
-    the tick, its warm-up tick running the kernels once) the chain, K1 and
-    the transposed convs' epilogue (2 a tick) launch on every tick."""
+    the tick, its warm-up tick running the kernels once) the chain, K1,
+    the transposed convs' epilogue (2 a tick) and the warp's ``warp_pack``
+    (1 a tick) launch on every tick."""
     from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.kernels import warp_pack
     from tecogan_tpu_torch.recurrent import StreamingSR
     from tecogan_tpu_torch.serve import VSRServer
 
@@ -834,10 +904,11 @@ def test_server_tick_matches_streaming(cuda_device):
                     device=cuda_device)
     srv.prewarm()
     srv.open("a")
-    before = (upsample4.launches, resblock_chain.launches, bias_relu_crop.launches)
+    before = (upsample4.launches, resblock_chain.launches, bias_relu_crop.launches,
+              warp_pack.launches)
     got = np.stack([srv.step({"a": f})["a"] for f in frames])
     assert (upsample4.launches - before[0], resblock_chain.launches - before[1],
-            bias_relu_crop.launches - before[2]) == (8, 16, 8)
+            bias_relu_crop.launches - before[2], warp_pack.launches - before[3]) == (8, 16, 8, 4)
     want, _ = StreamingSR(cfg, *_serving_models(22, 4), output="float32",
                           device=cuda_device).run(frames)
     assert got.shape == want.shape == (4, 128, 192, 3)
@@ -851,6 +922,7 @@ def test_export_round_trip_on_the_card(cuda_device, tmp_path, dtype):
     function on the card under cuDNN's deterministic algorithms: bit-equal,
     with the kernels' launches counted in the loaded program's replays."""
     from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.kernels import warp_pack
     from tecogan_tpu_torch.recurrent.step import RecurrentState
     from tecogan_tpu_torch.serve import (
         build_frame_fn, export_frame_step, load_frame_step, save_frame_step)
@@ -870,10 +942,12 @@ def test_export_round_trip_on_the_card(cuda_device, tmp_path, dtype):
     gen, fnet = place_models(gen, fnet, cuda_device, cfg.torch_dtype)
     torch.backends.cudnn.deterministic = True
     try:
-        before = (upsample4.launches, resblock_chain.launches, bias_relu_crop.launches)
+        before = (upsample4.launches, resblock_chain.launches, bias_relu_crop.launches,
+                  warp_pack.launches)
         new_state, hr = step(state, lr)
         assert (upsample4.launches - before[0], resblock_chain.launches - before[1],
-                bias_relu_crop.launches - before[2]) == (2, 3, 2)
+                bias_relu_crop.launches - before[2], warp_pack.launches - before[3]) == \
+            (2, 3, 2, 1)
         with torch.inference_mode():
             ref_state, ref_hr = build_frame_fn(cfg, "uint8")(gen, fnet, state, lr)
     finally:
@@ -910,9 +984,11 @@ def test_streaming_captured_matches_eager(cuda_device, monkeypatch, dtype):
     under cuDNN's deterministic algorithms, 2 blocks, 32x48, chunks of 4
     with a ragged last one: bit-equal outputs, the same launches per run
     (3 chunks: K1 3 flows + 12 skips, the chain 2 x 12, the transposed
-    convs' epilogue 2 a frame, 2 x 12), one capture for the
+    convs' epilogue 2 a frame, 2 x 12, ``warp_pack`` 1 a frame, 12, counted
+    once a frame in every replay), one capture for the
     chunk shape across three runs and none on the eager side."""
     from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.kernels import warp_pack
     from tecogan_tpu_torch.recurrent import StreamingSR
     from tecogan_tpu_torch.utils.cuda_graphs import CapturedProgram
 
@@ -926,14 +1002,15 @@ def test_streaming_captured_matches_eager(cuda_device, monkeypatch, dtype):
         assert sr.capture is (capture is None)
         captures = CapturedProgram.captures
         sr.run(frames, warmup=2)
-        before = (upsample4.launches, resblock_chain.launches, bias_relu_crop.launches)
+        before = (upsample4.launches, resblock_chain.launches, bias_relu_crop.launches,
+                  warp_pack.launches)
         out, _ = sr.run(frames, warmup=2)
         counts.append((upsample4.launches - before[0], resblock_chain.launches - before[1],
-                       bias_relu_crop.launches - before[2]))
+                       bias_relu_crop.launches - before[2], warp_pack.launches - before[3]))
         outs.append(out)
         sr.run(frames[:7], warmup=2)  # the same chunk shape
         assert CapturedProgram.captures - captures == (capture is None)
-    assert counts[0] == counts[1] == (15, 24, 24)
+    assert counts[0] == counts[1] == (15, 24, 24, 12)
     assert outs[0].shape == (8, 128, 192, 3)
     np.testing.assert_array_equal(outs[0], outs[1])
 

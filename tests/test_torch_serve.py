@@ -502,6 +502,7 @@ def test_export_round_trip(weights, rng, tmp_path, output, input_dtype):
     assert calls.count("tecogan_torch.upsample4.default") == 2  # flow and skip
     assert calls.count("tecogan_torch.resblock_chain.default") == 1
     assert calls.count("tecogan_torch.bias_relu_crop.default") == 2  # the transposed convs
+    assert calls.count("tecogan_torch.warp_pack.default") == 1  # the warp, pack and concat
     path = str(tmp_path / "step.pt2")
     save_frame_step(exported, path)
     step = load_frame_step(path)
